@@ -1,0 +1,12 @@
+"""SplitQuant core of the port: quantizer, k-means and split tensors.
+Model-level application lives in :mod:`repro_torch.core.apply` (it packs
+for the kernels, so it is not imported here)."""
+from .quantize import QuantConfig, dequantize, qparams, quantize, value_range
+from .kmeans import kmeans_1d
+from .splitquant import (SplitQuantTensor, assign_and_quantize,
+                         baseline_quant_tensor, fit_centroids,
+                         splitquant_tensor)
+
+__all__ = ["QuantConfig", "dequantize", "qparams", "quantize", "value_range",
+           "kmeans_1d", "SplitQuantTensor", "assign_and_quantize",
+           "baseline_quant_tensor", "fit_centroids", "splitquant_tensor"]

@@ -1,0 +1,132 @@
+"""Model-level SplitQuant application (port of ``repro.core.apply``): walk
+a parameter tree and replace quantizable weights with packed SplitQuant
+weights.
+
+Same rules as the JAX package's defaults: normalization scales and other
+"semantically not weights" parameters (the exclude list) and embedding
+tables are never quantized, and tiny parameters (fewer than
+``MIN_SIZE`` elements) are left alone. Quantized biases (1-D) are not
+ported yet and raise. The JAX package stacks the layers on a leading
+axis and quantizes each layer's slice on its own; the port's layer stack
+is a Python list, so each leaf already is one layer's matrix, and
+``MIN_SIZE`` is applied to the size of the whole stack as in JAX.
+
+Each quantized leaf is packed ONCE, here, into the kernel layout
+(:class:`~repro_torch.kernels.ops.PackedWeight`). The ``percentile`` and
+``per_channel`` options are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..kernels.ops import PackedWeight, pack_for_kernel
+from .quantize import QuantConfig
+from .splitquant import baseline_quant_tensor, splitquant_tensor
+
+#: parameter-path fragments that are never quantized
+DEFAULT_EXCLUDE = (
+    "norm", "ln_", "layernorm", "rmsnorm", "scale_param",
+    "decay", "gate_a", "rg_lru", "time_", "alibi", "rope",
+    "router",
+)
+
+#: path fragments marking stacked per-layer parameter groups
+STACK_FRAGMENTS = ("layers", "moe_layers", "groups", "tail",
+                   "enc_layers", "dec_layers")
+
+#: leave tiny parameters alone
+MIN_SIZE = 64
+
+#: embedding tables are never quantized
+TABLE_FRAGMENTS = ("embed", "pos_table", "enc_pos", "dec_pos")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    """What to quantize and how."""
+
+    cfg: QuantConfig = QuantConfig(bits=8)
+    method: str = "splitquant"          # "splitquant" | "baseline"
+    k: int = 3                          # number of split layers (paper: 3)
+
+
+def _quantizable(path_s: str, leaf, stack: int) -> bool:
+    if not isinstance(leaf, torch.Tensor) or not leaf.is_floating_point():
+        return False
+    if leaf.numel() * stack < MIN_SIZE or leaf.ndim == 0:
+        return False
+    return not any(frag in path_s
+                   for frag in DEFAULT_EXCLUDE + TABLE_FRAGMENTS)
+
+
+def _walk(tree, path, stack):
+    """Yield (path string, container, key, leaf, stack size)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in items:
+        p = path + (str(key),)
+        if isinstance(val, (dict, list)):
+            inner = stack
+            if isinstance(val, list) and str(key) in STACK_FRAGMENTS:
+                inner = stack * len(val)
+            yield from _walk(val, p, inner)
+        else:
+            yield "/".join(p).lower(), tree, key, val, stack
+
+
+def quantize_tree(params, policy: QuantPolicy, seed: int = 0):
+    """Return a copy of ``params`` with quantizable leaves replaced by
+    packed SplitQuant weights, plus a report dict. The k-means seeding of
+    each leaf draws from a ``torch.Generator`` seeded with ``seed`` plus
+    the leaf's index, on the leaf's device."""
+    out = _copy_tree(params)
+    report = {"quantized": [], "skipped": [], "deployed_bytes": 0,
+              "orig_bytes": 0}
+    for i, (path_s, box, key, leaf, stack) in enumerate(_walk(out, (), 1)):
+        if not _quantizable(path_s, leaf, stack):
+            report["skipped"].append(path_s)
+            continue
+        if leaf.ndim != 2:
+            raise NotImplementedError(f"{path_s}: only 2-D weights are "
+                                      f"packed for the kernel (quantized "
+                                      f"biases are not ported)")
+        if policy.method == "splitquant":
+            gen = torch.Generator(device=leaf.device).manual_seed(seed + i)
+            sq = splitquant_tensor(gen, leaf, policy.cfg, k=policy.k)
+        elif policy.method == "baseline":
+            sq = baseline_quant_tensor(leaf, policy.cfg)
+        else:
+            raise ValueError(f"unknown method {policy.method!r}")
+        packed = pack_for_kernel(sq)
+        box[key] = packed
+        report["quantized"].append(path_s)
+        report["deployed_bytes"] += packed.nbytes_deployed()
+        report["orig_bytes"] += leaf.numel() * 4
+    return out, report
+
+
+def dequantize_tree(params):
+    """Replace every packed weight with its dequantized dense tensor."""
+    out = _copy_tree(params)
+    for _, box, key, leaf, _ in _walk(out, (), 1):
+        if isinstance(leaf, PackedWeight):
+            box[key] = leaf.dequantize()
+    return out
+
+
+def _copy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_tree(v) for v in tree]
+    return tree
+
+
+def tree_to(params, device):
+    """Move every tensor and packed weight of a tree to ``device``."""
+    if isinstance(params, dict):
+        return {k: tree_to(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [tree_to(v, device) for v in params]
+    return params.to(device)

@@ -1,0 +1,239 @@
+"""Continuous-batching inference engine (port of the core of
+``repro.engine.engine``).
+
+``Engine`` owns a :class:`Scheduler`, a preallocated
+:class:`~repro_torch.engine.kvcache.SlotKVCache` (optionally INT8) and
+the model's slot entry points. Each :meth:`Engine.step`
+
+1. admits queued requests into free slots;
+2. spends at most ``prefill_chunk`` prompt tokens on mid-prefill slots
+   (FCFS), streaming whole chunks through
+   ``transformer.prefill_chunk_slots`` — and, while no slot is decoding,
+   keeps prefilling until one joins the decode batch;
+3. runs ONE batched decode step over all N slots at their own
+   positions, with greedy argmax on the device and one (N,) copy to the
+   host;
+4. retires finished slots (``clear_slot``) so the next step refills them.
+
+Idle slots ride along in the fixed-shape decode batch at position 0 with
+token 0, and mid-prefill slots are parked at their next-unwritten
+position: the garbage row a parked write marks valid is exactly the row
+the slot's next chunk overwrites, and the chunk kernel masks cache rows
+at >= pos_start, so it is never attended.
+
+Chunk sizes are ``bucket_len(n, prefill_bucket, prefill_chunk)``, as in
+the JAX engine, so both fill the cache with the same rows. Not ported
+yet: speculative decoding, faults and retry, journal and snapshots,
+metrics and tracing, the flight recorder, deadlines and cancel,
+overload shedding and degradation, one-shot prefill, temperature
+sampling and static KV scales.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import transformer
+from .kvcache import clear_slot, init_slot_cache
+from .scheduler import EngineRequest, Scheduler, SubmitError
+
+
+def bucket_len(n: int, bucket: int, max_len: int) -> int:
+    """Round a length up to its bucket, capped at ``max_len``."""
+    return min(max_len, -(-n // bucket) * bucket)
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    n_slots: int = 8
+    max_len: int = 256
+    max_new_tokens: int = 32            # default per-request token budget
+    eos_id: int = -1                    # -1 ⇒ never stop early
+    kv_mode: str = "fp"                 # "fp" | "int8" (SplitQuant §4.2)
+    kv_qchunks: int = 4                 # ranges per head vector (int8)
+    prefill_bucket: int = 16            # chunk lengths round up to this
+    prefill_chunk: int = 96             # prompt tokens per step
+
+
+class Engine:
+    """submit()/step()/drain() continuous-batching server on ``device``
+    (the card unless ``device="cpu"``). ``params`` must already live on
+    that device."""
+
+    def __init__(self, cfg, params, ecfg: EngineConfig, device=None,
+                 clock=time.perf_counter):
+        if cfg.family != "dense":
+            raise NotImplementedError(f"the port's engine serves dense "
+                                      f"decoders, got {cfg.family!r}")
+        if ecfg.prefill_chunk <= 0:
+            raise NotImplementedError("one-shot prefill is not ported; "
+                                      "prefill_chunk must be > 0")
+        self.cfg = cfg
+        self.params = params
+        self.ecfg = ecfg
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"the engine runs on {self.device}")
+        self.clock = clock
+        self.sched = Scheduler(ecfg.n_slots, clock=clock)
+        self.cache = init_slot_cache(
+            cfg, ecfg.n_slots, ecfg.max_len, mode=ecfg.kv_mode,
+            qchunks=ecfg.kv_qchunks, device=self.device)
+        N = ecfg.n_slots
+        self._last_tok = np.zeros(N, np.int64)
+        self._pos = np.zeros(N, np.int64)
+        self._prefill_prog = np.zeros(N, np.int64)
+        self._uid = 0
+        self.n_decode_steps = 0
+        self.n_prefill_chunks = 0
+        self.decode_step_s: list[float] = []
+        self.prefill_chunk_s: list[float] = []
+
+    # ------------------------------------------------------------ intake --
+    def submit(self, prompt, max_new_tokens: Optional[int] = None) -> int:
+        """Enqueue a request; returns its uid. Work happens in step()."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if len(prompt) == 0:
+            raise SubmitError("empty_prompt",
+                              "empty prompt (no tokens to prefill)")
+        budget = (self.ecfg.max_new_tokens if max_new_tokens is None
+                  else max_new_tokens)
+        if budget < 0:
+            raise SubmitError("bad_budget",
+                              f"max_new_tokens must be >= 0, got {budget}")
+        if len(prompt) + budget > self.ecfg.max_len:
+            raise SubmitError(
+                "too_long", f"prompt ({len(prompt)}) + max_new_tokens "
+                            f"({budget}) exceeds max_len {self.ecfg.max_len}")
+        req = EngineRequest(uid=self._uid, prompt=prompt,
+                            max_new_tokens=budget)
+        self._uid += 1
+        self.sched.submit(req)
+        return req.uid
+
+    # ----------------------------------------------------------- serving --
+    def _retire(self, slot: int, reason: str) -> None:
+        """Free the slot everywhere: scheduler, cache rows, host state."""
+        self.sched.retire(slot, reason=reason)
+        clear_slot(self.cache, slot)
+        self._pos[slot] = 0
+        self._last_tok[slot] = 0
+
+    def _start_decoding(self, slot: int, req: EngineRequest, first: int,
+                        S: int) -> None:
+        """The prompt is written: take the first generated token and move
+        the slot into decode (or retire it on eos / exhausted budget)."""
+        req.t_first_token = self.clock()
+        if first == self.ecfg.eos_id:
+            self._retire(slot, "eos")
+            return
+        req.out.append(first)
+        self._last_tok[slot] = first
+        self._pos[slot] = S
+        if len(req.out) >= req.max_new_tokens:
+            self._retire(slot, "budget")
+        elif S >= self.ecfg.max_len:
+            self._retire(slot, "max_len")
+
+    def _admit_chunked(self, slot: int, req: EngineRequest) -> None:
+        if req.max_new_tokens <= 0:
+            req.t_first_token = req.t_submit
+            self.sched.retire(slot, reason="zero_budget")
+            return
+        self.sched.begin_prefill(slot)
+        self._prefill_prog[slot] = 0
+        self._pos[slot] = 0                           # parked
+        self._last_tok[slot] = 0
+
+    def _prefill_work(self) -> int:
+        """Spend one step's ``prefill_chunk`` budget on mid-prefill slots,
+        FCFS. A slot's next chunk is always min(prefill_chunk, remaining
+        prompt) and is never split to fit a leftover budget, so chunk
+        boundaries depend only on the prompt length (an int8 cache makes
+        them visible in the tokens). Returns prompt tokens processed."""
+        ecfg = self.ecfg
+        budget = ecfg.prefill_chunk
+        spent = 0
+        for slot in self.sched.prefill_slots():
+            req = self.sched.slots[slot]
+            S = len(req.prompt)
+            done = int(self._prefill_prog[slot])
+            n = min(ecfg.prefill_chunk, S - done)
+            if n > budget:
+                break
+            Sc = bucket_len(n, ecfg.prefill_bucket, ecfg.prefill_chunk)
+            toks = np.zeros((1, Sc), np.int64)
+            toks[0, :n] = req.prompt[done:done + n]   # right-pad the chunk
+            t0 = self.clock()
+            logits = transformer.prefill_chunk_slots(
+                self.params, self.cfg, self.cache,
+                torch.from_numpy(toks).to(self.device), slot, done, n)
+            budget -= n
+            spent += n
+            done += n
+            self._prefill_prog[slot] = done
+            self._pos[slot] = done                    # parked position
+            self.n_prefill_chunks += 1
+            if done >= S:                             # prompt complete
+                self.sched.finish_prefill(slot)
+                first = int(torch.argmax(logits[0]))
+                self._start_decoding(slot, req, first, S)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)   # the chunk's device time
+            self.prefill_chunk_s.append(self.clock() - t0)
+        return spent
+
+    def _decode(self) -> np.ndarray:
+        """One batched greedy decode step over all N slots; returns the
+        per-slot tokens on the host (one (N,) copy)."""
+        t0 = self.clock()
+        tokens = torch.from_numpy(self._last_tok[:, None]).to(self.device)
+        pos = torch.from_numpy(self._pos).to(self.device)
+        logits = transformer.decode_step_slots(self.params, self.cfg,
+                                               self.cache, tokens, pos)
+        toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        self.n_decode_steps += 1
+        self.decode_step_s.append(self.clock() - t0)
+        return toks
+
+    def step(self) -> list[EngineRequest]:
+        """Admit + chunk-budgeted prefill + one batched decode step.
+        Returns the requests that finished in this step."""
+        n_done_before = len(self.sched.finished)
+        for slot, req in self.sched.admit():
+            self._admit_chunked(slot, req)
+        self._prefill_work()
+        # nobody is decoding ⇒ nobody can be stalled: keep prefilling
+        # until a slot joins the decode batch
+        while not self.sched.active_slots() and self.sched.prefill_slots():
+            self._prefill_work()
+        active = self.sched.active_slots()
+        if active:
+            toks = self._decode()
+            for slot in active:
+                req = self.sched.slots[slot]
+                t = int(toks[slot])
+                self._pos[slot] += 1
+                if t == self.ecfg.eos_id:
+                    self._retire(slot, "eos")
+                    continue
+                req.out.append(t)
+                self._last_tok[slot] = t
+                if len(req.out) >= req.max_new_tokens:
+                    self._retire(slot, "budget")
+                elif self._pos[slot] >= self.ecfg.max_len:
+                    self._retire(slot, "max_len")
+        return self.sched.finished[n_done_before:]
+
+    def drain(self) -> list[EngineRequest]:
+        """Run until queue and slots are empty; returns every finished
+        request in uid order."""
+        while not self.sched.idle:
+            self.step()
+        return sorted(self.sched.finished, key=lambda r: r.uid)

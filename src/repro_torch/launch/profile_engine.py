@@ -1,0 +1,151 @@
+"""Where the serving time goes: device traces of the engine at full width.
+
+    python -m repro_torch.launch.profile_engine [--out chiprun_out]
+
+Builds the engine of ``chip_smoke.py`` from
+:func:`~repro_torch.launch.serve.smoke_workload` (stablelm-1.6b, seeded
+bf16 weights, SplitQuant INT4 k=3, int8 slot cache, 8 slots, max_len
+1024, 96-token chunks, 16 seeded requests of 16-512 prompt tokens and
+32 new tokens each) and records two windows under ``torch.profiler``: the admission of the
+first wave (prefill-heavy: every step until all 8 slots decode) and
+12 steps with all 8 slots decoding. For each window it reports,
+from the trace's kernel events:
+
+* the device busy share (union of kernel intervals over the window's
+  wall time) — the rest is time the card waits for the host;
+* device time and launch count by kernel, the port's kernels by name;
+* the wall times of the window's decode steps and prefill chunks.
+
+Runs on the CUDA card only. Writes ``profile_engine.json`` under
+``--out`` (the traces themselves are parsed and dropped).
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from ..device import resolve_device
+from ..engine import Engine
+from .serve import build_params, smoke_workload
+
+DECODE_STEPS = 12
+
+#: device-kernel name fragments of the port's CUDA kernels
+PORT_KERNELS = {"sq_matmul_kernel": "splitquant_matmul",
+                "split_reduce_kernel": "splitquant_matmul (K-split sum)",
+                "decode_kernel": "decode_attention",
+                "prefill_kernel": "prefill_attention",
+                "quantize_kv_kernel": "quantize_kv"}
+
+
+def _label(name: str) -> str:
+    for frag, label in PORT_KERNELS.items():
+        if frag in name:
+            return label
+    return "other: " + name[:60]
+
+
+def _union(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def profile_window(eng, run, scratch: Path) -> dict:
+    """Trace ``run()`` (some engine steps) and summarize its kernels."""
+    n_dec, n_pre = len(eng.decode_step_s), len(eng.prefill_chunk_s)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        steps = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(str(scratch))
+    events = json.loads(scratch.read_text())["traceEvents"]
+    scratch.unlink()
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernel")
+    by = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        acc = by[_label(e["name"])]
+        acc[0] += e["dur"]
+        acc[1] += 1
+    busy = _union([(e["ts"], e["ts"] + e["dur"]) for e in kernels]) * 1e-6
+    rows = sorted(by.items(), key=lambda kv: -kv[1][0])
+    return {"steps": steps, "wall_s": wall, "device_busy_s": busy,
+            "device_busy_share": busy / wall,
+            "decode_step_s": eng.decode_step_s[n_dec:],
+            "prefill_chunk_s": eng.prefill_chunk_s[n_pre:],
+            "kernels": [{"name": k, "device_s": v[0] * 1e-6, "count": v[1]}
+                        for k, v in rows]}
+
+
+def _print(title: str, w: dict) -> None:
+    print(f"{title}: {w['steps']} steps, {len(w['decode_step_s'])} decode "
+          f"steps, {len(w['prefill_chunk_s'])} prefill chunks; wall "
+          f"{w['wall_s'] * 1e3:.1f} ms, device busy "
+          f"{w['device_busy_s'] * 1e3:.1f} ms "
+          f"({100 * w['device_busy_share']:.1f}%)")
+    for k in w["kernels"][:12]:
+        print(f"  {k['device_s'] * 1e3:10.3f} ms  {k['count']:7d}  "
+              f"{k['name']}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="chiprun_out")
+    args = ap.parse_args(argv)
+    device = resolve_device(None)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    scratch = out / "profile_engine_trace.tmp.json"
+
+    cfg, ecfg, quant, warmup, prompts = smoke_workload()
+    params, _ = build_params(cfg, device=device, **quant)
+    warm = Engine(cfg, params, ecfg, device=device)
+    warm.submit(warmup, 4)
+    warm.drain()
+    eng = Engine(cfg, params, ecfg, device=device)
+    for p in prompts:
+        eng.submit(p)
+
+    def admit_wave():
+        # the first step admits 8 requests and, with nobody decoding,
+        # prefills until one joins the decode batch; go on until every
+        # slot is decoding
+        n = 0
+        while eng.sched.free_slots() or eng.sched.prefill_slots() or n == 0:
+            eng.step()
+            n += 1
+        return n
+
+    def decode_window():
+        for _ in range(DECODE_STEPS):
+            eng.step()
+        return DECODE_STEPS
+
+    res = {"arch": cfg.name, "card": torch.cuda.get_device_name(0),
+           "admission": profile_window(eng, admit_wave, scratch),
+           "decode": profile_window(eng, decode_window, scratch)}
+    (out / "profile_engine.json").write_text(json.dumps(res, indent=1))
+    print(f"{cfg.name} on {res['card']}")
+    _print("admission window (prefill-heavy)", res["admission"])
+    _print("decode window (8 slots decoding)", res["decode"])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,116 @@
+"""Quantized serving entry point of the port: seeded random weights at an
+arch's published shapes, SplitQuant-quantized and packed, served by the
+continuous-batching engine over an optionally INT8 slot cache.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --bits 4 --kv-mode int8 --requests 8 --device cpu
+
+Without ``--device`` it runs on the CUDA card, and fails if there is
+none.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_arch
+from ..core.apply import QuantPolicy, quantize_tree
+from ..core.quantize import QuantConfig
+from ..device import resolve_device
+from ..engine import Engine, EngineConfig
+from ..models import transformer
+
+
+def seeded_prompts(vocab: int, n: int, lo: int, hi: int, seed: int = 0):
+    """``n`` prompts of ``lo``..``hi`` tokens drawn with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1)))
+            for _ in range(n)]
+
+
+def build_params(cfg, *, bits: int, method: str, seed: int = 0,
+                 device=None):
+    """Seeded init + quantization (SplitQuant k=3, or the k=1 baseline),
+    packed once, on ``device``."""
+    params = transformer.init(cfg, seed=seed, device=device)
+    if method == "none":
+        return params, None
+    policy = QuantPolicy(cfg=QuantConfig(bits=bits), method=method)
+    return quantize_tree(params, policy, seed=seed)
+
+
+def smoke_workload():
+    """The full-width serving workload that ``chip_smoke.py`` drives and
+    ``launch.profile_engine`` traces: stablelm-1.6b, SplitQuant INT4 k=3
+    weights (seed 0), an int8 slot cache of 8 slots x 1024 rows, 96-token
+    prefill chunks, one 100-token warm-up prompt, and 16 seeded requests
+    of 16-512 prompt tokens and 32 new tokens each.
+
+    Returns (cfg, ecfg, quant, warmup_prompt, prompts), where ``quant``
+    holds the keyword arguments of :func:`build_params`."""
+    cfg = get_arch("stablelm-1.6b")
+    ecfg = EngineConfig(n_slots=8, max_len=1024, max_new_tokens=32,
+                        kv_mode="int8", prefill_chunk=96)
+    quant = dict(bits=4, method="splitquant", seed=0)
+    warmup = seeded_prompts(cfg.vocab, 1, 100, 100, seed=99)[0]
+    prompts = seeded_prompts(cfg.vocab, 16, 16, 512, seed=0)
+    return cfg, ecfg, quant, warmup, prompts
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--bits", type=int, default=4)
+    ap.add_argument("--method", default="splitquant",
+                    choices=["splitquant", "baseline", "none"])
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--kv-mode", default="int8", choices=["fp", "int8"])
+    ap.add_argument("--prefill-chunk", type=int,
+                    default=EngineConfig.prefill_chunk)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' runs the plain PyTorch versions; default "
+                         "is the CUDA card")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    t0 = time.perf_counter()
+    params, report = build_params(cfg, bits=args.bits, method=args.method,
+                                  device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    if report is not None:
+        print(f"quantized {len(report['quantized'])} tensors to "
+              f"INT{args.bits} ({args.method}) in "
+              f"{time.perf_counter() - t0:.2f} s; deployed "
+              f"{report['deployed_bytes'] / 2**20:.1f} MiB")
+    eng = Engine(cfg, params, EngineConfig(
+        n_slots=args.slots, max_len=256,
+        max_new_tokens=args.max_new_tokens, kv_mode=args.kv_mode,
+        prefill_chunk=args.prefill_chunk), device=device)
+    # the JAX package's launch/serve.py draws the same prompts
+    prompts = seeded_prompts(cfg.vocab, args.requests, 4, 11)
+    for p in prompts:
+        eng.submit(p)
+    t0 = time.perf_counter()
+    fin = eng.drain()
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in fin)
+    for r in fin:
+        print(f"req {r.uid}: prompt {len(r.prompt)} → {r.out}")
+    print(f"{len(fin)} requests, {n_tok} tokens in {dt:.3f} s on "
+          f"{device.type} ({n_tok / dt:.1f} tok/s), "
+          f"{eng.n_decode_steps} decode steps, "
+          f"{eng.n_prefill_chunks} prefill chunks")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,61 @@
+"""The port stands alone: importing ``repro_torch`` and every one of its
+modules loads neither ``jax`` nor any module of the JAX package
+``repro``, and no source file of the port or ``chip_smoke.py`` imports
+them."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_names():
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(ROOT / "src").with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
+def _banned(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    mods = list(_module_names())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "repro_torch.engine.engine" in mods
+
+
+def test_no_source_imports_jax_or_repro():
+    assert (ROOT / "chip_smoke.py").exists()
+    offenders = []
+    for path in SOURCES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.name}:{node.lineno} {n}" for n in names
+                          if _banned(n)]
+    assert not offenders, offenders

@@ -7,13 +7,14 @@ Phases (any failure exits non-zero):
 
 1. set-up: the card's name and power limit, torch and CUDA versions, and
    the build of every kernel from ``src/repro_torch/kernels/csrc``;
-2. kernels: each CUDA kernel of the serving path against its plain
-   PyTorch version on the card, at the shapes the main path gives it,
-   with its time (CUDA events, warmed up, L2 flushed between launches),
-   the plain version's time, a one-call PyTorch yardstick where one
-   exists, and the least time the card could take (the larger of bytes
-   over 3.35 TB/s and operations over the bf16 tensor-core rate,
-   989 TFLOP/s: every kernel's inputs are bf16 or int8). The attention
+2. kernels: each CUDA kernel against its plain PyTorch version on the
+   card, at the shapes its path gives it (stablelm-1.6b's engine, rwkv6-3b's
+   wave prefill and decode, and rwkv6-3b activation widths for the two
+   act-quant kernels, which no serving path runs), with its time (CUDA
+   events, warmed up, L2 flushed between launches), the plain version's
+   time, a one-call PyTorch yardstick where one exists, and the least
+   time the card could take (the larger of bytes over 3.35 TB/s and
+   operations over the bf16 tensor-core rate, 989 TFLOP/s). The attention
    kernels do their work as fp32 FMAs on the CUDA cores; the time that
    work needs at 67 TFLOP/s is printed beside the bound as ``fp32_core_ms``
    (in the per-case details), not as the bound;
@@ -22,14 +23,27 @@ Phases (any failure exits non-zero):
    continuous-batching engine over an int8 slot cache: 8 slots,
    max_len 1024, 96-token prefill chunks, 16 seeded requests of 16-512
    prompt tokens and 32 new tokens each. Every kernel's launch count is
-   set to 0 just before the run and read just after; each must be > 0;
+   set to 0 just before the run and read just after; each of the engine's
+   kernels must be > 0;
 4. cross-check: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
-   tokens.
+   tokens;
+5. rwkv6: rwkv6-3b at its published widths (seeded random bf16 weights,
+   SplitQuant INT4 k=3 of 257 matrices, quantized on the card) served by
+   the wave loop: waves of 8, 16 seeded requests of 64-256 prompt tokens
+   (multiples of 16, so the chunked WKV kernel carries every prefill) and
+   32 new tokens each. The counts are set to 0 just before the run and
+   read just after; ``wkv_chunked`` and ``splitquant_matmul`` must be > 0;
+6. rwkv6 cross-check: rwkv6-3b ``.reduced()`` in fp32 through the wave
+   server on the card and on the CPU with the same weights, over one wave
+   whose padded length is a multiple of 16 and one whose length is not:
+   identical greedy tokens.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json``.
+The line before the last is ``{"kernels": [...]}``: one entry per TPU
+kernel, with ``launches`` summed over the serving runs of phases 3 and 5
+(``launches_by_path`` splits them; the act-quant kernels, on no serving
+path, report their kernel-phase launches); the last is ``{"ok": true,
+"device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -47,17 +61,33 @@ PEAK_OPS = 989e12                  # dense bf16 tensor-core rate
 FP32_CORE_OPS = 67e12              # fp32 outside the tensor cores
 TPU_KERNELS = {
     "splitquant_matmul": "src/repro/kernels/splitquant_matmul.py:83",
-    "decode_attention": "src/repro/kernels/decode_attention.py:164",
+    "act_split_quantize": "src/repro/kernels/act_quant.py:60",
+    "act_split_quantize_static": "src/repro/kernels/act_quant.py:132",
     "prefill_attention": "src/repro/kernels/prefill_attention.py:299",
     "quantize_kv": "src/repro/kernels/prefill_attention.py:232",
+    "wkv_chunked": "src/repro/kernels/wkv_chunked.py:75",
+    "decode_attention": "src/repro/kernels/decode_attention.py:164",
 }
+CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
-    "splitquant_matmul": "src/repro_torch/kernels/csrc/splitquant_matmul.cu",
-    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
-    "prefill_attention": "src/repro_torch/kernels/csrc/prefill_attention.cu",
-    "quantize_kv": "src/repro_torch/kernels/csrc/prefill_attention.cu",
+    "splitquant_matmul": CSRC + "splitquant_matmul.cu",
+    "act_split_quantize": CSRC + "act_quant.cu",
+    "act_split_quantize_static": CSRC + "act_quant.cu",
+    "prefill_attention": CSRC + "prefill_attention.cu",
+    "quantize_kv": CSRC + "prefill_attention.cu",
+    "wkv_chunked": CSRC + "wkv_chunked.cu",
+    "decode_attention": CSRC + "decode_attention.cu",
 }
-
+#: the serving runs each kernel is on (phase 3 "engine", phase 5 "wave")
+PATHS = {
+    "splitquant_matmul": ("engine", "wave"),
+    "act_split_quantize": (),
+    "act_split_quantize_static": (),
+    "prefill_attention": ("engine",),
+    "quantize_kv": ("engine",),
+    "wkv_chunked": ("wave",),
+    "decode_attention": ("engine",),
+}
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -128,7 +158,9 @@ class KernelReport:
         if not err <= tol:
             fail(f"{self.name} {case}: max abs err {err} > tol {tol}")
 
-    def entry(self, launches: int) -> dict:
+    def entry(self, launches: dict) -> dict:
+        """``launches``: the kernel's count per serving run it is on, or
+        {"kernel phase": n} for a kernel on no serving path."""
         tot = lambda k: sum(c[k] for c in self.cases)
         libs = [c["library_ms"] for c in self.cases]
         t_b = sum(c["bytes"] for c in self.cases) / HBM_BYTES_PER_S * 1e3
@@ -136,7 +168,9 @@ class KernelReport:
         return {"name": self.name, "route": "cuda",
                 "source": SOURCES[self.name],
                 "replaces": TPU_KERNELS[self.name],
-                "launches": launches,
+                "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "on_serving_path": bool(PATHS[self.name]),
                 "max_abs_err": max(c["max_abs_err"] for c in self.cases),
                 "ms": tot("ms"), "plain_ms": tot("plain_ms"),
                 "bound_ms": max(t_b, t_o),
@@ -157,7 +191,12 @@ def matmul_cases(torch, timer, rep):
     from repro_torch.kernels.splitquant_matmul import splitquant_matmul
     gen = torch.Generator(device="cuda").manual_seed(0)
     bits, k = 4, 3
-    for K, N in ((2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352)):
+    # (arch, K, N, M at decode and at a prefill chunk or wave)
+    shapes = [("stablelm-1.6b", K, N, (8, 96)) for K, N in (
+        (2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352))] + \
+        [("rwkv6-3b", K, N, (8, 2048)) for K, N in (
+            (2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536))]
+    for arch, K, N, Ms in shapes:
         qp = torch.randint(0, 256, (K * bits // 8, N), generator=gen,
                            dtype=torch.uint8, device="cuda")
         cids = torch.randint(0, k, (K, N), generator=gen, device="cuda")
@@ -166,7 +205,7 @@ def matmul_cases(torch, timer, rep):
         recip = (torch.rand((k, N), generator=gen, device="cuda") + 0.5) / 16
         shift = torch.randn((k, N), generator=gen, device="cuda") * 0.05
         w = dequant_weight_ref(qp, cp, recip, shift, bits, torch.bfloat16)
-        for M in (8, 96):
+        for M in Ms:
             x = torch.randn((M, K), generator=gen,
                             device="cuda").to(torch.bfloat16)
             got = splitquant_matmul(x, qp, cp, recip, shift, bits=bits, k=k)
@@ -179,8 +218,8 @@ def matmul_cases(torch, timer, rep):
             tol = 2 ** -7 * max(1.0, float(want.float().abs().max()))
             nbytes = M * K * 2 + K * N * bits / 8 + K * N / 4 + \
                 2 * k * N * 4 + M * N * 2
-            rep.add(f"M={M} K={K} N={N} bf16 int4 k=3", max_err(got, want),
-                    tol,
+            rep.add(f"{arch} M={M} K={K} N={N} bf16 int4 k=3",
+                    max_err(got, want), tol,
                     timer(lambda: splitquant_matmul(x, qp, cp, recip, shift,
                                                     bits=bits, k=k)),
                     timer(lambda: splitquant_matmul_ref(x, qp, cp, recip,
@@ -325,6 +364,101 @@ def prefill_cases(torch, timer, rep, qrep):
                      n * 2 + n + 2 * (n // (D // C)) * 4, 4 * n)
 
 
+
+def wkv_cases(torch, timer, rep):
+    """The chunked WKV at rwkv6-3b's full-width wave prefill: 8 sequences
+    x 40 heads, T=256, head size 64, bf16 r/k/v, fp32 w/u/s0."""
+    from repro_torch.kernels.wkv_chunked import (CHUNK, wkv_chunked,
+                                                 wkv_chunked_ref)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    BH, T, K, V = 8 * 40, 256, 64, 64
+    f = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    r, k, v = (f(BH, T, n).to(torch.bfloat16) for n in (K, K, V))
+    w = torch.exp(-torch.exp(f(BH, T, K) * 2 - 1))
+    u, s0 = f(BH, K) * 0.5, f(BH, K, V)
+    y, S = wkv_chunked(r, k, v, w, u, s0=s0)
+    y_ref, S_ref = wkv_chunked_ref(r, k, v, w, u, s0=s0)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(S).all())):
+        fail("wkv_chunked: non-finite output")
+    # y is rounded to bf16 on both sides: ≲ 2^-8 relative to its scale;
+    # S stays fp32 (summation order): 1e-4 relative
+    s_err = max_err(S, S_ref)
+    s_tol = 1e-4 * max(1.0, float(S_ref.abs().max()))
+    if not s_err <= s_tol:
+        fail(f"wkv_chunked: S_final max abs err {s_err} > tol {s_tol}")
+    tol = 2 ** -7 * max(1.0, float(y_ref.float().abs().max()))
+    n, L = T // CHUNK, CHUNK
+    pairs = L * (L + 1) // 2            # causal (t, s) pairs per chunk
+    ops = BH * n * (3 * K * pairs + 2 * V * pairs + 4 * L * K * V +
+                    2 * K * V + 4 * L * K)
+    nbytes = BH * T * (2 * K * 2 + V * 2 + K * 4 + V * 2) + BH * K * 4 + \
+        2 * BH * K * V * 4
+    rep.add(f"rwkv6-3b BH={BH} T={T} K={K} V={V} bf16, s0 "
+            f"(S_final err {s_err:.2e} tol {s_tol:.1e})", max_err(y, y_ref),
+            tol, timer(lambda: wkv_chunked(r, k, v, w, u, s0=s0)),
+            timer(lambda: wkv_chunked_ref(r, k, v, w, u, s0=s0)), None,
+            nbytes, ops)
+
+
+def static_qparams(torch, x, n_chunks, bits, gen):
+    """Per-chunk (S, Z) over ``array_split`` chunks that make S·x + Z
+    cover the code range: S = (2^b − 1) / (chunk max − min) · U(0.5, 2),
+    Z centres the chunk's range on the codes with a fractional offset
+    U(−0.5, 0.5), so most codes are inside [qmin, qmax] and the exact
+    check holds the rounding of S·x + Z, not the clip."""
+    from repro_torch.core.splitquant import activation_chunk_bounds
+    xf = x.float()
+    b = activation_chunk_bounds(x.shape[1], n_chunks)
+    lo = torch.stack([xf[:, s:e].min() for s, e in zip(b[:-1], b[1:])])
+    hi = torch.stack([xf[:, s:e].max() for s, e in zip(b[:-1], b[1:])])
+    u = torch.rand((2, n_chunks), generator=gen, device=x.device)
+    scale = (2 ** bits - 1) / (hi - lo) * (0.5 + 1.5 * u[0])
+    return scale, -0.5 - scale * (hi + lo) / 2 + (u[1] - 0.5)
+
+
+def act_quant_cases(torch, timer, drep, srep):
+    """Both act-quant kernels at rwkv6-3b activation shapes (a wave of
+    2048 tokens at widths 2560 and 8960, bf16), exactly equal to their
+    plain versions: dynamic with 4 chunks, static with 3 (uneven on both
+    widths)."""
+    from repro_torch.kernels.act_quant import (
+        act_split_quantize, act_split_quantize_ref, act_split_quantize_static,
+        act_split_quantize_static_ref)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    R = 2048
+    for N in (2560, 8960):
+        x = (torch.randn((R, N), generator=gen, device="cuda") * 2).to(
+            torch.bfloat16)
+        for bits in (2, 4, 8):
+            got = act_split_quantize(x, bits=bits, n_chunks=4)
+            want = act_split_quantize_ref(x, bits=bits, n_chunks=4)
+            torch.cuda.synchronize()
+            err = max(max_err(a, b) for a, b in zip(got, want))
+            drep.add(f"R={R} N={N} bits={bits} n_chunks=4 bf16", err, 0.0,
+                     timer(lambda: act_split_quantize(x, bits=bits,
+                                                      n_chunks=4)),
+                     timer(lambda: act_split_quantize_ref(x, bits=bits,
+                                                          n_chunks=4)),
+                     None, R * N * 2 + R * N + 2 * R * 4 * 4, 4 * R * N)
+            scale, zero = static_qparams(torch, x, 3, bits, gen)
+            got = act_split_quantize_static(x, scale, zero, bits=bits)
+            want = act_split_quantize_static_ref(x, scale, zero, bits=bits)
+            torch.cuda.synchronize()
+            inside = float(((got > -2 ** (bits - 1)) &
+                            (got < 2 ** (bits - 1) - 1)).float().mean())
+            if inside <= 0.5:
+                fail(f"act_split_quantize_static: only {inside:.2f} of the "
+                     f"codes fall inside the range; the check would test "
+                     f"the clip, not the rounding")
+            srep.add(f"R={R} N={N} bits={bits} n_chunks=3 bf16",
+                     max_err(got, want), 0.0,
+                     timer(lambda: act_split_quantize_static(x, scale, zero,
+                                                             bits=bits)),
+                     timer(lambda: act_split_quantize_static_ref(
+                         x, scale, zero, bits=bits)),
+                     None, R * N * 2 + R * N + 2 * 3 * 4, 4 * R * N)
+
 # ------------------------------------------------------------- engine ---
 def percentile(xs, p):
     import numpy as np
@@ -332,6 +466,8 @@ def percentile(xs, p):
 
 
 def engine_phase(torch, counters):
+    """``counters``: every kernel wrapper by name; all are set to 0 just
+    before the run and read just after."""
     from repro_torch.engine import Engine
     from repro_torch.launch.serve import build_params, smoke_workload
     from repro_torch.models import transformer
@@ -370,8 +506,8 @@ def engine_phase(torch, counters):
              f"{[len(r.out) for r in fin]}")
     if any(not 0 <= t < cfg.vocab for r in fin for t in r.out):
         fail("engine: token id out of vocab")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in (n for n, p in PATHS.items() if "engine" in p):
+        if launches[name] <= 0:
             fail(f"engine: kernel {name} was not launched on the main path")
     # the logits the engine samples from are finite at full width
     logits = transformer.decode_step_slots(
@@ -428,6 +564,105 @@ def cross_check(torch):
     return {"requests": len(prompts), "identical": same}
 
 
+
+def rwkv_phase(torch, counters):
+    """``counters`` as for :func:`engine_phase`."""
+    from repro_torch.launch.serve import build_params, rwkv_smoke_workload
+    from repro_torch.models import rwkv6
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+
+    cfg, scfg, quant, warmup, prompts = rwkv_smoke_workload()
+    device = "cuda"
+    t0 = time.perf_counter()
+    params, report = build_params(cfg, device=device, **quant)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    log(f"rwkv6: rwkv6-3b full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
+        f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), init + "
+        f"SplitQuant INT4 k=3 of {len(report['quantized'])} matrices on the "
+        f"card in {t_quant:.2f} s ({report['deployed_bytes'] / 2**20:.1f} "
+        f"MiB packed)")
+    Server(cfg, params, ServeConfig(max_batch=8, max_new_tokens=2),
+           device=device).serve([Request(i, p)
+                                 for i, p in enumerate(warmup)])
+    srv = Server(cfg, params, scfg, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    fin = srv.serve([Request(i, p) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(r.out) for r in fin)
+    if len(fin) != 16 or any(len(r.out) != 32 for r in fin):
+        fail(f"rwkv6: expected 16 requests x 32 tokens, got "
+             f"{[len(r.out) for r in fin]}")
+    if any(not 0 <= t < cfg.vocab for r in fin for t in r.out):
+        fail("rwkv6: token id out of vocab")
+    for name in (n for n, p in PATHS.items() if "wave" in p):
+        if launches[name] <= 0:
+            fail(f"rwkv6: kernel {name} was not launched on the wave path")
+    # the logits and state the server samples from are finite at full width
+    logits, state = rwkv6.prefill(
+        params, cfg, {"tokens": torch.as_tensor(prompts[0][None],
+                                                device=device)})
+    if logits.shape != (1, len(prompts[0]), cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()) or \
+            not all(bool(torch.isfinite(t).all()) for t in state):
+        fail("rwkv6: non-finite or misshapen logits or state at full width")
+    res = {"arch": cfg.name, "requests": len(fin), "new_tokens": n_tok,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "waves": len(srv.wave_prefill_s),
+           "setup_quantize_s": t_quant,
+           "deployed_bytes": report["deployed_bytes"],
+           "quantized_matrices": len(report["quantized"]), "wall_s": wall,
+           "wave_prefill_p50_s": percentile(srv.wave_prefill_s, 50),
+           "wave_prefill_s": srv.wave_prefill_s,
+           "decode_step_p50_s": percentile(srv.decode_step_s, 50),
+           "decode_steps": len(srv.decode_step_s),
+           "tokens_per_s": n_tok / wall, "peak_mem_bytes": peak,
+           "launches": launches}
+    log(f"rwkv6: {len(fin)} requests in {res['waves']} waves, "
+        f"{res['prompt_tokens']} prompt + {n_tok} new tokens in {wall:.3f} s "
+        f"= {res['tokens_per_s']:.1f} tok/s; wave prefill p50 "
+        f"{res['wave_prefill_p50_s'] * 1e3:.1f} ms; decode step p50 "
+        f"{res['decode_step_p50_s'] * 1e3:.2f} ms; {res['decode_steps']} "
+        f"decode steps; peak memory {peak / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    return res
+
+
+def rwkv_cross_check(torch):
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.launch.serve import build_params
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+    cfg = get_arch("rwkv6-3b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")
+    rng = np.random.default_rng(1)
+    # waves of 4: padded length 32 (the WKV kernel), then 37 (the steps)
+    prompts = [rng.integers(0, cfg.vocab, size=n)
+               for n in (32, 20, 7, 16, 37, 5, 12, 30)]
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", tree_to(params, "cuda"))):
+        srv = Server(cfg, p, ServeConfig(max_batch=4, max_new_tokens=16),
+                     device=dev)
+        outs[dev] = [r.out for r in srv.serve(
+            [Request(i, pr) for i, pr in enumerate(prompts)])]
+    same = outs["cpu"] == outs["cuda"]
+    log(f"rwkv6 cross-check: rwkv6-3b reduced fp32, waves of padded length "
+        f"32 and 37, 8 requests x 16 tokens: card tokens "
+        f"{'==' if same else '!='} CPU tokens")
+    if not same:
+        fail(f"rwkv6 cross-check: card {outs['cuda']} != cpu {outs['cpu']}")
+    return {"requests": len(prompts), "identical": same}
+
 def main() -> None:
     try:
         import torch
@@ -440,10 +675,13 @@ def main() -> None:
         from repro_torch.kernels import build
     except ImportError as e:
         fail(f"the port (src/repro_torch) is not next to chip_smoke.py: {e}")
+    from repro_torch.kernels.act_quant import (act_split_quantize,
+                                               act_split_quantize_static)
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.prefill_attention import (prefill_attention,
                                                        quantize_kv)
     from repro_torch.kernels.splitquant_matmul import splitquant_matmul
+    from repro_torch.kernels.wkv_chunked import wkv_chunked
 
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -470,21 +708,37 @@ def main() -> None:
     decode_cases(torch, timer, reps["decode_attention"])
     prefill_cases(torch, timer, reps["prefill_attention"],
                   reps["quantize_kv"])
-
+    wkv_cases(torch, timer, reps["wkv_chunked"])
     counters = {"splitquant_matmul": splitquant_matmul,
-                "decode_attention": decode_attention,
+                "act_split_quantize": act_split_quantize,
+                "act_split_quantize_static": act_split_quantize_static,
                 "prefill_attention": prefill_attention,
-                "quantize_kv": quantize_kv}
+                "quantize_kv": quantize_kv, "wkv_chunked": wkv_chunked,
+                "decode_attention": decode_attention}
+    for c in counters.values():
+        c.launches = 0
+    act_quant_cases(torch, timer, reps["act_split_quantize"],
+                    reps["act_split_quantize_static"])
+    aq_launches = {n: counters[n].launches for n, p in PATHS.items()
+                   if not p}
+    del timer       # its 512 MiB flush buffer is not the servers' memory
+
     eng = engine_phase(torch, counters)
     xc = cross_check(torch)
+    rwkv = rwkv_phase(torch, counters)
+    rxc = rwkv_cross_check(torch)
 
-    kernels = [reps[n].entry(eng["launches"][n]) for n in TPU_KERNELS]
+    runs = {"engine": eng["launches"], "wave": rwkv["launches"]}
+    kernels = [reps[n].entry(
+        {p: runs[p][n] for p in PATHS[n]} or {"kernel phase": aq_launches[n]})
+        for n in TPU_KERNELS]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card_line, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_s": t_build, "engine": eng,
-         "cross_check": xc, "kernels": kernels,
+         "cross_check": xc, "rwkv6": rwkv, "rwkv6_cross_check": rxc,
+         "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line)

@@ -1,8 +1,8 @@
 """Architecture configs of the port. Importing this package populates the
-registry with the dense archs the port serves."""
+registry with the archs the port serves (dense decoders and RWKV6)."""
 from .base import ArchConfig
 from .registry import REGISTRY, all_archs, get_arch
 
-from . import chatglm3_6b, llama3_405b, stablelm_1_6b  # noqa: F401
+from . import chatglm3_6b, llama3_405b, rwkv6_3b, stablelm_1_6b  # noqa: F401
 
 __all__ = ["ArchConfig", "REGISTRY", "all_archs", "get_arch"]

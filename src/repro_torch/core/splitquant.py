@@ -117,3 +117,16 @@ def baseline_quant_tensor(w: torch.Tensor, cfg: QuantConfig
                           ) -> SplitQuantTensor:
     """Plain per-tensor PTQ (one min/max scale set) as k=1."""
     return splitquant_tensor(None, w, cfg, k=1)
+
+
+def activation_chunk_bounds(n: int, n_chunks: int) -> list[int]:
+    """§4.2 chunk boundaries along an axis of width ``n``: the
+    ``array_split`` partition (the first ``n % n_chunks`` chunks one
+    element wider), so indivisible widths still split into ``n_chunks``
+    parts."""
+    n_chunks = max(1, min(n_chunks, n))
+    base, rem = divmod(n, n_chunks)
+    bounds = [0]
+    for c in range(n_chunks):
+        bounds.append(bounds[-1] + base + (1 if c < rem else 0))
+    return bounds

@@ -15,6 +15,7 @@ build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -112,6 +113,12 @@ SIGNATURES = {
     "prefill_attention": [_P] * 11 + [_I] * 10 + [_F, _P],
     # x, codes, scale, zero, groups, chunk_len, x_is_bf16, stream
     "quantize_kv": [_P] * 4 + [_I] * 3 + [_P],
+    # r, k, v, w, u, s0, y, s_out, BH, T, K, V, VS, x_is_bf16, stream
+    "wkv_chunked": [_P] * 8 + [_I] * 6 + [_P],
+    # x, q, scale, zero, R, N, n_chunks, bits, x_is_bf16, stream
+    "act_quant_dynamic": [_P] * 4 + [_I] * 5 + [_P],
+    # x, scale, zero, q, R, N, n_chunks, bits, x_is_bf16, sms, stream
+    "act_quant_static": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 
@@ -141,6 +148,13 @@ def check_cuda_operands(*tensors) -> None:
     for t in tensors[1:]:
         if t is not None and t.device != dev:
             raise ValueError(f"operand on {t.device}, expected {dev}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_of(t) -> int:

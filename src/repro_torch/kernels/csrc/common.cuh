@@ -37,6 +37,41 @@ __device__ __forceinline__ float dequant_kv(int8_t q, float s, float z) {
   return __fdiv_rn(__fsub_rn((float)q, z), s);
 }
 
+// Dynamic quantization parameters and codes by eqs. (1)-(3), with
+// exactly the reference's fp32 operations: true divisions (levels/span,
+// 1/amax), rintf (half to even) and no contraction into an FMA
+// (__fmul_rn/__fadd_rn/__fsub_rn), so codes and scales are
+// bit-identical to core.quantize.qparams/quantize.
+//
+// S = levels / span; a degenerate range (span = 0) gets S = 1/|amax| so
+// its single value maps to code ±1 (S = 1 when amax = 0).
+__device__ __forceinline__ float dyn_scale(float beta, float alpha, float levels) {
+  const float span = __fsub_rn(alpha, beta);
+  const float amax = fmaxf(fabsf(beta), fabsf(alpha));
+  const float degenerate = amax > 0.f ? __fdiv_rn(1.f, amax) : 1.f;
+  return span > 0.f ? __fdiv_rn(levels, span) : degenerate;
+}
+// Z = -2^(bits-1) - rint(S·β)
+__device__ __forceinline__ float dyn_zero(float s, float beta, int bits) {
+  return __fsub_rn(-(float)(1 << (bits - 1)), rintf(__fmul_rn(s, beta)));
+}
+// clip(rint(S·x) + Z): the zero is an integer, added after the rounding
+__device__ __forceinline__ int8_t quant_code(float s, float x, float z, float qmin,
+                                             float qmax) {
+  return (int8_t)fminf(fmaxf(__fadd_rn(rintf(__fmul_rn(s, x)), z), qmin), qmax);
+}
+// clip(rint(S·x + Z)): a static (offline) zero is fractional and folded
+// into the rounding; the multiply and the add stay two roundings
+__device__ __forceinline__ int8_t quant_code_static(float s, float x, float z,
+                                                    float qmin, float qmax) {
+  return (int8_t)fminf(fmaxf(rintf(__fadd_rn(__fmul_rn(s, x), z)), qmin), qmax);
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 constexpr float NEG_INF = -1e30f;
 
 }  // namespace rt

@@ -32,10 +32,8 @@
 //
 // Epilogue (quantize_kv, a second launch from the same wrapper): one
 // thread per (token, head, sub-channel chunk) computes min/max → (S, Z)
-// → codes with exactly the reference's fp32 operations: true divisions
-// (255/span, 1/amax), rintf (half to even) and no contraction
-// (__fmul_rn/__fadd_rn), so codes and scales are bit-identical to
-// engine.kvcache.quantize_kv.
+// → codes with common.cuh's exact-rounding helpers, so codes and scales
+// are bit-identical to engine.kvcache.quantize_kv.
 #include "common.cuh"
 
 namespace {
@@ -206,18 +204,12 @@ __global__ void quantize_kv_kernel(const X* __restrict__ x, int8_t* __restrict__
     beta = fminf(beta, v);
     alpha = fmaxf(alpha, v);
   }
-  const float span = __fsub_rn(alpha, beta);
-  const float amax = fmaxf(fabsf(beta), fabsf(alpha));
-  const float degenerate = amax > 0.f ? __fdiv_rn(1.f, amax) : 1.f;
-  const float s = span > 0.f ? __fdiv_rn(255.f, span) : degenerate;
-  const float z = __fsub_rn(-128.f, rintf(__fmul_rn(s, beta)));
+  const float s = rt::dyn_scale(beta, alpha, 255.f);
+  const float z = rt::dyn_zero(s, beta, 8);
   scale[gi] = s;
   zero[gi] = z;
   int8_t* out = codes + (size_t)gi * chunk_len;
-  for (int i = 0; i < chunk_len; ++i) {
-    const float c = __fadd_rn(rintf(__fmul_rn(s, rt::to_f(p[i]))), z);
-    out[i] = (int8_t)fminf(fmaxf(c, -128.f), 127.f);
-  }
+  for (int i = 0; i < chunk_len; ++i) out[i] = rt::quant_code(s, rt::to_f(p[i]), z, -128.f, 127.f);
 }
 
 template <typename KV, typename X>

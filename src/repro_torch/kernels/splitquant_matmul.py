@@ -9,8 +9,6 @@ counts kernel launches.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import build
@@ -20,11 +18,6 @@ from .ref import splitquant_matmul_ref
 #: would give fewer blocks than this many per SM
 _BLOCKS_PER_SM = 2
 _BM, _BN, _BK = 8, 128, 64
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def k_splits(M: int, K: int, N: int, sms: int) -> int:
@@ -63,7 +56,7 @@ def splitquant_matmul(x: torch.Tensor, q_packed: torch.Tensor,
     x = x.contiguous()
     tensors = [t.contiguous() for t in (q_packed, cid_packed, recip, shift)]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    splits = k_splits(M, K, N, _sm_count(x.device.index or 0))
+    splits = k_splits(M, K, N, build.sm_count(x.device.index or 0))
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
           if splits > 1 else y)
     lib = build.library()

@@ -1,0 +1,138 @@
+"""Chunked RWKV6 WKV (data-dependent-decay linear attention): the wrapper
+of the CUDA kernel ``csrc/wkv_chunked.cu`` (which replaces the Pallas TPU
+kernel ``repro/kernels/wkv_chunked.py:_kernel``) and its plain PyTorch
+versions.
+
+Recurrence (per head; key dim i, value dim j):
+    S_t[i,j] = w_t[i]·S_{t-1}[i,j] + k_t[i]·v_t[j]
+    y_t[j]   = Σ_i r_t[i]·(S_{t-1}[i,j] + u[i]·k_t[i]·v_t[j])
+
+:func:`wkv_chunked_ref` is the chunked form the model runs
+(``wkv_chunked_jnp``): chunk length L, in-chunk log-decays c (inclusive
+cumsum, ≤ 0) and cp = c − log w, every exponent a difference of them.
+:func:`wkv_step_ref` is the recurrence step by step (``wkv_ref``), the
+oracle and the model's branch for lengths that are not a multiple of 16.
+
+On a CPU tensor :func:`wkv_chunked` runs the plain chunked version; on a
+CUDA tensor it launches the kernel or raises. ``wkv_chunked.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+#: the kernel's chunk length (the rounding of the chunked form depends on
+#: it, so it is not a tuning knob)
+CHUNK = 16
+
+
+def wkv_chunked_ref(r, k, v, w, u, *, chunk: int = CHUNK, s0=None):
+    """r, k, w (BH, T, K); v (BH, T, V); u (BH, K); s0 (BH, K, V) or None.
+    T % chunk == 0. Returns (y (BH, T, V) in r.dtype, S_final (BH, K, V)
+    fp32). All arithmetic in fp32."""
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    n = T // chunk
+    rc, kc, wc = (a.float().reshape(BH, n, chunk, K) for a in (r, k, w))
+    vc = v.float().reshape(BH, n, chunk, V)
+    lw = torch.log(torch.clamp(wc, min=1e-30))
+    c = torch.cumsum(lw, dim=2)
+    cp = c - lw
+    D = cp[:, :, :, None, :] - c[:, :, None, :, :]          # (BH,n,L,L,K)
+    idx = torch.arange(chunk, device=r.device)
+    mask = idx[:, None] > idx[None, :]
+    E = torch.where(mask[None, None, :, :, None], torch.exp(D), 0.0)
+    att = torch.einsum("bntk,bnsk,bntsk->bnts", rc, kc, E)
+    diag = torch.einsum("bntk,bntk->bnt", rc * u.float()[:, None, None, :],
+                        kc)
+    att = att + torch.eye(chunk, device=r.device)[None, None] * diag[..., None]
+    y_intra = torch.einsum("bnts,bnsv->bntv", att, vc)
+
+    k_dec = kc * torch.exp(c[:, :, -1:, :] - c)              # (BH,n,L,K)
+    s_updates = torch.einsum("bntk,bntv->bnkv", k_dec, vc)
+    chunk_decay = torch.exp(c[:, :, -1, :])                  # (BH,n,K)
+    r_exp = rc * torch.exp(cp)                               # (BH,n,L,K)
+    S = (torch.zeros((BH, K, V), device=r.device) if s0 is None
+         else s0.float())
+    y_inter = []
+    for i in range(n):
+        y_inter.append(torch.einsum("btk,bkv->btv", r_exp[:, i], S))
+        S = chunk_decay[:, i, :, None] * S + s_updates[:, i]
+    y = y_intra + torch.stack(y_inter, dim=1)
+    return y.reshape(BH, T, V).to(r.dtype), S
+
+
+def wkv_step_ref(r, k, v, w, u, *, s0=None):
+    """The recurrence one token at a time. Shapes as
+    :func:`wkv_chunked_ref` (any T). Returns (y (BH, T, V) in r.dtype,
+    S_final (BH, K, V) fp32); pass fp32 r to keep y in fp32."""
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()[..., None]                                # (BH, K, 1)
+    BH, T, K = r.shape
+    S = (torch.zeros((BH, K, v.shape[-1]), device=r.device) if s0 is None
+         else s0.float())
+    ys = []
+    for t in range(T):
+        kv = kf[:, t, :, None] * vf[:, t, None, :]           # (BH, K, V)
+        ys.append(torch.einsum("bi,bij->bj", rf[:, t], S + uf * kv))
+        S = wf[:, t, :, None] * S + kv
+    return torch.stack(ys, dim=1).to(r.dtype), S
+
+
+def _slab(BH: int, V: int, sms: int) -> int:
+    """Value columns per block: all of V, halved (down to 16) while the
+    grid would give fewer than two blocks per SM."""
+    vs = V
+    while BH * (V // vs) < 2 * sms and vs % 2 == 0 and vs // 2 >= 16:
+        vs //= 2
+    return vs
+
+
+def wkv_chunked(r, k, v, w, u, *, s0=None):
+    """Chunked WKV (chunk :data:`CHUNK`) with carry-in ``s0`` → (y,
+    S_final); see :func:`wkv_chunked_ref`. The CUDA kernel takes r/k/v in
+    one of float32/bfloat16, w/u/s0 in float32, T % 16 == 0, and K, V at
+    most 128."""
+    if r.device.type == "cpu":
+        return wkv_chunked_ref(r, k, v, w, u, s0=s0)
+    build.check_cuda_operands(r, k, v, w, u, s0)
+    if r.dim() != 3 or k.shape != r.shape or w.shape != r.shape:
+        raise ValueError(f"r, k, w must be (BH, T, K) alike, got "
+                         f"{tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(w.shape)}")
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    if v.dim() != 3 or v.shape[:2] != (BH, T) or u.shape != (BH, K):
+        raise ValueError(f"v must be (BH, T, V) and u (BH, K), got "
+                         f"{tuple(v.shape)}, {tuple(u.shape)}")
+    if s0 is not None and s0.shape != (BH, K, V):
+        raise ValueError(f"s0 must be (BH, K, V), got {tuple(s0.shape)}")
+    if T % CHUNK:
+        raise ValueError(f"the kernel runs chunk {CHUNK} over T % {CHUNK} "
+                         f"== 0, got T {T}")
+    if not (0 < K <= 128 and 0 < V <= 128):
+        raise ValueError(f"K and V must be at most 128, got {K}, {V}")
+    if r.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError("r, k, v must share one of float32, bfloat16")
+    if any(t is not None and t.dtype != torch.float32 for t in (w, u, s0)):
+        raise TypeError("w, u and s0 must be float32")
+    r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
+    s0 = s0.contiguous() if s0 is not None else None
+    y = torch.empty((BH, T, V), dtype=r.dtype, device=r.device)
+    s_out = torch.empty((BH, K, V), dtype=torch.float32, device=r.device)
+    vs = _slab(BH, V, build.sm_count(r.device.index or 0))
+    lib = build.library()
+    err = lib.wkv_chunked(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          w.data_ptr(), u.data_ptr(),
+                          s0.data_ptr() if s0 is not None else None,
+                          y.data_ptr(), s_out.data_ptr(), BH, T, K, V, vs,
+                          int(r.dtype == torch.bfloat16), build.stream_of(r))
+    build.check(lib, err, "wkv_chunked")
+    wkv_chunked.launches += 1
+    return y, s_out
+
+
+wkv_chunked.launches = 0

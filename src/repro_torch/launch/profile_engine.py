@@ -1,6 +1,6 @@
 """Where the serving time goes: device traces of the engine at full width.
 
-    python -m repro_torch.launch.profile_engine [--out chiprun_out]
+    python -m repro_torch.launch.profile_engine [--out chiprun_out] [--wave]
 
 Builds the engine of ``chip_smoke.py`` from
 :func:`~repro_torch.launch.serve.smoke_workload` (stablelm-1.6b, seeded
@@ -16,8 +16,15 @@ from the trace's kernel events:
 * device time and launch count by kernel, the port's kernels by name;
 * the wall times of the window's decode steps and prefill chunks.
 
-Runs on the CUDA card only. Writes ``profile_engine.json`` under
-``--out`` (the traces themselves are parsed and dropped).
+``--wave`` traces the rwkv6-3b wave loop of
+:func:`~repro_torch.launch.serve.rwkv_smoke_workload` instead: the first
+wave's prefill (8 prompts, one forward and the greedy pick) and the 12
+decode steps after it, through the ``Server.prefill_wave`` and
+``Server.decode_wave`` that ``Server.serve`` runs.
+
+Runs on the CUDA card only. Writes ``profile_engine.json`` (or
+``profile_wave.json``) under ``--out`` (the traces themselves are parsed
+and dropped).
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import torch
 
 from ..device import resolve_device
 from ..engine import Engine
-from .serve import build_params, smoke_workload
+from ..runtime.serve_loop import Request, Server, ServeConfig
+from .serve import build_params, rwkv_smoke_workload, smoke_workload
 
 DECODE_STEPS = 12
 
@@ -40,7 +48,8 @@ PORT_KERNELS = {"sq_matmul_kernel": "splitquant_matmul",
                 "split_reduce_kernel": "splitquant_matmul (K-split sum)",
                 "decode_kernel": "decode_attention",
                 "prefill_kernel": "prefill_attention",
-                "quantize_kv_kernel": "quantize_kv"}
+                "quantize_kv_kernel": "quantize_kv",
+                "wkv_kernel": "wkv_chunked"}
 
 
 def _label(name: str) -> str:
@@ -62,9 +71,9 @@ def _union(intervals) -> float:
     return total
 
 
-def profile_window(eng, run, scratch: Path) -> dict:
-    """Trace ``run()`` (some engine steps) and summarize its kernels."""
-    n_dec, n_pre = len(eng.decode_step_s), len(eng.prefill_chunk_s)
+def profile_window(run, scratch: Path) -> dict:
+    """Trace ``run()`` (returns its step count) and summarize its
+    kernels."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -88,32 +97,29 @@ def profile_window(eng, run, scratch: Path) -> dict:
     rows = sorted(by.items(), key=lambda kv: -kv[1][0])
     return {"steps": steps, "wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall,
-            "decode_step_s": eng.decode_step_s[n_dec:],
-            "prefill_chunk_s": eng.prefill_chunk_s[n_pre:],
             "kernels": [{"name": k, "device_s": v[0] * 1e-6, "count": v[1]}
                         for k, v in rows]}
 
 
+def engine_window(eng, run, scratch: Path) -> dict:
+    """:func:`profile_window` plus the engine's step times in it."""
+    n_dec, n_pre = len(eng.decode_step_s), len(eng.prefill_chunk_s)
+    w = profile_window(run, scratch)
+    w["decode_step_s"] = eng.decode_step_s[n_dec:]
+    w["prefill_chunk_s"] = eng.prefill_chunk_s[n_pre:]
+    return w
+
+
 def _print(title: str, w: dict) -> None:
-    print(f"{title}: {w['steps']} steps, {len(w['decode_step_s'])} decode "
-          f"steps, {len(w['prefill_chunk_s'])} prefill chunks; wall "
-          f"{w['wall_s'] * 1e3:.1f} ms, device busy "
-          f"{w['device_busy_s'] * 1e3:.1f} ms "
+    print(f"{title}: {w['steps']} steps; wall {w['wall_s'] * 1e3:.1f} ms, "
+          f"device busy {w['device_busy_s'] * 1e3:.1f} ms "
           f"({100 * w['device_busy_share']:.1f}%)")
     for k in w["kernels"][:12]:
         print(f"  {k['device_s'] * 1e3:10.3f} ms  {k['count']:7d}  "
               f"{k['name']}")
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default="chiprun_out")
-    args = ap.parse_args(argv)
-    device = resolve_device(None)
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    scratch = out / "profile_engine_trace.tmp.json"
-
+def profile_engine(device, scratch: Path) -> dict:
     cfg, ecfg, quant, warmup, prompts = smoke_workload()
     params, _ = build_params(cfg, device=device, **quant)
     warm = Engine(cfg, params, ecfg, device=device)
@@ -138,14 +144,59 @@ def main(argv=None):
             eng.step()
         return DECODE_STEPS
 
-    res = {"arch": cfg.name, "card": torch.cuda.get_device_name(0),
-           "admission": profile_window(eng, admit_wave, scratch),
-           "decode": profile_window(eng, decode_window, scratch)}
+    return {"arch": cfg.name, "card": torch.cuda.get_device_name(0),
+            "admission": engine_window(eng, admit_wave, scratch),
+            "decode": engine_window(eng, decode_window, scratch)}
+
+
+def profile_wave(device, scratch: Path) -> dict:
+    cfg, scfg, quant, warmup, prompts = rwkv_smoke_workload()
+    params, _ = build_params(cfg, device=device, **quant)
+    srv = Server(cfg, params, ServeConfig(max_batch=8, max_new_tokens=2),
+                 device=device)
+    srv.serve([Request(i, p) for i, p in enumerate(warmup)])
+    wave = prompts[:scfg.max_batch]
+    carry = {}
+
+    def prefill():
+        carry["cache"], carry["tok"], _ = srv.prefill_wave(wave)
+        return 1
+
+    def decode_window():
+        for _ in range(DECODE_STEPS):
+            carry["cache"], carry["tok"], _ = srv.decode_wave(carry["cache"],
+                                                              carry["tok"])
+        return DECODE_STEPS
+
+    return {"arch": cfg.name, "card": torch.cuda.get_device_name(0),
+            "padded_prompt_len": max(len(p) for p in wave),
+            "prefill": profile_window(prefill, scratch),
+            "decode": profile_window(decode_window, scratch)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--wave", action="store_true",
+                    help="trace the rwkv6-3b wave loop, not the engine")
+    args = ap.parse_args(argv)
+    device = resolve_device(None)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    scratch = out / "profile_trace.tmp.json"
+    if args.wave:
+        res = profile_wave(device, scratch)
+        (out / "profile_wave.json").write_text(json.dumps(res, indent=1))
+        print(f"{res['arch']} on {res['card']}")
+        _print(f"wave prefill (8 prompts padded to {res['padded_prompt_len']}"
+               f")", res["prefill"])
+        _print("decode window (a wave of 8 decoding)", res["decode"])
+        return
+    res = profile_engine(device, scratch)
     (out / "profile_engine.json").write_text(json.dumps(res, indent=1))
-    print(f"{cfg.name} on {res['card']}")
+    print(f"{res['arch']} on {res['card']}")
     _print("admission window (prefill-heavy)", res["admission"])
     _print("decode window (8 slots decoding)", res["decode"])
-
 
 if __name__ == "__main__":
     main()

@@ -1,9 +1,12 @@
 """Quantized serving entry point of the port: seeded random weights at an
 arch's published shapes, SplitQuant-quantized and packed, served by the
-continuous-batching engine over an optionally INT8 slot cache.
+continuous-batching engine over an optionally INT8 slot cache, or, for a
+family without a slot-cache layout (RWKV6), by the wave loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --reduced --bits 4 --kv-mode int8 --requests 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --reduced --requests 4 --device cpu
 
 Without ``--device`` it runs on the CUDA card, and fails if there is
 none.
@@ -21,7 +24,12 @@ from ..core.apply import QuantPolicy, quantize_tree
 from ..core.quantize import QuantConfig
 from ..device import resolve_device
 from ..engine import Engine, EngineConfig
-from ..models import transformer
+from ..models import get_model
+from ..runtime.serve_loop import Request, Server, ServeConfig
+
+#: families the continuous-batching engine serves; the others use the
+#: wave loop
+ENGINE_FAMILIES = ("dense",)
 
 
 def seeded_prompts(vocab: int, n: int, lo: int, hi: int, seed: int = 0):
@@ -33,9 +41,9 @@ def seeded_prompts(vocab: int, n: int, lo: int, hi: int, seed: int = 0):
 
 def build_params(cfg, *, bits: int, method: str, seed: int = 0,
                  device=None):
-    """Seeded init + quantization (SplitQuant k=3, or the k=1 baseline),
-    packed once, on ``device``."""
-    params = transformer.init(cfg, seed=seed, device=device)
+    """Seeded init of ``cfg``'s family + quantization (SplitQuant k=3, or
+    the k=1 baseline), packed once, on ``device``."""
+    params = get_model(cfg).init(cfg, seed=seed, device=device)
     if method == "none":
         return params, None
     policy = QuantPolicy(cfg=QuantConfig(bits=bits), method=method)
@@ -60,6 +68,26 @@ def smoke_workload():
     return cfg, ecfg, quant, warmup, prompts
 
 
+def rwkv_smoke_workload():
+    """The full-width wave-loop workload that ``chip_smoke.py`` drives:
+    rwkv6-3b, SplitQuant INT4 k=3 weights (seed 0), waves of up to 8,
+    one warm-up wave of 8 prompts of 16 tokens, and 16 seeded requests of
+    64-256 prompt tokens, each a multiple of 16 (so every wave's padded
+    length is one and the chunked WKV carries every prefill), and 32 new
+    tokens each.
+
+    Returns (cfg, scfg, quant, warmup_prompts, prompts), where ``quant``
+    holds the keyword arguments of :func:`build_params`."""
+    cfg = get_arch("rwkv6-3b")
+    scfg = ServeConfig(max_batch=8, max_new_tokens=32)
+    quant = dict(bits=4, method="splitquant", seed=0)
+    rng = np.random.default_rng(0)
+    warmup = [rng.integers(0, cfg.vocab, size=16) for _ in range(8)]
+    prompts = [rng.integers(0, cfg.vocab, size=16 * int(rng.integers(4, 17)))
+               for _ in range(16)]
+    return cfg, scfg, quant, warmup, prompts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
@@ -69,7 +97,8 @@ def main(argv=None):
                     choices=["splitquant", "baseline", "none"])
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new-tokens", type=int, default=16)
-    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=4,
+                    help="engine slots, or the wave size of the wave loop")
     ap.add_argument("--kv-mode", default="int8", choices=["fp", "int8"])
     ap.add_argument("--prefill-chunk", type=int,
                     default=EngineConfig.prefill_chunk)
@@ -92,24 +121,36 @@ def main(argv=None):
               f"INT{args.bits} ({args.method}) in "
               f"{time.perf_counter() - t0:.2f} s; deployed "
               f"{report['deployed_bytes'] / 2**20:.1f} MiB")
-    eng = Engine(cfg, params, EngineConfig(
-        n_slots=args.slots, max_len=256,
-        max_new_tokens=args.max_new_tokens, kv_mode=args.kv_mode,
-        prefill_chunk=args.prefill_chunk), device=device)
     # the JAX package's launch/serve.py draws the same prompts
     prompts = seeded_prompts(cfg.vocab, args.requests, 4, 11)
-    for p in prompts:
-        eng.submit(p)
-    t0 = time.perf_counter()
-    fin = eng.drain()
+    if cfg.family in ENGINE_FAMILIES:
+        eng = Engine(cfg, params, EngineConfig(
+            n_slots=args.slots, max_len=256,
+            max_new_tokens=args.max_new_tokens, kv_mode=args.kv_mode,
+            prefill_chunk=args.prefill_chunk), device=device)
+        for p in prompts:
+            eng.submit(p)
+        t0 = time.perf_counter()
+        fin = eng.drain()
+        how = (f"{eng.n_decode_steps} decode steps, "
+               f"{eng.n_prefill_chunks} prefill chunks")
+    else:
+        print(f"note: {cfg.family!r} family has no slot-cache layout yet; "
+              f"serving with the wave loop")
+        srv = Server(cfg, params, ServeConfig(
+            max_batch=args.slots, max_new_tokens=args.max_new_tokens),
+            device=device)
+        t0 = time.perf_counter()
+        fin = srv.serve([Request(uid=i, prompt=p)
+                         for i, p in enumerate(prompts)])
+        how = (f"{len(srv.wave_prefill_s)} waves, "
+               f"{len(srv.decode_step_s)} decode steps")
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.out) for r in fin)
     for r in fin:
         print(f"req {r.uid}: prompt {len(r.prompt)} → {r.out}")
     print(f"{len(fin)} requests, {n_tok} tokens in {dt:.3f} s on "
-          f"{device.type} ({n_tok / dt:.1f} tok/s), "
-          f"{eng.n_decode_steps} decode steps, "
-          f"{eng.n_prefill_chunks} prefill chunks")
+          f"{device.type} ({n_tok / dt:.1f} tok/s), {how}")
 
 
 if __name__ == "__main__":

@@ -1,1 +1,20 @@
-"""Dense decoder of the port (slot-cache serving path)."""
+"""Models of the port: the dense decoder over the engine's slot cache
+(:mod:`.transformer`) and RWKV6 (:mod:`.rwkv6`).
+:func:`get_model` maps a config's family to its module."""
+from __future__ import annotations
+
+from . import rwkv6, transformer
+
+
+def get_model(cfg):
+    """The module implementing ``cfg``'s family (``transformer`` for
+    dense, ``rwkv6`` for ssm); the other families are not ported."""
+    if cfg.family == "dense":
+        return transformer
+    if cfg.family == "ssm":
+        return rwkv6
+    raise NotImplementedError(f"the {cfg.family!r} family ({cfg.name}) is "
+                              f"not ported")
+
+
+__all__ = ["get_model", "rwkv6", "transformer"]

@@ -1,0 +1,138 @@
+"""Batched wave serving loop for quantized models (port of
+``repro.runtime.serve_loop``).
+
+Requests are grouped into prefill waves of up to ``max_batch``; each
+wave is left-padded to its longest prompt, prefilled in one forward, then
+decodes together until every member finishes: a finished (or short)
+request's row stays in the batch until the wave's longest generation
+completes. Greedy sampling runs on the device, with one (B,) copy of the
+tokens to the host per step for the eos/limit bookkeeping.
+
+The port serves the family without a slot-cache layout this way: RWKV6.
+As in the JAX package, its waves are left-padded with token 0 and the
+pads are folded into the recurrent state (``rwkv6.prefill`` takes no pad
+mask). Dense models go through :class:`repro_torch.engine.Engine`: their
+wave path (``transformer.prefill``/``decode_step`` over a KV cache) is not
+ported, nor is temperature sampling (torch's generator cannot reproduce
+``jax.random.categorical``); both raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import get_model
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 8
+    max_new_tokens: int = 32
+    temperature: float = 0.0        # 0 ⇒ greedy
+    eos_id: int = -1                # -1 ⇒ never stop early
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray              # (S,) int
+    max_new_tokens: Optional[int] = None   # None ⇒ ServeConfig budget
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class Server:
+    """Minimal wave-batching server on ``device`` (the card unless
+    ``device="cpu"``). ``wave_prefill_s`` and ``decode_step_s`` record the
+    host-clock time of each wave's prefill and each decode step, both
+    ending in the tokens' copy to the host (which waits for the card)."""
+
+    def __init__(self, cfg, params, serve_cfg: ServeConfig, device=None):
+        if cfg.family == "dense":
+            raise NotImplementedError(
+                "the dense wave loop (transformer.prefill/decode_step over "
+                "a KV cache) is not ported; serve dense models with "
+                "repro_torch.engine.Engine")
+        if serve_cfg.temperature > 0:
+            raise NotImplementedError(
+                "temperature sampling is not ported (greedy only): torch's "
+                "generator cannot reproduce jax.random.categorical")
+        self.cfg = cfg
+        self.model = get_model(cfg)
+        self.params = params
+        self.scfg = serve_cfg
+        self.device = resolve_device(device)
+        self.wave_prefill_s: list[float] = []
+        self.decode_step_s: list[float] = []
+
+    def _greedy(self, logits):
+        """The last position's argmax, on the device and as host ints."""
+        tok = logits[:, -1].argmax(-1)
+        return tok, tok.tolist()
+
+    def prefill_wave(self, prompts):
+        """Left-pad ``prompts`` with token 0 to the longest, prefill them
+        in one forward and pick each row's first token → (state, tokens
+        on the device, tokens as host ints)."""
+        S = max(len(p) for p in prompts)
+        toks = np.zeros((len(prompts), S), np.int64)
+        for j, p in enumerate(prompts):
+            toks[j, S - len(p):] = p                       # left-pad
+        logits, cache = self.model.prefill(
+            self.params, self.cfg,
+            {"tokens": torch.from_numpy(toks).to(self.device)})
+        return (cache, *self._greedy(logits))
+
+    def decode_wave(self, cache, tok_d):
+        """One greedy step of the whole wave from its last tokens
+        ``tok_d`` (B,) → (state, tokens on the device, host ints)."""
+        logits, cache = self.model.decode_step(self.params, self.cfg, cache,
+                                               tok_d[:, None])
+        return (cache, *self._greedy(logits))
+
+    def serve(self, requests: list[Request]) -> list[Request]:
+        scfg = self.scfg
+        for i in range(0, len(requests), scfg.max_batch):
+            wave = requests[i:i + scfg.max_batch]
+            t0 = time.perf_counter()
+            cache, tok_d, tok = self.prefill_wave([r.prompt for r in wave])
+            self.wave_prefill_s.append(time.perf_counter() - t0)
+            limits = [scfg.max_new_tokens if r.max_new_tokens is None
+                      else r.max_new_tokens for r in wave]
+            for j, r in enumerate(wave):
+                t = tok[j]
+                # eos is never emitted, also on the prefill-sampled first
+                # token (same semantics as the engine)
+                if limits[j] <= 0 or t == scfg.eos_id:
+                    r.done = True
+                    continue
+                r.out.append(t)
+                if len(r.out) >= limits[j]:
+                    r.done = True
+            for _ in range(max(limits + [1]) - 1):
+                t0 = time.perf_counter()
+                cache, tok_d, tok = self.decode_wave(cache, tok_d)
+                self.decode_step_s.append(time.perf_counter() - t0)
+                alive = False
+                for j, r in enumerate(wave):
+                    if r.done:
+                        continue
+                    t = tok[j]
+                    if t == scfg.eos_id:
+                        r.done = True
+                        continue
+                    r.out.append(t)
+                    if len(r.out) >= limits[j]:
+                        r.done = True
+                    else:
+                        alive = True
+                if not alive:
+                    break
+            for r in wave:
+                r.done = True
+        return requests

@@ -6,12 +6,16 @@ at import) when no card is present. Run them on a machine with an H100:
 
 Tolerances: fp32 outputs atol 1e-4 relative to the output's scale
 (summation order differs); bf16 outputs 2 ulp-ish (2e-2 relative); the
-quantize epilogue's codes and scales exactly.
+WKV state (fp32 in both types) 1e-4 relative; the quantize epilogue's and
+the act-quant kernels' codes, scales and zeros exactly.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.splitquant import activation_chunk_bounds
+from repro_torch.kernels import act_quant as aq
+from repro_torch.kernels import wkv_chunked as wk
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.prefill_attention import (prefill_attention,
@@ -183,4 +187,204 @@ def test_engine_card_matches_cpu(dev):
         for pr in prompts:
             eng.submit(pr)
         outs[d] = [r.out for r in eng.drain()]
+    assert outs["cuda"] == outs["cpu"]
+
+
+# ------------------------------------------------------------------ WKV ---
+def _wkv_inputs(gen, dev, BH, T, K, V, dtype, with_s0, decay_scale=2.0):
+    f = lambda *s: torch.randn(s, generator=gen, device=dev)
+    r, k, v = f(BH, T, K).to(dtype), f(BH, T, K).to(dtype), \
+        f(BH, T, V).to(dtype)
+    w = torch.exp(-torch.exp(f(BH, T, K) * decay_scale - 1))
+    u = f(BH, K) * 0.5
+    s0 = f(BH, K, V) if with_s0 else None
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("BH,T,K,V", [(8, 32, 32, 32), (3, 48, 16, 24),
+                                      (320, 256, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv_kernel_vs_plain(dev, BH, T, K, V, dtype, with_s0):
+    gen = torch.Generator(device=dev).manual_seed(BH + T + K + V)
+    args = _wkv_inputs(gen, dev, BH, T, K, V, dtype, with_s0)
+    before = wk.wkv_chunked.launches
+    y, S = wk.wkv_chunked(*args[:5], s0=args[5])
+    torch.cuda.synchronize()
+    assert wk.wkv_chunked.launches == before + 1
+    y_ref, S_ref = wk.wkv_chunked_ref(*args[:5], s0=args[5])
+    assert y.dtype == dtype and y.shape == (BH, T, V)
+    assert S.dtype == torch.float32 and S.shape == (BH, K, V)
+    _close(y, y_ref, 1e-4 if dtype == torch.float32 else 2e-2)
+    _close(S, S_ref, 1e-4)
+
+
+def test_wkv_kernel_extreme_decay_stays_finite(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    r, k, v, _, u, s0 = _wkv_inputs(gen, dev, 4, 32, 32, 32, torch.float32,
+                                    True)
+    w = torch.zeros_like(r)                  # decay underflowed to 0
+    y, S = wk.wkv_chunked(r, k, v, w, u, s0=s0)
+    y_ref, S_ref = wk.wkv_chunked_ref(r, k, v, w, u, s0=s0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(S).all())
+    _close(y, y_ref, 1e-4)
+    _close(S, S_ref, 1e-4)
+
+
+def _no_plain(monkeypatch):
+    """Make every plain version raise, so a wrapper that took one on a
+    CUDA tensor fails the test."""
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    for mod, name in ((wk, "wkv_chunked_ref"), (aq, "act_split_quantize_ref"),
+                      (aq, "act_split_quantize_static_ref")):
+        monkeypatch.setattr(mod, name, boom)
+
+
+def test_new_wrappers_reject_bad_operands_and_never_take_plain(
+        dev, monkeypatch):
+    _no_plain(monkeypatch)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    r, k, v, w, u, s0 = _wkv_inputs(gen, dev, 4, 32, 32, 32, torch.float32,
+                                    True)
+    wk.wkv_chunked(r, k, v, w, u, s0=s0)
+    aq.act_split_quantize(r[0], bits=4, n_chunks=4)
+    aq.act_split_quantize_static(r[0], u[0, :3], u[1, :3], bits=4)
+    torch.cuda.synchronize()
+    bad = [
+        (TypeError, lambda: wk.wkv_chunked(r, k, v, w.bfloat16(), u, s0=s0)),
+        (TypeError, lambda: wk.wkv_chunked(r, k.bfloat16(), v, w, u)),
+        (ValueError, lambda: wk.wkv_chunked(r[:, :24], k[:, :24], v[:, :24],
+                                            w[:, :24], u)),
+        (TypeError, lambda: wk.wkv_chunked(r, k, v, w, u, chunk=16)),
+        (ValueError, lambda: wk.wkv_chunked(r, k, v, w, u, s0=s0[:, :16])),
+        (ValueError, lambda: wk.wkv_chunked(r, k, v, w, u.cpu())),
+        (TypeError, lambda: aq.act_split_quantize(r[0].half(), n_chunks=4)),
+        (ValueError, lambda: aq.act_split_quantize(r[0], n_chunks=5)),
+        (ValueError, lambda: aq.act_split_quantize(r[0], bits=9,
+                                                   n_chunks=4)),
+        (TypeError, lambda: aq.act_split_quantize_static(
+            r[0], u[0, :3].double(), u[1, :3])),
+        (ValueError, lambda: aq.act_split_quantize_static(
+            r[0], u[0, :3], u[1, :2])),
+    ]
+    for exc, call in bad:
+        with pytest.raises(exc):
+            call()
+
+
+# ------------------------------------------------------------ act-quant ---
+def fma_tie_inputs(seed: int = 1, n: int = 1 << 22):
+    """Values x with one (S, Z) for which rint(S·x + Z) differs between a
+    separately rounded multiply and add and a fused multiply-add: the
+    static act-quant code must take the former. Returns (x, S, Z) as
+    numpy float32."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) * 3).astype(np.float32)
+    S = np.float32(rng.uniform(0.5, 40))
+    Z = np.float32(rng.uniform(-3, 3))
+    sep = np.rint(S * x + Z)
+    fused = np.rint((np.float64(S) * x.astype(np.float64) +
+                     np.float64(Z)).astype(np.float32))
+    return x[sep != fused], S, Z
+
+
+def static_qparams(x, n_chunks, bits, gen):
+    """Per-chunk (S, Z) for x (R, N) over ``array_split`` chunks, drawn so
+    that S·x + Z covers the code range and most codes fall inside
+    [qmin, qmax]: S = (2^b − 1) / (chunk max − min) · U(0.5, 2), and Z
+    centres the chunk's range on the codes with a fractional offset
+    U(−0.5, 0.5). The exact comparisons then check the rounding of
+    S·x + Z, not the clip."""
+    xf = x.float()
+    b = activation_chunk_bounds(x.shape[1], n_chunks)
+    lo = torch.stack([xf[:, s:e].min() for s, e in zip(b[:-1], b[1:])])
+    hi = torch.stack([xf[:, s:e].max() for s, e in zip(b[:-1], b[1:])])
+    u = torch.rand((2, n_chunks), generator=gen, device=x.device)
+    scale = (2 ** bits - 1) / (hi - lo) * (0.5 + 1.5 * u[0])
+    zero = -0.5 - scale * (hi + lo) / 2 + (u[1] - 0.5)
+    return scale, zero
+
+
+def inside_share(q, bits) -> float:
+    """The share of codes strictly inside (qmin, qmax)."""
+    return float(((q > -2 ** (bits - 1)) & (q < 2 ** (bits - 1) - 1))
+                 .float().mean())
+
+
+def _act_input(gen, dev, R, N, dtype):
+    x = torch.randn((R, N), generator=gen, device=dev) * 2
+    x[0, 0] = 50.0                               # outlier in chunk 0
+    x[1] = 1.5                                   # constant row
+    x[2] = 0.0                                   # all-zero row
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("R,N,n_chunks", [(5, 128, 4), (256, 96, 3),
+                                          (2048, 2560, 4), (2048, 8960, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quant_dynamic_kernel_exact(dev, bits, R, N, n_chunks, dtype):
+    gen = torch.Generator(device=dev).manual_seed(R + N + bits)
+    x = _act_input(gen, dev, R, N, dtype)
+    before = aq.act_split_quantize.launches
+    got = aq.act_split_quantize(x, bits=bits, n_chunks=n_chunks)
+    torch.cuda.synchronize()
+    assert aq.act_split_quantize.launches == before + 1
+    want = aq.act_split_quantize_ref(x, bits=bits, n_chunks=n_chunks)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("R,N,n_chunks", [(5, 97, 3), (256, 128, 4),
+                                          (2048, 2560, 3), (2048, 8960, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quant_static_kernel_exact(dev, bits, R, N, n_chunks, dtype):
+    gen = torch.Generator(device=dev).manual_seed(R + N + bits + 1)
+    x = _act_input(gen, dev, R, N, dtype)
+    scale, zero = static_qparams(x, n_chunks, bits, gen)
+    before = aq.act_split_quantize_static.launches
+    got = aq.act_split_quantize_static(x, scale, zero, bits=bits)
+    torch.cuda.synchronize()
+    assert aq.act_split_quantize_static.launches == before + 1
+    assert inside_share(got, bits) > 0.5
+    assert torch.equal(got, aq.act_split_quantize_static_ref(x, scale, zero,
+                                                             bits=bits))
+
+
+def test_act_quant_static_kernel_does_not_fuse_multiply_add(dev):
+    xs, S, Z = fma_tie_inputs()
+    assert xs.size > 0
+    x = torch.from_numpy(np.tile(xs, (4, 1))).to(dev)
+    got = aq.act_split_quantize_static(
+        x, torch.tensor([S], device=dev), torch.tensor([Z], device=dev))
+    want = np.clip(np.rint(S * xs + Z), -128, 127).astype(np.int8)
+    assert np.array_equal(got.cpu().numpy(), np.tile(want, (4, 1)))
+
+
+def test_wave_server_card_matches_cpu(dev):
+    """Reduced rwkv6 in fp32 with INT4 SplitQuant weights: the wave server
+    on the card gives the CPU server's greedy tokens, over a wave whose
+    padded length is a multiple of 16 (the WKV kernel) and one whose
+    length is not (the step recurrence)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.launch.serve import build_params
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+    cfg = get_arch("rwkv6-3b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", device="cpu")
+    rng = np.random.default_rng(2)
+    lens = [32, 20, 7, 16, 37, 5, 12, 30]
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lens]
+    outs = {}
+    for d, p in (("cpu", params), ("cuda", tree_to(params, dev))):
+        srv = Server(cfg, p, ServeConfig(max_batch=4, max_new_tokens=8),
+                     device=d)
+        before = wk.wkv_chunked.launches
+        fin = srv.serve([Request(i, pr) for i, pr in enumerate(prompts)])
+        outs[d] = [r.out for r in fin]
+        if d == "cuda":
+            assert wk.wkv_chunked.launches - before == cfg.n_layers
     assert outs["cuda"] == outs["cpu"]

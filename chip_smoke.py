@@ -14,7 +14,10 @@ Phases (any failure exits non-zero):
    events, warmed up, L2 flushed between launches), the plain version's
    time, a one-call PyTorch yardstick where one exists, and the least
    time the card could take (the larger of bytes over 3.35 TB/s and
-   operations over the bf16 tensor-core rate, 989 TFLOP/s). The attention
+   operations over the bf16 tensor-core rate, 989 TFLOP/s); the matmul
+   cases also print their achieved TFLOP/s and share of the bound, and
+   the build's ``-Xptxas -v`` lines of the tensor-core matmul kernel
+   (registers, shared memory, spills) are printed first. The attention
    kernels do their work as fp32 FMAs on the CUDA cores; the time that
    work needs at 67 TFLOP/s is printed beside the bound as ``fp32_core_ms``
    (in the per-case details), not as the bound;
@@ -24,7 +27,8 @@ Phases (any failure exits non-zero):
    max_len 1024, 96-token prefill chunks, 16 seeded requests of 16-512
    prompt tokens and 32 new tokens each. Every kernel's launch count is
    set to 0 just before the run and read just after; each of the engine's
-   kernels must be > 0;
+   kernels must be > 0, and every matmul launch must be of the bf16
+   tensor-core variant;
 4. cross-check: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
    tokens;
@@ -33,7 +37,8 @@ Phases (any failure exits non-zero):
    the wave loop: waves of 8, 16 seeded requests of 64-256 prompt tokens
    (multiples of 16, so the chunked WKV kernel carries every prefill) and
    32 new tokens each. The counts are set to 0 just before the run and
-   read just after; ``wkv_chunked`` and ``splitquant_matmul`` must be > 0;
+   read just after; ``wkv_chunked`` and ``splitquant_matmul`` must be > 0,
+   and every matmul launch must be of the bf16 tensor-core variant;
 6. rwkv6 cross-check: rwkv6-3b ``.reduced()`` in fp32 through the wave
    server on the card and on the CPU with the same weights, over one wave
    whose padded length is a multiple of 16 and one whose length is not:
@@ -41,12 +46,15 @@ Phases (any failure exits non-zero):
 
 The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
-(``launches_by_path`` splits them; the act-quant kernels, on no serving
+(``launches_by_path`` splits them, and ``launches_by_variant`` splits
+the matmul's by kernel variant; the act-quant kernels, on no serving
 path, report their kernel-phase launches); the last is ``{"ok": true,
 "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -158,9 +166,10 @@ class KernelReport:
         if not err <= tol:
             fail(f"{self.name} {case}: max abs err {err} > tol {tol}")
 
-    def entry(self, launches: dict) -> dict:
+    def entry(self, launches: dict, **extra) -> dict:
         """``launches``: the kernel's count per serving run it is on, or
-        {"kernel phase": n} for a kernel on no serving path."""
+        {"kernel phase": n} for a kernel on no serving path; ``extra``
+        keys are added to the entry."""
         tot = lambda k: sum(c[k] for c in self.cases)
         libs = [c["library_ms"] for c in self.cases]
         t_b = sum(c["bytes"] for c in self.cases) / HBM_BYTES_PER_S * 1e3
@@ -176,7 +185,7 @@ class KernelReport:
                 "bound_ms": max(t_b, t_o),
                 "bound_by": "bytes" if t_b >= t_o else "operations",
                 "library_ms": None if None in libs else sum(libs),
-                "cases": self.cases}
+                **extra, "cases": self.cases}
 
 
 def max_err(got, want) -> float:
@@ -191,10 +200,10 @@ def matmul_cases(torch, timer, rep):
     from repro_torch.kernels.splitquant_matmul import splitquant_matmul
     gen = torch.Generator(device="cuda").manual_seed(0)
     bits, k = 4, 3
-    # (arch, K, N, M at decode and at a prefill chunk or wave)
+    # (arch, K, N, M at decode, at a prefill chunk and at a wave prefill)
     shapes = [("stablelm-1.6b", K, N, (8, 96)) for K, N in (
         (2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352))] + \
-        [("rwkv6-3b", K, N, (8, 2048)) for K, N in (
+        [("rwkv6-3b", K, N, (8, 96, 2048)) for K, N in (
             (2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536))]
     for arch, K, N, Ms in shapes:
         qp = torch.randint(0, 256, (K * bits // 8, N), generator=gen,
@@ -218,14 +227,21 @@ def matmul_cases(torch, timer, rep):
             tol = 2 ** -7 * max(1.0, float(want.float().abs().max()))
             nbytes = M * K * 2 + K * N * bits / 8 + K * N / 4 + \
                 2 * k * N * 4 + M * N * 2
+            ms = timer(lambda: splitquant_matmul(x, qp, cp, recip, shift,
+                                                 bits=bits, k=k))
             rep.add(f"{arch} M={M} K={K} N={N} bf16 int4 k=3",
-                    max_err(got, want), tol,
-                    timer(lambda: splitquant_matmul(x, qp, cp, recip, shift,
-                                                    bits=bits, k=k)),
+                    max_err(got, want), tol, ms,
                     timer(lambda: splitquant_matmul_ref(x, qp, cp, recip,
                                                         shift, bits)),
                     timer(lambda: torch.matmul(x, w)),
                     nbytes, 2 * M * K * N)
+            c = rep.cases[-1]
+            c["tflops"] = 2 * M * K * N / ms * 1e-9
+            c["bound_share"] = c["bound_ms"] / ms
+            log(f"  {'':18s} {'':44s} {c['tflops']:.1f} TFLOP/s, "
+                f"{100 * c['bound_share']:.1f}% of its bound "
+                f"({c['bound_by']}); {c['library_ms'] / ms:.2f}x the "
+                f"speed of torch.matmul")
         del qp, cp, w
 
 
@@ -459,6 +475,44 @@ def act_quant_cases(torch, timer, drep, srep):
                          x, scale, zero, bits=bits)),
                      None, R * N * 2 + R * N + 2 * 3 * 4, 4 * R * N)
 
+def log_ptxas(out: str) -> None:
+    """Registers, shared memory and spills of each instantiation of the
+    tensor-core matmul kernel, from the build's ``-Xptxas -v`` output."""
+    if "wgmma_kernel" not in out:
+        log("ptxas: the library was already built; no compiler output")
+        return
+    lines = out.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and "wgmma_kernel" in line:
+            inst = line.split("sq_matmul_wgmma_kernel")[1].split("EEv")[0]
+            log(f"ptxas sq_matmul_wgmma_kernel{inst}: "
+                f"{lines[i + 1].strip()}; {lines[i + 2].strip()}")
+    from repro_torch.kernels import build
+    lib = build.library()
+    log("dynamic shared memory per block (bits, BM): " + ", ".join(
+        f"({b}, {bm}) {lib.splitquant_matmul_smem(b, bm)} B"
+        for b in (2, 4, 8) for bm in (64, 128)))
+
+
+def reset_counts(counters) -> None:
+    """Every kernel's launch count to 0, the matmul's per variant too."""
+    from repro_torch.kernels import splitquant_matmul as sqm
+    for c in counters.values():
+        c.launches = 0
+    sqm.reset_counts()
+
+
+def matmul_variants(counters, phase: str) -> dict:
+    """The matmul's launches by variant since the last reset; a bf16
+    serving run must have gone through the tensor-core kernel only."""
+    from repro_torch.kernels import splitquant_matmul as sqm
+    v = dict(counters["splitquant_matmul"].variant_launches)
+    if v[sqm.CUDA_CORE] or not v[sqm.TENSOR_CORE]:
+        fail(f"{phase}: the bf16 serving run launched the matmul variants "
+             f"{v}; expected the tensor-core variant only")
+    return v
+
+
 # ------------------------------------------------------------- engine ---
 def percentile(xs, p):
     import numpy as np
@@ -490,8 +544,7 @@ def engine_phase(torch, counters):
     eng = Engine(cfg, params, ecfg, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     for p in prompts:
         eng.submit(p)
@@ -499,6 +552,7 @@ def engine_phase(torch, counters):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
+    variants = matmul_variants(counters, "engine")
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.out) for r in fin)
     if len(fin) != 16 or any(len(r.out) != 32 for r in fin):
@@ -528,14 +582,16 @@ def engine_phase(torch, counters):
            "decode_steps": eng.n_decode_steps,
            "prefill_chunks": eng.n_prefill_chunks,
            "tokens_per_s": n_tok / wall, "peak_mem_bytes": peak,
-           "kv_cache_bytes": eng.cache.nbytes(), "launches": launches}
+           "kv_cache_bytes": eng.cache.nbytes(), "launches": launches,
+           "matmul_variants": variants}
     log(f"engine: {len(fin)} requests, {res['prompt_tokens']} prompt + "
         f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
         f"tok/s; TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
         f"{res['decode_step_p50_s'] * 1e3:.2f} ms; prefill chunk p50 "
         f"{res['prefill_chunk_p50_s'] * 1e3:.2f} ms; {eng.n_decode_steps} "
         f"decode steps, {eng.n_prefill_chunks} prefill chunks; peak memory "
-        f"{peak / 2**30:.2f} GiB; launches {launches}")
+        f"{peak / 2**30:.2f} GiB; launches {launches}; matmul launches by "
+        f"variant {variants}")
     return res
 
 
@@ -589,13 +645,13 @@ def rwkv_phase(torch, counters):
     srv = Server(cfg, params, scfg, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     fin = srv.serve([Request(i, p) for i, p in enumerate(prompts)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
+    variants = matmul_variants(counters, "rwkv6")
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.out) for r in fin)
     if len(fin) != 16 or any(len(r.out) != 32 for r in fin):
@@ -625,14 +681,14 @@ def rwkv_phase(torch, counters):
            "decode_step_p50_s": percentile(srv.decode_step_s, 50),
            "decode_steps": len(srv.decode_step_s),
            "tokens_per_s": n_tok / wall, "peak_mem_bytes": peak,
-           "launches": launches}
+           "launches": launches, "matmul_variants": variants}
     log(f"rwkv6: {len(fin)} requests in {res['waves']} waves, "
         f"{res['prompt_tokens']} prompt + {n_tok} new tokens in {wall:.3f} s "
         f"= {res['tokens_per_s']:.1f} tok/s; wave prefill p50 "
         f"{res['wave_prefill_p50_s'] * 1e3:.1f} ms; decode step p50 "
         f"{res['decode_step_p50_s'] * 1e3:.2f} ms; {res['decode_steps']} "
         f"decode steps; peak memory {peak / 2**30:.2f} GiB; launches "
-        f"{launches}")
+        f"{launches}; matmul launches by variant {variants}")
     return res
 
 
@@ -696,10 +752,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    lib_path = build.build(verbose=True)
+    nvcc_out = io.StringIO()
+    with contextlib.redirect_stdout(nvcc_out):
+        lib_path = build.build(verbose=True)
     build.library()
     t_build = time.perf_counter() - t0
+    log(nvcc_out.getvalue().rstrip())
     log(f"build: {lib_path.name} in {t_build:.1f} s")
+    log_ptxas(nvcc_out.getvalue())
 
     timer = Timer(torch)
     reps = {n: KernelReport(n) for n in TPU_KERNELS}
@@ -715,8 +775,7 @@ def main() -> None:
                 "prefill_attention": prefill_attention,
                 "quantize_kv": quantize_kv, "wkv_chunked": wkv_chunked,
                 "decode_attention": decode_attention}
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     act_quant_cases(torch, timer, reps["act_split_quantize"],
                     reps["act_split_quantize_static"])
     aq_launches = {n: counters[n].launches for n, p in PATHS.items()
@@ -729,8 +788,11 @@ def main() -> None:
     rxc = rwkv_cross_check(torch)
 
     runs = {"engine": eng["launches"], "wave": rwkv["launches"]}
+    extra = {"splitquant_matmul": {"launches_by_variant": {
+        "engine": eng["matmul_variants"], "wave": rwkv["matmul_variants"]}}}
     kernels = [reps[n].entry(
-        {p: runs[p][n] for p in PATHS[n]} or {"kernel phase": aq_launches[n]})
+        {p: runs[p][n] for p in PATHS[n]} or {"kernel phase": aq_launches[n]},
+        **extra.get(n, {}))
         for n in TPU_KERNELS]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -100,11 +100,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-#: C signature of every exported launcher; each returns cudaError_t.
+#: C signature of every exported function; each launcher returns
+#: cudaError_t.
 SIGNATURES = {
-    # x, qp, cp, recip, shift, y, ws, M, K, N, bits, k, x_is_bf16,
-    # splits, stream
-    "splitquant_matmul": [_P] * 7 + [_I] * 7 + [_P],
+    # x, qp, cp, recip, shift, y, ws, M, K, N, bits, k, x_is_bf16, bm,
+    # splits, k_per_split, stream
+    "splitquant_matmul": [_P] * 7 + [_I] * 9 + [_P],
     # q, k, v, kv_pos, q_pos, ks, kz, vs, vz, o, N, T, Hq, Hkv, D, C,
     # int8, q_is_bf16, qscale, stream
     "decode_attention": [_P] * 10 + [_I] * 8 + [_F, _P],
@@ -119,6 +120,8 @@ SIGNATURES = {
     "act_quant_dynamic": [_P] * 4 + [_I] * 5 + [_P],
     # x, scale, zero, q, R, N, n_chunks, bits, x_is_bf16, sms, stream
     "act_quant_static": [_P] * 4 + [_I] * 6 + [_P],
+    # bits, bm -> bytes (not an error code)
+    "splitquant_matmul_smem": [_I] * 2,
 }
 
 

@@ -1,30 +1,74 @@
-"""Fused SplitQuant dequant-matmul: the wrapper of the CUDA kernel
-``csrc/splitquant_matmul.cu`` (which replaces the Pallas TPU kernel
-``repro/kernels/splitquant_matmul.py:_kernel``) and its dispatch.
+"""Fused SplitQuant dequant-matmul: the wrapper of the CUDA kernels in
+``csrc/splitquant_matmul.cu`` (which replace the Pallas TPU kernel
+``repro/kernels/splitquant_matmul.py:_kernel``) and their dispatch.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`~repro_torch.kernels.ref.splitquant_matmul_ref`); on a CUDA
-tensor it launches the kernel or raises. ``splitquant_matmul.launches``
-counts kernel launches.
+tensor it launches a kernel or raises. The variant follows x's dtype:
+bf16 goes to the tensor-core kernel (``"bf16_wgmma"``), fp32 to the
+CUDA-core kernel (``"fp32_cuda_core"``), which keeps the fp32 numbers
+(the tensor cores would round them to TF32). :func:`plan` picks the
+tiles and the K splits. ``splitquant_matmul.launches`` counts kernel
+launches in all, ``splitquant_matmul.variant_launches`` by variant.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import build
 from .ref import splitquant_matmul_ref
 
-#: fp32 partial-sum splits of K are added only when the (M, N) grid alone
-#: would give fewer blocks than this many per SM
-_BLOCKS_PER_SM = 2
-_BM, _BN, _BK = 8, 128, 64
+TENSOR_CORE = "bf16_wgmma"
+CUDA_CORE = "fp32_cuda_core"
+_BK = 64
 
 
-def k_splits(M: int, K: int, N: int, sms: int) -> int:
-    """How many K slices the kernel's grid uses for an (M, K, N) product."""
-    blocks = -(-M // _BM) * -(-N // _BN)
-    want = -(-_BLOCKS_PER_SM * sms // blocks)
-    return max(1, min(want, -(-K // _BK)))
+def blocks_per_sm(variant: str, M: int) -> int:
+    """Blocks per SM that a K split aims at when the (M, N) grid alone has
+    fewer. The tensor-core kernel keeps two blocks on an SM; on the
+    serving shapes (``python -m repro_torch.launch.matmul_sweep``,
+    PERF.md) about 1.5 waves of them were fastest at M <= 64 and M > 128,
+    and one wave at M = 96, where the fp32 workspace of more splits cost
+    more than the fuller grid gained."""
+    if variant == CUDA_CORE:
+        return 2
+    return 2 if 64 < M <= 128 else 3
+
+
+class Plan(NamedTuple):
+    """How one (M, K, N) product is cut: ``bm`` x ``bn`` output tiles,
+    each block walking ``k_per_split`` rows of K (a multiple of ``bk``)
+    in ``splits`` slices, none of them empty."""
+    variant: str
+    bm: int
+    bn: int
+    bk: int
+    splits: int
+    k_per_split: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, K: int, N: int, dtype: torch.dtype, sms: int) -> Plan:
+    """The launch plan of an (M, K) x (K, N) product in ``dtype`` on a
+    card with ``sms`` SMs: bf16 to the tensor-core kernel in tiles of
+    64 x 128 (M <= 64) or 128 x 128, fp32 to the CUDA-core kernel in tiles
+    of 8 x 128. When the (M, N) grid alone has fewer blocks than
+    :func:`blocks_per_sm` per SM, K is split to come near that many."""
+    if dtype == torch.bfloat16:
+        variant, bm = TENSOR_CORE, (64 if M <= 64 else 128)
+    elif dtype == torch.float32:
+        variant, bm = CUDA_CORE, 8
+    else:
+        raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
+    bn, target = 128, blocks_per_sm(variant, M) * sms
+    tiles = -(-K // _BK)
+    blocks = -(-M // bm) * -(-N // bn)
+    want = min(-(-target // blocks), tiles)
+    per = -(-tiles // want)
+    return Plan(variant, bm, bn, _BK, -(-tiles // per), per * _BK)
 
 
 def splitquant_matmul(x: torch.Tensor, q_packed: torch.Tensor,
@@ -56,17 +100,26 @@ def splitquant_matmul(x: torch.Tensor, q_packed: torch.Tensor,
     x = x.contiguous()
     tensors = [t.contiguous() for t in (q_packed, cid_packed, recip, shift)]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    splits = k_splits(M, K, N, build.sm_count(x.device.index or 0))
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-          if splits > 1 else y)
+    p = plan(M, K, N, x.dtype, build.sm_count(x.device.index or 0))
+    ws = (torch.empty((p.splits, M, N), dtype=torch.float32, device=x.device)
+          if p.splits > 1 else y)
     lib = build.library()
     err = lib.splitquant_matmul(
         x.data_ptr(), *(t.data_ptr() for t in tensors), y.data_ptr(),
         ws.data_ptr(), M, K, N, bits, k, int(x.dtype == torch.bfloat16),
-        splits, build.stream_of(x))
+        p.bm, p.splits, p.k_per_split, build.stream_of(x))
     build.check(lib, err, "splitquant_matmul")
     splitquant_matmul.launches += 1
+    splitquant_matmul.variant_launches[p.variant] += 1
     return y
 
 
+def reset_counts() -> None:
+    """Set the total and the per-variant launch counts to 0."""
+    splitquant_matmul.launches = 0
+    for v in splitquant_matmul.variant_launches:
+        splitquant_matmul.variant_launches[v] = 0
+
+
 splitquant_matmul.launches = 0
+splitquant_matmul.variant_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}

@@ -44,7 +44,8 @@ from .serve import build_params, rwkv_smoke_workload, smoke_workload
 DECODE_STEPS = 12
 
 #: device-kernel name fragments of the port's CUDA kernels
-PORT_KERNELS = {"sq_matmul_kernel": "splitquant_matmul",
+PORT_KERNELS = {"sq_matmul_wgmma_kernel": "splitquant_matmul (bf16 wgmma)",
+                "sq_matmul_fp32_kernel": "splitquant_matmul (fp32 CUDA cores)",
                 "split_reduce_kernel": "splitquant_matmul (K-split sum)",
                 "decode_kernel": "decode_attention",
                 "prefill_kernel": "prefill_attention",

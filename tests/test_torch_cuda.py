@@ -23,6 +23,7 @@ from repro_torch.kernels.prefill_attention import (prefill_attention,
                                                    quantize_kv,
                                                    quantize_kv_ref)
 from repro_torch.kernels.ref import splitquant_matmul_ref
+from repro_torch.kernels import splitquant_matmul as sqm
 from repro_torch.kernels.splitquant_matmul import splitquant_matmul
 
 pytestmark = pytest.mark.cuda
@@ -52,10 +53,18 @@ def _packed(gen, K, N, bits, k, dev):
     return qp, cp, recip, shift
 
 
+#: (M, K, N) of the matmul kernel tests: both row tiles of the tensor-core
+#: kernel (64 for M <= 64, else 128), ragged M, K and N, and each tile
+#: with and without K splits (tests/test_torch_matmul_plan.py checks that)
+MATMUL_SHAPES = [
+    (8, 256, 384), (13, 200, 130), (96, 512, 1024), (1, 64, 4),
+    (1, 200, 130), (64, 512, 256), (65, 200, 130), (200, 1024, 384),
+    (8, 256, 51200), (2048, 512, 2560), (2048, 512, 8960), (2048, 200, 130)]
+
+
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N", [(8, 256, 384), (13, 200, 130),
-                                   (96, 512, 1024), (1, 64, 4)])
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
 def test_matmul_kernel_vs_plain(dev, bits, dtype, M, K, N):
     gen = torch.Generator(device=dev).manual_seed(M + K + N + bits)
     qp, cp, recip, shift = _packed(gen, K, N, bits, 3, dev)
@@ -67,6 +76,49 @@ def test_matmul_kernel_vs_plain(dev, bits, dtype, M, K, N):
     want = splitquant_matmul_ref(x, qp, cp, recip, shift, bits)
     assert got.dtype == dtype and got.shape == (M, N)
     _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [8, 200])
+def test_matmul_kernel_other_cluster_counts(dev, k, dtype, M):
+    gen = torch.Generator(device=dev).manual_seed(k + M)
+    qp, cp, recip, shift = _packed(gen, 320, 260, 4, k, dev)
+    x = torch.randn((M, 320), generator=gen, device=dev).to(dtype)
+    got = splitquant_matmul(x, qp, cp, recip, shift, bits=4, k=k)
+    torch.cuda.synchronize()
+    want = splitquant_matmul_ref(x, qp, cp, recip, shift, 4)
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype,variant", [
+    (torch.bfloat16, sqm.TENSOR_CORE), (torch.float32, sqm.CUDA_CORE)])
+@pytest.mark.parametrize("M", [8, 96, 2048])
+def test_matmul_launches_the_variant_of_its_dtype(dev, dtype, variant, M):
+    gen = torch.Generator(device=dev).manual_seed(M)
+    qp, cp, recip, shift = _packed(gen, 256, 384, 4, 3, dev)
+    x = torch.randn((M, 256), generator=gen, device=dev).to(dtype)
+    before = dict(splitquant_matmul.variant_launches)
+    splitquant_matmul(x, qp, cp, recip, shift, bits=4, k=3)
+    after = splitquant_matmul.variant_launches
+    assert after[variant] == before[variant] + 1
+    assert all(after[v] == before[v] for v in after if v != variant)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 2048), (96, 2048, 2048),
+                                   (13, 200, 130)])
+def test_matmul_split_k_bf16_is_deterministic(dev, M, K, N):
+    assert sqm.plan(M, K, N, torch.bfloat16,
+                    torch.cuda.get_device_properties(dev)
+                    .multi_processor_count).splits > 1
+    gen = torch.Generator(device=dev).manual_seed(K)
+    qp, cp, recip, shift = _packed(gen, K, N, 4, 3, dev)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    a = splitquant_matmul(x, qp, cp, recip, shift, bits=4, k=3)
+    b = splitquant_matmul(x, qp, cp, recip, shift, bits=4, k=3)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a, splitquant_matmul_ref(x, qp, cp, recip, shift, 4), 2e-2)
 
 
 def test_matmul_kernel_rejects_untested_bits(dev):

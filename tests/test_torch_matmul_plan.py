@@ -1,0 +1,88 @@
+"""The launch plan of the port's SplitQuant matmul (pure Python, no card):
+for every quantized matrix that stablelm-1.6b's engine and rwkv6-3b's
+wave loop multiply by, at the row counts of a decode step (8), a prompt
+chunk (96) and a wave prefill (2048), the tiles and K splits cover the
+product exactly, the dtype picks the variant, and a grid that would
+underfill the card's 132 SMs is split along K."""
+import pytest
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.kernels.splitquant_matmul import (CUDA_CORE, TENSOR_CORE,
+                                                   blocks_per_sm, plan)
+
+SMS = 132                                   # H100 SXM
+
+
+def _shapes(arch):
+    """(K, N) of every SplitQuant matrix of the arch's serving path."""
+    cfg = get_arch(arch)
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    if cfg.family == "ssm":                 # time mix r k v g o, channel mix
+        return sorted({(d, d), (d, ff), (ff, d), (d, v)})
+    hd = d // cfg.n_heads
+    return sorted({(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+                   (cfg.n_heads * hd, d), (d, ff), (ff, d), (d, v)})
+
+
+CASES = [(arch, K, N, M) for arch in ("stablelm-1.6b", "rwkv6-3b")
+         for K, N in _shapes(arch) for M in (8, 96, 2048)]
+
+
+def test_main_path_shapes():
+    assert _shapes("stablelm-1.6b") == [(2048, 2048), (2048, 5632),
+                                        (2048, 100352), (5632, 2048)]
+    assert _shapes("rwkv6-3b") == [(2560, 2560), (2560, 8960),
+                                   (2560, 65536), (8960, 2560)]
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch,K,N,M", CASES)
+def test_plan_covers_the_product(arch, K, N, M, dtype, bits):
+    p = plan(M, K, N, dtype, SMS)
+    assert p.variant == (TENSOR_CORE if dtype == torch.bfloat16
+                         else CUDA_CORE)
+    if dtype == torch.bfloat16:
+        assert p.bm == (64 if M <= 64 else 128)
+    else:
+        assert p.bm == 8
+    assert (p.bn, p.bk) == (128, 64)
+    assert p.k_per_split % p.bk == 0
+    # the K slices tile [0, K) exactly, none empty
+    assert (p.splits - 1) * p.k_per_split < K <= p.splits * p.k_per_split
+    # the row and column tiles cover M and N, the last one not empty
+    for size, tile in ((M, p.bm), (N, p.bn)):
+        n = -(-size // tile)
+        assert (n - 1) * tile < size <= n * tile
+    blocks = -(-M // p.bm) * -(-N // p.bn)
+    tiles = -(-K // p.bk)
+    if blocks < SMS and tiles > 1:
+        assert p.splits > 1                 # an underfilled grid is split
+    target = blocks_per_sm(p.variant, M) * SMS
+    if blocks >= target:
+        assert p.splits == 1                # a full grid is not
+    else:                                   # nor split past its target
+        assert (p.splits - 1) * blocks < target
+    # the code bytes of a K slice start on a packed-byte boundary
+    assert (p.k_per_split * bits) % 8 == 0
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 4), (13, 200, 130), (65, 200, 130),
+                                   (2048, 200, 130), (8, 4, 1)])
+def test_plan_of_ragged_shapes(M, K, N):
+    for dtype in (torch.bfloat16, torch.float32):
+        p = plan(M, K, N, dtype, SMS)
+        assert (p.splits - 1) * p.k_per_split < K <= p.splits * p.k_per_split
+
+
+def test_card_tests_cover_both_tiles_with_and_without_splits():
+    from test_torch_cuda import MATMUL_SHAPES
+    seen = {(p.bm, p.splits > 1) for p in
+            (plan(M, K, N, torch.bfloat16, SMS) for M, K, N in MATMUL_SHAPES)}
+    assert seen == {(64, False), (64, True), (128, False), (128, True)}
+
+
+def test_plan_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        plan(8, 64, 64, torch.float16, SMS)

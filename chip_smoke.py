@@ -11,24 +11,31 @@ Phases (any failure exits non-zero):
    card, at the shapes its path gives it (stablelm-1.6b's engine, rwkv6-3b's
    wave prefill and decode, and rwkv6-3b activation widths for the two
    act-quant kernels, which no serving path runs), with its time (CUDA
-   events, warmed up, L2 flushed between launches), the plain version's
+   events, warmed up, L2 flushed and the host let run ahead between
+   launches: device time, not the wrapper's host time), the plain version's
    time, a one-call PyTorch yardstick where one exists, and the least
    time the card could take (the larger of bytes over 3.35 TB/s and
    operations over the bf16 tensor-core rate, 989 TFLOP/s); the matmul
    cases also print their achieved TFLOP/s and share of the bound, and
-   the build's ``-Xptxas -v`` lines of the tensor-core matmul kernel
-   (registers, shared memory, spills) are printed first. The attention
-   kernels do their work as fp32 FMAs on the CUDA cores; the time that
-   work needs at 67 TFLOP/s is printed beside the bound as ``fp32_core_ms``
-   (in the per-case details), not as the bound;
+   the build's ``-Xptxas -v`` lines of the tensor-core matmul kernel and
+   of the two attention kernels (registers, spills, shared memory) are
+   printed first. The decode cases (stablelm-1.6b and chatglm3-6b at 8
+   slots of 1024 rows, stablelm-1.6b at 4096) and the prefill cases
+   print their share of the bound, their speed against SDPA and the
+   wrapper's host time per call. Decode attention does its work as
+   fp32 FMAs on the CUDA cores (prefill, for bf16 q, on the tensor
+   cores); the time each case's work needs at 67 TFLOP/s is kept as
+   ``fp32_core_ms`` in the per-case details, not as the bound;
 3. engine: stablelm-1.6b at its published widths (seeded random bf16
    weights, SplitQuant INT4 k=3, quantized on the card) served by the
    continuous-batching engine over an int8 slot cache: 8 slots,
    max_len 1024, 96-token prefill chunks, 16 seeded requests of 16-512
    prompt tokens and 32 new tokens each. Every kernel's launch count is
    set to 0 just before the run and read just after; each of the engine's
-   kernels must be > 0, and every matmul launch must be of the bf16
-   tensor-core variant;
+   kernels must be > 0, every matmul and every prefill-attention launch
+   must be of its bf16 tensor-core variant, every decode-attention launch
+   must split T across blocks, and the decode and prefill attention
+   launches per step and layer are printed;
 4. cross-check: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
    tokens;
@@ -47,9 +54,10 @@ Phases (any failure exits non-zero):
 The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
 (``launches_by_path`` splits them, and ``launches_by_variant`` splits
-the matmul's by kernel variant; the act-quant kernels, on no serving
-path, report their kernel-phase launches); the last is ``{"ok": true,
-"device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
+those of the matmul and of the two attention kernels by variant; the
+act-quant kernels, on no serving path, report their kernel-phase
+launches); the last is ``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -67,6 +75,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = 989e12                  # dense bf16 tensor-core rate
 FP32_CORE_OPS = 67e12              # fp32 outside the tensor cores
+SLEEP_CYCLES = 2_000_000           # ~1 ms at the H100's 1.98 GHz
 TPU_KERNELS = {
     "splitquant_matmul": "src/repro/kernels/splitquant_matmul.py:83",
     "act_split_quantize": "src/repro/kernels/act_quant.py:60",
@@ -110,10 +119,12 @@ def log(msg: str) -> None:
 class Timer:
     """Mean device time of one call: CUDA events around each launch,
     after warm-up, with the L2 cache flushed between launches (the
-    serving path meets every weight and cache row cold). The flush is
-    large enough (512 MiB, ~0.2 ms of writes) that the host has queued
-    the call before the start event fires, so the interval holds the
-    call's device time and not the wrapper's host overhead."""
+    serving path meets every weight and cache row cold). After the flush
+    the stream sleeps ~1 ms on the card, so the host has queued the whole
+    call (all its launches) before the start event fires and the
+    interval holds the call's device time and not the wrapper's host
+    overhead; a call that synchronizes inside (a plain version) still
+    counts its host time."""
 
     def __init__(self, torch, reps: int = 10, warmup: int = 2):
         self.torch = torch
@@ -128,6 +139,7 @@ class Timer:
         pairs = []
         for _ in range(self.reps):
             self.flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -136,6 +148,20 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
+
+
+def host_us(torch, fn, reps: int = 200) -> float:
+    """Host time of one wrapper call: a loop of ``reps`` calls with no
+    synchronize inside (the card catches up afterwards)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -186,6 +212,17 @@ class KernelReport:
                 "bound_by": "bytes" if t_b >= t_o else "operations",
                 "library_ms": None if None in libs else sum(libs),
                 **extra, "cases": self.cases}
+
+
+def log_against_sdpa(rep, host: float) -> None:
+    """The last case's share of its bound, speed against SDPA and the
+    wrapper's host time per call."""
+    c = rep.cases[-1]
+    c["bound_share"] = c["bound_ms"] / c["ms"]
+    c["host_us"] = host
+    log(f"  {'':18s} {'':44s} {100 * c['bound_share']:.1f}% of its bound "
+        f"({c['bound_by']}); {c['library_ms'] / c['ms']:.2f}x the speed of "
+        f"SDPA; wrapper host time {host:.1f} us a call")
 
 
 def max_err(got, want) -> float:
@@ -254,8 +291,9 @@ def _decode_inputs(torch, gen, N, T, Hq, Hkv, D, C):
                     device="cuda").to(torch.bfloat16)
     qk, ks, kz = quantize_kv_ref(k, C)
     qv, vs, vz = quantize_kv_ref(v, C)
-    # ragged depths, slot 2 empty
-    depths = [1000, 513, 0, 17, 256, 777, 64, 1023][:N]
+    # ragged depths (at T = 1024, scaled with T), slot 2 empty
+    depths = [d * T // 1024 for d in (1000, 513, 0, 17, 256, 777, 64,
+                                      1023)][:N]
     kv_pos = torch.full((N, T), -1, dtype=torch.int32, device="cuda")
     for n, d in enumerate(depths):
         kv_pos[n, :d] = torch.arange(d, device="cuda", dtype=torch.int32)
@@ -270,9 +308,10 @@ def decode_cases(torch, timer, rep):
                                                       decode_attention_ref,
                                                       dequant_chunk)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    N, T, C = 8, 1024, 4
-    for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
-                             ("chatglm3-6b", 32, 2, 128)):
+    N, C = 8, 4
+    for arch, Hq, Hkv, D, T in (("stablelm-1.6b", 32, 32, 64, 1024),
+                                ("chatglm3-6b", 32, 2, 128, 1024),
+                                ("stablelm-1.6b", 32, 32, 64, 4096)):
         q, qk, qv, kv_pos, q_pos, sc = _decode_inputs(torch, gen, N, T, Hq,
                                                       Hkv, D, C)
         got = decode_attention(q, qk, qv, kv_pos, q_pos, *sc)
@@ -303,6 +342,8 @@ def decode_cases(torch, timer, rep):
                 timer(lambda: decode_attention_ref(q, qk, qv, kv_pos, q_pos,
                                                    *sc)),
                 lib, nbytes, 4 * E * Hq * D)
+        log_against_sdpa(rep, host_us(torch, lambda: decode_attention(
+            q, qk, qv, kv_pos, q_pos, *sc)))
 
 
 def prefill_cases(torch, timer, rep, qrep):
@@ -365,6 +406,8 @@ def prefill_cases(torch, timer, rep, qrep):
                 timer(lambda: prefill_attention_ref(
                     q, kn, vn, ck, cv, kv_pos, pos_start, length, *sc)),
                 lib, nbytes, 4 * Hq * D * (Ec * Sq + pairs))
+        log_against_sdpa(rep, host_us(torch, lambda: prefill_attention(
+            q, kn, vn, ck, cv, kv_pos, pos_start, length, *sc)))
         # the quantize kernel alone, at its two main-path shapes: the
         # prefill epilogue (Sq, Hkv, D) and the decode write (N, Hkv, D)
         for what, x in (("prefill chunk", kn), ("decode write",
@@ -476,40 +519,63 @@ def act_quant_cases(torch, timer, drep, srep):
                      None, R * N * 2 + R * N + 2 * 3 * 4, 4 * R * N)
 
 def log_ptxas(out: str) -> None:
-    """Registers, shared memory and spills of each instantiation of the
-    tensor-core matmul kernel, from the build's ``-Xptxas -v`` output."""
-    if "wgmma_kernel" not in out:
+    """Registers, spills and shared memory of each instantiation of the
+    tensor-core matmul kernel and of the two attention kernels, from the
+    build's ``-Xptxas -v`` output, and their dynamic shared memory at the
+    shapes of the kernel phase."""
+    kernels = ("sq_matmul_wgmma_kernel", "decode_split_kernel",
+               "prefill_tc_kernel")
+    if not any(k in out for k in kernels):
         log("ptxas: the library was already built; no compiler output")
         return
     lines = out.splitlines()
     for i, line in enumerate(lines):
-        if "Function properties for" in line and "wgmma_kernel" in line:
-            inst = line.split("sq_matmul_wgmma_kernel")[1].split("EEv")[0]
-            log(f"ptxas sq_matmul_wgmma_kernel{inst}: "
-                f"{lines[i + 1].strip()}; {lines[i + 2].strip()}")
+        for k in kernels:
+            if "Function properties for" in line and k in line:
+                inst = line.split(k)[1].split("EEv")[0]
+                log(f"ptxas {k}{inst}: {lines[i + 1].strip()}; "
+                    f"{lines[i + 2].strip()}")
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import decode_plan
     lib = build.library()
-    log("dynamic shared memory per block (bits, BM): " + ", ".join(
+    log("matmul dynamic shared memory per block (bits, BM): " + ", ".join(
         f"({b}, {bm}) {lib.splitquant_matmul_smem(b, bm)} B"
         for b in (2, 4, 8) for bm in (64, 128)))
+    for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
+                             ("chatglm3-6b", 32, 2, 128)):
+        p = decode_plan(8, 1024, Hkv, Hq // Hkv, build.sm_count(0))
+        log(f"attention dynamic shared memory per block, {arch} int8 C=4: "
+            f"decode {lib.decode_attention_smem(D, 4, 1, p.group, p.warps)} B "
+            f"({p}), prefill {lib.prefill_attention_smem(D, 4, 1, 1024)} B")
 
 
 def reset_counts(counters) -> None:
-    """Every kernel's launch count to 0, the matmul's per variant too."""
+    """Every kernel's launch count to 0, the per-variant counts of the
+    matmul and the two attention kernels too."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
     from repro_torch.kernels import splitquant_matmul as sqm
     for c in counters.values():
         c.launches = 0
-    sqm.reset_counts()
+    for mod in (sqm, pa, da):
+        mod.reset_counts()
 
 
-def matmul_variants(counters, phase: str) -> dict:
-    """The matmul's launches by variant since the last reset; a bf16
-    serving run must have gone through the tensor-core kernel only."""
+def only_variant(counters, name: str, phase: str) -> dict:
+    """``name``'s launches by variant since the last reset. A bf16 serving
+    run must have gone through the matmul's and the prefill attention's
+    tensor-core kernels only, and through the decode attention with T
+    split across blocks only."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
     from repro_torch.kernels import splitquant_matmul as sqm
-    v = dict(counters["splitquant_matmul"].variant_launches)
-    if v[sqm.CUDA_CORE] or not v[sqm.TENSOR_CORE]:
-        fail(f"{phase}: the bf16 serving run launched the matmul variants "
-             f"{v}; expected the tensor-core variant only")
+    want, other = {"splitquant_matmul": (sqm.TENSOR_CORE, sqm.CUDA_CORE),
+                   "prefill_attention": (pa.TENSOR_CORE, pa.CUDA_CORE),
+                   "decode_attention": (da.SPLIT, da.WHOLE)}[name]
+    v = dict(counters[name].variant_launches)
+    if v[other] or not v[want]:
+        fail(f"{phase}: the bf16 serving run launched the {name} variants "
+             f"{v}; expected {want!r} only")
     return v
 
 
@@ -552,7 +618,9 @@ def engine_phase(torch, counters):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    variants = matmul_variants(counters, "engine")
+    variants = only_variant(counters, "splitquant_matmul", "engine")
+    pvariants = only_variant(counters, "prefill_attention", "engine")
+    dvariants = only_variant(counters, "decode_attention", "engine")
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.out) for r in fin)
     if len(fin) != 16 or any(len(r.out) != 32 for r in fin):
@@ -583,7 +651,14 @@ def engine_phase(torch, counters):
            "prefill_chunks": eng.n_prefill_chunks,
            "tokens_per_s": n_tok / wall, "peak_mem_bytes": peak,
            "kv_cache_bytes": eng.cache.nbytes(), "launches": launches,
-           "matmul_variants": variants}
+           "matmul_variants": variants, "prefill_variants": pvariants,
+           "decode_variants": dvariants,
+           "decode_launches_per_step_layer":
+               launches["decode_attention"] / eng.n_decode_steps
+               / cfg.n_layers,
+           "prefill_launches_per_chunk_layer":
+               launches["prefill_attention"] / eng.n_prefill_chunks
+               / cfg.n_layers}
     log(f"engine: {len(fin)} requests, {res['prompt_tokens']} prompt + "
         f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
         f"tok/s; TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
@@ -591,7 +666,11 @@ def engine_phase(torch, counters):
         f"{res['prefill_chunk_p50_s'] * 1e3:.2f} ms; {eng.n_decode_steps} "
         f"decode steps, {eng.n_prefill_chunks} prefill chunks; peak memory "
         f"{peak / 2**30:.2f} GiB; launches {launches}; matmul launches by "
-        f"variant {variants}")
+        f"variant {variants}; prefill attention launches by variant "
+        f"{pvariants}; decode attention launches by variant {dvariants}; "
+        f"per step and layer: decode attention "
+        f"{res['decode_launches_per_step_layer']:.2f}, prefill attention "
+        f"{res['prefill_launches_per_chunk_layer']:.2f} (per chunk)")
     return res
 
 
@@ -651,7 +730,7 @@ def rwkv_phase(torch, counters):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    variants = matmul_variants(counters, "rwkv6")
+    variants = only_variant(counters, "splitquant_matmul", "rwkv6")
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.out) for r in fin)
     if len(fin) != 16 or any(len(r.out) != 32 for r in fin):
@@ -789,7 +868,11 @@ def main() -> None:
 
     runs = {"engine": eng["launches"], "wave": rwkv["launches"]}
     extra = {"splitquant_matmul": {"launches_by_variant": {
-        "engine": eng["matmul_variants"], "wave": rwkv["matmul_variants"]}}}
+        "engine": eng["matmul_variants"], "wave": rwkv["matmul_variants"]}},
+        "prefill_attention": {"launches_by_variant": {
+            "engine": eng["prefill_variants"]}},
+        "decode_attention": {"launches_by_variant": {
+            "engine": eng["decode_variants"]}}}
     kernels = [reps[n].entry(
         {p: runs[p][n] for p in PATHS[n]} or {"kernel phase": aq_launches[n]},
         **extra.get(n, {}))

@@ -106,12 +106,14 @@ SIGNATURES = {
     # x, qp, cp, recip, shift, y, ws, M, K, N, bits, k, x_is_bf16, bm,
     # splits, k_per_split, stream
     "splitquant_matmul": [_P] * 7 + [_I] * 9 + [_P],
-    # q, k, v, kv_pos, q_pos, ks, kz, vs, vz, o, N, T, Hq, Hkv, D, C,
-    # int8, q_is_bf16, qscale, stream
-    "decode_attention": [_P] * 10 + [_I] * 8 + [_F, _P],
-    # q, k_new, v_new, ck, cv, kv_pos, ks, kz, vs, vz, o, Sq, T, Hq, Hkv,
-    # D, C, pos_start, length, int8, x_is_bf16, qscale, stream
-    "prefill_attention": [_P] * 11 + [_I] * 10 + [_F, _P],
+    # q, k, v, kv_pos, q_pos, ks, kz, vs, vz, o, part_o, part_ml, counter,
+    # N, T, Hq, Hkv, D, C, int8, q_is_bf16, group, rows, splits, warps,
+    # qscale, stream
+    "decode_attention": [_P] * 13 + [_I] * 12 + [_F, _P],
+    # q, k_new, v_new, ck, cv, kv_pos, ks, kz, vs, vz, o, part_o, part_ml,
+    # counter, Sq, T, Hq, Hkv, D, C, pos_start, length, int8, x_is_bf16,
+    # cache_rows, cache_splits, qscale, stream
+    "prefill_attention": [_P] * 14 + [_I] * 12 + [_F, _P],
     # x, codes, scale, zero, groups, chunk_len, x_is_bf16, stream
     "quantize_kv": [_P] * 4 + [_I] * 3 + [_P],
     # r, k, v, w, u, s0, y, s_out, BH, T, K, V, VS, x_is_bf16, stream
@@ -122,6 +124,10 @@ SIGNATURES = {
     "act_quant_static": [_P] * 4 + [_I] * 6 + [_P],
     # bits, bm -> bytes (not an error code)
     "splitquant_matmul_smem": [_I] * 2,
+    # D, C, int8, group, warps -> bytes (not an error code)
+    "decode_attention_smem": [_I] * 5,
+    # D, C, int8, T -> bytes (not an error code)
+    "prefill_attention_smem": [_I] * 4,
 }
 
 
@@ -160,6 +166,27 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def stream_of(t) -> int:
+_counters: dict = {}
+
+
+def merge_counters(kernel: str, device, n: int):
+    """``n`` int32 counters of ``kernel`` on ``device`` for the
+    last-block merge of a split launch: zeroed once when allocated; the
+    kernel sets each one it uses back to 0, so a call leaves them zeroed.
+    Launches that share them run in stream order: the port launches every
+    kernel on the device's current stream."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    buf = _counters.get((kernel, device))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[(kernel, device)] = buf
+    return buf
+
+
+def stream_of(t) -> int:
+    """The raw handle of the current CUDA stream of ``t``'s device, read as
+    PyTorch's own kernel launchers read it: ``torch.cuda.current_stream``
+    builds a ``Stream`` object on every call, several µs of host time a
+    launch."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

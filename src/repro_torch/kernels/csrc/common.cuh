@@ -30,6 +30,28 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float dequant_kv(int8_t q, float s, float z) {
   return __fdiv_rn(__fsub_rn((float)q, z), s);
 }
+// The same value without a division per element, from the code as a
+// float: with inv = __frcp_rn(s) (the correctly rounded 1/s), q0 = x * inv
+// is within an ulp of x / s, the residual x - q0 * s is exact in one FMA,
+// and q0 + residual * inv rounds to the correctly rounded quotient
+// (Markstein's correction), i.e. to __fdiv_rn(x, s) whenever s, 1/s and
+// x/s are normal numbers, which every scale the cache holds is
+// (tests/test_torch_attention_plan.py checks the identity over the
+// scales' range).
+__device__ __forceinline__ float dequant_kv_rcp(float qf, float s, float inv, float z) {
+  const float x = __fsub_rn(qf, z);
+  const float q0 = __fmul_rn(x, inv);
+  return __fmaf_rn(__fmaf_rn(-q0, s, x), inv, q0);
+}
+
+// Byte j (0-3, a constant) of a word of four int8 codes as an exact float,
+// without a conversion instruction (those issue at a quarter of the FMA
+// rate): `w80` is the word XOR 0x80808080, so the byte is the code plus
+// 128; placed in the low mantissa bits of 2^23 it reads 2^23 + 128 + code,
+// and subtracting 2^23 + 128 is exact.
+__device__ __forceinline__ float code_f(uint32_t w80, int j) {
+  return __int_as_float(__byte_perm(w80, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+}
 
 // Dynamic quantization parameters and codes by eqs. (1)-(3), with
 // exactly the reference's fp32 operations: true divisions (levels/span,

@@ -1,203 +1,742 @@
-// Fused decode attention over the slot KV cache for Hopper (sm_90a).
+// Split-T (flash-decoding) decode attention over the slot KV cache for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py
-// (_fused_kernel, pallas_call at :164): one query token per slot
-// attends over that slot's cache rows with an online softmax. INT8 codes
-// are dequantized per sub-channel chunk as (q - Z) / S next to the dot
-// product; an entry is valid when 0 <= kv_pos <= q_pos; the G = Hq/Hkv
-// query heads of a group share one pass over their kv-head (K/V are
-// never broadcast to Hq); chunks with no valid entry are skipped; an
-// empty slot returns exact 0.
+// (_fused_kernel, pallas_call at :164): one query token per slot attends
+// over that slot's cache rows with an online softmax. INT8 codes stand for
+// (q - Z) / S per sub-channel chunk; an entry is valid when
+// 0 <= kv_pos <= q_pos; the query heads of a group share one read of their
+// kv-head (K/V are never broadcast to Hq); an empty slot returns exact 0.
 //
-// What bounds it: every valid cache entry is read once and used for
-// 4*G*D flops, so at the serving shapes (G = 1 for stablelm, 16 for
-// chatglm3) it is bound by the bytes of the codes and per-entry scales.
+// What bounds it: every valid cache entry is read once (D code bytes and
+// 2*C fp32 scales for each of K and V: 192 B per row and kv-head at
+// D = 64, C = 4) and used for 4*G*D flops, so at the serving shapes it is
+// bound by those bytes (0.0067 ms for stablelm-1.6b's 8 slots at T = 1024).
+// The work, ~0.0005-0.0009 ms at the 67 TFLOP/s of the CUDA cores, is
+// below that bound, so it stays on the CUDA cores in fp32, for fp32 and
+// bf16 q alike (the fp32 cross-checks keep fp32 arithmetic).
 //
-// Design: one block per (kv-head, slot) walks T in chunks of 32 rows.
-// The block first tests the chunk's positions (one syncthreads_or) and
-// skips dead chunks without touching their codes; otherwise it
-// dequantizes the K chunk into shared memory (neighbouring threads read
-// neighbouring bytes of a row), forms the G x 32 scores, updates the
-// running max and sum with one warp per query head (lane = row), then
-// dequantizes the V chunk into the same buffer and accumulates P.V.
-// The fp32 state stays in shared memory for the whole sweep. N * Hkv
-// blocks leave most of the 132 SMs idle for the GQA archs; splitting T
-// across blocks (flash-decoding) is later work.
+// Design. The grid is (kv-head x head group, slot, split): T is cut into
+// `splits` ranges of `rows` rows (decode_plan in decode_attention.py picks
+// them so the grid comes near two blocks per SM). A block of 1-4 warps
+// owns one range; each warp walks its own 32-row tiles of it with no
+// block-wide barrier:
+//  - the warp first reads the positions of all its tiles (eight tiles'
+//    worth of loads in flight at once) into one valid-row mask per tile
+//    (a ballot), and skips a tile with no valid row without touching its
+//    codes, so a split with no valid row reads no codes and leaves an
+//    empty partial (sum 0);
+//  - codes come by 16-byte cp.async (scales by 4-byte cp.async) into a
+//    double buffer of the warp's own shared memory, so the next tile's
+//    bytes are in flight while this one is computed; a code row's 16-byte
+//    chunks are XOR-swizzled by row, so a lane per row reads them without
+//    bank conflicts and without padding;
+//  - a code becomes a float by one byte permute and one exact subtraction
+//    (rt::code_f), not by a conversion instruction;
+//  - Q.K: lane = row; the lane forms its row's scores for the block's
+//    query heads (q, pre-scaled, is read from shared memory as a
+//    broadcast: G x D floats would not fit in registers for a lane that
+//    needs all of them); a row's dot product needs no shuffle;
+//  - the running max is a warp_max; the running sum stays a per-lane
+//    partial until the end;
+//  - one head (GB = 1) and D <= 64, the row path (stablelm-1.6b): P.V is
+//    lane = row as well, into D per-lane accumulators added across the
+//    warp once at the end; the scale is folded out of each chunk c of a
+//    row: q.k = sum_c (1/S_c) (sum_{d in c} q_d code_d - Z_c sum_{d in c}
+//    q_d), the chunk sums of q taken once per block, and P.V accumulates
+//    w code and w Z_c with w = p / S_c, subtracted at the end, so a code
+//    costs a permute, a subtraction and one FMA in each product. This
+//    rounds otherwise than the plain version's per-element (q - Z) / S,
+//    within the kernel's fp32 tolerance;
+//  - head groups, or D = 128 (the column path, chatglm3-6b): each code is
+//    dequantized as (q - Z) * (1/S) corrected by one FMA of its exact
+//    residual, which rounds as the true division does
+//    (rt::dequant_kv_rcp; tests/test_torch_attention_plan.py checks it),
+//    and P.V is lane = D/32 columns, each row's p and 1/S read from
+//    shared memory.
+// At the end the block's warps are merged in warp order in shared memory.
+// With one split the block writes the output. Otherwise it writes an fp32
+// partial (acc, max, sum) and the last block of its (slot, head group) to
+// finish -- found by __threadfence and an atomic ticket, which that block
+// sets back to 0 -- merges all partials by log-sum-exp in split order, so
+// two calls give bit-identical output: one launch per layer and step. The
+// merge reads four neighbouring outputs a load with the loads of several
+// outputs and splits in flight.
+//
+// Heads: a block takes GB = 16, 4 or 1 query heads of a group (the
+// largest that divides G); the group's kv-head is read once per block.
+//
+// Shared memory is dynamic: GB*D*4 bytes of q (and C chunk sums on the
+// row path) plus, per warp, two stages of 32 rows of K and V codes (row
+// pitch D*sizeof(KV)) and the scale arrays (S and Z of K and V, and 1/S of
+// each on the column path; row pitch C + 1 floats), a 32 x (GB+1) float P
+// buffer and 64 valid-row masks. Registers, spills and the bytes a block
+// takes at the serving shapes are printed by chip_smoke.py (PERF.md).
 #include "common.cuh"
+#include "sm90.cuh"
+
+#include <type_traits>
 
 namespace {
 
-constexpr int TC = 32;
-constexpr int THREADS = 128;
+constexpr int TR = 32;          // rows per warp tile
+constexpr int MAX_WARPS = 4;
+constexpr int MAX_DL = 4;       // columns per lane in P.V: D / 32 <= 4
+constexpr int MAX_SPLITS = 64;  // the merge's weights fit any block's shared memory
+constexpr int SMEM_MAX = 232448;
 
-template <typename KV>
-__device__ __forceinline__ float load_kv(const KV* p, size_t i, const float* s,
-                                         const float* z, size_t si) {
-  return rt::to_f(p[i]);
+struct Args {
+  const void *q, *k, *v;
+  const int *kv_pos, *q_pos;
+  const float *ks, *kz, *vs, *vz;
+  void* o;
+  float* part_o;   // (splits, N, Hq, D) fp32
+  float* part_ml;  // (splits, N, Hq, 2): running max, sum
+  int* counter;    // (N, Hkv * G / GB), 0 between calls
+  int N, T, Hq, Hkv, D, C, cl_shift, rows, splits;
+  float qscale;
+};
+
+// Per-warp shared-memory layout, in bytes. `by_row`: P.V runs with lane =
+// row (GB = 1, D <= 64) and takes 1/S in registers, so a stage holds four
+// scale arrays (S, Z of K, then of V) instead of six (with 1/S).
+struct Geo {
+  int kp;     // pitch of a K or V code row: D * sizeof(KV), no padding
+  int sp;     // pitch of a scale row, in floats (odd: no bank conflicts)
+  int na;     // scale arrays a stage holds
+  int stage;  // one stage: K rows, V rows, then the scale arrays
+  int warp;   // two stages, the P buffer and the tiles' valid-row masks
+};
+
+// 32-row tiles a warp walks at most: a split holds at most 4 * MAX_TW
+// tiles (the launcher checks), and a warp keeps one valid-row mask each.
+constexpr int MAX_TW = 64;
+
+__host__ __device__ inline Geo geo(int D, int C, int kv_bytes, int GB, bool by_row) {
+  Geo g;
+  g.kp = D * kv_bytes;
+  g.sp = C + 1;
+  g.na = C ? (by_row ? 4 : 6) : 0;
+  g.stage = (2 * TR * g.kp + g.na * TR * g.sp * 4 + 15) / 16 * 16;
+  g.warp = (2 * g.stage + TR * (GB + 1) * 4 + MAX_TW * 4 + 15) / 16 * 16;
+  return g;
 }
-template <>
-__device__ __forceinline__ float load_kv<int8_t>(const int8_t* p, size_t i,
-                                                 const float* s, const float* z,
-                                                 size_t si) {
-  return rt::dequant_kv(p[i], s[si], z[si]);
+
+// Bytes before the warps' regions: q (GB x D floats) and, on the row path,
+// q summed per sub-channel chunk (C floats), rounded up to 16.
+__host__ __device__ inline int head_bytes(int GB, int D, int C, bool by_row) {
+  return (GB * D * 4 + (by_row ? C * 4 : 0) + 15) / 16 * 16;
 }
 
-template <typename KV, typename Q>
-__global__ void __launch_bounds__(THREADS)
-decode_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
-              const KV* __restrict__ v, const int* __restrict__ kv_pos,
-              const int* __restrict__ q_pos, const float* __restrict__ ks,
-              const float* __restrict__ kz, const float* __restrict__ vs,
-              const float* __restrict__ vz, Q* __restrict__ o, int T, int Hq,
-              int Hkv, int D, int C, float qscale) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, n = blockIdx.y;
-  const int G = Hq / Hkv;
-  const int DP = D + 1;                      // padded row: no bank conflicts
-  float* qs = smem;                          // [G][D]
-  float* acc = qs + G * D;                   // [G][D]
-  float* kvs = acc + G * D;                  // [TC][D+1]
-  float* S = kvs + TC * DP;                  // [G][TC]
-  float* m_run = S + G * TC;                 // [G]
-  float* l_run = m_run + G;                  // [G]
-  float* corr = l_run + G;                   // [G]
-  int* valid = (int*)(corr + G);             // [TC]
+// Byte offsets of the 16-byte chunks of a tile of `kp`-byte code rows:
+// chunk c of row r lies at r * kp + 16 * (c ^ x(r)), x(r) the row's index
+// among the rows that share a 128-byte bank window (modulo the chunks a
+// row has, at most 8), so 8 lanes reading chunk c of 8 consecutive rows
+// (lane = row) hit 8 different bank groups.
+struct Swizzle {
+  int kp, shift, mask;
+  __device__ Swizzle(int kp_) : kp(kp_) {
+    const int nck = kp / 16;
+    shift = kp >= 128 ? 0 : kp == 64 ? 1 : 2;   // log2(128 / kp), kp >= 32
+    mask = (nck < 8 ? nck : 8) - 1;
+  }
+  __device__ __forceinline__ int x16(int r) const { return ((r >> shift) & mask) << 4; }
+  __device__ __forceinline__ int at(int r, int c) const { return r * kp + ((c << 4) ^ x16(r)); }
+};
 
+// Log-sum-exp merge of `parts` partial states (max, sum, acc) of GB query
+// heads in a fixed order, empty ones (sum 0) weighing 0. The weights come
+// first, one (head, part) a thread; then each thread sums four
+// neighbouring outputs at a time over the parts, with the loads of four
+// such groups in flight together. ml(g, j) and acc4(g, j, d) read a part
+// (acc4: columns d..d+3); out(g, d, value) writes one result.
+template <int GB, typename ML, typename ACC, typename OUT>
+__device__ __forceinline__ void merge_parts(float* wsm, int parts, int D, ML ml,
+                                            ACC acc4, OUT out) {
+  float* wt = wsm;                        // [GB][parts] weights
+  float* lj = wsm + GB * parts;           // [GB][parts] sums
+  float* ltot = wsm + 2 * GB * parts;     // [GB] total sum
+  for (int i = threadIdx.x; i < GB * parts; i += blockDim.x) {
+    const float2 v = ml(i / parts, i % parts);
+    wt[i] = v.y > 0.f ? v.x : rt::NEG_INF;   // the part's max, if any
+    lj[i] = v.y;
+  }
+  __syncthreads();
+  for (int g = threadIdx.x; g < GB; g += blockDim.x) {
+    float M = rt::NEG_INF, L = 0.f;
+    for (int j = 0; j < parts; ++j) M = fmaxf(M, wt[g * parts + j]);
+    for (int j = 0; j < parts; ++j) {
+      const float l = lj[g * parts + j];
+      const float e = l > 0.f ? expf(wt[g * parts + j] - M) : 0.f;
+      wt[g * parts + j] = e;
+      L += l * e;
+    }
+    ltot[g] = L;
+  }
+  __syncthreads();
+  constexpr int U = 4;
+  const int n4 = GB * D / 4;
+  for (int i0 = threadIdx.x; i0 < n4; i0 += U * blockDim.x) {
+    float4 A[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) A[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    // every part holds finite values (an empty one zeros), so the loads
+    // need no condition and are all in flight together
+#pragma unroll 4
+    for (int j = 0; j < parts; ++j) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = min(i0 + u * (int)blockDim.x, n4 - 1);
+        const int g = i / (D / 4), d = (i % (D / 4)) * 4;
+        const float e = wt[g * parts + j];
+        const float4 v = acc4(g, j, d);
+        A[u].x = fmaf(v.x, e, A[u].x);
+        A[u].y = fmaf(v.y, e, A[u].y);
+        A[u].z = fmaf(v.z, e, A[u].z);
+        A[u].w = fmaf(v.w, e, A[u].w);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i >= n4) break;
+      const int g = i / (D / 4), d = (i % (D / 4)) * 4;
+      const float L = ltot[g];
+      const float r[4] = {A[u].x, A[u].y, A[u].z, A[u].w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        out(g, d + k, L > 0.f ? __fdiv_rn(r[k], fmaxf(L, 1e-30f)) : 0.f);
+    }
+  }
+}
+
+// DM > 0 (GB = 1, D <= 64): P.V with lane = row as well, into DM >= D
+// per-lane accumulators added across the warp once at the end; DM = 0:
+// P.V with lane = columns (GB > 1, or D = 128, where GB x D accumulators
+// per lane would not fit in registers). The row path over an int8 cache
+// is bounded to 128 registers a thread so that four blocks of four warps
+// fit an SM.
+template <int GB, int DM, typename KV, typename Q>
+__global__ void __launch_bounds__(MAX_WARPS * 32,
+                                  DM > 0 && std::is_same<KV, int8_t>::value ? 4 : 1)
+decode_split_kernel(Args a) {
+  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
+  constexpr bool BY_ROW = DM > 0;
+  constexpr int NCH = GB == 1 ? 4 : 1;       // independent FMA chains in Q.K
+  // scale arrays of a stage: S and Z of K and of V; 1/S of each unless
+  // the row path takes it in registers
+  constexpr int KS = 0, KZ = 1, KR = 2, VS = BY_ROW ? 2 : 3, VZ = VS + 1, VR = 5;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last_block;
+  const int D = a.D, C = a.C, DL = D / 32;
+  const int G = a.Hq / a.Hkv, groups = G / GB;
+  const int h = blockIdx.x / groups;
+  const int hq0 = h * G + (blockIdx.x % groups) * GB;  // first query head
+  const int n = blockIdx.y, s = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int nwarps = blockDim.x / 32;
-  const int qp = q_pos[n];
-  const int cl = D / max(C, 1);
+  const int W = blockDim.x / 32;
+  const unsigned FULL = 0xffffffffu;
+  const Geo gm = geo(D, C, (int)sizeof(KV), GB, BY_ROW);
+  const Swizzle sw(gm.kp);
+  const int SQ = TR * gm.sp;                                // one scale array
+  float* qs = (float*)smem;                                 // [GB][D]
+  float* qsum = qs + GB * D;                                // [C], row path only
+  unsigned char* region = smem + head_bytes(GB, D, C, BY_ROW);
+  unsigned char* wbase = region + warp * gm.warp;
+  float* P = (float*)(wbase + 2 * gm.stage);                // [TR][GB+1]
+  uint32_t* vmask = (uint32_t*)(P + TR * (GB + 1));         // [MAX_TW]
 
-  for (int i = tid; i < G * D; i += blockDim.x) {
+  {  // q (pre-scaled): the GB heads' rows are contiguous; four loads in flight
+    const Q* qg = (const Q*)a.q + ((size_t)n * a.Hq + hq0) * D;
+    for (int i0 = tid; i0 < GB * D; i0 += 4 * blockDim.x) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * blockDim.x;
+        v[u] = i < GB * D ? rt::to_f(__ldg(qg + i)) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * blockDim.x;
+        if (i < GB * D) qs[i] = __fmul_rn(v[u], a.qscale);
+      }
+    }
+  }
+  __syncthreads();
+  if (INT8 && BY_ROW) {  // q summed over each sub-channel chunk
+    const int cl = D / C;
+    for (int c = tid; c < C; c += blockDim.x) {
+      float t = 0.f;
+      for (int d = 0; d < cl; ++d) t += qs[c * cl + d];
+      qsum[c] = t;
+    }
+    __syncthreads();
+  }
+
+  const int qp = a.q_pos[n];
+  const int lo = s * a.rows, hi = min(a.T, lo + a.rows);
+  const int ntiles = (hi - lo + TR - 1) / TR;
+  const int* pos = a.kv_pos + (size_t)n * a.T;
+  const int rb = D * (int)sizeof(KV), nck = rb / 16;
+  // the lane's (row, 16-byte chunk) and (row, scale) in a tile, and the
+  // rows a pass covers: nck and C divide 32 (the launcher checks)
+  const int kr0 = lane / nck, kc0 = lane % nck, kstep = 32 / nck;
+  const int sr0 = C ? lane / C : 0, sc0 = C ? lane % C : 0, sstep = C ? 32 / C : TR;
+
+  // accr / bz4 (row path, int8): sum_r w_r code_{r,d} and sum_r w_r Z_r
+  // per group of four columns, w_r = p_r / S_r; P.V = accr - bz4
+  constexpr int NR = DM > 0 ? DM : 1;
+  float m[GB], l[GB], acc[GB][MAX_DL], accr[NR], bz4[(NR + 3) / 4];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    m[g] = rt::NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAX_DL; ++i) acc[g][i] = 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < NR; ++d) accr[d] = 0.f;
+#pragma unroll
+  for (int j = 0; j < (NR + 3) / 4; ++j) bz4[j] = 0.f;
+
+  auto pos_of = [&](int tile) {  // the lane's row of a tile; -1 past the range
+    const int t = lo + tile * TR + lane;
+    return tile < ntiles && t < hi ? pos[t] : -1;
+  };
+  auto ok = [&](int p) { return p >= 0 && p <= qp; };
+  // codes and scales of a tile by cp.async; rows past the range are
+  // zero-filled (scale 1) so that P.V may multiply them by p = 0
+  auto issue = [&](int tile, int st) {
+    const int t0 = lo + tile * TR;
+    unsigned char* buf = wbase + st * gm.stage;
+    for (int r = kr0, c = kc0; r < TR; r += kstep) {
+      const int at = sw.at(r, c);
+      unsigned char* dk = buf + at;
+      unsigned char* dv = buf + TR * gm.kp + at;
+      if (t0 + r >= hi) {
+        *(uint4*)dk = make_uint4(0u, 0u, 0u, 0u);
+        *(uint4*)dv = make_uint4(0u, 0u, 0u, 0u);
+        continue;
+      }
+      const size_t off = (((size_t)n * a.T + t0 + r) * a.Hkv + h) * rb + c * 16;
+      sm90::cp_async16(sm90::smem_addr(dk), (const char*)a.k + off);
+      sm90::cp_async16(sm90::smem_addr(dv), (const char*)a.v + off);
+    }
+    if (INT8) {
+      float* sb = (float*)(buf + 2 * TR * gm.kp);
+      for (int r = sr0, c = sc0; r < TR; r += sstep) {
+        const int so = r * gm.sp + c;
+        if (t0 + r >= hi) {
+          sb[KS * SQ + so] = sb[VS * SQ + so] = 1.f;
+          sb[KZ * SQ + so] = sb[VZ * SQ + so] = 0.f;
+          continue;
+        }
+        const size_t si = (((size_t)n * a.T + t0 + r) * a.Hkv + h) * C + c;
+        sm90::cp_async4(sm90::smem_addr(sb + KS * SQ + so), a.ks + si);
+        sm90::cp_async4(sm90::smem_addr(sb + KZ * SQ + so), a.kz + si);
+        sm90::cp_async4(sm90::smem_addr(sb + VS * SQ + so), a.vs + si);
+        sm90::cp_async4(sm90::smem_addr(sb + VZ * SQ + so), a.vz + si);
+      }
+    }
+  };
+  auto compute = [&](int st, bool valid) {
+    unsigned char* buf = wbase + st * gm.stage;
+    float* sb = (float*)(buf + 2 * TR * gm.kp);
+    if (INT8 && !BY_ROW) {  // the tile's reciprocal scales, once per (row, chunk)
+      for (int r = sr0; r < TR; r += sstep) {
+        const int so = r * gm.sp + sc0;
+        sb[KR * SQ + so] = __frcp_rn(sb[KS * SQ + so]);
+        sb[VR * SQ + so] = __frcp_rn(sb[VS * SQ + so]);
+      }
+      __syncwarp();
+    }
+
+    // Q.K: lane = row
+    float sc[GB][NCH];
+#pragma unroll
+    for (int g = 0; g < GB; ++g)
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) sc[g][j] = 0.f;
+    const unsigned char* kr = buf + lane * gm.kp;
+    const int swl = sw.x16(lane);               // the lane's row's chunk XOR, x 16
+    if (INT8 && BY_ROW) {
+      // the scale folded out of each chunk c of the row:
+      // s = sum_c (1/S_c) (sum_{d in c} q_d code_d - Z_c sum_{d in c} q_d)
+      const float* srow = sb + lane * gm.sp;
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      int c_cur = 0;
+      auto fold = [&](int c) {
+        const float tc = (t[0] + t[1]) + (t[2] + t[3]);
+        sc[0][0] = fmaf(__frcp_rn(srow[KS * SQ + c]),
+                        fmaf(-srow[KZ * SQ + c], qsum[c], tc), sc[0][0]);
+        t[0] = t[1] = t[2] = t[3] = 0.f;
+      };
+#pragma unroll
+      for (int d0 = 0; d0 < NR; d0 += 16) {
+        if (d0 >= D) break;
+        const uint4 raw = *(const uint4*)(kr + (d0 ^ swl));
+        const uint32_t words[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
+                                   raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
+#pragma unroll
+        for (int sub = 0; sub < 4; ++sub) {
+          const int d = d0 + 4 * sub, c = d >> a.cl_shift;
+          if (c != c_cur) {  // the same chunk on every lane
+            fold(c_cur);
+            c_cur = c;
+          }
+          const float4 q4 = *(const float4*)&qs[d];
+          t[0] = fmaf(q4.x, rt::code_f(words[sub], 0), t[0]);
+          t[1] = fmaf(q4.y, rt::code_f(words[sub], 1), t[1]);
+          t[2] = fmaf(q4.z, rt::code_f(words[sub], 2), t[2]);
+          t[3] = fmaf(q4.w, rt::code_f(words[sub], 3), t[3]);
+        }
+      }
+      fold(c_cur);
+    } else if (INT8) {
+      const float* srow = sb + lane * gm.sp;
+      int c_cur = -1;
+      float S = 1.f, Z = 0.f, R = 1.f;
+      for (int d0 = 0; d0 < D; d0 += 16) {
+        const uint4 raw = *(const uint4*)(kr + (d0 ^ swl));
+        const uint32_t words[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
+                                   raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
+#pragma unroll
+        for (int sub = 0; sub < 4; ++sub) {
+          const int d = d0 + 4 * sub, c = d >> a.cl_shift;
+          if (c != c_cur) {  // the same chunk on every lane
+            c_cur = c;
+            S = srow[KS * SQ + c];
+            Z = srow[KZ * SQ + c];
+            R = srow[KR * SQ + c];
+          }
+          float kv[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) kv[j] = rt::dequant_kv_rcp(rt::code_f(words[sub], j), S, R, Z);
+#pragma unroll
+          for (int g = 0; g < GB; ++g) {
+            const float4 q4 = *(const float4*)&qs[g * D + d];
+            float& acc_s = sc[g][sub % NCH];
+            acc_s = fmaf(q4.x, kv[0], acc_s);
+            acc_s = fmaf(q4.y, kv[1], acc_s);
+            acc_s = fmaf(q4.z, kv[2], acc_s);
+            acc_s = fmaf(q4.w, kv[3], acc_s);
+          }
+        }
+      }
+    } else {
+      for (int d = 0; d < D; d += 4) {
+        const float4 kv = *(const float4*)(kr + ((d * 4) ^ swl));
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          const float4 q4 = *(const float4*)&qs[g * D + d];
+          float& acc_s = sc[g][(d / 4) % NCH];
+          acc_s = fmaf(q4.x, kv.x, acc_s);
+          acc_s = fmaf(q4.y, kv.y, acc_s);
+          acc_s = fmaf(q4.z, kv.z, acc_s);
+          acc_s = fmaf(q4.w, kv.w, acc_s);
+        }
+      }
+    }
+
+    // online softmax; the sum stays a per-lane partial
+    float p_row = 0.f;
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      float sg = sc[g][0];
+#pragma unroll
+      for (int j = 1; j < NCH; ++j) sg += sc[g][j];
+      const float sv = valid ? sg : rt::NEG_INF;
+      const float m_new = fmaxf(m[g], rt::warp_max(sv));
+      const float p = valid ? expf(sv - m_new) : 0.f;
+      const float corr = expf(m[g] - m_new);
+      l[g] = l[g] * corr + p;
+      m[g] = m_new;
+      if constexpr (DM > 0) {
+        if (corr != 1.f) {  // the same on every lane
+#pragma unroll
+          for (int d = 0; d < DM; ++d) accr[d] *= corr;
+#pragma unroll
+          for (int j = 0; j < DM / 4; ++j) bz4[j] *= corr;
+        }
+        p_row = p;
+      } else {
+#pragma unroll
+        for (int i = 0; i < MAX_DL; ++i) acc[g][i] *= corr;
+        P[lane * (GB + 1) + g] = p;
+      }
+    }
+    __syncwarp();
+
+    if constexpr (DM > 0) {
+      // P.V: lane = row; per chunk c of the row w = p / S_c, so that
+      // p (code - Z_c) / S_c = w code - w Z_c: accr += w code, bz4 += w Z_c
+      const unsigned char* vr = buf + (TR + lane) * gm.kp;
+      if (INT8) {
+        const float* srow = sb + lane * gm.sp;
+        int c_cur = -1;
+        float w = 0.f, wz = 0.f;
+#pragma unroll
+        for (int d0 = 0; d0 < DM; d0 += 16) {
+          if (d0 >= D) break;
+          const uint4 raw = *(const uint4*)(vr + (d0 ^ swl));
+          const uint32_t words[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
+                                     raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
+#pragma unroll
+          for (int sub = 0; sub < 4; ++sub) {
+            const int d = d0 + 4 * sub, c = d >> a.cl_shift;
+            if (c != c_cur) {
+              c_cur = c;
+              w = p_row * __frcp_rn(srow[VS * SQ + c]);
+              wz = w * srow[VZ * SQ + c];
+            }
+            bz4[d / 4] += wz;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              accr[d + j] = fmaf(w, rt::code_f(words[sub], j), accr[d + j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int d = 0; d < DM; d += 4) {
+          if (d >= D) break;
+          const float4 v4 = *(const float4*)(vr + ((d * 4) ^ swl));
+          accr[d] = fmaf(p_row, v4.x, accr[d]);
+          accr[d + 1] = fmaf(p_row, v4.y, accr[d + 1]);
+          accr[d + 2] = fmaf(p_row, v4.z, accr[d + 2]);
+          accr[d + 3] = fmaf(p_row, v4.w, accr[d + 3]);
+        }
+      }
+      return;
+    }
+
+    // P.V: lane = columns lane + 32 i; rows with p = 0 add 0
+    const unsigned char* vb = buf + TR * gm.kp;
+#pragma unroll
+    for (int i = 0; i < MAX_DL; ++i) {
+      if (i >= DL) break;
+      const int d = lane + 32 * i, c = INT8 ? d >> a.cl_shift : 0;
+      // the column's 16-byte chunk (XORed by row, as the copy placed it)
+      // and its 4-byte word within the chunk; its byte in that word
+      const int db = d * (int)sizeof(KV), wo = (db & 15) & ~3, bj = db & 3;
+#pragma unroll 4
+      for (int r = 0; r < TR; ++r) {
+        const uint32_t w = *(const uint32_t*)(vb + sw.at(r, db >> 4) + wo);
+        float vv;
+        if (INT8) {
+          const float* srow = sb + r * gm.sp + c;
+          vv = rt::dequant_kv_rcp(rt::code_f(w ^ 0x80808080u, bj), srow[VS * SQ],
+                                  srow[VR * SQ], srow[VZ * SQ]);
+        } else {
+          vv = __uint_as_float(w);
+        }
+#pragma unroll
+        for (int g = 0; g < GB; ++g) acc[g][i] = fmaf(P[r * (GB + 1) + g], vv, acc[g][i]);
+      }
+    }
+  };
+
+  // the warp's tiles: warp, warp + W, ...; first the valid-row mask of
+  // each (one ballot over the lanes' rows), the positions of eight tiles
+  // in flight at once, so the walk never waits on a position
+  const int ntw = warp < ntiles ? (ntiles - warp + W - 1) / W : 0;
+  for (int k0 = 0; k0 < ntw; k0 += 8) {
+    int p[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) p[u] = pos_of(warp + (k0 + u) * W);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const uint32_t msk = __ballot_sync(FULL, ok(p[u]));
+      if (lane == 0 && k0 + u < ntw) vmask[k0 + u] = msk;
+    }
+  }
+  __syncwarp();
+
+  // the walk, double-buffered: a tile with no valid row is skipped
+  // without touching its codes
+  int cur = warp;
+  bool cur_live = ntw > 0 && vmask[0] != 0;
+  if (cur_live) issue(cur, 0);
+  sm90::cp_async_commit();
+  for (int it = 0; it < ntw; ++it) {
+    const bool nxt_live = it + 1 < ntw && vmask[it + 1] != 0;
+    if (nxt_live) issue(cur + W, (it + 1) & 1);
+    sm90::cp_async_commit();
+    if (cur_live) {
+      sm90::cp_async_wait<1>();
+      __syncwarp();
+      compute(it & 1, (vmask[it] >> lane) & 1u);
+      __syncwarp();  // the buffer is refilled in the next iteration
+    }
+    cur += W;
+    cur_live = nxt_live;
+  }
+  sm90::cp_async_wait<0>();
+#pragma unroll
+  for (int g = 0; g < GB; ++g) l[g] = rt::warp_sum(l[g]);
+  if constexpr (DM > 0) {  // the row-path accumulators, added across the warp
+#pragma unroll
+    for (int d = 0; d < DM; ++d) accr[d] = rt::warp_sum(accr[d]);
+    if (INT8) {
+#pragma unroll
+      for (int j = 0; j < DM / 4; ++j) {
+        const float b = rt::warp_sum(bz4[j]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) accr[4 * j + k] -= b;
+      }
+    }
+  }
+
+  // merge the block's warps in warp order
+  __syncthreads();
+  float* aw = (float*)region;        // [W][GB][D], 16-byte aligned (float4 reads)
+  float* mw = aw + W * GB * D;       // [W][GB]
+  float* lw = mw + W * GB;           // [W][GB]
+  float* wsm = lw + W * GB;          // merge weights
+  if constexpr (DM > 0) {
+#pragma unroll
+    for (int d = 0; d < DM; ++d)
+      if (d < D && d % 32 == lane) aw[warp * D + d] = accr[d];
+  }
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+#pragma unroll
+    for (int i = 0; i < MAX_DL; ++i)
+      if (DM == 0 && i < DL) aw[(warp * GB + g) * D + lane + 32 * i] = acc[g][i];
+    if (lane == 0) {
+      mw[warp * GB + g] = m[g];
+      lw[warp * GB + g] = l[g];
+    }
+  }
+  __syncthreads();
+  Q* out = (Q*)a.o;
+  const size_t row0 = (size_t)n * a.Hq + hq0;
+  if (a.splits == 1) {
+    merge_parts<GB>(
+        wsm, W, D, [&](int g, int w) { return make_float2(mw[w * GB + g], lw[w * GB + g]); },
+        [&](int g, int w, int d) { return *(const float4*)&aw[(w * GB + g) * D + d]; },
+        [&](int g, int d, float v) { out[(row0 + g) * D + d] = rt::from_f<Q>(v); });
+    return;
+  }
+  // this split's partial: the warps' merge, unnormalized; each warp's
+  // weight exp(m_w - M) per head first (0 for a warp with no valid row)
+  float* ew = wsm;                   // [W][GB]
+  for (int g = tid; g < GB; g += blockDim.x) {
+    float M = rt::NEG_INF, L = 0.f;
+    for (int w = 0; w < W; ++w)
+      if (lw[w * GB + g] > 0.f) M = fmaxf(M, mw[w * GB + g]);
+    for (int w = 0; w < W; ++w) {
+      const float e = lw[w * GB + g] > 0.f ? expf(mw[w * GB + g] - M) : 0.f;
+      ew[w * GB + g] = e;
+      L += lw[w * GB + g] * e;
+    }
+    const size_t prow = (size_t)s * a.N * a.Hq + row0 + g;
+    a.part_ml[2 * prow] = M;
+    a.part_ml[2 * prow + 1] = L;
+  }
+  __syncthreads();
+  for (int i = tid; i < GB * D; i += blockDim.x) {
     const int g = i / D, d = i % D;
-    qs[i] = __fmul_rn(rt::to_f(q[((size_t)n * Hq + h * G + g) * D + d]), qscale);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += blockDim.x) {
-    m_run[g] = rt::NEG_INF;
-    l_run[g] = 0.f;
+    float A = 0.f;
+    for (int w = 0; w < W; ++w) A = fmaf(aw[(w * GB + g) * D + d], ew[w * GB + g], A);
+    a.part_o[((size_t)s * a.N * a.Hq + row0 + g) * D + d] = A;
   }
 
-  for (int t0 = 0; t0 < T; t0 += TC) {
-    int any = 0;
-    if (tid < TC) {
-      const int t = t0 + tid;
-      const int p = t < T ? kv_pos[(size_t)n * T + t] : -1;
-      valid[tid] = (p >= 0) && (p <= qp);
-      any = valid[tid];
-    }
-    if (!__syncthreads_or(any)) continue;
-
-    // K chunk → shared (dequantized), rows past T read as 0
-    for (int i = tid; i < TC * D; i += blockDim.x) {
-      const int t = i / D, d = i % D;
-      float val = 0.f;
-      if (t0 + t < T) {
-        const size_t row = ((size_t)n * T + t0 + t) * Hkv + h;
-        val = load_kv<KV>(k, row * D + d, ks, kz, row * C + d / cl);
-      }
-      kvs[t * DP + d] = val;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * TC; i += blockDim.x) {
-      const int g = i / TC, t = i % TC;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qs[g * D + d], kvs[t * DP + d], s);
-      S[i] = valid[t] ? s : rt::NEG_INF;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += nwarps) {
-      const float s = S[g * TC + lane];
-      const float m_new = fmaxf(m_run[g], rt::warp_max(s));
-      const float p = valid[lane] ? expf(s - m_new) : 0.f;
-      S[g * TC + lane] = p;
-      const float sum = rt::warp_sum(p);
-      if (lane == 0) {
-        const float c = expf(m_run[g] - m_new);
-        corr[g] = c;
-        l_run[g] = l_run[g] * c + sum;
-        m_run[g] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < TC * D; i += blockDim.x) {
-      const int t = i / D, d = i % D;
-      float val = 0.f;
-      if (t0 + t < T) {
-        const size_t row = ((size_t)n * T + t0 + t) * Hkv + h;
-        val = load_kv<KV>(v, row * D + d, vs, vz, row * C + d / cl);
-      }
-      kvs[t * DP + d] = val;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * D; i += blockDim.x) {
-      const int g = i / D, d = i % D;
-      float a = 0.f;
-      for (int t = 0; t < TC; ++t) a = fmaf(S[g * TC + t], kvs[t * DP + d], a);
-      acc[i] = acc[i] * corr[g] + a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    const int g = i / D, d = i % D;
-    const float l = l_run[g];
-    const float out = l > 0.f ? acc[i] / fmaxf(l, 1e-30f) : 0.f;
-    o[((size_t)n * Hq + h * G + g) * D + d] = rt::from_f<Q>(out);
-  }
+  // the last block of this (slot, head group) merges the splits in order
+  __threadfence();
+  __syncthreads();
+  int* counter = a.counter + (size_t)n * gridDim.x + blockIdx.x;
+  if (tid == 0) last_block = atomicAdd(counter, 1) == a.splits - 1;
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  const size_t stride = (size_t)a.N * a.Hq;
+  merge_parts<GB>(
+      wsm, a.splits, D,
+      [&](int g, int j) {
+        const size_t prow = j * stride + row0 + g;
+        return make_float2(__ldcg(a.part_ml + 2 * prow), __ldcg(a.part_ml + 2 * prow + 1));
+      },
+      [&](int g, int j, int d) {
+        return __ldcg((const float4*)(a.part_o + (j * stride + row0 + g) * D + d));
+      },
+      [&](int g, int d, float v) { out[(row0 + g) * D + d] = rt::from_f<Q>(v); });
+  if (tid == 0) *counter = 0;
 }
 
-template <typename KV, typename Q>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_pos,
-                   const int* q_pos, const float* ks, const float* kz,
-                   const float* vs, const float* vz, void* o, int N, int T,
-                   int Hq, int Hkv, int D, int C, float qscale, cudaStream_t st) {
-  const int G = Hq / Hkv;
-  const size_t smem =
-      sizeof(float) * (2 * G * D + TC * (D + 1) + G * TC + 3 * G) + sizeof(int) * TC;
-  auto kern = decode_kernel<KV, Q>;
+// Dynamic shared memory of a block, and the warps it launches with: the
+// plan's warps, fewer if they would not fit.
+size_t block_smem(int D, int C, int kv_bytes, int GB, int& warps) {
+  const bool by_row = GB == 1 && D <= 64;
+  const Geo gm = geo(D, C, kv_bytes, GB, by_row);
+  for (; warps >= 1; --warps) {
+    const size_t smem = (size_t)head_bytes(GB, D, C, by_row) + (size_t)warps * gm.warp;
+    if (smem <= SMEM_MAX) return smem;
+  }
+  return 0;
+}
+
+template <int GB, int DM, typename KV, typename Q>
+cudaError_t launch(const Args& a, int warps, cudaStream_t st) {
+  const size_t smem = block_smem(a.D, a.C, (int)sizeof(KV), GB, warps);
+  if (warps < 1) return cudaErrorInvalidConfiguration;
+  auto kern = decode_split_kernel<GB, DM, KV, Q>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(Hkv, N), THREADS, smem, st>>>(
-      (const Q*)q, (const KV*)k, (const KV*)v, kv_pos, q_pos, ks, kz, vs, vz,
-      (Q*)o, T, Hq, Hkv, D, C, qscale);
+  const int G = a.Hq / a.Hkv;
+  kern<<<dim3(a.Hkv * (G / GB), a.N, a.splits), warps * 32, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-// The slot cache holds int8 codes or fp32 values (engine.kvcache).
-template <typename Q>
-cudaError_t dispatch_kv(int int8, const void* q, const void* k, const void* v,
-                        const int* kv_pos, const int* q_pos, const float* ks,
-                        const float* kz, const float* vs, const float* vz,
-                        void* o, int N, int T, int Hq, int Hkv, int D, int C,
-                        float qscale, cudaStream_t st) {
-  if (int8)
-    return launch<int8_t, Q>(q, k, v, kv_pos, q_pos, ks, kz, vs, vz, o, N, T, Hq,
-                             Hkv, D, C, qscale, st);
-  return launch<float, Q>(q, k, v, kv_pos, q_pos, ks, kz, vs, vz, o, N, T, Hq,
-                          Hkv, D, C, qscale, st);
+template <typename KV, typename Q>
+cudaError_t dispatch_group(const Args& a, int group, int warps, cudaStream_t st) {
+  switch (group) {
+    case 16: return launch<16, 0, KV, Q>(a, warps, st);
+    case 4: return launch<4, 0, KV, Q>(a, warps, st);
+    case 1:  // lane = row in P.V up to D = 64; 128 accumulators would spill
+      return a.D <= 64 ? launch<1, 64, KV, Q>(a, warps, st)
+                       : launch<1, 0, KV, Q>(a, warps, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// Bytes of dynamic shared memory a block takes (0 if it does not fit).
+extern "C" int decode_attention_smem(int D, int C, int int8, int group, int warps) {
+  return (int)block_smem(D, int8 ? C : 0, int8 ? 1 : 4, group, warps);
+}
+
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* kv_pos, const void* q_pos,
                                 const void* ks, const void* kz, const void* vs,
-                                const void* vz, void* o, int N, int T, int Hq,
-                                int Hkv, int D, int C, int int8, int q_is_bf16,
-                                float qscale, void* stream) {
-  if (N <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
-      (int8 && (C <= 0 || D % C != 0)))
+                                const void* vz, void* o, void* part_o,
+                                void* part_ml, void* counter, int N, int T,
+                                int Hq, int Hkv, int D, int C, int int8,
+                                int q_is_bf16, int group, int rows, int splits,
+                                int warps, float qscale, void* stream) {
+  if (N <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      (D != 32 && D != 64 && D != 128) || rows <= 0 || rows % TR != 0 || splits <= 0 || splits > MAX_SPLITS ||
+      (long long)(splits - 1) * rows >= T || (long long)splits * rows < T ||
+      warps < 1 || warps > MAX_WARPS || rows / TR > warps * MAX_TW ||
+      (Hq / Hkv) % group != 0 ||
+      (splits > 1 && (!part_o || !part_ml || !counter)))
     return (int)cudaErrorInvalidValue;
+  int cl_shift = 0;
+  if (int8) {
+    if (C <= 0 || D % C != 0) return (int)cudaErrorInvalidValue;
+    const int cl = D / C;
+    if (cl < 4 || (cl & (cl - 1))) return (int)cudaErrorInvalidValue;
+    while ((1 << cl_shift) < cl) ++cl_shift;
+  }
+  Args a{q, k, v, (const int*)kv_pos, (const int*)q_pos, (const float*)ks,
+         (const float*)kz, (const float*)vs, (const float*)vz, o,
+         (float*)part_o, (float*)part_ml, (int*)counter,
+         N, T, Hq, Hkv, D, int8 ? C : 0, cl_shift, rows, splits, qscale};
   cudaStream_t st = (cudaStream_t)stream;
-  const auto* kp = (const int*)kv_pos;
-  const auto* qp = (const int*)q_pos;
-  const auto *a = (const float*)ks, *b = (const float*)kz, *c = (const float*)vs,
-             *d = (const float*)vz;
   if (q_is_bf16)
-    return (int)dispatch_kv<__nv_bfloat16>(int8, q, k, v, kp, qp, a, b, c, d, o, N,
-                                           T, Hq, Hkv, D, C, qscale, st);
-  return (int)dispatch_kv<float>(int8, q, k, v, kp, qp, a, b, c, d, o, N, T, Hq,
-                                 Hkv, D, C, qscale, st);
+    return (int)(int8 ? dispatch_group<int8_t, __nv_bfloat16>(a, group, warps, st)
+                      : dispatch_group<float, __nv_bfloat16>(a, group, warps, st));
+  return (int)(int8 ? dispatch_group<int8_t, float>(a, group, warps, st)
+                    : dispatch_group<float, float>(a, group, warps, st));
 }

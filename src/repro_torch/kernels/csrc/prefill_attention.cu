@@ -8,36 +8,87 @@
 // before the chunk (valid iff 0 <= kv_pos < pos_start; INT8 codes are
 // dequantized per sub-channel chunk as (q - Z) / S) and (b) the chunk's
 // own full-precision K/V under the causal mask key <= query and
-// key < length, with an online softmax across both.
+// key < length, with one online softmax across both.
 //
 // What bounds it: every live cache row (D code bytes plus 2*C fp32
 // scales for each of K and V) is used by the Sq*G queries of its
 // kv-head, 4*Sq*G*D flops for K and V together. At Sq = 96, G = 1,
 // D = 64, C = 4 that is ~128 flops per byte, below the ~295 flop/byte
-// ridge of the bf16 tensor cores (989 TFLOP/s over 3.35 TB/s), so the
-// card's bound is the bytes. This kernel does the work as fp32 FMAs on
-// the CUDA cores (67 TFLOP/s, a ~20 flop/byte ridge), which makes it
-// slower than that bound by construction; a tensor-core (wgmma)
-// formulation is later work.
+// ridge of the bf16 tensor cores, so the card's bound is the bytes
+// (0.0014 ms for stablelm-1.6b at pos_start 384).
 //
-// Design: one block per (query block, kv-head). A block owns R = Bq*G
-// query rows (G heads of one group for Bq queries) so K/V are read once
-// per group and never broadcast to Hq. It walks the cache in chunks of
-// 32 rows, skipping chunks with no valid row after one syncthreads_or,
+// bf16 q: prefill_tc_kernel, FlashAttention-2's shape on the tensor
+// cores. A block of four warps owns 64 query rows of one head group
+// (Bq = 64 / G queries x G heads, row r <-> query r / G, head r % G), so
+// K/V are read once per group and never broadcast to Hq; each warp owns
+// 16 rows. The key range is cut across blocks as well (grid: query
+// blocks x kv-heads x splits; prefill_plan in prefill_attention.py): the
+// cache rows before pos_start in `cache_splits` ranges, the last one also
+// scanning the rest of T, and the chunk's own keys as one more split, so
+// the grid fills the SMs (256 blocks for stablelm-1.6b, 192 for
+// chatglm3-6b). A block walks its range in tiles of 64 keys: 16-byte
+// cp.async (4-byte for the scales) into a double-buffered raw ring; a
+// tile with no live row is skipped without loading its codes; each live
+// tile is dequantized ONCE into bf16 K and V tiles in shared memory (row
+// pitch D + 8, so ldmatrix reads them without bank conflicts).
+// S = Q.K^T and O += P.V are mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate), fragments by ldmatrix (V transposed by ldmatrix.trans);
+// the online softmax runs in registers and P goes from the score
+// registers into the A operand of P.V without touching shared memory.
+// The positions of the whole range are read once up front (four loads a
+// thread in flight) into a live flag per tile. Dequantization reads a code as a float by one byte
+// permute and one exact subtraction (rt::code_f), takes the correctly
+// rounded 1/S once per four codes and corrects (q - Z) * (1/S) by one FMA
+// (rt::dequant_kv_rcp), the rounding of a true division, before the bf16
+// rounding.
+// Each split writes an fp32 partial (acc, max, sum); the last block of a
+// (query block, kv-head) to finish (a __threadfence and an atomic counter
+// that the block sets back to 0) merges the partials by log-sum-exp in
+// split order: one launch, and two calls give bit-identical output.
+// mma.sync rather than wgmma: a warp owns 16 rows, so Bq*G = 64 rows fill
+// one block at every G, and the 96-row chunk needs no 64-row multiple; P
+// stays in the registers of the warp that computed it. The kernel is
+// bound by bytes and latency, not by the tensor-core rate wgmma adds.
+// Rounding points against the fp32 plain version: the dequantized K and
+// V (fp32 (q - Z) / S, then rounded to bf16), P rounded to bf16, the
+// 1/sqrt(D) scale applied to S in fp32 (the plain version scales q), fp32
+// accumulation in the tensor cores' order, and the output to bf16.
+//
+// fp32 q: prefill_fp32_kernel, on the CUDA cores (the tensor cores would
+// make it TF32 and could change the fp32 cross-check's tokens). One block
+// per (32-query block, kv-head) walks the cache in chunks of 32 rows,
+// skipping chunks with no valid row after one syncthreads_or,
 // dequantizes each live K chunk into shared memory, forms R x 32 scores,
 // updates the running max and sum with one warp per query row (lane =
-// key row), then streams the V chunk through the same buffer. The chunk's
-// own K/V follow through the same loop with the causal mask. Scores,
-// running state and the output accumulator stay in shared memory.
+// key row), then streams the V chunk through the same buffer; the
+// chunk's own K/V follow through the same loop with the causal mask.
 //
 // Epilogue (quantize_kv, a second launch from the same wrapper): one
-// thread per (token, head, sub-channel chunk) computes min/max → (S, Z)
-// → codes with common.cuh's exact-rounding helpers, so codes and scales
+// thread per (token, head, sub-channel chunk) computes min/max -> (S, Z)
+// -> codes with common.cuh's exact-rounding helpers, so codes and scales
 // are bit-identical to engine.kvcache.quantize_kv.
+//
+// What holds it back (PERF.md, from clock64 stamps per phase on the H100
+// at stablelm-1.6b's and chatglm3-6b's Sq = 96 chunk): a block's two live
+// tiles each cost about as much to dequantize into bf16 (the 64 x D codes
+// of K and V, every block of a GQA group again) as to run through the
+// tensor cores and the softmax, and the last block's merge of the four
+// partials takes as long as one block's whole walk; the two quantize_kv
+// launches add 10-20% to the wrapper's device time. Shared memory rows
+// are padded to D + 8 bf16 rather than swizzled: ldmatrix reads 8 rows of
+// 16 bytes at a 16-byte offset each, the same conflict-free pattern.
+//
+// Registers, spills and the bytes a block takes at the serving shapes are
+// printed by chip_smoke.py (PERF.md): two blocks an SM at both serving
+// head layouts.
 #include "common.cuh"
+#include "sm90.cuh"
+
+#include <type_traits>
 
 namespace {
 
+// ------------------------------------------------- fp32 q, CUDA cores ---
 constexpr int TC = 32;
 constexpr int THREADS = 256;
 
@@ -112,7 +163,7 @@ __device__ __forceinline__ void chunk_update(Smem& sm, int R, int D, LoadK load_
 
 template <typename KV, typename X>
 __global__ void __launch_bounds__(THREADS)
-prefill_kernel(const X* __restrict__ q, const X* __restrict__ kn,
+prefill_fp32_kernel(const X* __restrict__ q, const X* __restrict__ kn,
                const X* __restrict__ vn, const KV* __restrict__ ck,
                const KV* __restrict__ cv, const int* __restrict__ kv_pos,
                const float* __restrict__ ks, const float* __restrict__ kz,
@@ -188,6 +239,434 @@ prefill_kernel(const X* __restrict__ q, const X* __restrict__ kn,
   }
 }
 
+// ------------------------------------------------ bf16 q, tensor cores ---
+constexpr int QROWS = 64;     // query rows (queries x heads of the group) per block
+constexpr int KT = 64;        // keys per tile
+constexpr int TC_THREADS = 128;
+constexpr int SMEM_MAX = 232448;
+
+struct PArgs {
+  const __nv_bfloat16 *q, *kn, *vn;
+  const void *ck, *cv;
+  const int* kv_pos;
+  const float *ks, *kz, *vs, *vz;
+  __nv_bfloat16* o;
+  float* part_o;   // (splits, Sq, Hq, D)
+  float* part_ml;  // (splits, Sq, Hq, 2): running max, sum
+  int* counter;    // (query blocks, Hkv), 0 between calls
+  int Sq, T, Hq, Hkv, C, cl_shift, pos_start, length, bq, cache_rows,
+      cache_splits;
+  float qscale;
+};
+
+// Shared memory of one block, in bytes: the dequantized bf16 K and V
+// tiles (row pitch D + 8 elements: ldmatrix rows on distinct banks; after
+// the walk, the merge's weights), the row-valid flags of two tiles, a
+// ring of two raw stages (K rows, V rows in the cache's type or bf16,
+// then the four scale arrays of the tile), and one live flag per tile.
+template <int D>
+struct TcGeo {
+  static constexpr int BP = D + 8;
+  static constexpr int KB = 0;
+  static constexpr int VB = KT * BP * 2;
+  static constexpr int RV = 2 * KT * BP * 2;
+  static constexpr int RING = RV + 2 * KT * 4;
+  __host__ __device__ static int rb(int kv_bytes) { return D * (kv_bytes > 2 ? kv_bytes : 2); }
+  __host__ __device__ static int stage(int kv_bytes, int C) {
+    return 2 * KT * rb(kv_bytes) + 4 * KT * C * 4;
+  }
+  __host__ __device__ static int tiles(int T) { return (T + KT - 1) / KT; }
+  __host__ __device__ static int bytes(int kv_bytes, int C, int T) {
+    return RING + 2 * stage(kv_bytes, C) + tiles(T) * 4;
+  }
+};
+// Splits at most: the merge's weights of 64 rows fit in the K and V tiles.
+constexpr int MAX_SPLITS = 16;
+
+template <int D, typename KV>
+__global__ void __launch_bounds__(TC_THREADS)
+prefill_tc_kernel(PArgs a) {
+  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
+  constexpr int BP = TcGeo<D>::BP, KD = D / 16, ND = D / 8, NT = KT / 8;
+  using G_ = TcGeo<D>;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  unsigned char* smem = tc_smem;
+  __shared__ int last_block;
+  __nv_bfloat16* Kb = (__nv_bfloat16*)(smem + G_::KB);
+  __nv_bfloat16* Vb = (__nv_bfloat16*)(smem + G_::VB);
+  int* rv = (int*)(smem + G_::RV);                     // [2][KT]
+  const int C = a.C, G = a.Hq / a.Hkv;
+  const int rbc = D * (int)sizeof(KV);                 // cache row bytes
+  const int RB = G_::rb((int)sizeof(KV));              // raw row pitch
+  const int STAGE = G_::stage((int)sizeof(KV), C);
+  const int qb = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int q0 = qb * a.bq, nrows = a.bq * G;
+  const bool chunk = s == a.cache_splits;              // the chunk's own keys
+
+  // this lane's two query rows: block row warp*16 + gid (+8)
+  int qi[2], hq[2];
+  bool rok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = warp * 16 + gid + 8 * j;
+    qi[j] = q0 + r / G;
+    hq[j] = h * G + r % G;
+    rok[j] = r < nrows && qi[j] < a.Sq;
+  }
+  const int warp_r0 = warp * 16;
+  const bool warp_live = warp_r0 < nrows && q0 + warp_r0 / G < a.Sq;
+  const int warp_qmax = min(a.Sq - 1, q0 + min(nrows - 1, warp_r0 + 15) / G);
+
+  // Q fragments (bf16 as given; the 1/sqrt(D) scale is applied to S in fp32)
+  uint32_t aq[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = j & 1, d = kk * 16 + tig * 2 + (j >> 1) * 8;
+      aq[kk][j] = rok[row] ? *(const uint32_t*)(a.q + ((size_t)qi[row] * a.Hq + hq[row]) * D + d)
+                           : 0u;
+    }
+  float o[ND][4], m[2] = {rt::NEG_INF, rt::NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+
+  // the block's key range
+  int lo, hi;
+  if (chunk) {
+    const int q_last = min(a.Sq, q0 + a.bq) - 1;
+    lo = 0;
+    hi = max(0, min(min(a.Sq, a.length), q_last + 1));
+  } else {
+    lo = s * a.cache_rows;
+    hi = s == a.cache_splits - 1 ? a.T : min(a.T, lo + a.cache_rows);
+  }
+  const int ntiles = hi > lo ? (hi - lo + KT - 1) / KT : 0;
+  auto row_ok = [&](int t) {  // key t of the range is attended at all
+    if (t >= hi) return false;
+    if (chunk) return true;
+    const int p = a.kv_pos[t];
+    return p >= 0 && p < a.pos_start;
+  };
+  // which tiles hold a live row: every position of the range read once,
+  // all at the same time
+  int* tl = (int*)(smem + G_::RING + 2 * STAGE);
+  for (int i = tid; i < ntiles; i += TC_THREADS) tl[i] = chunk;
+  __syncthreads();
+  if (!chunk)
+    for (int t0 = lo + tid; t0 < hi; t0 += 4 * TC_THREADS) {
+      int p[4];  // four positions a thread in flight at once
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int t = t0 + u * TC_THREADS;
+        p[u] = t < hi ? __ldg(a.kv_pos + t) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (p[u] >= 0 && p[u] < a.pos_start) tl[(t0 + u * TC_THREADS - lo) / KT] = 1;
+    }
+  __syncthreads();
+  auto live = [&](int i) { return i < ntiles && tl[i] != 0; };  // block-uniform
+  // the thread's (row, 16-byte chunk) and (row, scale) in a tile, and the
+  // rows a pass covers: nck and C divide 128
+  const int bytes = chunk ? D * 2 : rbc, nck = bytes / 16;
+  const int kr0 = tid / nck, kc0 = tid % nck, kstep = TC_THREADS / nck;
+  const int sr0 = C ? tid / C : 0, sc0 = C ? tid % C : 0, sstep = C ? TC_THREADS / C : KT;
+  auto issue = [&](int i, int st) {
+    unsigned char* raw = smem + G_::RING + st * STAGE;
+    const int t0 = lo + i * KT;
+    const char* kp = chunk ? (const char*)a.kn : (const char*)a.ck;
+    const char* vp = chunk ? (const char*)a.vn : (const char*)a.cv;
+    for (int r = kr0, c = kc0; r < KT; r += kstep) {
+      if (t0 + r >= hi) continue;
+      const size_t off = ((size_t)(t0 + r) * a.Hkv + h) * bytes + c * 16;
+      sm90::cp_async16(sm90::smem_addr(raw + r * RB + c * 16), kp + off);
+      sm90::cp_async16(sm90::smem_addr(raw + (KT + r) * RB + c * 16), vp + off);
+    }
+    if (INT8 && !chunk) {
+      float* sb = (float*)(raw + 2 * KT * RB);
+      for (int r = sr0; r < KT; r += sstep) {
+        if (t0 + r >= hi) continue;
+        const int j = r * C + sc0;
+        const size_t si = ((size_t)(t0 + r) * a.Hkv + h) * C + sc0;
+        sm90::cp_async4(sm90::smem_addr(sb + j), a.ks + si);
+        sm90::cp_async4(sm90::smem_addr(sb + KT * C + j), a.kz + si);
+        sm90::cp_async4(sm90::smem_addr(sb + 2 * KT * C + j), a.vs + si);
+        sm90::cp_async4(sm90::smem_addr(sb + 3 * KT * C + j), a.vz + si);
+      }
+    }
+  };
+  // raw stage -> bf16 K and V tiles, 4 values a step; rows that are not
+  // attended become 0 (their bytes may be stale)
+  auto dequant = [&](int st, const int* rvt) {
+    const unsigned char* raw = smem + G_::RING + st * STAGE;
+    const float* sb = (const float*)(raw + 2 * KT * RB);
+    for (int j = tid; j < 2 * KT * (D / 4); j += TC_THREADS) {
+      const int kv = j / (KT * (D / 4)), jj = j % (KT * (D / 4));
+      const int r = jj / (D / 4), d = (jj % (D / 4)) * 4;
+      const bool ok = rvt[r] != 0;
+      const unsigned char* src = raw + (kv * KT + r) * RB;
+      uint2 out = make_uint2(0u, 0u);
+      if (ok) {
+        if (chunk) {
+          out = *(const uint2*)(src + d * 2);
+        } else if (INT8) {
+          const uint32_t w = *(const uint32_t*)(src + d) ^ 0x80808080u;
+          const int c = d >> a.cl_shift;
+          const float S = sb[(2 * kv) * KT * C + r * C + c];
+          const float Z = sb[(2 * kv + 1) * KT * C + r * C + c];
+          const float R = __frcp_rn(S);
+          float f[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            f[e] = rt::dequant_kv_rcp(rt::code_f(w, e), S, R, Z);
+          out = make_uint2(sm90::pack_bf16x2(f[0], f[1]), sm90::pack_bf16x2(f[2], f[3]));
+        } else {
+          const float4 f = *(const float4*)(src + d * 4);
+          out = make_uint2(sm90::pack_bf16x2(f.x, f.y), sm90::pack_bf16x2(f.z, f.w));
+        }
+      }
+      *(uint2*)((kv ? Vb : Kb) + r * BP + d) = out;
+    }
+  };
+  auto compute = [&](int i, const int* rvt) {
+    const int t0 = lo + i * KT;
+    if (!warp_live || (chunk && t0 > warp_qmax)) return;
+    float sacc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sacc[nt][j] = 0.f;
+    const int mat = lane / 8, mrow = lane % 8;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        uint32_t b[4];
+        const int key = (nt + mat / 2) * 8 + mrow, d = kk * 16 + (mat % 2) * 8;
+        sm90::ldmatrix_x4(b, sm90::smem_addr(Kb + key * BP + d));
+        sm90::mma_m16n8k16_bf16(sacc[nt], aq[kk], b[0], b[1]);
+        sm90::mma_m16n8k16_bf16(sacc[nt + 1], aq[kk], b[2], b[3]);
+      }
+    // mask, scale, online softmax (a row lives on the 4 lanes of its gid)
+    float mx[2] = {rt::NEG_INF, rt::NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kl = nt * 8 + tig * 2 + (j & 1), row = j >> 1;
+        const bool ok = rok[row] && rvt[kl] && (!chunk || t0 + kl <= qi[row]);
+        sacc[nt][j] = ok ? __fmul_rn(sacc[nt][j], a.qscale) : rt::NEG_INF;
+        mx[row] = fmaxf(mx[row], sacc[nt][j]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+      const float m_new = fmaxf(m[row], mx[row]);
+      corr[row] = expf(m[row] - m_new);
+      m[row] = m_new;
+      l[row] *= corr[row];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = j >> 1;
+        const float p = sacc[nt][j] > 0.5f * rt::NEG_INF ? expf(sacc[nt][j] - m[row]) : 0.f;
+        sacc[nt][j] = p;
+        l[row] += p;
+      }
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn) {
+      o[dn][0] *= corr[0];
+      o[dn][1] *= corr[0];
+      o[dn][2] *= corr[1];
+      o[dn][3] *= corr[1];
+    }
+    // O += P.V, P straight from the score registers as bf16 A fragments
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      const uint32_t ap[4] = {
+          sm90::pack_bf16x2(sacc[2 * kk][0], sacc[2 * kk][1]),
+          sm90::pack_bf16x2(sacc[2 * kk][2], sacc[2 * kk][3]),
+          sm90::pack_bf16x2(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
+          sm90::pack_bf16x2(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < ND; dn += 2) {
+        uint32_t b[4];
+        const int key = kk * 16 + (mat % 2) * 8 + mrow, d = (dn + mat / 2) * 8;
+        sm90::ldmatrix_x4_trans(b, sm90::smem_addr(Vb + key * BP + d));
+        sm90::mma_m16n8k16_bf16(o[dn], ap, b[0], b[1]);
+        sm90::mma_m16n8k16_bf16(o[dn + 1], ap, b[2], b[3]);
+      }
+    }
+  };
+
+  // double-buffered walk over the range's tiles; dead cache tiles are
+  // skipped without loading their codes
+  bool cur_live = live(0);
+  if (cur_live) issue(0, 0);
+  sm90::cp_async_commit();
+  int done = 0;
+  for (int i = 0; i < ntiles; ++i) {
+    const bool nxt_live = live(i + 1);
+    if (nxt_live) issue(i + 1, (i + 1) & 1);
+    sm90::cp_async_commit();
+    if (!cur_live) {
+      cur_live = nxt_live;
+      continue;
+    }
+    // row flags by the parity of the live tiles done: the compute of the
+    // last live tile may still read the other half (a dead tile between
+    // two live ones passes no barrier)
+    int* rvt = rv + (done++ & 1) * KT;
+    if (tid < KT) rvt[tid] = row_ok(lo + i * KT + tid);
+    sm90::cp_async_wait<1>();
+    __syncthreads();
+    dequant(i & 1, rvt);
+    __syncthreads();
+    compute(i, rvt);
+    cur_live = nxt_live;
+  }
+  sm90::cp_async_wait<0>();
+
+  // this split's partial: (acc, max, sum) per query row
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 1);
+    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 2);
+  }
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    if (!rok[row]) continue;
+    const size_t prow = ((size_t)s * a.Sq + qi[row]) * a.Hq + hq[row];
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+      *(float2*)(a.part_o + prow * D + dn * 8 + tig * 2) =
+          make_float2(o[dn][2 * row], o[dn][2 * row + 1]);
+    if (tig == 0) {
+      a.part_ml[2 * prow] = m[row];
+      a.part_ml[2 * prow + 1] = l[row];
+    }
+  }
+
+  // the last block of this (query block, kv-head) merges the splits in order
+  __threadfence();
+  __syncthreads();
+  const int splits = a.cache_splits + 1;
+  int* counter = a.counter + (size_t)qb * a.Hkv + h;
+  if (tid == 0) last_block = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  // weights of each (row, split), then each output summed over the splits
+  // with independent loads, in split order
+  float* wt = (float*)smem;                 // [nrows][splits]
+  float* lsum = wt + nrows * splits;        // [nrows][splits], then the totals
+  int* rowoff = (int*)(lsum + nrows * splits + nrows);  // [nrows] query x Hq + head
+  for (int r = tid; r < nrows; r += TC_THREADS)
+    rowoff[r] = min(q0 + r / G, a.Sq - 1) * a.Hq + h * G + r % G;
+  __syncthreads();
+  for (int j = tid; j < nrows * splits; j += TC_THREADS) {
+    const int r = j / splits, sp = j % splits, qr = q0 + r / G;
+    float mj = rt::NEG_INF, lj = 0.f;
+    if (qr < a.Sq) {
+      const size_t prow = (size_t)sp * a.Sq * a.Hq + rowoff[r];
+      mj = __ldcg(a.part_ml + 2 * prow);
+      lj = __ldcg(a.part_ml + 2 * prow + 1);
+    }
+    wt[j] = lj > 0.f ? mj : rt::NEG_INF;
+    lsum[j] = lj;
+  }
+  __syncthreads();
+  for (int r = tid; r < nrows; r += TC_THREADS) {
+    float M = rt::NEG_INF, L = 0.f;
+    for (int sp = 0; sp < splits; ++sp) M = fmaxf(M, wt[r * splits + sp]);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float lj = lsum[r * splits + sp];
+      const float e = lj > 0.f ? expf(wt[r * splits + sp] - M) : 0.f;
+      wt[r * splits + sp] = e;
+      L += lj * e;
+    }
+    lsum[nrows * splits + r] = L;
+  }
+  __syncthreads();
+  // four neighbouring outputs a step, the loads of four steps in flight
+  constexpr int U = 4;
+  const int n4 = nrows * D / 4;
+  for (int i0 = tid; i0 < n4; i0 += U * TC_THREADS) {
+    float4 A[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) A[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    // every split wrote finite values for every query row (an empty one
+    // zeros) and padding rows weigh 0, so the loads need no condition and
+    // are all in flight together
+#pragma unroll 4
+    for (int sp = 0; sp < splits; ++sp) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = min(i0 + u * TC_THREADS, n4 - 1);
+        const int r = i / (D / 4), d = (i % (D / 4)) * 4;
+        const float e = wt[r * splits + sp];
+        const size_t row = rowoff[r];
+        const float4 v =
+            __ldcg((const float4*)(a.part_o + ((size_t)sp * a.Sq * a.Hq + row) * D + d));
+        A[u].x = fmaf(v.x, e, A[u].x);
+        A[u].y = fmaf(v.y, e, A[u].y);
+        A[u].z = fmaf(v.z, e, A[u].z);
+        A[u].w = fmaf(v.w, e, A[u].w);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * TC_THREADS;
+      if (i >= n4) break;
+      const int r = i / (D / 4), d = (i % (D / 4)) * 4;
+      if (q0 + r / G >= a.Sq) continue;
+      const size_t row = rowoff[r];
+      const float L = lsum[nrows * splits + r];
+      const float inv[4] = {A[u].x, A[u].y, A[u].z, A[u].w};
+      uint32_t packed[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        packed[k] = sm90::pack_bf16x2(
+            L > 0.f ? __fdiv_rn(inv[2 * k], fmaxf(L, 1e-30f)) : 0.f,
+            L > 0.f ? __fdiv_rn(inv[2 * k + 1], fmaxf(L, 1e-30f)) : 0.f);
+      *(uint2*)(a.o + row * D + d) = make_uint2(packed[0], packed[1]);
+    }
+  }
+  if (tid == 0) *counter = 0;
+}
+
+template <int D, typename KV>
+cudaError_t launch_tc(const PArgs& a, cudaStream_t st) {
+  const size_t smem = TcGeo<D>::bytes((int)sizeof(KV), a.C, a.T);
+  if (smem > SMEM_MAX) return cudaErrorInvalidConfiguration;
+  auto kern = prefill_tc_kernel<D, KV>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((a.Sq + a.bq - 1) / a.bq, a.Hkv, a.cache_splits + 1), TC_THREADS, smem,
+         st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename KV>
+cudaError_t dispatch_tc(const PArgs& a, int D, cudaStream_t st) {
+  switch (D) {
+    case 32: return launch_tc<32, KV>(a, st);
+    case 64: return launch_tc<64, KV>(a, st);
+    case 128: return launch_tc<128, KV>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Per-(row, chunk) dynamic INT8 quantization, bit-identical to
 // engine.kvcache.quantize_kv (value_range → qparams → quantize, bits=8,
 // asymmetric).
@@ -212,52 +691,51 @@ __global__ void quantize_kv_kernel(const X* __restrict__ x, int8_t* __restrict__
   for (int i = 0; i < chunk_len; ++i) out[i] = rt::quant_code(s, rt::to_f(p[i]), z, -128.f, 127.f);
 }
 
-template <typename KV, typename X>
-cudaError_t launch(const void* q, const void* kn, const void* vn, const void* ck,
-                   const void* cv, const int* kv_pos, const float* ks,
-                   const float* kz, const float* vs, const float* vz, void* o,
-                   int Sq, int T, int Hq, int Hkv, int D, int C, int pos_start,
-                   int length, float qscale, cudaStream_t st) {
+template <typename KV>
+cudaError_t launch_fp32(const void* q, const void* kn, const void* vn, const void* ck,
+                        const void* cv, const int* kv_pos, const float* ks,
+                        const float* kz, const float* vs, const float* vz, void* o,
+                        int Sq, int T, int Hq, int Hkv, int D, int C, int pos_start,
+                        int length, float qscale, cudaStream_t st) {
   const int G = Hq / Hkv;
   const int Bq = G >= 32 ? 1 : 32 / G;
   const int R = Bq * G;
   const size_t smem = sizeof(float) * (2 * R * D + TC * (D + 1) + R * TC + 3 * R) +
                       sizeof(int) * TC;
-  auto kern = prefill_kernel<KV, X>;
+  auto kern = prefill_fp32_kernel<KV, float>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   kern<<<dim3((Sq + Bq - 1) / Bq, Hkv), THREADS, smem, st>>>(
-      (const X*)q, (const X*)kn, (const X*)vn, (const KV*)ck, (const KV*)cv, kv_pos,
-      ks, kz, vs, vz, (X*)o, Sq, T, Hq, Hkv, D, C, Bq, pos_start, length, qscale);
+      (const float*)q, (const float*)kn, (const float*)vn, (const KV*)ck,
+      (const KV*)cv, kv_pos, ks, kz, vs, vz, (float*)o, Sq, T, Hq, Hkv, D, C, Bq,
+      pos_start, length, qscale);
   return cudaGetLastError();
-}
-
-// The slot cache holds int8 codes or fp32 values (engine.kvcache).
-template <typename X>
-cudaError_t dispatch_cache(int int8, const void* q, const void* kn, const void* vn,
-                           const void* ck, const void* cv, const int* kv_pos,
-                           const float* ks, const float* kz, const float* vs,
-                           const float* vz, void* o, int Sq, int T, int Hq,
-                           int Hkv, int D, int C, int pos_start, int length,
-                           float qscale, cudaStream_t st) {
-  if (int8)
-    return launch<int8_t, X>(q, kn, vn, ck, cv, kv_pos, ks, kz, vs, vz, o, Sq, T,
-                             Hq, Hkv, D, C, pos_start, length, qscale, st);
-  return launch<float, X>(q, kn, vn, ck, cv, kv_pos, ks, kz, vs, vz, o, Sq, T, Hq,
-                          Hkv, D, C, pos_start, length, qscale, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of dynamic shared memory a tensor-core block takes.
+int prefill_attention_smem(int D, int C, int int8, int T) {
+  const int kv = int8 ? 1 : 4, c = int8 ? C : 0;
+  switch (D) {
+    case 32: return TcGeo<32>::bytes(kv, c, T);
+    case 64: return TcGeo<64>::bytes(kv, c, T);
+    case 128: return TcGeo<128>::bytes(kv, c, T);
+    default: return 0;
+  }
+}
+
 int prefill_attention(const void* q, const void* kn, const void* vn,
                       const void* ck, const void* cv, const void* kv_pos,
                       const void* ks, const void* kz, const void* vs,
-                      const void* vz, void* o, int Sq, int T, int Hq, int Hkv,
-                      int D, int C, int pos_start, int length, int int8,
-                      int x_is_bf16, float qscale, void* stream) {
+                      const void* vz, void* o, void* part_o, void* part_ml,
+                      void* counter, int Sq, int T, int Hq, int Hkv, int D,
+                      int C, int pos_start, int length, int int8, int x_is_bf16,
+                      int cache_rows, int cache_splits, float qscale,
+                      void* stream) {
   if (Sq <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
       (int8 && (C <= 0 || D % C != 0)))
     return (int)cudaErrorInvalidValue;
@@ -265,13 +743,31 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
   const auto* kp = (const int*)kv_pos;
   const auto *a = (const float*)ks, *b = (const float*)kz, *c = (const float*)vs,
              *d = (const float*)vz;
-  if (x_is_bf16)
-    return (int)dispatch_cache<__nv_bfloat16>(int8, q, kn, vn, ck, cv, kp, a, b, c,
-                                              d, o, Sq, T, Hq, Hkv, D, C,
-                                              pos_start, length, qscale, st);
-  return (int)dispatch_cache<float>(int8, q, kn, vn, ck, cv, kp, a, b, c, d, o, Sq,
-                                    T, Hq, Hkv, D, C, pos_start, length, qscale,
-                                    st);
+  if (!x_is_bf16)
+    return (int)(int8 ? launch_fp32<int8_t>(q, kn, vn, ck, cv, kp, a, b, c, d, o, Sq,
+                                            T, Hq, Hkv, D, C, pos_start, length,
+                                            qscale, st)
+                      : launch_fp32<float>(q, kn, vn, ck, cv, kp, a, b, c, d, o, Sq,
+                                           T, Hq, Hkv, D, C, pos_start, length,
+                                           qscale, st));
+  const int G = Hq / Hkv;
+  int cl_shift = 0;
+  if (int8) {
+    const int cl = D / C;
+    if (cl < 4 || (cl & (cl - 1))) return (int)cudaErrorInvalidValue;
+    while ((1 << cl_shift) < cl) ++cl_shift;
+  }
+  if (G > QROWS || cache_rows <= 0 || cache_rows % KT != 0 || cache_splits <= 0 ||
+      cache_splits + 1 > MAX_SPLITS ||
+      (long long)(cache_splits - 1) * cache_rows >= T || !part_o || !part_ml ||
+      !counter)
+    return (int)cudaErrorInvalidValue;
+  PArgs p{(const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
+          (const __nv_bfloat16*)vn, ck, cv, kp, a, b, c, d, (__nv_bfloat16*)o,
+          (float*)part_o, (float*)part_ml, (int*)counter,
+          Sq, T, Hq, Hkv, int8 ? C : 0, cl_shift, pos_start, length,
+          QROWS / G, cache_rows, cache_splits, qscale};
+  return (int)(int8 ? dispatch_tc<int8_t>(p, D, st) : dispatch_tc<float>(p, D, st));
 }
 
 // x (groups, chunk_len) → codes int8 (groups, chunk_len), scale/zero (groups,)

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the tensor-core kernels: 16-byte
-// asynchronous copies (cp.async), the 128-byte shared-memory swizzle,
-// wgmma descriptors and the m64nNk16 bf16 products.
+// Hopper (sm_90a) building blocks of the tensor-core kernels: 16- and
+// 4-byte asynchronous copies (cp.async), the 128-byte shared-memory
+// swizzle, wgmma descriptors and the m64nNk16 bf16 products, and the
+// warp-level ldmatrix / mma.sync m16n8k16 bf16 products.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -14,6 +15,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 16 bytes global -> shared, cached in L2 only; completes at wait_group.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+// 4 bytes global -> shared (cached in L1 as well); completes at wait_group.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -110,6 +116,41 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// ---- warp-level tensor-core products (mma.sync) ----
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. Thread t receives row t / 4, columns
+// 2 (t % 4) and 2 (t % 4) + 1 of each matrix (.trans: of its transpose).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// D (16 x 8, fp32) += A (16 x 16, bf16, row-major fragment a[4]) .
+// B (16 x 8, bf16, column fragment b[2]).
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 }  // namespace sm90

@@ -1,7 +1,7 @@
 """Fused decode attention over one layer's slot cache: the wrapper of the
 CUDA kernel ``csrc/decode_attention.cu`` (which replaces the Pallas TPU
-kernel ``repro/kernels/decode_attention.py:_fused_kernel``) and its plain
-PyTorch version.
+kernel ``repro/kernels/decode_attention.py:_fused_kernel``), its launch
+plan, and its plain PyTorch versions.
 
 Shapes (one layer, one query token per slot):
   q       (N, Hq, D)     post-RoPE queries
@@ -13,18 +13,80 @@ Shapes (one layer, one query token per slot):
 
 An entry is valid when 0 <= kv_pos <= q_pos; an empty slot returns exact
 0. The mode follows k's dtype. On a CPU tensor the wrapper runs the plain
-version; on a CUDA tensor it launches the kernel or raises.
-``decode_attention.launches`` counts kernel launches.
+version :func:`decode_attention_ref`; on a CUDA tensor it launches the
+kernel or raises. The kernel splits T across blocks (flash-decoding) as
+:func:`decode_plan` says, and the last block of each (slot, head group)
+merges the splits; :func:`decode_attention_split_ref` repeats its
+arithmetic (32-row tiles, warps, splits, log-sum-exp merges) in plain
+PyTorch. ``decode_attention.launches`` counts kernel launches (one per
+call), ``decode_attention.variant_launches`` splits them by plan:
+``"split"`` (T cut across blocks, merged in the kernel) and ``"whole"``
+(one block per (slot, head group) walks all of T).
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import build
 
 NEG_INF = -1e30
+
+#: rows of one warp tile of the kernel, and warps per block at most
+TILE_ROWS = 32
+MAX_WARPS = 4
+#: blocks per SM the split aims at, and the 32-row tiles a split holds at
+#: least (one per warp): chosen with ``python -m
+#: repro_torch.launch.attention_sweep`` on the serving shapes (PERF.md)
+BLOCKS_PER_SM = 2
+MIN_SPLIT_TILES = 4
+#: the 32-row tiles a split holds at most: a long slot is cut finer than
+#: the grid alone asks, so that its blocks, each walking its range
+#: serially, do not outlast the rest of the grid (and a warp keeps one
+#: valid-row mask per tile for at most 64 tiles)
+MAX_SPLIT_TILES = 32
+#: splits at most (the kernel's merge keeps its weights in shared memory)
+MAX_SPLITS = 64
+#: the two kinds of launch that ``variant_launches`` counts
+SPLIT = "split"
+WHOLE = "whole"
+
+
+def head_group(G: int) -> int:
+    """Query heads a block takes: the largest of 16, 4, 1 that divides G
+    (the kernel is instantiated for these three; groups of 4 for
+    chatglm3-6b's 16 were slower, PERF.md)."""
+    return 16 if G % 16 == 0 else 4 if G % 4 == 0 else 1
+
+
+class DecodePlan(NamedTuple):
+    """How the kernel cuts one call: blocks of ``group`` query heads of
+    one kv-head and one slot, each over ``rows`` rows of T (a multiple of
+    :data:`TILE_ROWS`) in ``splits`` ranges, none empty, with ``warps``
+    warps taking its 32-row tiles in turn."""
+    group: int
+    splits: int
+    rows: int
+    warps: int
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_plan(N: int, T: int, Hkv: int, G: int, sms: int) -> DecodePlan:
+    """Split T so that the grid (N x Hkv x G/group x splits blocks) comes
+    near :data:`BLOCKS_PER_SM` blocks per SM of a card with ``sms`` SMs,
+    in whole 32-row tiles, at least :data:`MIN_SPLIT_TILES` of them a
+    split (or all of T) and at most :data:`MAX_SPLIT_TILES` where that
+    allows, and at most :data:`MAX_SPLITS` splits."""
+    group = head_group(G)
+    base = N * Hkv * (G // group)
+    tiles = -(-T // TILE_ROWS)
+    want = min(max(-(-BLOCKS_PER_SM * sms // base),
+                   -(-tiles // MAX_SPLIT_TILES)), tiles, MAX_SPLITS)
+    per = min(tiles, max(-(-tiles // want), MIN_SPLIT_TILES))
+    return DecodePlan(group, -(-tiles // per), per * TILE_ROWS,
+                      min(MAX_WARPS, per))
 
 
 def pick_kv_chunk(T: int, kv_chunk: Optional[int]) -> int:
@@ -87,6 +149,73 @@ def decode_attention_ref(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,
     return o.reshape(N, Hq, D).to(q.dtype)
 
 
+def merge_partials(ms, ls, accs):
+    """Log-sum-exp merge of partial states in list order, skipping the
+    empty ones (sum 0): (max, sum, acc) of the whole."""
+    m = torch.full_like(ms[0], NEG_INF)
+    for mi, li in zip(ms, ls):
+        m = torch.where(li > 0, torch.maximum(m, mi), m)
+    l = torch.zeros_like(ls[0])
+    acc = torch.zeros_like(accs[0])
+    for mi, li, ai in zip(ms, ls, accs):
+        e = torch.where(li > 0, torch.exp(mi - m), 0.0)
+        l = l + li * e
+        acc = acc + torch.where(li[..., None] > 0, ai * e[..., None], 0.0)
+    return m, l, acc
+
+
+def decode_attention_split_ref(q, k, v, kv_pos, q_pos, k_scale=None,
+                               k_zero=None, v_scale=None, v_zero=None, *,
+                               plan: DecodePlan) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: T cut into the plan's
+    splits, each split's 32-row tiles dealt to its warps in turn, every
+    warp an online softmax over its tiles (a tile with no valid row
+    skipped), the warps merged in warp order and the splits in split
+    order by log-sum-exp. Returns (N, Hq, D) in q.dtype."""
+    int8 = k.dtype == torch.int8
+    N, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qs = (q.float() * (D ** -0.5)).reshape(N, Hkv, G, D)
+    qp = q_pos.to(torch.int32)[:, None]
+    splits = []
+    for lo in range(0, plan.splits * plan.rows, plan.rows):
+        hi = min(T, lo + plan.rows)
+        tiles = list(range(lo, hi, TILE_ROWS))
+        warps = []
+        for w in range(plan.warps):
+            m = torch.full((N, Hkv, G), NEG_INF, device=q.device)
+            l = torch.zeros((N, Hkv, G), device=q.device)
+            acc = torch.zeros((N, Hkv, G, D), device=q.device)
+            for t0 in tiles[w::plan.warps]:
+                sl = slice(t0, min(hi, t0 + TILE_ROWS))
+                pos_c = kv_pos[:, sl]
+                valid = (pos_c >= 0) & (pos_c <= qp)
+                if int8:
+                    kc = dequant_chunk(k[:, sl], k_scale[:, sl], k_zero[:, sl])
+                    vc = dequant_chunk(v[:, sl], v_scale[:, sl], v_zero[:, sl])
+                else:
+                    kc, vc = k[:, sl].float(), v[:, sl].float()
+                s = (qs[:, :, :, None, :] *
+                     kc.permute(0, 2, 1, 3)[:, :, None]).sum(-1)
+                msk = valid[:, None, None, :]
+                live = valid.any(-1)[:, None, None]     # per slot: the ballot
+                s = torch.where(msk, s, NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.where(msk, torch.exp(s - m_new[..., None]), 0.0)
+                corr = torch.exp(m - m_new)
+                pv = (p[..., None] * vc.permute(0, 2, 1, 3)[:, :, None]).sum(-2)
+                l = torch.where(live, l * corr + p.sum(-1), l)
+                acc = torch.where(live[..., None],
+                                  acc * corr[..., None] + pv, acc)
+                m = torch.where(live, m_new, m)
+            warps.append((m, l, acc))
+        splits.append(merge_partials(*zip(*warps)))
+    _, l, acc = merge_partials(*zip(*splits))
+    o = torch.where(l[..., None] > 0, acc / l.clamp(min=1e-30)[..., None], 0.0)
+    return o.reshape(N, Hq, D).to(q.dtype)
+
+
 def _check_cuda(q, k, v, kv_pos, q_pos, scales):
     build.check_cuda_operands(q, k, v, kv_pos, q_pos, *scales)
     N, Hq, D = q.shape
@@ -108,8 +237,11 @@ def _check_cuda(q, k, v, kv_pos, q_pos, scales):
         for s in scales:
             if s.shape != (N, T, Hkv, C) or s.dtype != torch.float32:
                 raise ValueError("scales must be fp32 (N, T, Hkv, C)")
-        if D % C:
-            raise ValueError(f"head_dim {D} not divisible by qchunks {C}")
+        if D % C or (D // C) < 4 or (D // C) & (D // C - 1):
+            raise ValueError(f"the kernel takes sub-channel chunks of a "
+                             f"power-of-two length >= 4, got D={D}, C={C}")
+    if D not in (32, 64, 128):
+        raise ValueError(f"the kernel takes head_dim 32, 64 or 128, got {D}")
 
 
 def decode_attention(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,
@@ -125,19 +257,45 @@ def decode_attention(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,
     int8 = k.dtype == torch.int8
     C = scales[0].shape[-1] if int8 else 0
     ts = [t.contiguous() for t in (q, k, v)]
-    kv_pos = kv_pos.to(torch.int32).contiguous()
-    q_pos = q_pos.to(torch.int32).contiguous()
+    # .to() costs host time even when it has nothing to do
+    if kv_pos.dtype != torch.int32:
+        kv_pos = kv_pos.to(torch.int32)
+    if q_pos.dtype != torch.int32:
+        q_pos = q_pos.to(torch.int32)
+    kv_pos, q_pos = kv_pos.contiguous(), q_pos.contiguous()
     sc = [s.contiguous() for s in scales] if int8 else [None] * 4
+    G = Hq // Hkv
+    p = decode_plan(N, T, Hkv, G, build.sm_count(q.device.index or 0))
     o = torch.empty_like(ts[0])
+    part_o = part_ml = counter = None
+    if p.splits > 1:
+        # one fp32 workspace: the partial outputs (splits, N, Hq, D), then
+        # the running max and sum (splits, N, Hq, 2)
+        rows = p.splits * N * Hq
+        ws = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
+        part_o = ws.data_ptr()
+        part_ml = part_o + 4 * rows * D
+        counter = build.merge_counters("decode_attention", q.device,
+                                       N * Hkv * (G // p.group)).data_ptr()
     lib = build.library()
     err = lib.decode_attention(
         *(t.data_ptr() for t in ts), kv_pos.data_ptr(), q_pos.data_ptr(),
-        *(s.data_ptr() if s is not None else None for s in sc), o.data_ptr(),
-        N, T, Hq, Hkv, D, C, int(int8), int(q.dtype == torch.bfloat16),
+        *(None if s is None else s.data_ptr() for s in sc), o.data_ptr(),
+        part_o, part_ml, counter, N, T, Hq, Hkv, D, C, int(int8),
+        int(q.dtype == torch.bfloat16), p.group, p.rows, p.splits, p.warps,
         D ** -0.5, build.stream_of(q))
     build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.variant_launches[SPLIT if p.splits > 1 else WHOLE] += 1
     return o
 
 
+def reset_counts() -> None:
+    """Set the total and the per-variant launch counts to 0."""
+    decode_attention.launches = 0
+    for v in decode_attention.variant_launches:
+        decode_attention.variant_launches[v] = 0
+
+
 decode_attention.launches = 0
+decode_attention.variant_launches = {SPLIT: 0, WHOLE: 0}

@@ -21,18 +21,91 @@ of the JAX package. The fp and int8 per-entry modes are ported; the
 static-scale and verify modes are not yet.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
-they launch the kernels or raise. ``prefill_attention.launches`` and
-``quantize_kv.launches`` count kernel launches.
+they launch the kernels or raise. The attention variant follows q's
+dtype: bf16 goes to the tensor-core kernel (``"bf16_tensor_core"``), which
+also cuts the key range across blocks as :func:`prefill_plan` says; fp32
+to the CUDA-core kernel (``"fp32_cuda_core"``), which keeps the fp32
+numbers. ``prefill_attention.launches`` and ``quantize_kv.launches``
+count kernel launches, ``prefill_attention.variant_launches`` the
+attention's by variant.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ..core.quantize import QuantConfig, qparams, quantize, value_range
 from . import build
-from .decode_attention import NEG_INF, dequant_chunk, pick_kv_chunk
+from .decode_attention import (NEG_INF, dequant_chunk, merge_partials,
+                               pick_kv_chunk)
 
 KV_QCFG = QuantConfig(bits=8, symmetric=False)
+
+TENSOR_CORE = "bf16_tensor_core"
+CUDA_CORE = "fp32_cuda_core"
+#: query rows (queries x heads of a group) and keys per tile of a
+#: tensor-core block
+Q_ROWS = 64
+KV_TILE = 64
+#: blocks per SM the tensor-core split aims at
+BLOCKS_PER_SM = 2
+#: splits at most, the chunk's own included (the kernel's merge keeps its
+#: weights in shared memory)
+MAX_SPLITS = 16
+
+
+def prefill_variant(dtype: torch.dtype) -> str:
+    """The attention kernel a call in ``dtype`` launches: bf16 on the
+    tensor cores, fp32 on the CUDA cores (TF32 or bf16 products would
+    change the fp32 numbers)."""
+    if dtype == torch.bfloat16:
+        return TENSOR_CORE
+    if dtype == torch.float32:
+        return CUDA_CORE
+    raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+
+
+class PrefillPlan(NamedTuple):
+    """How the tensor-core kernel cuts one call: blocks of ``bq`` queries
+    x G heads of one kv-head; the cache rows in ``cache_splits`` ranges of
+    ``cache_rows`` rows (the last one running on to T), and the chunk's own
+    keys as one more split."""
+    bq: int
+    cache_rows: int
+    cache_splits: int
+
+    @property
+    def splits(self) -> int:
+        return self.cache_splits + 1
+
+    def cache_range(self, s: int, T: int) -> tuple[int, int]:
+        lo = s * self.cache_rows
+        return lo, T if s == self.cache_splits - 1 else min(T, lo + self.cache_rows)
+
+
+@functools.lru_cache(maxsize=4096)
+def prefill_plan(Sq: int, T: int, Hkv: int, G: int, pos_start: int,
+                 sms: int) -> PrefillPlan:
+    """Cut the cache rows below ``pos_start`` (where a slot's earlier
+    tokens lie) into whole 64-row tiles across as many splits as bring the
+    grid near :data:`BLOCKS_PER_SM` blocks per SM of a card with ``sms``
+    SMs, :data:`MAX_SPLITS` splits at most in all; the last cache split
+    also scans the rest of T."""
+    if G > Q_ROWS:
+        raise ValueError(f"the kernel takes at most {Q_ROWS} query heads "
+                         f"per kv-head, got {G}")
+    bq = Q_ROWS // G
+    base = -(-Sq // bq) * Hkv
+    live = -(-min(max(pos_start, 0), T) // KV_TILE)
+    tiles = -(-T // KV_TILE)
+    if live == 0:
+        return PrefillPlan(bq, tiles * KV_TILE, 1)
+    want = max(1, min(-(-BLOCKS_PER_SM * sms // base) - 1, live,
+                      MAX_SPLITS - 1))
+    per = -(-live // want)
+    return PrefillPlan(bq, per * KV_TILE, -(-live // per))
 
 
 # ------------------------------------------------------------ quantize ---
@@ -128,6 +201,72 @@ def prefill_attention_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
     return o.reshape(Sq, Hq, D).to(q.dtype)
 
 
+def prefill_attention_split_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
+                                pos_start: int, length: int, k_scale=None,
+                                k_zero=None, v_scale=None, v_zero=None, *,
+                                plan: PrefillPlan) -> torch.Tensor:
+    """The tensor-core kernel's split of the key range in plain PyTorch
+    (fp32, without its bf16 rounding points): each cache range of the plan
+    and then the chunk's own keys as one more split, each an online
+    softmax over 64-key tiles (a cache tile with no live row skipped),
+    merged by log-sum-exp in split order. Returns (Sq, Hq, D) in
+    q.dtype."""
+    int8 = cache_k.dtype == torch.int8
+    Sq, Hq, D = q.shape
+    T, Hkv = cache_k.shape[0], cache_k.shape[1]
+    G = Hq // Hkv
+    dev = q.device
+    qs = (q.float() * (D ** -0.5)).reshape(Sq, Hkv, G, D)
+    idx = torch.arange(Sq, device=dev)
+
+    def walk(keys):
+        """keys: list of (kc, vc, valid (Sq|1, Tk)) tiles."""
+        m = torch.full((Sq, Hkv, G), NEG_INF, device=dev)
+        l = torch.zeros((Sq, Hkv, G), device=dev)
+        acc = torch.zeros((Sq, Hkv, G, D), device=dev)
+        for kc, vc, valid in keys:
+            s = (qs[:, :, :, None, :] *
+                 kc.permute(1, 0, 2)[None, :, None]).sum(-1)
+            msk = valid[:, None, None, :]
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(msk, torch.exp(s - m_new[..., None]), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = (p[..., None] * vc.permute(1, 0, 2)[None, :, None]).sum(-2)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        return m, l, acc
+
+    parts = []
+    for sp in range(plan.cache_splits):
+        lo, hi = plan.cache_range(sp, T)
+        tiles = []
+        for t0 in range(lo, hi, KV_TILE):
+            sl = slice(t0, min(hi, t0 + KV_TILE))
+            pos_c = kv_pos[sl]
+            valid = (pos_c >= 0) & (pos_c < pos_start)
+            if not bool(valid.any()):
+                continue
+            if int8:
+                kc = dequant_chunk(cache_k[sl], k_scale[sl], k_zero[sl])
+                vc = dequant_chunk(cache_v[sl], v_scale[sl], v_zero[sl])
+            else:
+                kc, vc = cache_k[sl].float(), cache_v[sl].float()
+            tiles.append((kc, vc, valid[None]))
+        parts.append(walk(tiles))
+    tiles = []
+    for t0 in range(0, min(Sq, length), KV_TILE):
+        key = torch.arange(t0, min(Sq, t0 + KV_TILE), device=dev)
+        valid = (key[None, :] <= idx[:, None]) & (key[None, :] < length)
+        sl = slice(t0, t0 + len(key))
+        tiles.append((k_new[sl].float(), v_new[sl].float(), valid))
+    parts.append(walk(tiles))
+    _, l, acc = merge_partials(*zip(*parts))
+    o = torch.where(l[..., None] > 0, acc / l.clamp(min=1e-30)[..., None], 0.0)
+    return o.reshape(Sq, Hq, D).to(q.dtype)
+
+
 def _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales):
     build.check_cuda_operands(q, k_new, v_new, cache_k, cache_v, kv_pos,
                               *scales)
@@ -162,6 +301,14 @@ def _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales):
                 raise ValueError("scales must be fp32 (T, Hkv, C)")
         if D % C:
             raise ValueError(f"head_dim {D} not divisible by qchunks {C}")
+        if q.dtype == torch.bfloat16 and \
+                ((D // C) < 4 or (D // C) & (D // C - 1)):
+            raise ValueError(f"the tensor-core kernel takes sub-channel "
+                             f"chunks of a power-of-two length >= 4, got "
+                             f"D={D}, C={C}")
+    if q.dtype == torch.bfloat16 and D not in (32, 64, 128):
+        raise ValueError(f"the tensor-core kernel takes head_dim 32, 64 or "
+                         f"128, got {D}")
 
 
 def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
@@ -184,18 +331,39 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
         T, Hkv = cache_k.shape[0], cache_k.shape[1]
         C = scales[0].shape[-1] if int8 else 0
         ts = [t.contiguous() for t in (q, k_new, v_new, cache_k, cache_v)]
-        kv_pos = kv_pos.to(torch.int32).contiguous()
+        if kv_pos.dtype != torch.int32:   # .to() costs host time even idle
+            kv_pos = kv_pos.to(torch.int32)
+        kv_pos = kv_pos.contiguous()
         sc = [s.contiguous() for s in scales] if int8 else [None] * 4
         o = torch.empty_like(ts[0])
+        variant = prefill_variant(q.dtype)
+        part_o = part_ml = counter = None
+        rows = splits = 0
+        if variant == TENSOR_CORE:
+            G = Hq // Hkv
+            p = prefill_plan(Sq, T, Hkv, G, int(pos_start),
+                             build.sm_count(q.device.index or 0))
+            rows, splits = p.cache_rows, p.cache_splits
+            # one fp32 workspace: the partial outputs (splits, Sq, Hq, D),
+            # then the running max and sum (splits, Sq, Hq, 2)
+            n = p.splits * Sq * Hq
+            ws = torch.empty(n * (D + 2), dtype=torch.float32,
+                             device=q.device)
+            part_o = ws.data_ptr()
+            part_ml = part_o + 4 * n * D
+            counter = build.merge_counters("prefill_attention", q.device,
+                                           -(-Sq // p.bq) * Hkv).data_ptr()
         lib = build.library()
         err = lib.prefill_attention(
             *(t.data_ptr() for t in ts), kv_pos.data_ptr(),
-            *(s.data_ptr() if s is not None else None for s in sc),
-            o.data_ptr(), Sq, T, Hq, Hkv, D, C, int(pos_start), int(length),
-            int(int8), int(q.dtype == torch.bfloat16), D ** -0.5,
+            *(None if s is None else s.data_ptr() for s in sc),
+            o.data_ptr(), part_o, part_ml, counter, Sq, T, Hq, Hkv, D, C,
+            int(pos_start), int(length), int(int8),
+            int(variant == TENSOR_CORE), rows, splits, D ** -0.5,
             build.stream_of(q))
         build.check(lib, err, "prefill_attention")
         prefill_attention.launches += 1
+        prefill_attention.variant_launches[variant] += 1
     if not int8:
         return o, ()
     C = k_scale.shape[-1]
@@ -204,4 +372,12 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
     return o, (qk, qv, ks, kz, vs, vz)
 
 
+def reset_counts() -> None:
+    """Set the attention's total and per-variant launch counts to 0."""
+    prefill_attention.launches = 0
+    for v in prefill_attention.variant_launches:
+        prefill_attention.variant_launches[v] = 0
+
+
 prefill_attention.launches = 0
+prefill_attention.variant_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}

@@ -47,8 +47,9 @@ DECODE_STEPS = 12
 PORT_KERNELS = {"sq_matmul_wgmma_kernel": "splitquant_matmul (bf16 wgmma)",
                 "sq_matmul_fp32_kernel": "splitquant_matmul (fp32 CUDA cores)",
                 "split_reduce_kernel": "splitquant_matmul (K-split sum)",
-                "decode_kernel": "decode_attention",
-                "prefill_kernel": "prefill_attention",
+                "decode_split_kernel": "decode_attention",
+                "prefill_tc_kernel": "prefill_attention (bf16 tensor cores)",
+                "prefill_fp32_kernel": "prefill_attention (fp32 CUDA cores)",
                 "quantize_kv_kernel": "quantize_kv",
                 "wkv_kernel": "wkv_chunked"}
 

@@ -4,6 +4,10 @@ at import) when no card is present. Run them on a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+The attention kernels are run at the serving head layouts of
+stablelm-1.6b and chatglm3-6b, at depths and chunk positions that probe
+their split plans, for both kernel variants of the prefill.
+
 Tolerances: fp32 outputs atol 1e-4 relative to the output's scale
 (summation order differs); bf16 outputs 2 ulp-ish (2e-2 relative); the
 WKV state (fp32 in both types) 1e-4 relative; the quantize epilogue's and
@@ -15,6 +19,8 @@ import torch
 
 from repro_torch.core.splitquant import activation_chunk_bounds
 from repro_torch.kernels import act_quant as aq
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import prefill_attention as pa
 from repro_torch.kernels import wkv_chunked as wk
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
@@ -219,6 +225,181 @@ def test_quantize_kv_kernel_bit_identical(dev, dtype, scale):
     want = quantize_kv_ref(x, 4)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _cache(gen, dev, N, T, Hkv, D, int8):
+    """K and V (N, T, Hkv, D): int8 codes with their four scale arrays, or
+    fp32 with (None,) * 4."""
+    k = torch.randn((N, T, Hkv, D), generator=gen, device=dev)
+    v = torch.randn((N, T, Hkv, D), generator=gen, device=dev)
+    if not int8:
+        return k, v, (None,) * 4
+    qk, ks, kz = quantize_kv_ref(k, 4)
+    qv, vs, vz = quantize_kv_ref(v, 4)
+    return qk, qv, (ks, kz, vs, vz)
+
+
+def _split_depths(T, rows):
+    """Six slot depths for a plan of ``rows``-row splits: empty (exact 0),
+    one row, a full slot, and the last valid row just before, at and after
+    a split boundary (where T has one; else T - 1, T / 2 and 2)."""
+    edge = [rows - 1, rows, rows + 1] if rows < T else [T - 1, T // 2, 2]
+    return [0, 1, T] + edge
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32)])
+@pytest.mark.parametrize("T", [100, 1024, 4096])
+def test_decode_split_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype, int8):
+    """The split-T kernel at the depths that probe its plan, plus a slot
+    whose only valid rows lie in its last 5 rows (every earlier split of
+    it empty), against the plain version."""
+    N = 7
+    p = da.decode_plan(N, T, Hkv, Hq // Hkv, _sms(dev))
+    depths = _split_depths(T, p.rows)
+    gen = torch.Generator(device=dev).manual_seed(T + Hkv + D)
+    q = torch.randn((N, Hq, D), generator=gen, device=dev).to(dtype)
+    k, v, sc = _cache(gen, dev, N, T, Hkv, D, int8)
+    kv_pos = torch.full((N, T), -1, dtype=torch.int32, device=dev)
+    for n, depth in enumerate(depths):
+        kv_pos[n, :depth] = torch.arange(depth, device=dev)
+    kv_pos[N - 1, T - 5:] = torch.arange(5, device=dev)
+    q_pos = torch.tensor([max(d - 1, 0) for d in depths] + [4],
+                         dtype=torch.int32, device=dev)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kv_pos, q_pos, *sc)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = decode_attention_ref(q, k, v, kv_pos, q_pos, *sc)
+    assert got.dtype == dtype and got.shape == (N, Hq, D)
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+    assert torch.all(got[depths.index(0)] == 0)          # empty slot
+
+
+@pytest.mark.parametrize("T,variant", [(64, da.WHOLE), (1024, da.SPLIT)])
+def test_decode_counts_its_variant(dev, T, variant):
+    """T shorter than a split's least length runs whole; 8 slots of 1024
+    rows are split."""
+    p = da.decode_plan(8, T, 2, 4, _sms(dev))
+    assert (p.splits > 1) == (variant == da.SPLIT)
+    gen = torch.Generator(device=dev).manual_seed(T)
+    q = torch.randn((8, 8, 64), generator=gen, device=dev).to(torch.bfloat16)
+    k, v, sc = _cache(gen, dev, 8, T, 2, 64, True)
+    kv_pos = torch.arange(T, dtype=torch.int32, device=dev).repeat(8, 1)
+    q_pos = torch.full((8,), T - 1, dtype=torch.int32, device=dev)
+    before = dict(decode_attention.variant_launches)
+    decode_attention(q, k, v, kv_pos, q_pos, *sc)
+    after = decode_attention.variant_launches
+    assert after[variant] == before[variant] + 1
+    assert all(after[x] == before[x] for x in after if x != variant)
+    da.reset_counts()
+    assert decode_attention.launches == 0
+    assert not any(decode_attention.variant_launches.values())
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_kernel_is_deterministic(dev, Hq, Hkv, D, dtype):
+    assert da.decode_plan(8, 1024, Hkv, Hq // Hkv, _sms(dev)).splits > 1
+    gen = torch.Generator(device=dev).manual_seed(D)
+    q = torch.randn((8, Hq, D), generator=gen, device=dev).to(dtype)
+    k, v, sc = _cache(gen, dev, 8, 1024, Hkv, D, True)
+    kv_pos = torch.full((8, 1024), -1, dtype=torch.int32, device=dev)
+    depths = [1000, 513, 0, 17, 256, 777, 64, 1023]
+    for n, depth in enumerate(depths):
+        kv_pos[n, :depth] = torch.arange(depth, device=dev)
+    q_pos = torch.tensor([max(d - 1, 0) for d in depths], dtype=torch.int32,
+                         device=dev)
+    a = decode_attention(q, k, v, kv_pos, q_pos, *sc)
+    b = decode_attention(q, k, v, kv_pos, q_pos, *sc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def _chunk_inputs(gen, dev, Sq, T, Hq, Hkv, D, int8, dtype, pos_start):
+    """A chunk of Sq queries at pos_start of a T-row slot: the slot's rows
+    before pos_start, the row at pos_start parked by a decode step
+    (garbage, masked) and a stale row of an earlier occupant further on
+    (its position past the chunk's start: masked)."""
+    f = lambda *s: torch.randn(s, generator=gen, device=dev)
+    q, kn, vn = (f(Sq, h, D).to(dtype) for h in (Hq, Hkv, Hkv))
+    ck, cv, sc = _cache(gen, dev, 1, T, Hkv, D, int8)
+    ck, cv = ck[0], cv[0]
+    sc = tuple(None if s is None else s[0] for s in sc)
+    kv_pos = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    kv_pos[:pos_start] = torch.arange(pos_start, device=dev)
+    kv_pos[pos_start] = pos_start
+    kv_pos[T - 2] = pos_start + 7
+    return q, kn, vn, ck, cv, kv_pos, sc
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128)])
+@pytest.mark.parametrize("pos_start", [0, 37, 900])
+@pytest.mark.parametrize("Sq", [1, 16, 32, 96])
+def test_prefill_tensor_core_kernel_vs_plain(dev, Sq, pos_start, Hq, Hkv, D,
+                                             int8):
+    """bf16 chunks at stablelm-1.6b's and chatglm3-6b's head layouts in a
+    1024-row slot, length < Sq (Sq = 1: the one token), against the plain
+    version; the chunk's codes and scales equal ``quantize_kv_ref``."""
+    T, length = 1024, max(1, Sq - Sq // 4)
+    gen = torch.Generator(device=dev).manual_seed(Sq + pos_start + D)
+    q, kn, vn, ck, cv, kv_pos, sc = _chunk_inputs(
+        gen, dev, Sq, T, Hq, Hkv, D, int8, torch.bfloat16, pos_start)
+    before = dict(prefill_attention.variant_launches)
+    got, gaux = prefill_attention(q, kn, vn, ck, cv, kv_pos, pos_start,
+                                  length, *sc)
+    torch.cuda.synchronize()
+    assert prefill_attention.variant_launches[pa.TENSOR_CORE] == \
+        before[pa.TENSOR_CORE] + 1
+    want = prefill_attention_ref(q, kn, vn, ck, cv, kv_pos, pos_start,
+                                 length, *sc)
+    assert got.dtype == torch.bfloat16 and got.shape == (Sq, Hq, D)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, 2e-2)
+    if int8:
+        wk_, wv_ = quantize_kv_ref(kn, 4), quantize_kv_ref(vn, 4)
+        for a, b in zip(gaux, (wk_[0], wv_[0], wk_[1], wk_[2], wv_[1],
+                               wv_[2])):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,variant", [
+    (torch.bfloat16, pa.TENSOR_CORE), (torch.float32, pa.CUDA_CORE)])
+def test_prefill_launches_the_variant_of_its_dtype(dev, dtype, variant):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, kn, vn, ck, cv, kv_pos, sc = _chunk_inputs(
+        gen, dev, 96, 256, 8, 2, 64, True, dtype, 100)
+    before = dict(prefill_attention.variant_launches)
+    got, _ = prefill_attention(q, kn, vn, ck, cv, kv_pos, 100, 96, *sc)
+    torch.cuda.synchronize()
+    after = prefill_attention.variant_launches
+    assert after[variant] == before[variant] + 1
+    assert all(after[x] == before[x] for x in after if x != variant)
+    _close(got, prefill_attention_ref(q, kn, vn, ck, cv, kv_pos, 100, 96,
+                                      *sc),
+           1e-4 if dtype == torch.float32 else 2e-2)
+    pa.reset_counts()
+    assert prefill_attention.launches == 0
+    assert not any(prefill_attention.variant_launches.values())
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128)])
+def test_prefill_tensor_core_kernel_is_deterministic(dev, Hq, Hkv, D):
+    assert pa.prefill_plan(96, 1024, Hkv, Hq // Hkv, 384,
+                           _sms(dev)).cache_splits > 1
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, kn, vn, ck, cv, kv_pos, sc = _chunk_inputs(
+        gen, dev, 96, 1024, Hq, Hkv, D, True, torch.bfloat16, 384)
+    a, _ = prefill_attention(q, kn, vn, ck, cv, kv_pos, 384, 96, *sc)
+    b, _ = prefill_attention(q, kn, vn, ck, cv, kv_pos, 384, 96, *sc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_engine_card_matches_cpu(dev):

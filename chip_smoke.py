@@ -26,6 +26,11 @@ Phases (any failure exits non-zero):
    fp32 FMAs on the CUDA cores (prefill, for bf16 q, on the tensor
    cores); the time each case's work needs at 67 TFLOP/s is kept as
    ``fp32_core_ms`` in the per-case details, not as the bound;
+   The static and verify modes of the two attention kernels (decode at
+   the same three shapes with static scales; a 96-token prefill chunk
+   with static scales and a 4-row verify window over int8 dynamic, int8
+   static and fp32 caches at position 384) and ``quantize_kv_static``
+   (codes exact) are held to their plain versions the same way;
 3. engine: stablelm-1.6b at its published widths (seeded random bf16
    weights, SplitQuant INT4 k=3, quantized on the card) served by the
    continuous-batching engine over an int8 slot cache: 8 slots,
@@ -34,11 +39,26 @@ Phases (any failure exits non-zero):
    set to 0 just before the run and read just after; each of the engine's
    kernels must be > 0, every matmul and every prefill-attention launch
    must be of its bf16 tensor-core variant, every decode-attention launch
-   must split T across blocks, and the decode and prefill attention
-   launches per step and layer are printed;
-4. cross-check: stablelm-1.6b ``.reduced()`` in fp32 through the engine
+   must split T across blocks, only the dynamic modes may run, and the
+   decode and prefill attention launches per step and layer are printed;
+   then static: static KV scales from the port's ``collect_kv_stats`` over
+   4 seeded prompts of 256 tokens on the card, and the same run over
+   them: only the static decode and prefill modes and
+   ``quantize_kv_static`` may run; its numbers are printed beside the
+   dynamic run's; then spec: the first 8 of those requests through the
+   speculative engine (spec_k 3, an INT2 SplitQuant k=3 draft of the
+   same seeded weights, dequantized once to bf16, over the static
+   scales): every request its 32 tokens, verify launches over the static
+   cache and at least one rollback; it prints the acceptance rate, the
+   tokens a verify commits, tokens/s and the share of tokens identical to
+   the static run's greedy output (not gated: bf16 verify on the tensor
+   cores and fp32 decode on the CUDA cores sum in different orders; with
+   the target's top-2 margin where the first token differs);
+4. cross-checks: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
-   tokens;
+   tokens; and the speculative engine (INT2 draft, spec_k 3) over int8
+   dynamic and static caches: card spec tokens == card greedy tokens ==
+   CPU spec tokens;
 5. rwkv6: rwkv6-3b at its published widths (seeded random bf16 weights,
    SplitQuant INT4 k=3 of 257 matrices, quantized on the card) served by
    the wave loop: waves of 8, 16 seeded requests of 64-256 prompt tokens
@@ -53,8 +73,9 @@ Phases (any failure exits non-zero):
 
 The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
-(``launches_by_path`` splits them, and ``launches_by_variant`` splits
-those of the matmul and of the two attention kernels by variant; the
+(``launches_by_path`` splits them, ``launches_by_variant`` splits those
+of the matmul and of the two attention kernels by variant and
+``launches_by_mode`` those of the attention kernels by mode; the
 act-quant kernels, on no serving path, report their kernel-phase
 launches); the last is ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -84,6 +105,7 @@ TPU_KERNELS = {
     "quantize_kv": "src/repro/kernels/prefill_attention.py:232",
     "wkv_chunked": "src/repro/kernels/wkv_chunked.py:75",
     "decode_attention": "src/repro/kernels/decode_attention.py:164",
+    "quantize_kv_static": "src/repro/kernels/prefill_attention.py:241",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -94,16 +116,20 @@ SOURCES = {
     "quantize_kv": CSRC + "prefill_attention.cu",
     "wkv_chunked": CSRC + "wkv_chunked.cu",
     "decode_attention": CSRC + "decode_attention.cu",
+    "quantize_kv_static": CSRC + "prefill_attention.cu",
 }
-#: the serving runs each kernel is on (phase 3 "engine", phase 5 "wave")
+#: the serving runs each kernel is on: "engine" (dynamic int8 scales),
+#: "static" (static scales), "spec" (speculative, static target, dynamic
+#: draft) and "wave" (rwkv6)
 PATHS = {
-    "splitquant_matmul": ("engine", "wave"),
+    "splitquant_matmul": ("engine", "static", "spec", "wave"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
-    "prefill_attention": ("engine",),
-    "quantize_kv": ("engine",),
+    "prefill_attention": ("engine", "static", "spec"),
+    "quantize_kv": ("engine", "spec"),
     "wkv_chunked": ("wave",),
-    "decode_attention": ("engine",),
+    "decode_attention": ("engine", "static", "spec"),
+    "quantize_kv_static": ("static", "spec"),
 }
 
 def fail(msg: str) -> None:
@@ -302,18 +328,55 @@ def _decode_inputs(torch, gen, N, T, Hq, Hkv, D, C):
     return q, qk, qv, kv_pos, q_pos, (ks, kz, vs, vz)
 
 
+def static_scales_of(torch, x, C, gen=None):
+    """Per-(head, chunk) static (S, Z) of x (..., Hkv, D) from its own
+    range, as ``calib.kv_static_scales`` derives them from calibration
+    ranges; with ``gen``, S is scaled by U(0.5, 2) and Z moved by a
+    fractional U(-0.5, 0.5), so that most codes still fall inside the
+    range and an exact check tests the rounding of S·x + Z, not the clip
+    (as the static act-quant cases do)."""
+    H, D = x.shape[-2:]
+    xc = x.float().reshape(-1, H, C, D // C)
+    lo, hi = xc.amin(dim=(0, 3)), xc.amax(dim=(0, 3))
+    if gen is None:
+        scale = 255.0 / (hi - lo)
+        return scale, -128.0 - scale * lo
+    u = torch.rand((2, H, C), generator=gen, device=x.device)
+    scale = 255.0 / (hi - lo) * (0.5 + 1.5 * u[0])
+    return scale, -0.5 - scale * (hi + lo) / 2 + (u[1] - 0.5)
+
+
+def _static_decode_inputs(torch, gen, N, T, Hq, Hkv, D, C):
+    from repro_torch.kernels.prefill_attention import quantize_kv_static_ref
+    q, _, _, kv_pos, q_pos, _ = _decode_inputs(torch, gen, N, T, Hq, Hkv, D,
+                                               C)
+    k = torch.randn((N, T, Hkv, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    v = torch.randn((N, T, Hkv, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    ks, kz = static_scales_of(torch, k, C)
+    vs, vz = static_scales_of(torch, v, C)
+    return (q, quantize_kv_static_ref(k, ks, kz),
+            quantize_kv_static_ref(v, vs, vz), kv_pos, q_pos, (ks, kz, vs, vz))
+
+
 def decode_cases(torch, timer, rep):
+    """Decode attention at stablelm-1.6b's and chatglm3-6b's serving
+    shapes, with per-entry (dynamic) scales and with static per-layer
+    scales; the static bound counts the code bytes alone."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref,
                                                       dequant_chunk)
     gen = torch.Generator(device="cuda").manual_seed(1)
     N, C = 8, 4
-    for arch, Hq, Hkv, D, T in (("stablelm-1.6b", 32, 32, 64, 1024),
-                                ("chatglm3-6b", 32, 2, 128, 1024),
-                                ("stablelm-1.6b", 32, 32, 64, 4096)):
-        q, qk, qv, kv_pos, q_pos, sc = _decode_inputs(torch, gen, N, T, Hq,
-                                                      Hkv, D, C)
+    for (arch, Hq, Hkv, D, T), static in (
+            (c, st) for st in (False, True) for c in (
+                ("stablelm-1.6b", 32, 32, 64, 1024),
+                ("chatglm3-6b", 32, 2, 128, 1024),
+                ("stablelm-1.6b", 32, 32, 64, 4096))):
+        make = _static_decode_inputs if static else _decode_inputs
+        q, qk, qv, kv_pos, q_pos, sc = make(torch, gen, N, T, Hq, Hkv, D, C)
         got = decode_attention(q, qk, qv, kv_pos, q_pos, *sc)
         want = decode_attention_ref(q, qk, qv, kv_pos, q_pos, *sc)
         torch.cuda.synchronize()
@@ -333,9 +396,12 @@ def decode_cases(torch, timer, rep):
         lib = timer(lambda: F.scaled_dot_product_attention(
             qs, ks_, vs_, attn_mask=mask))
         E = int(valid.sum())          # live (slot, row) entries this run
-        nbytes = E * Hkv * (2 * D + 2 * 2 * C * 4) + N * T * 4 + N * 4 + \
-            2 * N * Hq * D * 2
-        rep.add(f"{arch} N={N} T={T} Hq={Hq} Hkv={Hkv} D={D} int8",
+        # codes, and per-entry scales unless static (4 x Hkv x C constants)
+        nbytes = E * Hkv * (2 * D + (0 if static else 2 * 2 * C * 4)) + \
+            N * T * 4 + N * 4 + 2 * N * Hq * D * 2 + \
+            (4 * Hkv * C * 4 if static else 0)
+        rep.add(f"{arch} N={N} T={T} Hq={Hq} Hkv={Hkv} D={D} int8 "
+                f"{'static' if static else 'dynamic'}",
                 max_err(got, want), tol,
                 timer(lambda: decode_attention(q, qk, qv, kv_pos, q_pos,
                                                *sc)),
@@ -347,7 +413,6 @@ def decode_cases(torch, timer, rep):
 
 
 def prefill_cases(torch, timer, rep, qrep):
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import dequant_chunk
     from repro_torch.kernels.prefill_attention import (prefill_attention,
                                                        prefill_attention_ref,
@@ -380,21 +445,10 @@ def prefill_cases(torch, timer, rep, qrep):
                 fail(f"prefill {arch}: epilogue codes/scales differ from "
                      f"quantize_kv")
         tol = 2 ** -7 * max(1.0, float(want.float().abs().max()))
-        kd = dequant_chunk(ck, ks, kz).to(torch.bfloat16)
-        vd = dequant_chunk(cv, vs, vz).to(torch.bfloat16)
-        G = Hq // Hkv                 # heads expanded before timing
-        keys = torch.cat([kd, kn], 0).transpose(0, 1)[None]
-        vals = torch.cat([vd, vn], 0).transpose(0, 1)[None]
-        keys = keys.repeat_interleave(G, 1)
-        vals = vals.repeat_interleave(G, 1)
-        cache_ok = (kv_pos >= 0) & (kv_pos < pos_start)
-        idx = torch.arange(Sq, device="cuda")
-        causal = (idx[None, :] <= idx[:, None]) & (idx[None, :] < length)
-        mask = torch.cat([cache_ok[None].expand(Sq, T), causal], 1)[None, None]
-        qs = q.transpose(0, 1)[None]
-        lib = timer(lambda: F.scaled_dot_product_attention(
-            qs, keys, vals, attn_mask=mask))
-        Ec = int(cache_ok.sum())
+        lib = _sdpa_prefill(torch, timer, q, dequant_chunk(ck, ks, kz),
+                            dequant_chunk(cv, vs, vz), kn, vn, kv_pos,
+                            pos_start, length)
+        Ec = int(((kv_pos >= 0) & (kv_pos < pos_start)).sum())
         pairs = sum(min(i + 1, length) for i in range(Sq))
         nbytes = Ec * Hkv * (2 * D + 2 * 2 * C * 4) + T * 4 + \
             (Sq * Hq * D * 2) * 2 + 2 * Sq * Hkv * D * 2 + \
@@ -422,6 +476,135 @@ def prefill_cases(torch, timer, rep, qrep):
                      timer(lambda: quantize_kv_ref(x, C)), None,
                      n * 2 + n + 2 * (n // (D // C)) * 4, 4 * n)
 
+
+def _sdpa_prefill(torch, timer, q, kd, vd, kn, vn, kv_pos, pos_start, length):
+    """SDPA's time over the dequantized cache rows and the chunk's K/V
+    (bf16), with the same mask: the library yardstick of a prefill
+    case."""
+    import torch.nn.functional as F
+    Sq, Hq, _ = q.shape
+    T, Hkv = kd.shape[:2]
+    G = Hq // Hkv         # heads expanded and types cast before timing
+    keys, vals = (torch.cat([c.to(q.dtype), n.to(q.dtype)], 0)
+                  .transpose(0, 1)[None].repeat_interleave(G, 1)
+                  for c, n in ((kd, kn), (vd, vn)))
+    cache_ok = (kv_pos >= 0) & (kv_pos < pos_start)
+    idx = torch.arange(Sq, device="cuda")
+    causal = (idx[None, :] <= idx[:, None]) & (idx[None, :] < length)
+    mask = torch.cat([cache_ok[None].expand(Sq, T), causal], 1)[None, None]
+    qs = q.transpose(0, 1)[None]
+    return timer(lambda: F.scaled_dot_product_attention(
+        qs, keys, vals, attn_mask=mask))
+
+
+def prefill_mode_cases(torch, timer, rep):
+    """The static and verify modes of prefill attention at the serving
+    shapes: a 96-token chunk with static scales, and a 4-row verify
+    window (spec_k = 3) over int8 dynamic, int8 static and fp32 caches,
+    each at position 384 of a 1024-row slot, for stablelm-1.6b and
+    chatglm3-6b; the times are the wrapper's (with its quantize launches).
+    The codes the wrapper returns must equal the plain quantizers'."""
+    from repro_torch.kernels.decode_attention import dequant_chunk
+    from repro_torch.kernels.prefill_attention import (
+        prefill_attention, prefill_attention_ref, quantize_kv_ref,
+        quantize_kv_static_ref, window_kv)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    T, C, pos_start = 1024, 4, 384
+    cases = [("static", 96, False), ("dynamic", 4, True),
+             ("static", 4, True), ("fp32", 4, True)]
+    for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
+                             ("chatglm3-6b", 32, 2, 128)):
+        for mode, Sq, verify in cases:
+            length = Sq
+            f = lambda *s: torch.randn(s, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            q, kn, vn = f(Sq, Hq, D), f(Sq, Hkv, D), f(Sq, Hkv, D)
+            kc, vc = f(T, Hkv, D), f(T, Hkv, D)
+            if mode == "static":
+                ks, kz = static_scales_of(torch, kc, C)
+                vs, vz = static_scales_of(torch, vc, C)
+                ck, cv = (quantize_kv_static_ref(kc, ks, kz),
+                          quantize_kv_static_ref(vc, vs, vz))
+                sc = (ks, kz, vs, vz)
+            elif mode == "dynamic":
+                ck, ks, kz = quantize_kv_ref(kc, C)
+                cv, vs, vz = quantize_kv_ref(vc, C)
+                sc = (ks, kz, vs, vz)
+            else:
+                ck, cv, sc = kc.float(), vc.float(), ()
+            kv_pos = torch.full((T,), -1, dtype=torch.int32, device="cuda")
+            kv_pos[:pos_start + 1] = torch.arange(pos_start + 1, device="cuda",
+                                                  dtype=torch.int32)
+            args = (q, kn, vn, ck, cv, kv_pos, pos_start, length, *sc)
+            got, gaux = prefill_attention(*args, verify=verify)
+            want = prefill_attention_ref(*args, verify=verify)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"prefill {arch} {mode}: non-finite output")
+            if mode == "static":
+                waux = (quantize_kv_static_ref(kn, ks, kz),
+                        quantize_kv_static_ref(vn, vs, vz))
+            elif mode == "dynamic":
+                wk_, wv_ = quantize_kv_ref(kn, C), quantize_kv_ref(vn, C)
+                waux = (wk_[0], wv_[0], wk_[1], wk_[2], wv_[1], wv_[2])
+            else:
+                waux = ()
+            if len(gaux) != len(waux) or not all(
+                    torch.equal(a, b) for a, b in zip(gaux, waux)):
+                fail(f"prefill {arch} {mode}: the chunk's codes differ from "
+                     f"the plain quantizer's")
+            tol = 2 ** -7 * max(1.0, float(want.float().abs().max()))
+            kd, vd = (ck, cv) if mode == "fp32" else \
+                (dequant_chunk(ck, ks, kz), dequant_chunk(cv, vs, vz))
+            wkd, wvd = window_kv(kn, vn, ck.dtype, sc, verify)
+            lib = _sdpa_prefill(torch, timer, q, kd, vd, wkd, wvd, kv_pos,
+                                pos_start, length)
+            Ec = int(((kv_pos >= 0) & (kv_pos < pos_start)).sum())
+            pairs = sum(min(i + 1, length) for i in range(Sq))
+            row = {"static": 2 * D, "dynamic": 2 * D + 2 * 2 * C * 4,
+                   "fp32": 2 * D * 4}[mode]
+            out = {"static": 2 * Sq * Hkv * D, "fp32": 0,
+                   "dynamic": 2 * Sq * Hkv * (D + 2 * C * 4)}[mode]
+            nbytes = Ec * Hkv * row + T * 4 + (Sq * Hq * D * 2) * 2 + \
+                2 * Sq * Hkv * D * 2 + out + \
+                (4 * Hkv * C * 4 if mode == "static" else 0)
+            rep.add(f"{arch} {'verify ' if verify else ''}{mode} Sq={Sq} "
+                    f"pos_start={pos_start} T={T} Hkv={Hkv} D={D}",
+                    max_err(got, want), tol,
+                    timer(lambda: prefill_attention(*args, verify=verify)),
+                    timer(lambda: prefill_attention_ref(*args,
+                                                        verify=verify)),
+                    lib, nbytes, 4 * Hq * D * (Ec * Sq + pairs))
+            log_against_sdpa(rep, host_us(torch, lambda: prefill_attention(
+                *args, verify=verify)))
+
+
+def quantize_static_cases(torch, timer, rep):
+    """quantize_kv_static at its main-path shapes, the prefill epilogue
+    (96, Hkv, D) and the decode write (8, Hkv, D) of stablelm-1.6b and
+    chatglm3-6b, bf16 input: codes exactly the plain version's, with S and
+    Z drawn so that most codes fall strictly inside the range."""
+    from repro_torch.kernels.prefill_attention import (quantize_kv_static,
+                                                       quantize_kv_static_ref)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    C = 4
+    for shape in ((96, 32, 64), (8, 32, 64), (96, 2, 128), (8, 2, 128)):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2).to(
+            torch.bfloat16)
+        scale, zero = static_scales_of(torch, x, C, gen)
+        got = quantize_kv_static(x, scale, zero)
+        want = quantize_kv_static_ref(x, scale, zero)
+        torch.cuda.synchronize()
+        inside = float(((got > -128) & (got < 127)).float().mean())
+        if inside <= 0.5:
+            fail(f"quantize_kv_static {shape}: only {inside:.2f} of the codes "
+                 f"fall inside the range; the check would test the clip")
+        n = x.numel()
+        rep.add(f"{shape} bf16 C={C} ({100 * inside:.0f}% inside)",
+                max_err(got, want), 0.0,
+                timer(lambda: quantize_kv_static(x, scale, zero)),
+                timer(lambda: quantize_kv_static_ref(x, scale, zero)), None,
+                n * 2 + n + 2 * shape[1] * C * 4, 4 * n)
 
 
 def wkv_cases(torch, timer, rep):
@@ -544,14 +727,16 @@ def log_ptxas(out: str) -> None:
     for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
                              ("chatglm3-6b", 32, 2, 128)):
         p = decode_plan(8, 1024, Hkv, Hq // Hkv, build.sm_count(0))
+        smem = [lib.decode_attention_smem(D, 4, 1, st, p.group, p.warps)
+                for st in (0, 1)]
         log(f"attention dynamic shared memory per block, {arch} int8 C=4: "
-            f"decode {lib.decode_attention_smem(D, 4, 1, p.group, p.warps)} B "
-            f"({p}), prefill {lib.prefill_attention_smem(D, 4, 1, 1024)} B")
+            f"decode {smem[0]} B dynamic, {smem[1]} B static ({p}), prefill "
+            f"{lib.prefill_attention_smem(D, 4, 1, 1024)} B")
 
 
 def reset_counts(counters) -> None:
-    """Every kernel's launch count to 0, the per-variant counts of the
-    matmul and the two attention kernels too."""
+    """Every kernel's launch count to 0, the per-variant and per-mode
+    counts of the matmul and the two attention kernels too."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import prefill_attention as pa
     from repro_torch.kernels import splitquant_matmul as sqm
@@ -579,35 +764,38 @@ def only_variant(counters, name: str, phase: str) -> dict:
     return v
 
 
+def only_modes(counters, phase: str, decode: set, prefill: set) -> dict:
+    """The attention kernels' launches by mode since the last reset: each
+    mode in ``decode`` / ``prefill`` launched, no other mode."""
+    out = {}
+    for name, want in (("decode_attention", decode),
+                       ("prefill_attention", prefill)):
+        m = dict(counters[name].mode_launches)
+        if any(m[k] <= 0 for k in want) or \
+                any(v for k, v in m.items() if k not in want):
+            fail(f"{phase}: {name} launched the modes {m}; expected "
+                 f"{sorted(want)} only")
+        out[name] = m
+    return out
+
+
 # ------------------------------------------------------------- engine ---
 def percentile(xs, p):
     import numpy as np
     return float(np.percentile(np.asarray(xs, dtype=np.float64), p))
 
 
-def engine_phase(torch, counters):
-    """``counters``: every kernel wrapper by name; all are set to 0 just
-    before the run and read just after."""
+def serve_run(torch, counters, phase, cfg, params, ecfg, warmup, prompts,
+              **engine_kw):
+    """One engine serving run at full width: a warm-up engine, then the
+    run with every launch count set to 0 just before and read just after.
+    Returns (engine, finished requests, wall seconds, launches)."""
     from repro_torch.engine import Engine
-    from repro_torch.launch.serve import build_params, smoke_workload
-    from repro_torch.models import transformer
-
-    cfg, ecfg, quant, warmup, prompts = smoke_workload()
-    device = "cuda"
-    t0 = time.perf_counter()
-    params, report = build_params(cfg, device=device, **quant)
-    torch.cuda.synchronize()
-    t_quant = time.perf_counter() - t0
-    log(f"engine: stablelm-1.6b full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab}), init + SplitQuant INT4 k=3 of "
-        f"{len(report['quantized'])} matrices on the card in {t_quant:.2f} s"
-        f" ({report['deployed_bytes'] / 2**20:.1f} MiB packed)")
-    warm = Engine(cfg, params, ecfg, device=device)
+    warm = Engine(cfg, params, ecfg, device="cuda", **engine_kw)
     warm.submit(warmup, 4)
     warm.drain()
     del warm
-    eng = Engine(cfg, params, ecfg, device=device)
+    eng = Engine(cfg, params, ecfg, device="cuda", **engine_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
@@ -618,31 +806,54 @@ def engine_phase(torch, counters):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    variants = only_variant(counters, "splitquant_matmul", "engine")
-    pvariants = only_variant(counters, "prefill_attention", "engine")
-    dvariants = only_variant(counters, "decode_attention", "engine")
+    if len(fin) != len(prompts) or \
+            any(len(r.out) != ecfg.max_new_tokens for r in fin):
+        fail(f"{phase}: expected {len(prompts)} requests x "
+             f"{ecfg.max_new_tokens} tokens, got {[len(r.out) for r in fin]}")
+    if any(not 0 <= t < cfg.vocab for r in fin for t in r.out):
+        fail(f"{phase}: token id out of vocab")
+    for name in (n for n, p in PATHS.items() if phase in p):
+        if launches[name] <= 0:
+            fail(f"{phase}: kernel {name} was not launched on its path")
+    return eng, fin, wall, launches
+
+
+def engine_phase(torch, counters, params, kv_scales=None):
+    """The engine over the smoke workload, with dynamic int8 scales or,
+    given ``kv_scales``, static ones. ``counters``: every kernel wrapper
+    by name; all are set to 0 just before the run and read just after."""
+    from repro_torch.launch.serve import smoke_workload
+    from repro_torch.models import transformer
+
+    cfg, ecfg, _, warmup, prompts = smoke_workload()
+    phase = "engine" if kv_scales is None else "static"
+    eng, fin, wall, launches = serve_run(
+        torch, counters, phase, cfg, params, ecfg, warmup, prompts,
+        kv_scales=kv_scales)
+    variants = only_variant(counters, "splitquant_matmul", phase)
+    pvariants = only_variant(counters, "prefill_attention", phase)
+    dvariants = only_variant(counters, "decode_attention", phase)
+    mode = "dynamic" if kv_scales is None else "static"
+    modes = only_modes(counters, phase, {mode}, {mode})
+    if (launches["quantize_kv"] > 0) == (kv_scales is not None) or \
+            (launches["quantize_kv_static"] > 0) == (kv_scales is None):
+        fail(f"{phase}: quantize launches {launches['quantize_kv']} dynamic, "
+             f"{launches['quantize_kv_static']} static, for a {mode} cache")
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.out) for r in fin)
-    if len(fin) != 16 or any(len(r.out) != 32 for r in fin):
-        fail(f"engine: expected 16 requests x 32 tokens, got "
-             f"{[len(r.out) for r in fin]}")
-    if any(not 0 <= t < cfg.vocab for r in fin for t in r.out):
-        fail("engine: token id out of vocab")
-    for name in (n for n, p in PATHS.items() if "engine" in p):
-        if launches[name] <= 0:
-            fail(f"engine: kernel {name} was not launched on the main path")
     # the logits the engine samples from are finite at full width
     logits = transformer.decode_step_slots(
         params, cfg, eng.cache,
-        torch.tensor([[r.out[-1]] for r in fin[:8]], device=device),
-        torch.full((8,), 700, dtype=torch.int32, device=device))
+        torch.tensor([[r.out[-1]] for r in fin[:8]], device="cuda"),
+        torch.full((8,), 700, dtype=torch.int32, device="cuda"))
     if logits.shape != (8, 1, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
-        fail("engine: non-finite or misshapen logits at full width")
+        fail(f"{phase}: non-finite or misshapen logits at full width")
     ttft = [r.ttft for r in fin]
-    res = {"arch": cfg.name, "requests": len(fin), "new_tokens": n_tok,
+    res = {"arch": cfg.name, "kv_scales": mode, "requests": len(fin),
+           "new_tokens": n_tok,
            "prompt_tokens": int(sum(len(p) for p in prompts)),
-           "setup_quantize_s": t_quant, "wall_s": wall,
+           "wall_s": wall,
            "ttft_p50_s": percentile(ttft, 50),
            "ttft_p90_s": percentile(ttft, 90),
            "decode_step_p50_s": percentile(eng.decode_step_s, 50),
@@ -653,24 +864,133 @@ def engine_phase(torch, counters):
            "kv_cache_bytes": eng.cache.nbytes(), "launches": launches,
            "matmul_variants": variants, "prefill_variants": pvariants,
            "decode_variants": dvariants,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "outputs": [r.out for r in fin],
            "decode_launches_per_step_layer":
                launches["decode_attention"] / eng.n_decode_steps
                / cfg.n_layers,
            "prefill_launches_per_chunk_layer":
                launches["prefill_attention"] / eng.n_prefill_chunks
                / cfg.n_layers}
-    log(f"engine: {len(fin)} requests, {res['prompt_tokens']} prompt + "
-        f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
-        f"tok/s; TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
+    log(f"{phase}: {mode} KV scales, {len(fin)} requests, "
+        f"{res['prompt_tokens']} prompt + {n_tok} new tokens in {wall:.3f} s "
+        f"= {res['tokens_per_s']:.1f} tok/s; TTFT p50 "
+        f"{res['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
         f"{res['decode_step_p50_s'] * 1e3:.2f} ms; prefill chunk p50 "
         f"{res['prefill_chunk_p50_s'] * 1e3:.2f} ms; {eng.n_decode_steps} "
         f"decode steps, {eng.n_prefill_chunks} prefill chunks; peak memory "
-        f"{peak / 2**30:.2f} GiB; launches {launches}; matmul launches by "
-        f"variant {variants}; prefill attention launches by variant "
-        f"{pvariants}; decode attention launches by variant {dvariants}; "
-        f"per step and layer: decode attention "
+        f"{peak / 2**30:.2f} GiB; KV cache {res['kv_cache_bytes'] / 2**20:.1f} "
+        f"MiB; launches {launches}; matmul launches by variant {variants}; "
+        f"prefill attention launches by variant {pvariants}, by mode "
+        f"{modes['prefill_attention']}; decode attention launches by variant "
+        f"{dvariants}, by mode {modes['decode_attention']}; per step and "
+        f"layer: decode attention "
         f"{res['decode_launches_per_step_layer']:.2f}, prefill attention "
         f"{res['prefill_launches_per_chunk_layer']:.2f} (per chunk)")
+    return res
+
+
+def calibrate(torch, cfg, params, device, S=256):
+    """Static KV scales of ``cfg`` from the port's ``collect_kv_stats``
+    over 4 seeded prompts of ``S`` tokens, on ``device``."""
+    import numpy as np
+    from repro_torch.calib import collect_kv_stats, kv_static_scales
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab, size=(4, S))
+    t0 = time.perf_counter()
+    scales = kv_static_scales(collect_kv_stats(cfg, params, [toks]))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return scales, time.perf_counter() - t0
+
+
+def top2_margin(torch, cfg, params, scales, tokens) -> float:
+    """The target's top-2 logit margin after ``tokens``, on a fresh
+    one-slot static cache (96-token chunks)."""
+    from repro_torch.engine.kvcache import init_slot_cache
+    from repro_torch.models import transformer
+    cache = init_slot_cache(cfg, 1, len(tokens) + 1, mode="int8",
+                            kv_scales=scales, device="cuda")
+    t = torch.as_tensor(tokens, device="cuda")[None]
+    for done in range(0, len(tokens), 96):
+        n = min(96, len(tokens) - done)
+        logits = transformer.prefill_chunk_slots(
+            params, cfg, cache, t[:, done:done + n], 0, done, n)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def spec_phase(torch, counters, params, scales, static_res):
+    """Self-speculative decoding at full width: the INT4 target over the
+    static scales, an INT2 SplitQuant k=3 draft of the same seeded
+    weights (dequantized once to bf16), spec_k = 3, 8 slots, max_len 1024,
+    the first 8 requests of the smoke workload."""
+    import dataclasses
+    from repro_torch.launch.serve import build_params, smoke_workload
+    cfg, ecfg, quant, warmup, prompts = smoke_workload()
+    prompts = prompts[:8]
+    ecfg = dataclasses.replace(ecfg, spec_k=3)
+    t0 = time.perf_counter()
+    draft, _ = build_params(cfg, device="cuda", **dict(quant, bits=2))
+    torch.cuda.synchronize()
+    t_draft = time.perf_counter() - t0
+    eng, fin, wall, launches = serve_run(
+        torch, counters, "spec", cfg, params, ecfg, warmup, prompts,
+        kv_scales=scales, draft_params=draft)
+    del draft
+    modes = only_modes(counters, "spec", {"dynamic"},
+                       {"static", "verify_static", "dynamic"})
+    if eng.n_rollbacks < 1:
+        fail("spec: no rollback in the run")
+    n_tok = sum(len(r.out) for r in fin)
+    greedy = static_res["outputs"][:8]
+    same = sum(a == b for r, g in zip(fin, greedy)
+               for a, b in zip(r.out, g))
+    res = {"arch": cfg.name, "spec_k": ecfg.spec_k, "requests": len(fin),
+           "new_tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "draft_quantize_s": t_draft,
+           "acceptance_rate": eng.sched.acceptance_rate(),
+           "draft_proposed": eng.sched.spec_proposed,
+           "draft_accepted": eng.sched.spec_accepted,
+           "spec_steps": eng.n_spec_steps,
+           "verify_calls": eng.n_verify_calls,
+           "rollbacks": eng.n_rollbacks,
+           "draft_steps": eng._spec.n_draft_steps,
+           "tokens_per_spec_step": eng.n_spec_commit_tokens / eng.n_spec_steps,
+           "tokens_per_verify": eng.n_spec_commit_tokens / eng.n_verify_calls,
+           "spec_step_p50_s": percentile(eng.spec_step_s, 50),
+           "ttft_p50_s": percentile([r.ttft for r in fin], 50),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "identical_to_static_greedy_share": same / n_tok}
+    diff = next(((i, j) for i, (r, g) in enumerate(zip(fin, greedy))
+                 for j, (a, b) in enumerate(zip(r.out, g)) if a != b), None)
+    if diff is not None:
+        i, j = diff
+        res["first_difference"] = {"request": i, "position": j}
+        res["top2_margin_there"] = top2_margin(
+            torch, cfg, params, scales,
+            list(prompts[i]) + list(fin[i].out[:j]))
+    log(f"spec: spec_k {ecfg.spec_k}, INT2 draft (quantized in {t_draft:.1f} "
+        f"s, dequantized to bf16), static target scales; {len(fin)} requests,"
+        f" {n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
+        f"tok/s; acceptance {res['acceptance_rate']:.3f} "
+        f"({res['draft_accepted']}/{res['draft_proposed']}); "
+        f"{res['tokens_per_spec_step']:.2f} tokens committed per spec step "
+        f"({res['tokens_per_verify']:.2f} per verify) over "
+        f"{eng.n_spec_steps} spec steps ({eng.n_verify_calls} verify calls, "
+        f"{eng.n_rollbacks} rollbacks, {res['draft_steps']} draft decode "
+        f"steps); spec step p50 {res['spec_step_p50_s'] * 1e3:.1f} ms; peak "
+        f"memory {res['peak_mem_bytes'] / 2**30:.2f} GiB; prefill attention by"
+        f" mode {modes['prefill_attention']}, decode attention by mode "
+        f"{modes['decode_attention']}; {100 * same / n_tok:.1f}% of tokens "
+        f"identical to the static engine's greedy output"
+        + ("" if diff is None else
+           f" (first difference: request {diff[0]}, token {diff[1]}; the "
+           f"target's top-2 logit margin there {res['top2_margin_there']:.4f})"))
     return res
 
 
@@ -698,6 +1018,47 @@ def cross_check(torch):
         fail(f"cross-check: card {outs['cuda']} != cpu {outs['cpu']}")
     return {"requests": len(prompts), "identical": same}
 
+
+def spec_cross_check(torch):
+    """stablelm-1.6b reduced in fp32, INT4 target and INT2 draft,
+    spec_k = 3, over int8 dynamic and static caches: the card's
+    speculative tokens equal the card's greedy tokens and the CPU's
+    speculative tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg = get_arch("stablelm-1.6b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")
+    draft, _ = build_params(cfg, bits=2, method="splitquant", seed=0,
+                            device="cpu")
+    scales, _ = calibrate(torch, cfg, params, "cpu", S=64)
+    prompts = seeded_prompts(cfg.vocab, 8, 16, 200, seed=2)
+    res = {}
+    for mode, kv_scales in (("dynamic", None), ("static", scales)):
+        outs = {}
+        for dev, spec_k in (("cpu", 3), ("cuda", 3), ("cuda", 0)):
+            p, d = (params, draft) if dev == "cpu" else \
+                (tree_to(params, "cuda"), tree_to(draft, "cuda"))
+            eng = Engine(cfg, p, EngineConfig(
+                n_slots=4, max_len=256, max_new_tokens=16, kv_mode="int8",
+                prefill_chunk=96, spec_k=spec_k), device=dev,
+                kv_scales=kv_scales, draft_params=d if spec_k else None)
+            for pr in prompts:
+                eng.submit(pr)
+            outs[(dev, spec_k)] = [r.out for r in eng.drain()]
+        same = outs[("cuda", 3)] == outs[("cuda", 0)] == outs[("cpu", 3)]
+        log(f"spec cross-check: stablelm-1.6b reduced fp32, int8 {mode} KV, "
+            f"spec_k 3 with an INT2 draft, 8 requests x 16 tokens: card spec "
+            f"tokens {'==' if same else '!='} card greedy tokens == CPU spec "
+            f"tokens")
+        if not same:
+            fail(f"spec cross-check ({mode}): card spec {outs[('cuda', 3)]}, "
+                 f"card greedy {outs[('cuda', 0)]}, cpu spec "
+                 f"{outs[('cpu', 3)]}")
+        res[mode] = {"requests": len(prompts), "identical": same}
+    return res
 
 
 def rwkv_phase(torch, counters):
@@ -814,7 +1175,8 @@ def main() -> None:
                                                act_split_quantize_static)
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.prefill_attention import (prefill_attention,
-                                                       quantize_kv)
+                                                       quantize_kv,
+                                                       quantize_kv_static)
     from repro_torch.kernels.splitquant_matmul import splitquant_matmul
     from repro_torch.kernels.wkv_chunked import wkv_chunked
 
@@ -847,13 +1209,16 @@ def main() -> None:
     decode_cases(torch, timer, reps["decode_attention"])
     prefill_cases(torch, timer, reps["prefill_attention"],
                   reps["quantize_kv"])
+    prefill_mode_cases(torch, timer, reps["prefill_attention"])
+    quantize_static_cases(torch, timer, reps["quantize_kv_static"])
     wkv_cases(torch, timer, reps["wkv_chunked"])
     counters = {"splitquant_matmul": splitquant_matmul,
                 "act_split_quantize": act_split_quantize,
                 "act_split_quantize_static": act_split_quantize_static,
                 "prefill_attention": prefill_attention,
                 "quantize_kv": quantize_kv, "wkv_chunked": wkv_chunked,
-                "decode_attention": decode_attention}
+                "decode_attention": decode_attention,
+                "quantize_kv_static": quantize_kv_static}
     reset_counts(counters)
     act_quant_cases(torch, timer, reps["act_split_quantize"],
                     reps["act_split_quantize_static"])
@@ -861,18 +1226,54 @@ def main() -> None:
                    if not p}
     del timer       # its 512 MiB flush buffer is not the servers' memory
 
-    eng = engine_phase(torch, counters)
+    from repro_torch.launch.serve import build_params, smoke_workload
+    cfg, _, quant, _, _ = smoke_workload()
+    t0 = time.perf_counter()
+    params, report = build_params(cfg, device="cuda", **quant)
+    torch.cuda.synchronize()
+    log(f"stablelm-1.6b full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}): init + SplitQuant INT4 k=3 of "
+        f"{len(report['quantized'])} matrices on the card in "
+        f"{time.perf_counter() - t0:.2f} s "
+        f"({report['deployed_bytes'] / 2**20:.1f} MiB packed)")
+    eng = engine_phase(torch, counters, params)
+    scales, t_cal = calibrate(torch, cfg, params, "cuda")
+    log(f"static KV scales: collect_kv_stats over 4 seeded prompts of 256 "
+        f"tokens on the card in {t_cal:.2f} s")
+    sta = engine_phase(torch, counters, params, kv_scales=scales)
+    log(f"static vs dynamic scales: tokens/s {sta['tokens_per_s']:.1f} vs "
+        f"{eng['tokens_per_s']:.1f}; TTFT p50 {sta['ttft_p50_s'] * 1e3:.1f} vs "
+        f"{eng['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
+        f"{sta['decode_step_p50_s'] * 1e3:.2f} vs "
+        f"{eng['decode_step_p50_s'] * 1e3:.2f} ms; peak memory "
+        f"{sta['peak_mem_bytes'] / 2**30:.2f} vs "
+        f"{eng['peak_mem_bytes'] / 2**30:.2f} GiB; KV cache "
+        f"{sta['kv_cache_bytes'] / 2**20:.1f} vs "
+        f"{eng['kv_cache_bytes'] / 2**20:.1f} MiB")
+    spec = spec_phase(torch, counters, params, scales, sta)
+    del params
     xc = cross_check(torch)
+    sxc = spec_cross_check(torch)
     rwkv = rwkv_phase(torch, counters)
     rxc = rwkv_cross_check(torch)
 
-    runs = {"engine": eng["launches"], "wave": rwkv["launches"]}
+    serving = {"engine": eng, "static": sta, "spec": spec}
+    runs = {"engine": eng["launches"], "static": sta["launches"],
+            "spec": spec["launches"], "wave": rwkv["launches"]}
     extra = {"splitquant_matmul": {"launches_by_variant": {
-        "engine": eng["matmul_variants"], "wave": rwkv["matmul_variants"]}},
+        "engine": eng["matmul_variants"], "static": sta["matmul_variants"],
+        "wave": rwkv["matmul_variants"]}},
         "prefill_attention": {"launches_by_variant": {
-            "engine": eng["prefill_variants"]}},
+            "engine": eng["prefill_variants"],
+            "static": sta["prefill_variants"]},
+            "launches_by_mode": {k: r["prefill_modes"]
+                                 for k, r in serving.items()}},
         "decode_attention": {"launches_by_variant": {
-            "engine": eng["decode_variants"]}}}
+            "engine": eng["decode_variants"],
+            "static": sta["decode_variants"]},
+            "launches_by_mode": {k: r["decode_modes"]
+                                 for k, r in serving.items()}}}
     kernels = [reps[n].entry(
         {p: runs[p][n] for p in PATHS[n]} or {"kernel phase": aq_launches[n]},
         **extra.get(n, {}))
@@ -882,7 +1283,9 @@ def main() -> None:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card_line, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_s": t_build, "engine": eng,
-         "cross_check": xc, "rwkv6": rwkv, "rwkv6_cross_check": rxc,
+         "static": sta, "spec": spec, "static_calibration_s": t_cal,
+         "cross_check": xc, "spec_cross_check": sxc, "rwkv6": rwkv,
+         "rwkv6_cross_check": rxc,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,0 +1,107 @@
+"""K/V range statistics and the static scales derived from them (port of
+the KV part of ``repro.calib.stats``).
+
+:func:`collect_kv_stats` measures per-(layer, kv-head, sub-channel chunk)
+min/max of the K/V that the engine's slot cache stores, over seeded
+calibration prompts; :func:`kv_static_scales` turns them into the
+(S, Z) constants that ``Engine(kv_scales=)`` quantizes with instead of a
+runtime min/max reduce. The JAX package reduces the cache of a one-shot
+``prefill``; the port has no one-shot forward yet, so it runs the prompts
+through ``prefill_chunk_slots`` into an fp32 slot cache and reduces the
+rows written: the same K/V, summed in another order (equal to the JAX
+function's at fp32 rounding).
+"""
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from ..engine.kvcache import init_slot_cache
+from ..models import transformer
+
+
+def collect_kv_stats(cfg, params, batches: Iterable[np.ndarray], *,
+                     qchunks: int = 4, chunk: int = 96) -> dict:
+    """Per-(layer, head, chunk) K/V ranges of a dense model.
+
+    ``batches``: iterable of (B, S) integer token arrays. Each prompt is
+    prefilled in chunks of at most ``chunk`` tokens into its own slot of
+    an fp32 cache on the device ``params`` live on, and the K/V written
+    (L, B, S, Hkv, D) are reduced over batch, position and the channels
+    of each sub-channel chunk → min/max (L, Hkv, C), merged across
+    batches. Returns {"k_min", "k_max", "v_min", "v_max"} as fp32 numpy
+    arrays."""
+    D = cfg.head_dim
+    if D % qchunks:
+        raise ValueError(f"head_dim {D} not divisible by qchunks {qchunks}")
+    device = params["embed"].device
+    acc = None
+    for toks in batches:
+        toks = np.asarray(toks, np.int64)
+        B, S = toks.shape
+        cache = init_slot_cache(cfg, B, S, mode="fp", device=device)
+        for b in range(B):
+            for done in range(0, S, chunk):
+                n = min(chunk, S - done)
+                transformer.prefill_chunk_slots(
+                    params, cfg, cache,
+                    torch.from_numpy(toks[b:b + 1, done:done + n]).to(device),
+                    b, done, n)
+        r = {}
+        for name in ("k", "v"):
+            buf = getattr(cache, name)                       # (L, B, S, H, D)
+            L, _, _, H, _ = buf.shape
+            xc = buf.reshape(L, B, S, H, qchunks, D // qchunks)
+            r[f"{name}_min"] = xc.amin(dim=(1, 2, 5)).cpu().numpy()
+            r[f"{name}_max"] = xc.amax(dim=(1, 2, 5)).cpu().numpy()
+        if acc is None:
+            acc = r
+        else:
+            for kk in ("k_min", "v_min"):
+                acc[kk] = np.minimum(acc[kk], r[kk])
+            for kk in ("k_max", "v_max"):
+                acc[kk] = np.maximum(acc[kk], r[kk])
+    if acc is None:
+        raise ValueError("no calibration batches")
+    return acc
+
+
+def static_qparams(beta: np.ndarray, alpha: np.ndarray, *, bits: int = 8
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Offline (β, α) → (S, Z) with an exact fractional zero-point: the
+    static quantizer folds Z into the rounding, q = rint(S·x + Z), so
+    unlike the runtime eq. (3) the zero is not rounded. A constant chunk
+    gets S = 1/|v|, which maps v to code ±1 exactly."""
+    beta = np.asarray(beta, np.float32)
+    alpha = np.asarray(alpha, np.float32)
+    qmin = -(2 ** (bits - 1))
+    levels = 2 ** bits - 1
+    span = alpha - beta
+    amax = np.maximum(np.abs(beta), np.abs(alpha))
+    degenerate = np.where(amax > 0, 1.0 / np.where(amax > 0, amax, 1.0), 1.0)
+    scale = np.where(span > 0, levels / np.where(span > 0, span, 1.0),
+                     degenerate).astype(np.float32)
+    zero = np.where(span > 0, qmin - scale * beta, 0.0).astype(np.float32)
+    return scale, zero
+
+
+def kv_static_scales(kv_stats: dict, *, bits: int = 8,
+                     margin: float = 1.0) -> dict:
+    """(β, α) per (L, Hkv, C) → static (S, Z) for the engine slot cache:
+    {"k_scale", "k_zero", "v_scale", "v_zero"}. ``margin`` > 1 widens the
+    calibrated range symmetrically around its midpoint (headroom against
+    values the calibration prompts never produced)."""
+    out = {}
+    for name in ("k", "v"):
+        beta = np.asarray(kv_stats[f"{name}_min"], np.float32)
+        alpha = np.asarray(kv_stats[f"{name}_max"], np.float32)
+        if margin != 1.0:
+            mid = (alpha + beta) / 2
+            half = (alpha - beta) / 2 * margin
+            beta, alpha = mid - half, mid + half
+        scale, zero = static_qparams(beta, alpha, bits=bits)
+        out[f"{name}_scale"] = scale
+        out[f"{name}_zero"] = zero
+    return out

@@ -12,7 +12,9 @@ the model's slot entry points. Each :meth:`Engine.step`
    keeps prefilling until one joins the decode batch;
 3. runs ONE batched decode step over all N slots at their own
    positions, with greedy argmax on the device and one (N,) copy to the
-   host;
+   host — or, with ``spec_k > 0``, one speculative step
+   (:meth:`Engine._spec_step`: the draft proposes, the target verifies
+   each slot's window in one pass, 1..spec_k+1 tokens commit per slot);
 4. retires finished slots (``clear_slot``) so the next step refills them.
 
 Idle slots ride along in the fixed-shape decode batch at position 0 with
@@ -22,11 +24,14 @@ the slot's next chunk overwrites, and the chunk kernel masks cache rows
 at >= pos_start, so it is never attended.
 
 Chunk sizes are ``bucket_len(n, prefill_bucket, prefill_chunk)``, as in
-the JAX engine, so both fill the cache with the same rows. Not ported
-yet: speculative decoding, faults and retry, journal and snapshots,
-metrics and tracing, the flight recorder, deadlines and cancel,
-overload shedding and degradation, one-shot prefill, temperature
-sampling and static KV scales.
+the JAX engine, so both fill the cache with the same rows. An int8 cache
+takes static per-layer scales from a calibration recipe with
+``kv_scales=`` (or hot-swapped into a live dynamic cache by
+:meth:`Engine.load_kv_scales`). Not ported yet: the draft from a
+calibration recipe (``draft_recipe``; pass ``draft_params=``), faults and
+retry, journal and snapshots, metrics and tracing, the flight recorder,
+deadlines and cancel, overload shedding and degradation, one-shot
+prefill and temperature sampling.
 """
 from __future__ import annotations
 
@@ -39,8 +44,10 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer
-from .kvcache import clear_slot, init_slot_cache
+from .kvcache import (clear_slot, hotswap_static_scales, init_slot_cache,
+                      rollback_slot)
 from .scheduler import EngineRequest, Scheduler, SubmitError
+from .spec import SpecDecoder, accept_length, verify_argmax
 
 
 def bucket_len(n: int, bucket: int, max_len: int) -> int:
@@ -58,21 +65,54 @@ class EngineConfig:
     kv_qchunks: int = 4                 # ranges per head vector (int8)
     prefill_bucket: int = 16            # chunk lengths round up to this
     prefill_chunk: int = 96             # prompt tokens per step
+    temperature: float = 0.0            # 0 ⇒ greedy (sampling not ported)
+    spec_k: int = 0                     # >0: self-speculative decoding, up
+                                        # to spec_k draft tokens per slot
+                                        # and step; token-identical to
+                                        # spec_k=0 greedy
+    draft_recipe: Optional[str] = None  # calibration recipe of the draft
+                                        # (not ported: pass draft_params=)
+    draft_dequantize: bool = True       # expand the draft's packed low-bit
+                                        # weights once at engine start
 
 
 class Engine:
     """submit()/step()/drain() continuous-batching server on ``device``
     (the card unless ``device="cpu"``). ``params`` must already live on
-    that device."""
+    that device.
+
+    ``kv_scales``: static KV quantization constants of a calibration
+    recipe, ``k_scale / k_zero / v_scale / v_zero`` (L, Hkv, C) arrays;
+    requires ``kv_mode="int8"``. ``draft_params``: the draft's weights for
+    ``spec_k > 0`` (the same architecture, typically a low-bit SplitQuant
+    copy, on the same device); without them the target drafts for itself.
+    """
 
     def __init__(self, cfg, params, ecfg: EngineConfig, device=None,
-                 clock=time.perf_counter):
+                 clock=time.perf_counter, *, kv_scales=None,
+                 draft_params=None):
         if cfg.family != "dense":
-            raise NotImplementedError(f"the port's engine serves dense "
-                                      f"decoders, got {cfg.family!r}")
+            raise NotImplementedError(
+                f"the port's engine serves dense decoders, got "
+                f"{cfg.family!r}"
+                + (" — and spec_k > 0 additionally needs positional KV "
+                   "rollback, which recurrent state cannot provide"
+                   if ecfg.spec_k else ""))
+        if ecfg.spec_k and ecfg.temperature > 0:
+            raise NotImplementedError(
+                "spec_k > 0 requires greedy decoding (temperature <= "
+                "0): the lossless accept rule compares argmax tokens; "
+                "temperature sampling needs speculative rejection "
+                "sampling, which is not wired up")
+        if ecfg.temperature > 0:
+            raise NotImplementedError("temperature sampling is not ported "
+                                      "(greedy only)")
         if ecfg.prefill_chunk <= 0:
             raise NotImplementedError("one-shot prefill is not ported; "
                                       "prefill_chunk must be > 0")
+        if ecfg.spec_k and ecfg.draft_recipe:
+            raise NotImplementedError("draft recipes (calibration) are not "
+                                      "ported; pass draft_params=")
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
@@ -84,7 +124,12 @@ class Engine:
         self.sched = Scheduler(ecfg.n_slots, clock=clock)
         self.cache = init_slot_cache(
             cfg, ecfg.n_slots, ecfg.max_len, mode=ecfg.kv_mode,
-            qchunks=ecfg.kv_qchunks, device=self.device)
+            qchunks=ecfg.kv_qchunks, kv_scales=kv_scales, device=self.device)
+        self._spec = None
+        if ecfg.spec_k:
+            self._spec = SpecDecoder(
+                cfg, ecfg, params if draft_params is None else draft_params,
+                self.device)
         N = ecfg.n_slots
         self._last_tok = np.zeros(N, np.int64)
         self._pos = np.zeros(N, np.int64)
@@ -94,6 +139,19 @@ class Engine:
         self.n_prefill_chunks = 0
         self.decode_step_s: list[float] = []
         self.prefill_chunk_s: list[float] = []
+        self.n_spec_steps = 0
+        self.n_verify_calls = 0
+        self.n_verify_tokens = 0
+        self.n_spec_commit_tokens = 0   # tokens appended by spec steps
+        self.n_rollbacks = 0            # verify calls that rejected rows
+        self.spec_step_s: list[float] = []
+
+    def load_kv_scales(self, kv_scales: dict) -> None:
+        """Hot-swap a recipe's static KV scales into the live dynamic int8
+        cache without draining slots: the codes are requantized once, and
+        every later write skips the min/max reduce and the scale arrays.
+        (The draft's twin cache keeps its dynamic scales.)"""
+        self.cache = hotswap_static_scales(self.cache, kv_scales)
 
     # ------------------------------------------------------------ intake --
     def submit(self, prompt, max_new_tokens: Optional[int] = None) -> int:
@@ -122,6 +180,8 @@ class Engine:
         """Free the slot everywhere: scheduler, cache rows, host state."""
         self.sched.retire(slot, reason=reason)
         clear_slot(self.cache, slot)
+        if self._spec is not None:
+            self._spec.clear(slot)
         self._pos[slot] = 0
         self._last_tok[slot] = 0
 
@@ -171,9 +231,11 @@ class Engine:
             toks = np.zeros((1, Sc), np.int64)
             toks[0, :n] = req.prompt[done:done + n]   # right-pad the chunk
             t0 = self.clock()
+            toks = torch.from_numpy(toks).to(self.device)
             logits = transformer.prefill_chunk_slots(
-                self.params, self.cfg, self.cache,
-                torch.from_numpy(toks).to(self.device), slot, done, n)
+                self.params, self.cfg, self.cache, toks, slot, done, n)
+            if self._spec is not None:        # mirror the chunk to the draft
+                self._spec.prefill_chunk(toks, slot, done, n)
             budget -= n
             spent += n
             done += n
@@ -202,6 +264,69 @@ class Engine:
         self.decode_step_s.append(self.clock() - t0)
         return toks
 
+    def _commit(self, slot: int, t: int) -> bool:
+        """Append one decoded token with the eos / budget / max_len rules
+        (eos is never emitted); False once the slot has retired."""
+        req = self.sched.slots[slot]
+        if t == self.ecfg.eos_id:
+            self._retire(slot, "eos")
+            return False
+        req.out.append(t)
+        self._last_tok[slot] = t
+        if len(req.out) >= req.max_new_tokens:
+            self._retire(slot, "budget")
+            return False
+        if self._pos[slot] >= self.ecfg.max_len:
+            self._retire(slot, "max_len")
+            return False
+        return True
+
+    def _spec_step(self, active: list[int]) -> None:
+        """One speculative decode step: the draft proposes up to spec_k
+        greedy tokens per active slot in batched decode steps over its own
+        cache, then the target scores each slot's window in one verify
+        pass and commits the longest matching draft prefix plus its own
+        correction token — 1 to spec_k+1 tokens per slot, exactly those
+        plain greedy decoding would produce. Windows are per slot,
+        w = max(1, min(spec_k+1, max_len - pos, remaining budget)), so a
+        slot near its budget decodes one token through the verify path.
+        The rejected rows are rolled back in both caches."""
+        Sq = self.ecfg.spec_k + 1
+        N = self.ecfg.n_slots
+        pos0 = self._pos.copy()
+        t0 = self.clock()
+        w = np.zeros(N, np.int64)       # 0 parks the slot in the draft pass
+        for s in active:
+            req = self.sched.slots[s]
+            rem = req.max_new_tokens - len(req.out)
+            w[s] = max(1, min(Sq, self.ecfg.max_len - int(pos0[s]), rem))
+        drafts = self._spec.draft(self._last_tok, pos0, w)      # (k, N)
+        for s in active:
+            ws = int(w[s])
+            toks = np.zeros((1, Sq), np.int64)
+            toks[0, 0] = self._last_tok[s]
+            toks[0, 1:ws] = drafts[:ws - 1, s]
+            garg = verify_argmax(self.params, self.cfg, self.cache,
+                                 torch.from_numpy(toks).to(self.device), s,
+                                 int(pos0[s]), ws)
+            self.n_verify_calls += 1
+            self.n_verify_tokens += ws
+            a = accept_length(drafts[:, s], garg, ws)
+            self.sched.note_spec(s, proposed=ws - 1, accepted=a)
+            new_pos = int(pos0[s]) + a + 1
+            if a + 1 < ws:                   # rejected rows to undo
+                self.n_rollbacks += 1
+                rollback_slot(self.cache, s, new_pos)
+                self._spec.rollback(s, new_pos)
+            for t in garg[:a + 1]:
+                self._pos[s] += 1
+                if t != self.ecfg.eos_id:
+                    self.n_spec_commit_tokens += 1
+                if not self._commit(s, int(t)):
+                    break
+        self.n_spec_steps += 1
+        self.spec_step_s.append(self.clock() - t0)
+
     def step(self) -> list[EngineRequest]:
         """Admit + chunk-budgeted prefill + one batched decode step.
         Returns the requests that finished in this step."""
@@ -214,21 +339,13 @@ class Engine:
         while not self.sched.active_slots() and self.sched.prefill_slots():
             self._prefill_work()
         active = self.sched.active_slots()
-        if active:
+        if active and self._spec is not None:
+            self._spec_step(active)
+        elif active:
             toks = self._decode()
             for slot in active:
-                req = self.sched.slots[slot]
-                t = int(toks[slot])
                 self._pos[slot] += 1
-                if t == self.ecfg.eos_id:
-                    self._retire(slot, "eos")
-                    continue
-                req.out.append(t)
-                self._last_tok[slot] = t
-                if len(req.out) >= req.max_new_tokens:
-                    self._retire(slot, "budget")
-                elif self._pos[slot] >= self.ecfg.max_len:
-                    self._retire(slot, "max_len")
+                self._commit(slot, int(toks[slot]))
         return self.sched.finished[n_done_before:]
 
     def drain(self) -> list[EngineRequest]:

@@ -7,7 +7,10 @@ int32 recording the absolute position at each row (-1 = empty). In int8
 mode every written K/V head vector is split into ``qchunks`` contiguous
 sub-channel chunks quantized with their own dynamic range (SplitQuant
 §4.2); per-entry fp32 ``{k,v}_{scale,zero}`` (L, N, T, Hkv, C) start at
-scale 1 / zero 0 so unwritten rows dequantize to a finite 0.
+scale 1 / zero 0 so unwritten rows dequantize to a finite 0. With static
+scales from a calibration recipe (``kv_scales=``) they are per-layer
+constants (L, 1, 1, Hkv, C) instead: writes quantize with them
+(:func:`quantize_kv_static`, no min/max reduce) and never write a scale.
 
 Where the JAX package donates the cache to a jitted step and gets a new
 one back, the port preallocates it once and updates it in place.
@@ -16,22 +19,28 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.decode_attention import decode_attention
-from ..kernels.prefill_attention import prefill_attention, quantize_kv
+from ..kernels.decode_attention import decode_attention, dequant_chunk
+from ..kernels.prefill_attention import (prefill_attention, quantize_kv,
+                                         quantize_kv_static)
 
-__all__ = ["SlotKVCache", "init_slot_cache", "quantize_kv",
-           "slot_layer_write", "fused_slot_attention", "slot_chunk_prefill",
-           "clear_slot"]
+__all__ = ["SlotKVCache", "init_slot_cache", "check_static_scales",
+           "quantize_kv", "quantize_kv_static", "slot_layer_write",
+           "fused_slot_attention", "slot_chunk_prefill",
+           "hotswap_static_scales", "clear_slot", "rollback_slot"]
+
+SCALE_KEYS = ("k_scale", "k_zero", "v_scale", "v_zero")
 
 
 @dataclasses.dataclass
 class SlotKVCache:
     """mode="fp": fp32 k/v (the JAX engine's default storage), scales are
     zero-size placeholders (L, N, T, Hkv, 0). mode="int8": int8 codes +
-    per-entry scales."""
+    per-entry scales (L, N, T, Hkv, C), or, with ``static``, per-layer
+    constants (L, 1, 1, Hkv, C)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -42,6 +51,11 @@ class SlotKVCache:
     v_zero: torch.Tensor
     mode: str = "fp"
     qchunks: int = 4
+    static: bool = False
+
+    def layer_scales(self, layer: int):
+        """The four static (Hkv, C) constants of ``layer``."""
+        return tuple(getattr(self, f)[layer, 0, 0] for f in SCALE_KEYS)
 
     @property
     def n_slots(self) -> int:
@@ -58,28 +72,58 @@ class SlotKVCache:
 
 
 def init_slot_cache(cfg, n_slots: int, max_len: int, *, mode: str = "fp",
-                    qchunks: int = 4, device=None) -> SlotKVCache:
+                    qchunks: int = 4, kv_scales=None,
+                    device=None) -> SlotKVCache:
     """Preallocate the engine cache for a dense config on ``device`` (the
-    card unless ``device="cpu"``)."""
+    card unless ``device="cpu"``). ``kv_scales`` (int8 mode only): static
+    constants from a calibration recipe, ``k_scale / k_zero / v_scale /
+    v_zero`` each (L, Hkv, C)."""
     device = resolve_device(device)
     if mode not in ("fp", "int8"):
         raise ValueError(f"unknown KV cache mode {mode!r}")
+    if kv_scales is not None and mode != "int8":
+        raise ValueError("static kv_scales require mode='int8'")
     L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     if mode == "int8" and D % qchunks:
         raise ValueError(f"head_dim {D} not divisible by qchunks {qchunks}")
     shape = (L, n_slots, max_len, Hkv, D)
-    C = qchunks if mode == "int8" else 0
     kv_dtype = torch.int8 if mode == "int8" else torch.float32
+    kv = dict(k=torch.zeros(shape, dtype=kv_dtype, device=device),
+              v=torch.zeros(shape, dtype=kv_dtype, device=device),
+              kv_pos=torch.full((L, n_slots, max_len), -1, dtype=torch.int32,
+                                device=device))
+    if kv_scales is not None:
+        got = check_static_scales(kv_scales, L, Hkv, qchunks)
+        return SlotKVCache(**kv, **{k: t.to(device) for k, t in got.items()},
+                           mode=mode, qchunks=qchunks, static=True)
+    C = qchunks if mode == "int8" else 0
     sshape = (L, n_slots, max_len, Hkv, C)
     f32 = dict(dtype=torch.float32, device=device)
     return SlotKVCache(
-        k=torch.zeros(shape, dtype=kv_dtype, device=device),
-        v=torch.zeros(shape, dtype=kv_dtype, device=device),
-        kv_pos=torch.full((L, n_slots, max_len), -1, dtype=torch.int32,
-                          device=device),
+        **kv,
         k_scale=torch.ones(sshape, **f32), k_zero=torch.zeros(sshape, **f32),
         v_scale=torch.ones(sshape, **f32), v_zero=torch.zeros(sshape, **f32),
         mode=mode, qchunks=qchunks)
+
+
+def check_static_scales(kv_scales: dict, L: int, Hkv: int,
+                        qchunks: int) -> dict:
+    """Validate recipe kv_scales ((L, Hkv, C) each, numpy or tensors) and
+    reshape them to the per-layer-constant cache layout (L, 1, 1, Hkv, C),
+    fp32."""
+    expect = (L, Hkv, qchunks)
+    got = {}
+    for kk in SCALE_KEYS:
+        arr = kv_scales[kk]
+        arr = (arr.float() if isinstance(arr, torch.Tensor)
+               else torch.from_numpy(np.asarray(arr, np.float32)))
+        if tuple(arr.shape) != expect:
+            raise ValueError(
+                f"static kv_scales[{kk!r}] has shape {tuple(arr.shape)}"
+                f", expected (L, Hkv, qchunks) = {expect} — was the "
+                f"recipe calibrated with a different qchunks or arch?")
+        got[kk] = arr.reshape(L, 1, 1, Hkv, qchunks).contiguous()
+    return got
 
 
 def slot_layer_write(cache: SlotKVCache, layer: int, k_new, v_new,
@@ -92,7 +136,12 @@ def slot_layer_write(cache: SlotKVCache, layer: int, k_new, v_new,
     n_idx = torch.arange(N, device=pos.device)
     t_idx = (pos % T).long()
     cache.kv_pos[layer, n_idx, t_idx] = pos
-    if cache.mode == "int8":
+    if cache.static:
+        # the calibrated constants: no min/max reduce, no scale written
+        ks, kz, vs, vz = cache.layer_scales(layer)
+        cache.k[layer, n_idx, t_idx] = quantize_kv_static(k_new[:, 0], ks, kz)
+        cache.v[layer, n_idx, t_idx] = quantize_kv_static(v_new[:, 0], vs, vz)
+    elif cache.mode == "int8":
         qk, ks, kz = quantize_kv(k_new[:, 0], cache.qchunks)
         qv, vs, vz = quantize_kv(v_new[:, 0], cache.qchunks)
         for buf, val in ((cache.k, qk), (cache.v, qv), (cache.k_scale, ks),
@@ -108,6 +157,10 @@ def fused_slot_attention(cache: SlotKVCache, layer: int, q, q_pos):
     """Decode attention for one layer straight off the (possibly INT8)
     cache, after :func:`slot_layer_write`. q (N, Hq, D); q_pos (N,).
     Returns (N, Hq, D)."""
+    if cache.static:
+        return decode_attention(q, cache.k[layer], cache.v[layer],
+                                cache.kv_pos[layer], q_pos,
+                                *cache.layer_scales(layer))
     if cache.mode == "int8":
         return decode_attention(q, cache.k[layer], cache.v[layer],
                                 cache.kv_pos[layer], q_pos,
@@ -118,28 +171,32 @@ def fused_slot_attention(cache: SlotKVCache, layer: int, q, q_pos):
 
 
 def slot_chunk_prefill(cache: SlotKVCache, layer: int, q, k_new, v_new,
-                       slot: int, pos_start: int, length: int):
+                       slot: int, pos_start: int, length: int, *,
+                       verify: bool = False):
     """One chunked-prefill step for one layer and one slot: fused
     attention over the slot's earlier rows + the chunk's own K/V, then
     the chunk (codes in int8 mode) is written into rows
     [pos_start, pos_start + Sq) of the slot, in place. Only the first
     ``length`` rows become visible; the padded tail is marked -1, and
     rows at or past max_len are dropped (a bucket-padded last chunk may
-    stick out past the cache). Returns o (Sq, Hq, D)."""
+    stick out past the cache). ``verify``: the chunk is a speculative
+    draft window and attends its own K/V through the storage round trip
+    (the written bytes are the same). Returns o (Sq, Hq, D)."""
     Sq = q.shape[0]
     T = cache.max_len
-    if cache.mode == "int8":
-        o, (qk, qv, ks, kz, vs, vz) = prefill_attention(
-            q, k_new, v_new, cache.k[layer, slot], cache.v[layer, slot],
-            cache.kv_pos[layer, slot], pos_start, length,
-            cache.k_scale[layer, slot], cache.k_zero[layer, slot],
-            cache.v_scale[layer, slot], cache.v_zero[layer, slot])
+    attend = lambda *sc: prefill_attention(  # noqa: E731
+        q, k_new, v_new, cache.k[layer, slot], cache.v[layer, slot],
+        cache.kv_pos[layer, slot], pos_start, length, *sc, verify=verify)
+    if cache.static:
+        o, (qk, qv) = attend(*cache.layer_scales(layer))
+        rows = {"k": qk, "v": qv}
+    elif cache.mode == "int8":
+        o, (qk, qv, ks, kz, vs, vz) = attend(
+            *(getattr(cache, f)[layer, slot] for f in SCALE_KEYS))
         rows = {"k": qk, "v": qv, "k_scale": ks, "k_zero": kz,
                 "v_scale": vs, "v_zero": vz}
     else:
-        o, _ = prefill_attention(q, k_new, v_new, cache.k[layer, slot],
-                                 cache.v[layer, slot],
-                                 cache.kv_pos[layer, slot], pos_start, length)
+        o, _ = attend()
         rows = {"k": k_new, "v": v_new}
     keep = min(Sq, T - pos_start)            # rows < max_len; drop the rest
     end = pos_start + keep
@@ -152,7 +209,41 @@ def slot_chunk_prefill(cache: SlotKVCache, layer: int, q, k_new, v_new,
     return o
 
 
+def hotswap_static_scales(cache: SlotKVCache, kv_scales) -> SlotKVCache:
+    """Switch a dynamic int8 cache to static recipe scales without
+    draining its slots: every code is dequantized with its per-entry
+    scales and requantized with the per-layer constants (rows kv_pos
+    marks invalid carry garbage, masked as before), and the per-entry
+    scale arrays give way to the (L, 1, 1, Hkv, C) constants. Returns the
+    new cache; the codes are rewritten in place, one layer at a time."""
+    if cache.mode != "int8":
+        raise ValueError("hot-swap requires an int8 cache")
+    if cache.static:
+        raise ValueError("cache already serves static scales")
+    L, Hkv = cache.k.shape[0], cache.k.shape[-2]
+    got = {k: t.to(cache.k.device)
+           for k, t in check_static_scales(kv_scales, L, Hkv,
+                                           cache.qchunks).items()}
+    for layer in range(L):
+        for f in ("k", "v"):
+            codes = getattr(cache, f)
+            x = dequant_chunk(codes[layer], getattr(cache, f"{f}_scale")[layer],
+                              getattr(cache, f"{f}_zero")[layer])
+            codes[layer] = quantize_kv_static(x, got[f"{f}_scale"][layer, 0, 0],
+                                              got[f"{f}_zero"][layer, 0, 0])
+    return dataclasses.replace(cache, static=True, **got)
+
+
 def clear_slot(cache: SlotKVCache, slot: int) -> None:
     """Mark a slot empty in every layer (retire). The K/V bytes stay:
     kv_pos = -1 masks them and the next prefill overwrites the rows."""
     cache.kv_pos[:, slot] = -1
+
+
+def rollback_slot(cache: SlotKVCache, slot: int, accept_len: int) -> None:
+    """Undo speculative writes past the accepted point, in place: rows of
+    ``slot`` holding a position at or past ``accept_len`` get kv_pos -1,
+    in every layer. Every read masks rows by kv_pos, so that is the whole
+    rollback; the next write at those positions overwrites the bytes."""
+    row = cache.kv_pos[:, slot]
+    row.masked_fill_(row >= accept_len, -1)

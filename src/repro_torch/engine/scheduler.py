@@ -2,9 +2,10 @@
 ``repro.engine.scheduler``): FCFS admission into a fixed pool of N slots,
 per-step retire and refill, and the chunked-prefill slot states.
 
-Pure-Python bookkeeping; it never touches device tensors. Admission
-control, shedding, deadlines, the journal and the metrics hooks of the
-JAX scheduler are not ported yet.
+Pure-Python bookkeeping; it never touches device tensors. It also keeps
+the speculative decoder's draft-proposed and draft-accepted counts.
+Admission control, shedding, deadlines, the journal, the acceptance
+EWMA and the metrics hooks of the JAX scheduler are not ported yet.
 """
 from __future__ import annotations
 
@@ -55,6 +56,12 @@ class Scheduler:
         self.finished: list[EngineRequest] = []
         # admitted but not fully prefilled: occupied, not decoding
         self._prefilling: list[int] = []
+        # speculative decoding: draft tokens proposed and accepted, in all
+        # and per slot, and the accepted count of each verify call
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.accept_hist: list[int] = []
+        self.spec_by_slot: list[list[int]] = [[0, 0] for _ in range(n_slots)]
 
     def submit(self, req: EngineRequest) -> EngineRequest:
         req.t_submit = self.clock()
@@ -104,6 +111,23 @@ class Scheduler:
         req.finish_reason = reason
         self.finished.append(req)
         return req
+
+    def note_spec(self, slot: int, proposed: int, accepted: int) -> None:
+        """Record one verify call's outcome: ``proposed`` draft tokens
+        were scored for ``slot``, the first ``accepted`` matched the
+        target."""
+        assert 0 <= accepted <= proposed, (slot, proposed, accepted)
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        self.accept_hist.append(accepted)
+        self.spec_by_slot[slot][0] += proposed
+        self.spec_by_slot[slot][1] += accepted
+
+    def acceptance_rate(self) -> Optional[float]:
+        """Fraction of proposed draft tokens the target accepted."""
+        if not self.spec_proposed:
+            return None
+        return self.spec_accepted / self.spec_proposed
 
     @property
     def idle(self) -> bool:

@@ -63,11 +63,21 @@
 // merge reads four neighbouring outputs a load with the loads of several
 // outputs and splits in flight.
 //
+// Static scales (`stat`, the per-layer (Hkv, C) S and Z of a calibration
+// recipe, src/repro/kernels/decode_attention.py:103-105 and :158): the
+// block reads its kv-head's C values of S and Z of K and V once into a
+// table in shared memory (with 1/S on the column path), a stage holds no
+// scale arrays and no scale row is copied per cache row, so a row and
+// head costs its 2 * D code bytes alone. Both paths read the table with a
+// row pitch of 0 where the dynamic mode reads the stage's rows; the codes
+// dequantize as (q - Z) / S as in the dynamic mode. One runtime flag, no
+// further instantiation.
+//
 // Heads: a block takes GB = 16, 4 or 1 query heads of a group (the
 // largest that divides G); the group's kv-head is read once per block.
 //
 // Shared memory is dynamic: GB*D*4 bytes of q (and C chunk sums on the
-// row path) plus, per warp, two stages of 32 rows of K and V codes (row
+// row path, and the static table of 6 * C floats) plus, per warp, two stages of 32 rows of K and V codes (row
 // pitch D*sizeof(KV)) and the scale arrays (S and Z of K and V, and 1/S of
 // each on the column path; row pitch C + 1 floats), a 32 x (GB+1) float P
 // buffer and 64 valid-row masks. Registers, spills and the bytes a block
@@ -94,12 +104,14 @@ struct Args {
   float* part_ml;  // (splits, N, Hq, 2): running max, sum
   int* counter;    // (N, Hkv * G / GB), 0 between calls
   int N, T, Hq, Hkv, D, C, cl_shift, rows, splits;
+  int stat;        // ks..vz are per-layer (Hkv, C) constants
   float qscale;
 };
 
 // Per-warp shared-memory layout, in bytes. `by_row`: P.V runs with lane =
 // row (GB = 1, D <= 64) and takes 1/S in registers, so a stage holds four
-// scale arrays (S, Z of K, then of V) instead of six (with 1/S).
+// scale arrays (S, Z of K, then of V) instead of six (with 1/S); with
+// static scales (`stat`) it holds none.
 struct Geo {
   int kp;     // pitch of a K or V code row: D * sizeof(KV), no padding
   int sp;     // pitch of a scale row, in floats (odd: no bank conflicts)
@@ -112,20 +124,22 @@ struct Geo {
 // tiles (the launcher checks), and a warp keeps one valid-row mask each.
 constexpr int MAX_TW = 64;
 
-__host__ __device__ inline Geo geo(int D, int C, int kv_bytes, int GB, bool by_row) {
+__host__ __device__ inline Geo geo(int D, int C, int kv_bytes, int GB, bool by_row,
+                                   bool stat) {
   Geo g;
   g.kp = D * kv_bytes;
   g.sp = C + 1;
-  g.na = C ? (by_row ? 4 : 6) : 0;
+  g.na = C && !stat ? (by_row ? 4 : 6) : 0;
   g.stage = (2 * TR * g.kp + g.na * TR * g.sp * 4 + 15) / 16 * 16;
   g.warp = (2 * g.stage + TR * (GB + 1) * 4 + MAX_TW * 4 + 15) / 16 * 16;
   return g;
 }
 
-// Bytes before the warps' regions: q (GB x D floats) and, on the row path,
-// q summed per sub-channel chunk (C floats), rounded up to 16.
-__host__ __device__ inline int head_bytes(int GB, int D, int C, bool by_row) {
-  return (GB * D * 4 + (by_row ? C * 4 : 0) + 15) / 16 * 16;
+// Bytes before the warps' regions: q (GB x D floats), on the row path q
+// summed per sub-channel chunk (C floats), and with static scales their
+// table (6 x C floats), rounded up to 16.
+__host__ __device__ inline int head_bytes(int GB, int D, int C, bool by_row, bool stat) {
+  return (GB * D * 4 + (by_row ? C * 4 : 0) + (stat ? 6 * C * 4 : 0) + 15) / 16 * 16;
 }
 
 // Byte offsets of the 16-byte chunks of a tile of `kp`-byte code rows:
@@ -236,12 +250,17 @@ decode_split_kernel(Args a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int W = blockDim.x / 32;
   const unsigned FULL = 0xffffffffu;
-  const Geo gm = geo(D, C, (int)sizeof(KV), GB, BY_ROW);
+  const bool stat = INT8 && a.stat;
+  const Geo gm = geo(D, C, (int)sizeof(KV), GB, BY_ROW, stat);
   const Swizzle sw(gm.kp);
   const int SQ = TR * gm.sp;                                // one scale array
   float* qs = (float*)smem;                                 // [GB][D]
   float* qsum = qs + GB * D;                                // [C], row path only
-  unsigned char* region = smem + head_bytes(GB, D, C, BY_ROW);
+  float* stab = qsum + (BY_ROW ? C : 0);                    // [6][C], static only
+  // where compute() reads a tile's scales: the stage's rows (pitch gm.sp,
+  // arrays SQ apart), or the static table (pitch 0, arrays C apart)
+  const int srp = stat ? 0 : gm.sp, saq = stat ? C : SQ;
+  unsigned char* region = smem + head_bytes(GB, D, C, BY_ROW, stat);
   unsigned char* wbase = region + warp * gm.warp;
   float* P = (float*)(wbase + 2 * gm.stage);                // [TR][GB+1]
   uint32_t* vmask = (uint32_t*)(P + TR * (GB + 1));         // [MAX_TW]
@@ -259,6 +278,19 @@ decode_split_kernel(Args a) {
       for (int u = 0; u < 4; ++u) {
         const int i = i0 + u * blockDim.x;
         if (i < GB * D) qs[i] = __fmul_rn(v[u], a.qscale);
+      }
+    }
+  }
+  if (stat) {  // the kv-head's per-layer S and Z (and 1/S on the column path)
+    for (int c = tid; c < C; c += blockDim.x) {
+      const float s_k = a.ks[h * C + c], s_v = a.vs[h * C + c];
+      stab[KS * C + c] = s_k;
+      stab[KZ * C + c] = a.kz[h * C + c];
+      stab[VS * C + c] = s_v;
+      stab[VZ * C + c] = a.vz[h * C + c];
+      if (!BY_ROW) {
+        stab[KR * C + c] = __frcp_rn(s_k);
+        stab[VR * C + c] = __frcp_rn(s_v);
       }
     }
   }
@@ -322,7 +354,7 @@ decode_split_kernel(Args a) {
       sm90::cp_async16(sm90::smem_addr(dk), (const char*)a.k + off);
       sm90::cp_async16(sm90::smem_addr(dv), (const char*)a.v + off);
     }
-    if (INT8) {
+    if (INT8 && !stat) {
       float* sb = (float*)(buf + 2 * TR * gm.kp);
       for (int r = sr0, c = sc0; r < TR; r += sstep) {
         const int so = r * gm.sp + c;
@@ -341,8 +373,8 @@ decode_split_kernel(Args a) {
   };
   auto compute = [&](int st, bool valid) {
     unsigned char* buf = wbase + st * gm.stage;
-    float* sb = (float*)(buf + 2 * TR * gm.kp);
-    if (INT8 && !BY_ROW) {  // the tile's reciprocal scales, once per (row, chunk)
+    float* sb = stat ? stab : (float*)(buf + 2 * TR * gm.kp);
+    if (INT8 && !BY_ROW && !stat) {  // the tile's reciprocal scales, once per (row, chunk)
       for (int r = sr0; r < TR; r += sstep) {
         const int so = r * gm.sp + sc0;
         sb[KR * SQ + so] = __frcp_rn(sb[KS * SQ + so]);
@@ -362,13 +394,13 @@ decode_split_kernel(Args a) {
     if (INT8 && BY_ROW) {
       // the scale folded out of each chunk c of the row:
       // s = sum_c (1/S_c) (sum_{d in c} q_d code_d - Z_c sum_{d in c} q_d)
-      const float* srow = sb + lane * gm.sp;
+      const float* srow = sb + lane * srp;
       float t[4] = {0.f, 0.f, 0.f, 0.f};
       int c_cur = 0;
       auto fold = [&](int c) {
         const float tc = (t[0] + t[1]) + (t[2] + t[3]);
-        sc[0][0] = fmaf(__frcp_rn(srow[KS * SQ + c]),
-                        fmaf(-srow[KZ * SQ + c], qsum[c], tc), sc[0][0]);
+        sc[0][0] = fmaf(__frcp_rn(srow[KS * saq + c]),
+                        fmaf(-srow[KZ * saq + c], qsum[c], tc), sc[0][0]);
         t[0] = t[1] = t[2] = t[3] = 0.f;
       };
 #pragma unroll
@@ -393,7 +425,7 @@ decode_split_kernel(Args a) {
       }
       fold(c_cur);
     } else if (INT8) {
-      const float* srow = sb + lane * gm.sp;
+      const float* srow = sb + lane * srp;
       int c_cur = -1;
       float S = 1.f, Z = 0.f, R = 1.f;
       for (int d0 = 0; d0 < D; d0 += 16) {
@@ -405,9 +437,9 @@ decode_split_kernel(Args a) {
           const int d = d0 + 4 * sub, c = d >> a.cl_shift;
           if (c != c_cur) {  // the same chunk on every lane
             c_cur = c;
-            S = srow[KS * SQ + c];
-            Z = srow[KZ * SQ + c];
-            R = srow[KR * SQ + c];
+            S = srow[KS * saq + c];
+            Z = srow[KZ * saq + c];
+            R = srow[KR * saq + c];
           }
           float kv[4];
 #pragma unroll
@@ -472,7 +504,7 @@ decode_split_kernel(Args a) {
       // p (code - Z_c) / S_c = w code - w Z_c: accr += w code, bz4 += w Z_c
       const unsigned char* vr = buf + (TR + lane) * gm.kp;
       if (INT8) {
-        const float* srow = sb + lane * gm.sp;
+        const float* srow = sb + lane * srp;
         int c_cur = -1;
         float w = 0.f, wz = 0.f;
 #pragma unroll
@@ -486,8 +518,8 @@ decode_split_kernel(Args a) {
             const int d = d0 + 4 * sub, c = d >> a.cl_shift;
             if (c != c_cur) {
               c_cur = c;
-              w = p_row * __frcp_rn(srow[VS * SQ + c]);
-              wz = w * srow[VZ * SQ + c];
+              w = p_row * __frcp_rn(srow[VS * saq + c]);
+              wz = w * srow[VZ * saq + c];
             }
             bz4[d / 4] += wz;
 #pragma unroll
@@ -523,9 +555,9 @@ decode_split_kernel(Args a) {
         const uint32_t w = *(const uint32_t*)(vb + sw.at(r, db >> 4) + wo);
         float vv;
         if (INT8) {
-          const float* srow = sb + r * gm.sp + c;
-          vv = rt::dequant_kv_rcp(rt::code_f(w ^ 0x80808080u, bj), srow[VS * SQ],
-                                  srow[VR * SQ], srow[VZ * SQ]);
+          const float* srow = sb + r * srp + c;
+          vv = rt::dequant_kv_rcp(rt::code_f(w ^ 0x80808080u, bj), srow[VS * saq],
+                                  srow[VR * saq], srow[VZ * saq]);
         } else {
           vv = __uint_as_float(w);
         }
@@ -665,11 +697,11 @@ decode_split_kernel(Args a) {
 
 // Dynamic shared memory of a block, and the warps it launches with: the
 // plan's warps, fewer if they would not fit.
-size_t block_smem(int D, int C, int kv_bytes, int GB, int& warps) {
+size_t block_smem(int D, int C, int kv_bytes, int GB, bool stat, int& warps) {
   const bool by_row = GB == 1 && D <= 64;
-  const Geo gm = geo(D, C, kv_bytes, GB, by_row);
+  const Geo gm = geo(D, C, kv_bytes, GB, by_row, stat);
   for (; warps >= 1; --warps) {
-    const size_t smem = (size_t)head_bytes(GB, D, C, by_row) + (size_t)warps * gm.warp;
+    const size_t smem = (size_t)head_bytes(GB, D, C, by_row, stat) + (size_t)warps * gm.warp;
     if (smem <= SMEM_MAX) return smem;
   }
   return 0;
@@ -677,7 +709,7 @@ size_t block_smem(int D, int C, int kv_bytes, int GB, int& warps) {
 
 template <int GB, int DM, typename KV, typename Q>
 cudaError_t launch(const Args& a, int warps, cudaStream_t st) {
-  const size_t smem = block_smem(a.D, a.C, (int)sizeof(KV), GB, warps);
+  const size_t smem = block_smem(a.D, a.C, (int)sizeof(KV), GB, a.stat != 0, warps);
   if (warps < 1) return cudaErrorInvalidConfiguration;
   auto kern = decode_split_kernel<GB, DM, KV, Q>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -703,8 +735,9 @@ cudaError_t dispatch_group(const Args& a, int group, int warps, cudaStream_t st)
 }  // namespace
 
 // Bytes of dynamic shared memory a block takes (0 if it does not fit).
-extern "C" int decode_attention_smem(int D, int C, int int8, int group, int warps) {
-  return (int)block_smem(D, int8 ? C : 0, int8 ? 1 : 4, group, warps);
+extern "C" int decode_attention_smem(int D, int C, int int8, int stat, int group,
+                                     int warps) {
+  return (int)block_smem(D, int8 ? C : 0, int8 ? 1 : 4, group, int8 && stat, warps);
 }
 
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
@@ -713,8 +746,9 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* vz, void* o, void* part_o,
                                 void* part_ml, void* counter, int N, int T,
                                 int Hq, int Hkv, int D, int C, int int8,
-                                int q_is_bf16, int group, int rows, int splits,
-                                int warps, float qscale, void* stream) {
+                                int stat, int q_is_bf16, int group, int rows,
+                                int splits, int warps, float qscale,
+                                void* stream) {
   if (N <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       (D != 32 && D != 64 && D != 128) || rows <= 0 || rows % TR != 0 || splits <= 0 || splits > MAX_SPLITS ||
       (long long)(splits - 1) * rows >= T || (long long)splits * rows < T ||
@@ -732,7 +766,8 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   Args a{q, k, v, (const int*)kv_pos, (const int*)q_pos, (const float*)ks,
          (const float*)kz, (const float*)vs, (const float*)vz, o,
          (float*)part_o, (float*)part_ml, (int*)counter,
-         N, T, Hq, Hkv, D, int8 ? C : 0, cl_shift, rows, splits, qscale};
+         N, T, Hq, Hkv, D, int8 ? C : 0, cl_shift, rows, splits,
+         int8 && stat ? 1 : 0, qscale};
   cudaStream_t st = (cudaStream_t)stream;
   if (q_is_bf16)
     return (int)(int8 ? dispatch_group<int8_t, __nv_bfloat16>(a, group, warps, st)

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/prefill_attention.py
 // (_prefill_kernel, pallas_call at :299; entry prefill_attention at
-// :407) in its fp and int8 per-entry (dynamic) modes. One prompt chunk
+// :407) in all its modes: fp, int8 per-entry (dynamic) and int8 static,
+// each plain or as the speculative verify pass. One prompt chunk
 // of Sq queries attends (a) the slot's cache rows that were written
 // before the chunk (valid iff 0 <= kv_pos < pos_start; INT8 codes are
 // dequantized per sub-channel chunk as (q - Z) / S) and (b) the chunk's
@@ -63,10 +64,31 @@
 // key row), then streams the V chunk through the same buffer; the
 // chunk's own K/V follow through the same loop with the causal mask.
 //
-// Epilogue (quantize_kv, a second launch from the same wrapper): one
+// Epilogue (quantize_kv, a launch of its own from the same wrapper): one
 // thread per (token, head, sub-channel chunk) computes min/max -> (S, Z)
 // -> codes with common.cuh's exact-rounding helpers, so codes and scales
-// are bit-identical to engine.kvcache.quantize_kv.
+// are bit-identical to engine.kvcache.quantize_kv. Static mode
+// (_quantize_chunk's static branch, :241-245, and the static decode
+// write): quantize_kv_static, one thread per element, clip(rint(S x + Z))
+// with the product and the sum rounded on their own (no FMA), as
+// _static_quantize_cols and engine.kvcache.quantize_kv_static round them.
+//
+// Static scales (`stat`, per_entry_scales=False at :109-122, :288): S and
+// Z are per-layer (Hkv, C) constants. The tensor-core block reads its
+// kv-head's 4 x C values once into shared memory and copies no scale row
+// per cache row; the CUDA-core kernel indexes them by head and chunk.
+// Codes dequantize as (q - Z) / S, as _dequant_cols does on the chunk's
+// per-column expansion of the same constants.
+//
+// Verify mode (`verify`, :200-216, jnp twin :383-396): the window of
+// spec_k + 1 draft tokens attends its own K/V through the storage round
+// trip, so each row scores what a plain decode step would. The wrapper
+// quantizes the window first (quantize_kv or quantize_kv_static: the
+// codes it writes into the slot anyway) and the chunk's split then walks
+// the window's codes through the same dequantization as the cache rows,
+// under the causal and key < length masks. Over an fp32 cache the round
+// trip is a cast to fp32, exact for fp32 and bf16 K/V: the fp kernel as
+// it is.
 //
 // What holds it back (PERF.md, from clock64 stamps per phase on the H100
 // at stablelm-1.6b's and chatglm3-6b's Sq = 96 chunk): a block's two live
@@ -161,15 +183,23 @@ __device__ __forceinline__ void chunk_update(Smem& sm, int R, int D, LoadK load_
   __syncthreads();
 }
 
+// Scale operands of the int8 modes: the cache's (per-entry (T, Hkv, C) or
+// static (Hkv, C)) and, in verify mode, the window's codes and scales
+// (per-entry (Sq, Hkv, C), or the same static constants).
+struct Int8Ops {
+  const float *ks, *kz, *vs, *vz;
+  const int8_t *wk, *wv;
+  const float *wks, *wkz, *wvs, *wvz;
+  int stat, verify;
+};
+
 template <typename KV, typename X>
 __global__ void __launch_bounds__(THREADS)
 prefill_fp32_kernel(const X* __restrict__ q, const X* __restrict__ kn,
                const X* __restrict__ vn, const KV* __restrict__ ck,
                const KV* __restrict__ cv, const int* __restrict__ kv_pos,
-               const float* __restrict__ ks, const float* __restrict__ kz,
-               const float* __restrict__ vs, const float* __restrict__ vz,
-               X* __restrict__ o, int Sq, int T, int Hq, int Hkv, int D, int C,
-               int Bq, int pos_start, int length, float qscale) {
+               Int8Ops s8, X* __restrict__ o, int Sq, int T, int Hq, int Hkv,
+               int D, int C, int Bq, int pos_start, int length, float qscale) {
   extern __shared__ float smem[];
   const int G = Hq / Hkv, R = Bq * G;
   const int qb = blockIdx.x, h = blockIdx.y;
@@ -202,28 +232,39 @@ prefill_fp32_kernel(const X* __restrict__ q, const X* __restrict__ kn,
       any = sm.valid[tid];
     }
     if (!__syncthreads_or(any)) continue;
+    const int stat = s8.stat;
     auto load = [&](const KV* base, const float* s, const float* z) {
       return [=](int t, int d) {
         if (t0 + t >= T) return 0.f;
         const size_t row = (size_t)(t0 + t) * Hkv + h;
-        return load_cache<KV>(base, row * D + d, s, z, row * C + d / cl);
+        return load_cache<KV>(base, row * D + d, s, z,
+                              (stat ? (size_t)h : row) * C + d / cl);
       };
     };
     int* valid = sm.valid;
-    chunk_update(sm, R, D, load(ck, ks, kz), load(cv, vs, vz),
+    chunk_update(sm, R, D, load(ck, s8.ks, s8.kz), load(cv, s8.vs, s8.vz),
                  [=](int r, int t) { return valid[t] != 0; });
   }
 
   // (b) the chunk's own K/V, causal and < length
   const int q_last = min(Sq, q0 + Bq) - 1;
+  // (verify over an int8 cache: the window's codes, dequantized)
+  const bool v8 = std::is_same<KV, int8_t>::value && s8.verify;
   for (int t0 = 0; t0 < Sq && t0 < length && t0 <= q_last; t0 += TC) {
-    auto load = [&](const X* base) {
+    const int stat = s8.stat;
+    auto load = [&](const X* base, const int8_t* codes, const float* s,
+                    const float* z) {
       return [=](int t, int d) {
         if (t0 + t >= Sq) return 0.f;
-        return rt::to_f(base[((size_t)(t0 + t) * Hkv + h) * D + d]);
+        const size_t row = (size_t)(t0 + t) * Hkv + h;
+        if (v8)
+          return rt::dequant_kv(codes[row * D + d], s[(stat ? (size_t)h : row) * C + d / cl],
+                                z[(stat ? (size_t)h : row) * C + d / cl]);
+        return rt::to_f(base[row * D + d]);
       };
     };
-    chunk_update(sm, R, D, load(kn), load(vn), [=](int r, int t) {
+    chunk_update(sm, R, D, load(kn, s8.wk, s8.wks, s8.wkz),
+                 load(vn, s8.wv, s8.wvs, s8.wvz), [=](int r, int t) {
       const int key = t0 + t, qi = q0 + r / G;
       return key <= qi && key < length && key < Sq;
     });
@@ -249,7 +290,7 @@ struct PArgs {
   const __nv_bfloat16 *q, *kn, *vn;
   const void *ck, *cv;
   const int* kv_pos;
-  const float *ks, *kz, *vs, *vz;
+  Int8Ops s8;
   __nv_bfloat16* o;
   float* part_o;   // (splits, Sq, Hq, D)
   float* part_ml;  // (splits, Sq, Hq, 2): running max, sum
@@ -283,7 +324,10 @@ struct TcGeo {
 // Splits at most: the merge's weights of 64 rows fit in the K and V tiles.
 constexpr int MAX_SPLITS = 16;
 
-template <int D, typename KV>
+// STAT: static per-layer scales (int8 only), a template parameter so
+// that the dynamic mode's dequantization loop indexes its per-row scales
+// as before (a runtime choice there cost the dynamic kernel 3-7%).
+template <int D, typename KV, bool STAT>
 __global__ void __launch_bounds__(TC_THREADS)
 prefill_tc_kernel(PArgs a) {
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
@@ -304,6 +348,10 @@ prefill_tc_kernel(PArgs a) {
   const int gid = lane / 4, tig = lane % 4;
   const int q0 = qb * a.bq, nrows = a.bq * G;
   const bool chunk = s == a.cache_splits;              // the chunk's own keys
+  // the chunk's keys as codes (verify over an int8 cache), else as bf16
+  const bool chunk8 = chunk && INT8 && a.s8.verify;
+  const bool raw16 = chunk && !chunk8;
+  __shared__ float stab[STAT ? D : 1];                 // static S, Z of K, V: [4][C]
 
   // this lane's two query rows: block row warp*16 + gid (+8)
   int qi[2], hq[2];
@@ -356,6 +404,13 @@ prefill_tc_kernel(PArgs a) {
   // all at the same time
   int* tl = (int*)(smem + G_::RING + 2 * STAGE);
   for (int i = tid; i < ntiles; i += TC_THREADS) tl[i] = chunk;
+  if (STAT)  // the kv-head's per-layer constants, read once
+    for (int c = tid; c < C; c += TC_THREADS) {
+      stab[c] = a.s8.ks[h * C + c];
+      stab[C + c] = a.s8.kz[h * C + c];
+      stab[2 * C + c] = a.s8.vs[h * C + c];
+      stab[3 * C + c] = a.s8.vz[h * C + c];
+    }
   __syncthreads();
   if (!chunk)
     for (int t0 = lo + tid; t0 < hi; t0 += 4 * TC_THREADS) {
@@ -373,30 +428,36 @@ prefill_tc_kernel(PArgs a) {
   auto live = [&](int i) { return i < ntiles && tl[i] != 0; };  // block-uniform
   // the thread's (row, 16-byte chunk) and (row, scale) in a tile, and the
   // rows a pass covers: nck and C divide 128
-  const int bytes = chunk ? D * 2 : rbc, nck = bytes / 16;
+  const int bytes = raw16 ? D * 2 : rbc, nck = bytes / 16;
   const int kr0 = tid / nck, kc0 = tid % nck, kstep = TC_THREADS / nck;
   const int sr0 = C ? tid / C : 0, sc0 = C ? tid % C : 0, sstep = C ? TC_THREADS / C : KT;
   auto issue = [&](int i, int st) {
     unsigned char* raw = smem + G_::RING + st * STAGE;
     const int t0 = lo + i * KT;
-    const char* kp = chunk ? (const char*)a.kn : (const char*)a.ck;
-    const char* vp = chunk ? (const char*)a.vn : (const char*)a.cv;
+    const char* kp = chunk8 ? (const char*)a.s8.wk
+                     : chunk ? (const char*)a.kn : (const char*)a.ck;
+    const char* vp = chunk8 ? (const char*)a.s8.wv
+                     : chunk ? (const char*)a.vn : (const char*)a.cv;
     for (int r = kr0, c = kc0; r < KT; r += kstep) {
       if (t0 + r >= hi) continue;
       const size_t off = ((size_t)(t0 + r) * a.Hkv + h) * bytes + c * 16;
       sm90::cp_async16(sm90::smem_addr(raw + r * RB + c * 16), kp + off);
       sm90::cp_async16(sm90::smem_addr(raw + (KT + r) * RB + c * 16), vp + off);
     }
-    if (INT8 && !chunk) {
+    if (INT8 && !raw16 && !STAT) {  // per-entry scales of the cache or the window
       float* sb = (float*)(raw + 2 * KT * RB);
+      const float* ks = chunk ? a.s8.wks : a.s8.ks;
+      const float* kz = chunk ? a.s8.wkz : a.s8.kz;
+      const float* vs = chunk ? a.s8.wvs : a.s8.vs;
+      const float* vz = chunk ? a.s8.wvz : a.s8.vz;
       for (int r = sr0; r < KT; r += sstep) {
         if (t0 + r >= hi) continue;
         const int j = r * C + sc0;
         const size_t si = ((size_t)(t0 + r) * a.Hkv + h) * C + sc0;
-        sm90::cp_async4(sm90::smem_addr(sb + j), a.ks + si);
-        sm90::cp_async4(sm90::smem_addr(sb + KT * C + j), a.kz + si);
-        sm90::cp_async4(sm90::smem_addr(sb + 2 * KT * C + j), a.vs + si);
-        sm90::cp_async4(sm90::smem_addr(sb + 3 * KT * C + j), a.vz + si);
+        sm90::cp_async4(sm90::smem_addr(sb + j), ks + si);
+        sm90::cp_async4(sm90::smem_addr(sb + KT * C + j), kz + si);
+        sm90::cp_async4(sm90::smem_addr(sb + 2 * KT * C + j), vs + si);
+        sm90::cp_async4(sm90::smem_addr(sb + 3 * KT * C + j), vz + si);
       }
     }
   };
@@ -412,13 +473,14 @@ prefill_tc_kernel(PArgs a) {
       const unsigned char* src = raw + (kv * KT + r) * RB;
       uint2 out = make_uint2(0u, 0u);
       if (ok) {
-        if (chunk) {
+        if (raw16) {
           out = *(const uint2*)(src + d * 2);
         } else if (INT8) {
           const uint32_t w = *(const uint32_t*)(src + d) ^ 0x80808080u;
           const int c = d >> a.cl_shift;
-          const float S = sb[(2 * kv) * KT * C + r * C + c];
-          const float Z = sb[(2 * kv + 1) * KT * C + r * C + c];
+          const float S = STAT ? stab[(2 * kv) * C + c] : sb[(2 * kv) * KT * C + r * C + c];
+          const float Z = STAT ? stab[(2 * kv + 1) * C + c]
+                               : sb[(2 * kv + 1) * KT * C + r * C + c];
           const float R = __frcp_rn(S);
           float f[4];
 #pragma unroll
@@ -644,11 +706,11 @@ prefill_tc_kernel(PArgs a) {
   if (tid == 0) *counter = 0;
 }
 
-template <int D, typename KV>
+template <int D, typename KV, bool STAT>
 cudaError_t launch_tc(const PArgs& a, cudaStream_t st) {
   const size_t smem = TcGeo<D>::bytes((int)sizeof(KV), a.C, a.T);
   if (smem > SMEM_MAX) return cudaErrorInvalidConfiguration;
-  auto kern = prefill_tc_kernel<D, KV>;
+  auto kern = prefill_tc_kernel<D, KV, STAT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -657,12 +719,12 @@ cudaError_t launch_tc(const PArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename KV>
+template <typename KV, bool STAT>
 cudaError_t dispatch_tc(const PArgs& a, int D, cudaStream_t st) {
   switch (D) {
-    case 32: return launch_tc<32, KV>(a, st);
-    case 64: return launch_tc<64, KV>(a, st);
-    case 128: return launch_tc<128, KV>(a, st);
+    case 32: return launch_tc<32, KV, STAT>(a, st);
+    case 64: return launch_tc<64, KV, STAT>(a, st);
+    case 128: return launch_tc<128, KV, STAT>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -691,10 +753,25 @@ __global__ void quantize_kv_kernel(const X* __restrict__ x, int8_t* __restrict__
   for (int i = 0; i < chunk_len; ++i) out[i] = rt::quant_code(s, rt::to_f(p[i]), z, -128.f, 127.f);
 }
 
+// Static INT8 quantization with per-layer (Hkv, C) constants, bit-identical
+// to engine.kvcache.quantize_kv_static: one thread per element of the
+// (rows, Hkv, D) input.
+template <typename X>
+__global__ void quantize_kv_static_kernel(const X* __restrict__ x,
+                                          const float* __restrict__ scale,
+                                          const float* __restrict__ zero,
+                                          int8_t* __restrict__ codes, long long n, int Hkv,
+                                          int D, int C) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int d = (int)(i % D), h = (int)((i / D) % Hkv);
+  const int j = h * C + d / (D / C);
+  codes[i] = rt::quant_code_static(scale[j], rt::to_f(x[i]), zero[j], -128.f, 127.f);
+}
+
 template <typename KV>
 cudaError_t launch_fp32(const void* q, const void* kn, const void* vn, const void* ck,
-                        const void* cv, const int* kv_pos, const float* ks,
-                        const float* kz, const float* vs, const float* vz, void* o,
+                        const void* cv, const int* kv_pos, const Int8Ops& s8, void* o,
                         int Sq, int T, int Hq, int Hkv, int D, int C, int pos_start,
                         int length, float qscale, cudaStream_t st) {
   const int G = Hq / Hkv;
@@ -708,8 +785,8 @@ cudaError_t launch_fp32(const void* q, const void* kn, const void* vn, const voi
   if (e != cudaSuccess) return e;
   kern<<<dim3((Sq + Bq - 1) / Bq, Hkv), THREADS, smem, st>>>(
       (const float*)q, (const float*)kn, (const float*)vn, (const KV*)ck,
-      (const KV*)cv, kv_pos, ks, kz, vs, vz, (float*)o, Sq, T, Hq, Hkv, D, C, Bq,
-      pos_start, length, qscale);
+      (const KV*)cv, kv_pos, s8, (float*)o, Sq, T, Hq, Hkv, D, C, Bq, pos_start,
+      length, qscale);
   return cudaGetLastError();
 }
 
@@ -728,28 +805,37 @@ int prefill_attention_smem(int D, int C, int int8, int T) {
   }
 }
 
+// int8 modes: ks..vz are the cache's scales, per-entry (T, Hkv, C) or,
+// with `stat`, per-layer (Hkv, C); with `verify`, wk/wv are the window's
+// codes (Sq, Hkv, D) and wks..wvz its per-entry scales (Sq, Hkv, C; unused
+// with `stat`, where the window takes the same constants).
 int prefill_attention(const void* q, const void* kn, const void* vn,
                       const void* ck, const void* cv, const void* kv_pos,
                       const void* ks, const void* kz, const void* vs,
-                      const void* vz, void* o, void* part_o, void* part_ml,
+                      const void* vz, const void* wk, const void* wv,
+                      const void* wks, const void* wkz, const void* wvs,
+                      const void* wvz, void* o, void* part_o, void* part_ml,
                       void* counter, int Sq, int T, int Hq, int Hkv, int D,
-                      int C, int pos_start, int length, int int8, int x_is_bf16,
-                      int cache_rows, int cache_splits, float qscale,
-                      void* stream) {
+                      int C, int pos_start, int length, int int8, int stat,
+                      int verify, int x_is_bf16, int cache_rows, int cache_splits,
+                      float qscale, void* stream) {
   if (Sq <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
-      (int8 && (C <= 0 || D % C != 0)))
+      (int8 && (C <= 0 || D % C != 0)) || (int8 && verify && (!wk || !wv)) ||
+      (int8 && verify && !stat && (!wks || !wkz || !wvs || !wvz)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const auto* kp = (const int*)kv_pos;
-  const auto *a = (const float*)ks, *b = (const float*)kz, *c = (const float*)vs,
-             *d = (const float*)vz;
+  const bool s_ = int8 && stat, v_ = int8 && verify;
+  Int8Ops s8{(const float*)ks, (const float*)kz, (const float*)vs, (const float*)vz,
+             (const int8_t*)wk, (const int8_t*)wv,
+             (const float*)(s_ ? ks : wks), (const float*)(s_ ? kz : wkz),
+             (const float*)(s_ ? vs : wvs), (const float*)(s_ ? vz : wvz),
+             s_ ? 1 : 0, v_ ? 1 : 0};
   if (!x_is_bf16)
-    return (int)(int8 ? launch_fp32<int8_t>(q, kn, vn, ck, cv, kp, a, b, c, d, o, Sq,
-                                            T, Hq, Hkv, D, C, pos_start, length,
-                                            qscale, st)
-                      : launch_fp32<float>(q, kn, vn, ck, cv, kp, a, b, c, d, o, Sq,
-                                           T, Hq, Hkv, D, C, pos_start, length,
-                                           qscale, st));
+    return (int)(int8 ? launch_fp32<int8_t>(q, kn, vn, ck, cv, kp, s8, o, Sq, T, Hq,
+                                            Hkv, D, C, pos_start, length, qscale, st)
+                      : launch_fp32<float>(q, kn, vn, ck, cv, kp, s8, o, Sq, T, Hq,
+                                           Hkv, D, C, pos_start, length, qscale, st));
   const int G = Hq / Hkv;
   int cl_shift = 0;
   if (int8) {
@@ -763,11 +849,12 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
       !counter)
     return (int)cudaErrorInvalidValue;
   PArgs p{(const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
-          (const __nv_bfloat16*)vn, ck, cv, kp, a, b, c, d, (__nv_bfloat16*)o,
+          (const __nv_bfloat16*)vn, ck, cv, kp, s8, (__nv_bfloat16*)o,
           (float*)part_o, (float*)part_ml, (int*)counter,
           Sq, T, Hq, Hkv, int8 ? C : 0, cl_shift, pos_start, length,
           QROWS / G, cache_rows, cache_splits, qscale};
-  return (int)(int8 ? dispatch_tc<int8_t>(p, D, st) : dispatch_tc<float>(p, D, st));
+  if (!int8) return (int)dispatch_tc<float, false>(p, D, st);
+  return (int)(s_ ? dispatch_tc<int8_t, true>(p, D, st) : dispatch_tc<int8_t, false>(p, D, st));
 }
 
 // x (groups, chunk_len) → codes int8 (groups, chunk_len), scale/zero (groups,)
@@ -784,6 +871,27 @@ int quantize_kv(const void* x, void* codes, void* scale, void* zero, int groups,
     quantize_kv_kernel<float><<<blocks, threads, 0, st>>>(
         (const float*)x, (int8_t*)codes, (float*)scale, (float*)zero, groups,
         chunk_len);
+  return (int)cudaGetLastError();
+}
+
+// x (rows, Hkv, D) → codes int8 (rows, Hkv, D) under per-layer scale/zero
+// (Hkv, C)
+int quantize_kv_static(const void* x, const void* scale, const void* zero, void* codes,
+                       int rows, int Hkv, int D, int C, int x_is_bf16, void* stream) {
+  if (rows <= 0 || Hkv <= 0 || D <= 0 || C <= 0 || D % C != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)rows * Hkv * D;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  if (x_is_bf16)
+    quantize_kv_static_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
+        (const __nv_bfloat16*)x, (const float*)scale, (const float*)zero, (int8_t*)codes,
+        n, Hkv, D, C);
+  else
+    quantize_kv_static_kernel<float><<<blocks, threads, 0, st>>>(
+        (const float*)x, (const float*)scale, (const float*)zero, (int8_t*)codes, n, Hkv,
+        D, C);
   return (int)cudaGetLastError();
 }
 

@@ -8,11 +8,13 @@ Shapes (one layer, one query token per slot):
   k, v    (N, T, Hkv, D) int8 codes (int8 mode) or fp32 (fp mode)
   kv_pos  (N, T) int32   absolute position per row, -1 = empty
   q_pos   (N,)   int32   per-slot current position
-  scales  (N, T, Hkv, C) fp32 per-entry (int8 mode; static scales are
-          not ported yet)
+  scales  fp32, int8 mode: per-entry (N, T, Hkv, C) ("dynamic"), or
+          per-layer static constants (1, 1, Hkv, C) or (Hkv, C)
+          ("static", from a calibration recipe)
 
 An entry is valid when 0 <= kv_pos <= q_pos; an empty slot returns exact
-0. The mode follows k's dtype. On a CPU tensor the wrapper runs the plain
+0. The mode follows k's dtype and the scales' shape. On a CPU tensor the
+wrapper runs the plain
 version :func:`decode_attention_ref`; on a CUDA tensor it launches the
 kernel or raises. The kernel splits T across blocks (flash-decoding) as
 :func:`decode_plan` says, and the last block of each (slot, head group)
@@ -21,7 +23,9 @@ arithmetic (32-row tiles, warps, splits, log-sum-exp merges) in plain
 PyTorch. ``decode_attention.launches`` counts kernel launches (one per
 call), ``decode_attention.variant_launches`` splits them by plan:
 ``"split"`` (T cut across blocks, merged in the kernel) and ``"whole"``
-(one block per (slot, head group) walks all of T).
+(one block per (slot, head group) walks all of T), and
+``decode_attention.mode_launches`` by mode: ``"fp"``, ``"dynamic"`` and
+``"static"``.
 """
 from __future__ import annotations
 
@@ -52,6 +56,31 @@ MAX_SPLITS = 64
 #: the two kinds of launch that ``variant_launches`` counts
 SPLIT = "split"
 WHOLE = "whole"
+#: the modes that ``mode_launches`` counts
+MODES = ("fp", "dynamic", "static")
+
+
+def is_static(scale, N: int, T: int) -> bool:
+    """Scales of one layer are per-layer static constants, (Hkv, C) or
+    (1, 1, Hkv, C), rather than per-entry (N, T, Hkv, C) ones (a
+    one-slot, one-row cache reads the same either way)."""
+    return scale.dim() == 2 or (scale.dim() == 4 and
+                                tuple(scale.shape[:2]) == (1, 1) and
+                                (N, T) != (1, 1))
+
+
+def decode_mode(k, k_scale) -> str:
+    """The mode a call runs in: "fp", "dynamic" or "static"."""
+    if k.dtype != torch.int8:
+        return "fp"
+    return "static" if is_static(k_scale, k.shape[0], k.shape[1]) \
+        else "dynamic"
+
+
+def _rows(scale, sl, static: bool):
+    """The scales of rows ``sl`` of T: a per-entry array is cut, static
+    constants broadcast."""
+    return scale if static else scale[:, sl]
 
 
 def head_group(G: int) -> int:
@@ -116,6 +145,7 @@ def decode_attention_ref(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,
     int8 = k.dtype == torch.int8
     N, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    st = int8 and is_static(k_scale, N, T)
     G = Hq // Hkv
     Tc = pick_kv_chunk(T, kv_chunk)
     qs = (q.float() * (D ** -0.5)).reshape(N, Hkv, G, D)
@@ -130,8 +160,10 @@ def decode_attention_ref(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,
         if not bool(valid.any()):
             continue
         if int8:
-            kc = dequant_chunk(k[:, sl], k_scale[:, sl], k_zero[:, sl])
-            vc = dequant_chunk(v[:, sl], v_scale[:, sl], v_zero[:, sl])
+            kc = dequant_chunk(k[:, sl], _rows(k_scale, sl, st),
+                               _rows(k_zero, sl, st))
+            vc = dequant_chunk(v[:, sl], _rows(v_scale, sl, st),
+                               _rows(v_zero, sl, st))
         else:
             kc, vc = k[:, sl].float(), v[:, sl].float()
         # (N, Hkv, G, 1, D) · (N, Hkv, 1, Tc, D) summed over D
@@ -175,6 +207,7 @@ def decode_attention_split_ref(q, k, v, kv_pos, q_pos, k_scale=None,
     int8 = k.dtype == torch.int8
     N, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    st = int8 and is_static(k_scale, N, T)
     G = Hq // Hkv
     qs = (q.float() * (D ** -0.5)).reshape(N, Hkv, G, D)
     qp = q_pos.to(torch.int32)[:, None]
@@ -192,8 +225,10 @@ def decode_attention_split_ref(q, k, v, kv_pos, q_pos, k_scale=None,
                 pos_c = kv_pos[:, sl]
                 valid = (pos_c >= 0) & (pos_c <= qp)
                 if int8:
-                    kc = dequant_chunk(k[:, sl], k_scale[:, sl], k_zero[:, sl])
-                    vc = dequant_chunk(v[:, sl], v_scale[:, sl], v_zero[:, sl])
+                    kc = dequant_chunk(k[:, sl], _rows(k_scale, sl, st),
+                                       _rows(k_zero, sl, st))
+                    vc = dequant_chunk(v[:, sl], _rows(v_scale, sl, st),
+                                       _rows(v_zero, sl, st))
                 else:
                     kc, vc = k[:, sl].float(), v[:, sl].float()
                 s = (qs[:, :, :, None, :] *
@@ -234,9 +269,12 @@ def _check_cuda(q, k, v, kv_pos, q_pos, scales):
         if any(s is None for s in scales):
             raise ValueError("int8 mode requires all four scale arrays")
         C = scales[0].shape[-1]
+        ok = ((Hkv, C), (1, 1, Hkv, C)) if is_static(scales[0], N, T) \
+            else ((N, T, Hkv, C),)
         for s in scales:
-            if s.shape != (N, T, Hkv, C) or s.dtype != torch.float32:
-                raise ValueError("scales must be fp32 (N, T, Hkv, C)")
+            if tuple(s.shape) not in ok or s.dtype != torch.float32:
+                raise ValueError("scales must be fp32 (N, T, Hkv, C) per "
+                                 "entry, or (1, 1, Hkv, C) or (Hkv, C) static")
         if D % C or (D // C) < 4 or (D // C) & (D // C - 1):
             raise ValueError(f"the kernel takes sub-channel chunks of a "
                              f"power-of-two length >= 4, got D={D}, C={C}")
@@ -255,6 +293,7 @@ def decode_attention(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,
     N, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     int8 = k.dtype == torch.int8
+    mode = decode_mode(k, k_scale)
     C = scales[0].shape[-1] if int8 else 0
     ts = [t.contiguous() for t in (q, k, v)]
     # .to() costs host time even when it has nothing to do
@@ -282,20 +321,25 @@ def decode_attention(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,
         *(t.data_ptr() for t in ts), kv_pos.data_ptr(), q_pos.data_ptr(),
         *(None if s is None else s.data_ptr() for s in sc), o.data_ptr(),
         part_o, part_ml, counter, N, T, Hq, Hkv, D, C, int(int8),
-        int(q.dtype == torch.bfloat16), p.group, p.rows, p.splits, p.warps,
-        D ** -0.5, build.stream_of(q))
+        int(mode == "static"), int(q.dtype == torch.bfloat16), p.group,
+        p.rows, p.splits, p.warps, D ** -0.5, build.stream_of(q))
     build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
     decode_attention.variant_launches[SPLIT if p.splits > 1 else WHOLE] += 1
+    decode_attention.mode_launches[mode] += 1
     return o
 
 
 def reset_counts() -> None:
-    """Set the total and the per-variant launch counts to 0."""
+    """Set the total, the per-variant and the per-mode launch counts to
+    0."""
     decode_attention.launches = 0
-    for v in decode_attention.variant_launches:
-        decode_attention.variant_launches[v] = 0
+    for counts in (decode_attention.variant_launches,
+                   decode_attention.mode_launches):
+        for v in counts:
+            counts[v] = 0
 
 
 decode_attention.launches = 0
 decode_attention.variant_launches = {SPLIT: 0, WHOLE: 0}
+decode_attention.mode_launches = dict.fromkeys(MODES, 0)

@@ -11,23 +11,31 @@ Shapes:
   kv_pos        (T,) int32    absolute position per row, -1 = empty
   pos_start     int           absolute position of chunk token 0
   length        int           valid tokens in the chunk
-  scales        (T, Hkv, C)   fp32 per-entry (int8 mode)
+  scales        fp32, int8 mode: per-entry (T, Hkv, C) ("dynamic"), or
+                per-layer static (Hkv, C) constants ("static")
 
 Cache rows are valid iff 0 <= kv_pos < pos_start; the chunk's own K/V are
 attended at full precision under key <= query and key < length. In int8
-mode the chunk's K/V are quantized per (token, head, sub-channel chunk)
-by :func:`quantize_kv`, bit-identical to ``engine.kvcache.quantize_kv``
-of the JAX package. The fp and int8 per-entry modes are ported; the
-static-scale and verify modes are not yet.
+mode the chunk's K/V are quantized for the cache: dynamically per (token,
+head, sub-channel chunk) by :func:`quantize_kv`, bit-identical to
+``engine.kvcache.quantize_kv`` of the JAX package, or with the static
+constants by :func:`quantize_kv_static` (``quantize_kv_static``, the
+fractional zero folded into the rounding).
+
+``verify=True`` is the speculative verify pass: the chunk is a draft
+window, and it attends its own K/V through the storage round trip (the
+codes it writes, dequantized; over an fp32 cache a cast to fp32) so that
+each row scores what a plain decode step of its token would.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
 they launch the kernels or raise. The attention variant follows q's
 dtype: bf16 goes to the tensor-core kernel (``"bf16_tensor_core"``), which
 also cuts the key range across blocks as :func:`prefill_plan` says; fp32
 to the CUDA-core kernel (``"fp32_cuda_core"``), which keeps the fp32
-numbers. ``prefill_attention.launches`` and ``quantize_kv.launches``
-count kernel launches, ``prefill_attention.variant_launches`` the
-attention's by variant.
+numbers. ``prefill_attention.launches``, ``quantize_kv.launches`` and
+``quantize_kv_static.launches`` count kernel launches,
+``prefill_attention.variant_launches`` the attention's by variant and
+``prefill_attention.mode_launches`` by mode (:data:`MODES`).
 """
 from __future__ import annotations
 
@@ -54,6 +62,17 @@ BLOCKS_PER_SM = 2
 #: splits at most, the chunk's own included (the kernel's merge keeps its
 #: weights in shared memory)
 MAX_SPLITS = 16
+#: the modes that ``mode_launches`` counts
+MODES = ("fp", "dynamic", "static", "verify_fp", "verify_dynamic",
+         "verify_static")
+
+
+def prefill_mode(cache_k, k_scale, verify: bool) -> str:
+    """The mode a call runs in (one of :data:`MODES`): static scales are
+    (Hkv, C), per-entry ones (T, Hkv, C)."""
+    mode = "fp" if cache_k.dtype != torch.int8 else \
+        "static" if k_scale.dim() == 2 else "dynamic"
+    return f"verify_{mode}" if verify else mode
 
 
 def prefill_variant(dtype: torch.dtype) -> str:
@@ -152,13 +171,87 @@ def quantize_kv(x: torch.Tensor, qchunks: int):
 quantize_kv.launches = 0
 
 
+def quantize_kv_static_ref(x: torch.Tensor, scale, zero) -> torch.Tensor:
+    """x (..., H, D), scale/zero broadcastable to (..., H, C) → int8 codes
+    clip(rint(S·x + Z)) per contiguous sub-channel chunk: the static
+    (calibrated) write, whose fractional zero is folded into the
+    rounding; the product and the sum are two fp32 roundings."""
+    *lead, H, D = x.shape
+    C = scale.shape[-1]
+    xc = x.reshape(*lead, H, C, D // C).float()
+    q = torch.round(scale[..., None] * xc + zero[..., None])
+    return q.clamp(KV_QCFG.qmin, KV_QCFG.qmax).to(torch.int8).reshape(x.shape)
+
+
+def quantize_kv_static(x: torch.Tensor, scale, zero) -> torch.Tensor:
+    """Static INT8 K/V quantization with one layer's constants (see
+    :func:`quantize_kv_static_ref`): scale/zero (Hkv, C) or
+    (1, 1, Hkv, C). The CUDA kernel on the card, the plain version on the
+    CPU."""
+    if x.device.type == "cpu":
+        return quantize_kv_static_ref(x, scale, zero)
+    build.check_cuda_operands(x, scale, zero)
+    *lead, H, D = x.shape
+    C = scale.shape[-1]
+    if tuple(scale.shape) not in ((H, C), (1, 1, H, C)) or \
+            zero.shape != scale.shape or scale.dtype != torch.float32 or \
+            zero.dtype != torch.float32:
+        raise ValueError(f"scale/zero must be fp32 (Hkv, C) or (1, 1, Hkv, "
+                         f"C) with Hkv={H}, got {tuple(scale.shape)}")
+    if D % C:
+        raise ValueError(f"head_dim {D} not divisible by qchunks {C}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    x = x.contiguous()
+    codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    rows = x.numel() // (H * D)
+    if rows:
+        lib = build.library()
+        err = lib.quantize_kv_static(
+            x.data_ptr(), scale.contiguous().data_ptr(),
+            zero.contiguous().data_ptr(), codes.data_ptr(), rows, H, D, C,
+            int(x.dtype == torch.bfloat16), build.stream_of(x))
+        build.check(lib, err, "quantize_kv_static")
+        quantize_kv_static.launches += 1
+    return codes
+
+
+quantize_kv_static.launches = 0
+
+
+def window_kv(k_new, v_new, cache_dtype, scales, verify: bool):
+    """The chunk's own K/V as fp32, as the chunk attends them: at full
+    precision, or (``verify``) through the storage round trip — per-entry
+    quantize and dequantize, static quantize and dequantize (``scales``
+    (Hkv, C)), or a cast to the cache's float type."""
+    if not verify:
+        return k_new.float(), v_new.float()
+    if cache_dtype != torch.int8:
+        return (k_new.to(cache_dtype).float(), v_new.to(cache_dtype).float())
+    ks, kz, vs, vz = scales
+    if ks.dim() == 2:
+        return (dequant_chunk(quantize_kv_static_ref(k_new, ks, kz), ks, kz),
+                dequant_chunk(quantize_kv_static_ref(v_new, vs, vz), vs, vz))
+    C = ks.shape[-1]
+    return (dequant_chunk(*quantize_kv_ref(k_new, C)),
+            dequant_chunk(*quantize_kv_ref(v_new, C)))
+
+
+def _rows(scale, sl):
+    """The scales of cache rows ``sl``: a per-entry (T, Hkv, C) array is
+    cut, static (Hkv, C) constants broadcast."""
+    return scale if scale.dim() == 2 else scale[sl]
+
+
 # ----------------------------------------------------------- attention ---
 def prefill_attention_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
                           pos_start: int, length: int, k_scale=None,
                           k_zero=None, v_scale=None, v_zero=None, *,
-                          kv_chunk=None) -> torch.Tensor:
+                          kv_chunk=None, verify: bool = False
+                          ) -> torch.Tensor:
     """Plain online-softmax sweep: the cache rows in chunks (dead chunks
-    skipped), then the chunk's own K/V. Returns (Sq, Hq, D) in q.dtype."""
+    skipped), then the chunk's own K/V (through :func:`window_kv`).
+    Returns (Sq, Hq, D) in q.dtype."""
     int8 = cache_k.dtype == torch.int8
     Sq, Hq, D = q.shape
     T, Hkv = cache_k.shape[0], cache_k.shape[1]
@@ -189,14 +282,18 @@ def prefill_attention_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
         if not bool(valid.any()):
             continue
         if int8:
-            kc = dequant_chunk(cache_k[sl], k_scale[sl], k_zero[sl])
-            vc = dequant_chunk(cache_v[sl], v_scale[sl], v_zero[sl])
+            kc = dequant_chunk(cache_k[sl], _rows(k_scale, sl),
+                               _rows(k_zero, sl))
+            vc = dequant_chunk(cache_v[sl], _rows(v_scale, sl),
+                               _rows(v_zero, sl))
         else:
             kc, vc = cache_k[sl].float(), cache_v[sl].float()
         m, l, acc = update(m, l, acc, kc, vc, valid[None])
     idx = torch.arange(Sq, device=dev)
     valid = (idx[None, :] <= idx[:, None]) & (idx[None, :] < length)
-    m, l, acc = update(m, l, acc, k_new.float(), v_new.float(), valid)
+    kn, vn = window_kv(k_new, v_new, cache_k.dtype,
+                       (k_scale, k_zero, v_scale, v_zero), verify)
+    m, l, acc = update(m, l, acc, kn, vn, valid)
     o = torch.where(l[..., None] > 0, acc / l.clamp(min=1e-30)[..., None], 0.0)
     return o.reshape(Sq, Hq, D).to(q.dtype)
 
@@ -204,7 +301,8 @@ def prefill_attention_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
 def prefill_attention_split_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
                                 pos_start: int, length: int, k_scale=None,
                                 k_zero=None, v_scale=None, v_zero=None, *,
-                                plan: PrefillPlan) -> torch.Tensor:
+                                plan: PrefillPlan, verify: bool = False
+                                ) -> torch.Tensor:
     """The tensor-core kernel's split of the key range in plain PyTorch
     (fp32, without its bf16 rounding points): each cache range of the plan
     and then the chunk's own keys as one more split, each an online
@@ -249,18 +347,22 @@ def prefill_attention_split_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
             if not bool(valid.any()):
                 continue
             if int8:
-                kc = dequant_chunk(cache_k[sl], k_scale[sl], k_zero[sl])
-                vc = dequant_chunk(cache_v[sl], v_scale[sl], v_zero[sl])
+                kc = dequant_chunk(cache_k[sl], _rows(k_scale, sl),
+                                   _rows(k_zero, sl))
+                vc = dequant_chunk(cache_v[sl], _rows(v_scale, sl),
+                                   _rows(v_zero, sl))
             else:
                 kc, vc = cache_k[sl].float(), cache_v[sl].float()
             tiles.append((kc, vc, valid[None]))
         parts.append(walk(tiles))
+    kn, vn = window_kv(k_new, v_new, cache_k.dtype,
+                       (k_scale, k_zero, v_scale, v_zero), verify)
     tiles = []
     for t0 in range(0, min(Sq, length), KV_TILE):
         key = torch.arange(t0, min(Sq, t0 + KV_TILE), device=dev)
         valid = (key[None, :] <= idx[:, None]) & (key[None, :] < length)
         sl = slice(t0, t0 + len(key))
-        tiles.append((k_new[sl].float(), v_new[sl].float(), valid))
+        tiles.append((kn[sl], vn[sl], valid))
     parts.append(walk(tiles))
     _, l, acc = merge_partials(*zip(*parts))
     o = torch.where(l[..., None] > 0, acc / l.clamp(min=1e-30)[..., None], 0.0)
@@ -295,10 +397,12 @@ def _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales):
         if any(s is None for s in scales):
             raise ValueError("int8 mode requires all four scale arrays")
         C = scales[0].shape[-1]
+        want = (Hkv, C) if scales[0].dim() == 2 else \
+            (cache_k.shape[0], Hkv, C)
         for s in scales:
-            if s.shape != (cache_k.shape[0], Hkv, C) or \
-                    s.dtype != torch.float32:
-                raise ValueError("scales must be fp32 (T, Hkv, C)")
+            if tuple(s.shape) != want or s.dtype != torch.float32:
+                raise ValueError("scales must be fp32 (T, Hkv, C) per entry "
+                                 "or (Hkv, C) static")
         if D % C:
             raise ValueError(f"head_dim {D} not divisible by qchunks {C}")
         if q.dtype == torch.bfloat16 and \
@@ -313,71 +417,95 @@ def _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales):
 
 def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
                       pos_start: int, length: int, k_scale=None, k_zero=None,
-                      v_scale=None, v_zero=None):
+                      v_scale=None, v_zero=None, *, verify: bool = False):
     """Chunked-prefill attention plus, in int8 mode, the chunk's codes.
 
     fp mode (fp32 cache): returns (o, ()).
-    int8 mode: returns (o, (qk, qv, ks, kz, vs, vz)) — the chunk's codes
-    and fresh per-entry scales, for the caller to write into the slot.
+    int8 per-entry scales (T, Hkv, C): returns (o, (qk, qv, ks, kz, vs,
+    vz)) — the chunk's codes and fresh per-entry scales, for the caller
+    to write into the slot.
+    int8 static scales (Hkv, C): returns (o, (qk, qv)); the scales are
+    constants and nothing else is written.
+    ``verify``: the speculative verify pass (module doc); the returned
+    codes are the same.
     """
     scales = (k_scale, k_zero, v_scale, v_zero)
     int8 = cache_k.dtype == torch.int8
+    static = int8 and k_scale.dim() == 2
+    aux = ()
+    if int8:
+        # the chunk's codes first: the epilogue's, and in verify mode what
+        # the window attends
+        if static:
+            aux = (quantize_kv_static(k_new, k_scale, k_zero),
+                   quantize_kv_static(v_new, v_scale, v_zero))
+        else:
+            C = k_scale.shape[-1]
+            qk, ks, kz = quantize_kv(k_new, C)
+            qv, vs, vz = quantize_kv(v_new, C)
+            aux = (qk, qv, ks, kz, vs, vz)
     if q.device.type == "cpu":
         o = prefill_attention_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
-                                  pos_start, length, *scales)
-    else:
-        _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales)
-        Sq, Hq, D = q.shape
-        T, Hkv = cache_k.shape[0], cache_k.shape[1]
-        C = scales[0].shape[-1] if int8 else 0
-        ts = [t.contiguous() for t in (q, k_new, v_new, cache_k, cache_v)]
-        if kv_pos.dtype != torch.int32:   # .to() costs host time even idle
-            kv_pos = kv_pos.to(torch.int32)
-        kv_pos = kv_pos.contiguous()
-        sc = [s.contiguous() for s in scales] if int8 else [None] * 4
-        o = torch.empty_like(ts[0])
-        variant = prefill_variant(q.dtype)
-        part_o = part_ml = counter = None
-        rows = splits = 0
-        if variant == TENSOR_CORE:
-            G = Hq // Hkv
-            p = prefill_plan(Sq, T, Hkv, G, int(pos_start),
-                             build.sm_count(q.device.index or 0))
-            rows, splits = p.cache_rows, p.cache_splits
-            # one fp32 workspace: the partial outputs (splits, Sq, Hq, D),
-            # then the running max and sum (splits, Sq, Hq, 2)
-            n = p.splits * Sq * Hq
-            ws = torch.empty(n * (D + 2), dtype=torch.float32,
-                             device=q.device)
-            part_o = ws.data_ptr()
-            part_ml = part_o + 4 * n * D
-            counter = build.merge_counters("prefill_attention", q.device,
-                                           -(-Sq // p.bq) * Hkv).data_ptr()
-        lib = build.library()
-        err = lib.prefill_attention(
-            *(t.data_ptr() for t in ts), kv_pos.data_ptr(),
-            *(None if s is None else s.data_ptr() for s in sc),
-            o.data_ptr(), part_o, part_ml, counter, Sq, T, Hq, Hkv, D, C,
-            int(pos_start), int(length), int(int8),
-            int(variant == TENSOR_CORE), rows, splits, D ** -0.5,
-            build.stream_of(q))
-        build.check(lib, err, "prefill_attention")
-        prefill_attention.launches += 1
-        prefill_attention.variant_launches[variant] += 1
-    if not int8:
-        return o, ()
-    C = k_scale.shape[-1]
-    qk, ks, kz = quantize_kv(k_new, C)
-    qv, vs, vz = quantize_kv(v_new, C)
-    return o, (qk, qv, ks, kz, vs, vz)
+                                  pos_start, length, *scales, verify=verify)
+        return o, aux
+    _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales)
+    Sq, Hq, D = q.shape
+    T, Hkv = cache_k.shape[0], cache_k.shape[1]
+    C = scales[0].shape[-1] if int8 else 0
+    mode = prefill_mode(cache_k, k_scale, verify)
+    ts = [t.contiguous() for t in (q, k_new, v_new, cache_k, cache_v)]
+    if kv_pos.dtype != torch.int32:   # .to() costs host time even idle
+        kv_pos = kv_pos.to(torch.int32)
+    kv_pos = kv_pos.contiguous()
+    sc = [s.contiguous() for s in scales] if int8 else [None] * 4
+    # the window's codes and per-entry scales (verify over an int8 cache)
+    win = [None] * 6
+    if int8 and verify:
+        win = list(aux[:2]) + ([None] * 4 if static else list(aux[2:]))
+    o = torch.empty_like(ts[0])
+    variant = prefill_variant(q.dtype)
+    part_o = part_ml = counter = None
+    rows = splits = 0
+    if variant == TENSOR_CORE:
+        G = Hq // Hkv
+        p = prefill_plan(Sq, T, Hkv, G, int(pos_start),
+                         build.sm_count(q.device.index or 0))
+        rows, splits = p.cache_rows, p.cache_splits
+        # one fp32 workspace: the partial outputs (splits, Sq, Hq, D),
+        # then the running max and sum (splits, Sq, Hq, 2)
+        n = p.splits * Sq * Hq
+        ws = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+        part_o = ws.data_ptr()
+        part_ml = part_o + 4 * n * D
+        counter = build.merge_counters("prefill_attention", q.device,
+                                       -(-Sq // p.bq) * Hkv).data_ptr()
+    lib = build.library()
+    err = lib.prefill_attention(
+        *(t.data_ptr() for t in ts), kv_pos.data_ptr(),
+        *(None if s is None else s.data_ptr() for s in sc),
+        *(None if w is None else w.data_ptr() for w in win),
+        o.data_ptr(), part_o, part_ml, counter, Sq, T, Hq, Hkv, D, C,
+        int(pos_start), int(length), int(int8), int(static),
+        int(int8 and verify), int(variant == TENSOR_CORE), rows, splits,
+        D ** -0.5, build.stream_of(q))
+    build.check(lib, err, "prefill_attention")
+    prefill_attention.launches += 1
+    prefill_attention.variant_launches[variant] += 1
+    prefill_attention.mode_launches[mode] += 1
+    return o, aux
 
 
 def reset_counts() -> None:
-    """Set the attention's total and per-variant launch counts to 0."""
-    prefill_attention.launches = 0
-    for v in prefill_attention.variant_launches:
-        prefill_attention.variant_launches[v] = 0
+    """Set the attention's total, per-variant and per-mode launch counts
+    and the two quantize kernels' counts to 0."""
+    for fn in (prefill_attention, quantize_kv, quantize_kv_static):
+        fn.launches = 0
+    for counts in (prefill_attention.variant_launches,
+                   prefill_attention.mode_launches):
+        for v in counts:
+            counts[v] = 0
 
 
 prefill_attention.launches = 0
 prefill_attention.variant_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
+prefill_attention.mode_launches = dict.fromkeys(MODES, 0)

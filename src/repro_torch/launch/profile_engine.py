@@ -1,6 +1,7 @@
 """Where the serving time goes: device traces of the engine at full width.
 
-    python -m repro_torch.launch.profile_engine [--out chiprun_out] [--wave]
+    python -m repro_torch.launch.profile_engine [--out chiprun_out] \
+        [--wave | --spec]
 
 Builds the engine of ``chip_smoke.py`` from
 :func:`~repro_torch.launch.serve.smoke_workload` (stablelm-1.6b, seeded
@@ -22,9 +23,18 @@ wave's prefill (8 prompts, one forward and the greedy pick) and the 12
 decode steps after it, through the ``Server.prefill_wave`` and
 ``Server.decode_wave`` that ``Server.serve`` runs.
 
+``--spec`` traces the speculative engine of ``chip_smoke.py``'s spec
+phase: the same model and workload's first 8 requests, static KV scales
+from ``calib.collect_kv_stats`` over 4 seeded prompts of 256 tokens, an
+INT2 SplitQuant k=3 draft (dequantized once to bf16) and spec_k 3; after
+the admission of the 8 requests, a window of 6 speculative steps, with
+each draft pass and each verify pass marked (``torch.profiler``
+``record_function``): their count, wall time, the device busy time inside
+them and their kernels by name.
+
 Runs on the CUDA card only. Writes ``profile_engine.json`` (or
-``profile_wave.json``) under ``--out`` (the traces themselves are parsed
-and dropped).
+``profile_wave.json``, ``profile_spec.json``) under ``--out`` (the
+traces themselves are parsed and dropped).
 """
 from __future__ import annotations
 
@@ -42,6 +52,9 @@ from ..runtime.serve_loop import Request, Server, ServeConfig
 from .serve import build_params, rwkv_smoke_workload, smoke_workload
 
 DECODE_STEPS = 12
+SPEC_STEPS = 6
+#: the ranges a speculative step is cut into by --spec
+SPEC_RANGES = ("draft pass", "verify pass")
 
 #: device-kernel name fragments of the port's CUDA kernels
 PORT_KERNELS = {"sq_matmul_wgmma_kernel": "splitquant_matmul (bf16 wgmma)",
@@ -51,6 +64,7 @@ PORT_KERNELS = {"sq_matmul_wgmma_kernel": "splitquant_matmul (bf16 wgmma)",
                 "prefill_tc_kernel": "prefill_attention (bf16 tensor cores)",
                 "prefill_fp32_kernel": "prefill_attention (fp32 CUDA cores)",
                 "quantize_kv_kernel": "quantize_kv",
+                "quantize_kv_static_kernel": "quantize_kv_static",
                 "wkv_kernel": "wkv_chunked"}
 
 
@@ -73,9 +87,16 @@ def _union(intervals) -> float:
     return total
 
 
-def profile_window(run, scratch: Path) -> dict:
+def _clip(intervals, lo, hi):
+    return [(max(s, lo), min(e, hi)) for s, e in intervals
+            if e > lo and s < hi]
+
+
+def profile_window(run, scratch: Path, ranges=()) -> dict:
     """Trace ``run()`` (returns its step count) and summarize its
-    kernels."""
+    kernels; for each name in ``ranges`` (``record_function`` labels
+    inside ``run``), also the count and wall time of its ranges and the
+    kernels that ran inside them."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -95,12 +116,35 @@ def profile_window(run, scratch: Path) -> dict:
         acc = by[_label(e["name"])]
         acc[0] += e["dur"]
         acc[1] += 1
-    busy = _union([(e["ts"], e["ts"] + e["dur"]) for e in kernels]) * 1e-6
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in kernels]
+    busy = _union(spans) * 1e-6
     rows = sorted(by.items(), key=lambda kv: -kv[1][0])
-    return {"steps": steps, "wall_s": wall, "device_busy_s": busy,
-            "device_busy_share": busy / wall,
+    out = {"steps": steps, "wall_s": wall, "device_busy_s": busy,
+           "device_busy_share": busy / wall,
+           "kernels": [{"name": k, "device_s": v[0] * 1e-6, "count": v[1]}
+                       for k, v in rows]}
+    for name in ranges:
+        marks = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation"
+                 and e.get("name") == name and "dur" in e]
+        inside = collections.defaultdict(lambda: [0.0, 0])
+        busy_in = 0.0
+        for lo, hi in marks:
+            busy_in += _union(_clip(spans, lo, hi))
+            for e in kernels:
+                if lo <= e["ts"] < hi:
+                    acc = inside[_label(e["name"])]
+                    acc[0] += e["dur"]
+                    acc[1] += 1
+        wall_in = sum(hi - lo for lo, hi in marks) * 1e-6
+        out[name] = {
+            "count": len(marks), "wall_s": wall_in,
+            "device_busy_s": busy_in * 1e-6,
+            "device_busy_share": busy_in * 1e-6 / wall_in if marks else None,
             "kernels": [{"name": k, "device_s": v[0] * 1e-6, "count": v[1]}
-                        for k, v in rows]}
+                        for k, v in sorted(inside.items(),
+                                           key=lambda kv: -kv[1][0])]}
+    return out
 
 
 def engine_window(eng, run, scratch: Path) -> dict:
@@ -112,13 +156,20 @@ def engine_window(eng, run, scratch: Path) -> dict:
     return w
 
 
-def _print(title: str, w: dict) -> None:
+def _print(title: str, w: dict, ranges=()) -> None:
     print(f"{title}: {w['steps']} steps; wall {w['wall_s'] * 1e3:.1f} ms, "
           f"device busy {w['device_busy_s'] * 1e3:.1f} ms "
           f"({100 * w['device_busy_share']:.1f}%)")
     for k in w["kernels"][:12]:
         print(f"  {k['device_s'] * 1e3:10.3f} ms  {k['count']:7d}  "
               f"{k['name']}")
+    for name in ranges:
+        r = w[name]
+        print(f"  {name}: {r['count']} ranges, wall {r['wall_s'] * 1e3:.1f} "
+              f"ms, device busy {r['device_busy_s'] * 1e3:.1f} ms")
+        for k in r["kernels"][:8]:
+            print(f"    {k['device_s'] * 1e3:10.3f} ms  {k['count']:7d}  "
+                  f"{k['name']}")
 
 
 def profile_engine(device, scratch: Path) -> dict:
@@ -151,6 +202,57 @@ def profile_engine(device, scratch: Path) -> dict:
             "decode": engine_window(eng, decode_window, scratch)}
 
 
+def profile_spec(device, scratch: Path) -> dict:
+    import dataclasses
+
+    import numpy as np
+
+    from ..calib import collect_kv_stats, kv_static_scales
+    from ..engine import engine as engine_mod
+    cfg, ecfg, quant, warmup, prompts = smoke_workload()
+    ecfg = dataclasses.replace(ecfg, spec_k=3)
+    params, _ = build_params(cfg, device=device, **quant)
+    draft, _ = build_params(cfg, device=device, **dict(quant, bits=2))
+    calib = np.random.default_rng(7).integers(0, cfg.vocab, size=(4, 256))
+    scales = kv_static_scales(collect_kv_stats(cfg, params, [calib]))
+    kw = dict(device=device, kv_scales=scales, draft_params=draft)
+    warm = Engine(cfg, params, ecfg, **kw)
+    warm.submit(warmup, 4)
+    warm.drain()
+    del warm
+    eng = Engine(cfg, params, ecfg, **kw)
+    del draft
+    for p in prompts[:8]:
+        eng.submit(p)
+    while eng.sched.free_slots() or eng.sched.prefill_slots() or \
+            not eng.sched.active_slots():
+        eng.step()
+    # mark each draft pass and each verify pass for the trace
+    draft_fn, verify_fn = eng._spec.draft, engine_mod.verify_argmax
+
+    def marked(fn, name):
+        def run(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return run
+
+    eng._spec.draft = marked(draft_fn, SPEC_RANGES[0])
+    engine_mod.verify_argmax = marked(verify_fn, SPEC_RANGES[1])
+
+    def spec_window():
+        for _ in range(SPEC_STEPS):
+            eng.step()
+        return SPEC_STEPS
+
+    try:
+        window = profile_window(spec_window, scratch, SPEC_RANGES)
+    finally:
+        engine_mod.verify_argmax = verify_fn
+    return {"arch": cfg.name, "card": torch.cuda.get_device_name(0),
+            "spec_k": ecfg.spec_k, "active_slots": len(eng.sched.active_slots()),
+            "spec": window}
+
+
 def profile_wave(device, scratch: Path) -> dict:
     cfg, scfg, quant, warmup, prompts = rwkv_smoke_workload()
     params, _ = build_params(cfg, device=device, **quant)
@@ -179,13 +281,23 @@ def profile_wave(device, scratch: Path) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out")
-    ap.add_argument("--wave", action="store_true",
-                    help="trace the rwkv6-3b wave loop, not the engine")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--wave", action="store_true",
+                      help="trace the rwkv6-3b wave loop, not the engine")
+    mode.add_argument("--spec", action="store_true",
+                      help="trace the speculative engine's steps")
     args = ap.parse_args(argv)
     device = resolve_device(None)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     scratch = out / "profile_trace.tmp.json"
+    if args.spec:
+        res = profile_spec(device, scratch)
+        (out / "profile_spec.json").write_text(json.dumps(res, indent=1))
+        print(f"{res['arch']} on {res['card']}, spec_k {res['spec_k']}, "
+              f"{res['active_slots']} slots decoding")
+        _print(f"{SPEC_STEPS} speculative steps", res["spec"], SPEC_RANGES)
+        return
     if args.wave:
         res = profile_wave(device, scratch)
         (out / "profile_wave.json").write_text(json.dumps(res, indent=1))

@@ -7,6 +7,11 @@ family without a slot-cache layout (RWKV6), by the wave loop.
         --reduced --bits 4 --kv-mode int8 --requests 8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --reduced --requests 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --spec-k 3 --device cpu
+
+``--spec-k`` serves with self-speculative decoding, the target drafting
+for itself (as the JAX package's ``--spec-k`` without a draft recipe).
 
 Without ``--device`` it runs on the CUDA card, and fails if there is
 none.
@@ -102,6 +107,9 @@ def main(argv=None):
     ap.add_argument("--kv-mode", default="int8", choices=["fp", "int8"])
     ap.add_argument("--prefill-chunk", type=int,
                     default=EngineConfig.prefill_chunk)
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="self-speculative decoding: draft tokens per step "
+                         "(the target drafts for itself)")
     ap.add_argument("--device", default=None,
                     help="'cpu' runs the plain PyTorch versions; default "
                          "is the CUDA card")
@@ -127,13 +135,17 @@ def main(argv=None):
         eng = Engine(cfg, params, EngineConfig(
             n_slots=args.slots, max_len=256,
             max_new_tokens=args.max_new_tokens, kv_mode=args.kv_mode,
-            prefill_chunk=args.prefill_chunk), device=device)
+            prefill_chunk=args.prefill_chunk, spec_k=args.spec_k),
+            device=device)
         for p in prompts:
             eng.submit(p)
         t0 = time.perf_counter()
         fin = eng.drain()
         how = (f"{eng.n_decode_steps} decode steps, "
                f"{eng.n_prefill_chunks} prefill chunks")
+        if args.spec_k:
+            how += (f", {eng.n_spec_steps} speculative steps, acceptance "
+                    f"{eng.sched.acceptance_rate()}")
     else:
         print(f"note: {cfg.family!r} family has no slot-cache layout yet; "
               f"serving with the wave loop")

@@ -7,7 +7,7 @@ from .common import apply_rope, dense
 
 
 def attention_block(p, x, cfg, positions, cache, layer: int, *,
-                    slot_chunk=None):
+                    slot_chunk=None, spec_verify: bool = False):
     """Projections + RoPE + slot-cache attention + output projection.
 
     p: {"wq","wk","wv","wo"(,biases)}; x: (B, S, d); ``cache`` is the
@@ -20,6 +20,9 @@ def attention_block(p, x, cfg, positions, cache, layer: int, *,
     Chunked prefill (``slot_chunk=(slot, pos_start, length)``, B == 1):
     positions (Sq,); the chunk attends the slot's earlier rows plus its
     own K/V, and its codes are written into rows [pos_start, +Sq).
+    ``spec_verify`` (with ``slot_chunk``): the chunk is a speculative
+    draft window and attends its own K/V through the cache's storage
+    round trip, so each row scores what a plain decode step would.
     """
     from ..engine.kvcache import (fused_slot_attention, slot_chunk_prefill,
                                   slot_layer_write)
@@ -35,7 +38,7 @@ def attention_block(p, x, cfg, positions, cache, layer: int, *,
             raise ValueError(f"chunked prefill runs one slot, got B={B}")
         slot, pos_start, length = slot_chunk
         o = slot_chunk_prefill(cache, layer, q[0], k[0], v[0], slot,
-                               pos_start, length)[None]
+                               pos_start, length, verify=spec_verify)[None]
     elif S == 1:
         slot_layer_write(cache, layer, k, v, positions)
         o = fused_slot_attention(cache, layer, q[:, 0],

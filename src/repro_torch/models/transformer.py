@@ -52,15 +52,16 @@ def init(cfg, seed: int = 0, device=None):
     return params
 
 
-def _forward_slots(params, cfg, cache, tokens, positions, slot_chunk=None):
+def _forward_slots(params, cfg, cache, tokens, positions, slot_chunk=None,
+                   verify: bool = False):
     x = embed_lookup(params["embed"], tokens)
     for layer, lp in enumerate(params["layers"]):
         h = apply_norm(x, lp["ln1"], cfg.norm_type)
         x = x + attention_block(lp["attn"], h, cfg, positions, cache, layer,
-                                slot_chunk=slot_chunk)
+                                slot_chunk=slot_chunk, spec_verify=verify)
         h = apply_norm(x, lp["ln2"], cfg.norm_type)
         x = x + apply_ffn(lp["ffn"], h, cfg.ffn_type)
-    if slot_chunk is not None:
+    if slot_chunk is not None and not verify:
         # only the chunk's last valid token feeds the head (the engine
         # samples the first generated token from it): (1, 1, V), not
         # (1, Sc, V)
@@ -90,3 +91,20 @@ def prefill_chunk_slots(params, cfg, cache, tokens, slot: int,
     logits = _forward_slots(params, cfg, cache, tokens, positions,
                             slot_chunk=(slot, pos_start, length))
     return logits[:, 0]
+
+
+def verify_step_slots(params, cfg, cache, tokens, slot: int, pos_start: int,
+                      length: int):
+    """Speculative verify of one slot's draft window in one pass: tokens
+    (1, Sq) = [last committed token, drafts...] at positions
+    [pos_start, pos_start + Sq), the first ``length`` real. Like a prefill
+    chunk, the window's K/V are written into the slot (in place), but
+    every row attends the window through the storage round trip and
+    every row's logits are kept, so row j's argmax is the token a plain
+    decode step would produce after window token j. Returns logits
+    (1, Sq, V) fp32; rows at >= length are padding."""
+    Sq = tokens.shape[1]
+    positions = pos_start + torch.arange(Sq, dtype=torch.int32,
+                                         device=tokens.device)
+    return _forward_slots(params, cfg, cache, tokens, positions,
+                          slot_chunk=(slot, pos_start, length), verify=True)

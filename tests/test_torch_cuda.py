@@ -621,3 +621,194 @@ def test_wave_server_card_matches_cpu(dev):
         if d == "cuda":
             assert wk.wkv_chunked.launches - before == cfg.n_layers
     assert outs["cuda"] == outs["cpu"]
+
+
+# ------------------------------------- static and verify attention modes ---
+def _static_scales(x, C=4):
+    """Per-(head, chunk) static (S, Z) of x (..., Hkv, D) from its own
+    range, as ``calib.kv_static_scales`` derives them."""
+    H, D = x.shape[-2:]
+    xc = x.float().reshape(-1, H, C, D // C)
+    lo, hi = xc.amin(dim=(0, 3)), xc.amax(dim=(0, 3))
+    scale = 255.0 / (hi - lo)
+    return scale, -128.0 - scale * lo
+
+
+def _static_cache(k, v):
+    """Static codes of k and v and their four (Hkv, C) constants."""
+    ks, kz = _static_scales(k)
+    vs, vz = _static_scales(v)
+    return (pa.quantize_kv_static_ref(k, ks, kz),
+            pa.quantize_kv_static_ref(v, vs, vz), (ks, kz, vs, vz))
+
+
+@pytest.mark.parametrize("layout", ["(Hkv, C)", "(1, 1, Hkv, C)"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32)])
+@pytest.mark.parametrize("T", [100, 1024, 4096])
+def test_decode_static_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype, layout):
+    """Static per-layer scales through both the row path (one head a
+    block) and the head-group path, at split and unsplit plans."""
+    gen = torch.Generator(device=dev).manual_seed(T + Hq + D + 3)
+    q, k, v, kv_pos, q_pos, _ = _decode_inputs(gen, dev, 6, T, Hq, Hkv, D,
+                                               False, dtype)
+    qk, qv, sc = _static_cache(k, v)
+    if layout != "(Hkv, C)":
+        sc = tuple(s[None, None] for s in sc)
+    before = dict(decode_attention.mode_launches)
+    got = decode_attention(q, qk, qv, kv_pos, q_pos, *sc)
+    torch.cuda.synchronize()
+    assert decode_attention.mode_launches["static"] == before["static"] + 1
+    assert decode_attention.mode_launches["dynamic"] == before["dynamic"]
+    want = decode_attention_ref(q, qk, qv, kv_pos, q_pos, *sc)
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+    assert torch.all(got[2] == 0)                     # empty slot
+
+
+@pytest.mark.parametrize("mode", ["static", "verify_dynamic",
+                                  "verify_static", "verify_fp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128)])
+@pytest.mark.parametrize("pos_start,Sq,length", [(37, 96, 90), (0, 4, 4),
+                                                 (384, 4, 3), (900, 16, 16)])
+def test_prefill_static_and_verify_kernel_vs_plain(dev, mode, dtype, Hq, Hkv,
+                                                   D, pos_start, Sq, length):
+    """Both prefill kernels in the static and verify modes; the chunk's
+    codes (and per-entry scales) equal the plain quantizers'."""
+    T = 1024
+    gen = torch.Generator(device=dev).manual_seed(pos_start + Sq + D + 5)
+    q, kn, vn, ck, cv, kv_pos, sc = _chunk_inputs(
+        gen, dev, Sq, T, Hq, Hkv, D, mode == "verify_dynamic", dtype,
+        pos_start)
+    if mode in ("static", "verify_static"):
+        ck, cv, sc = _static_cache(ck, cv)
+    verify = mode.startswith("verify")
+    before = dict(prefill_attention.mode_launches)
+    got, gaux = prefill_attention(q, kn, vn, ck, cv, kv_pos, pos_start,
+                                  length, *sc, verify=verify)
+    torch.cuda.synchronize()
+    assert prefill_attention.mode_launches[mode] == before[mode] + 1
+    want = prefill_attention_ref(q, kn, vn, ck, cv, kv_pos, pos_start,
+                                 length, *sc, verify=verify)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+    if mode in ("static", "verify_static"):
+        waux = (pa.quantize_kv_static_ref(kn, sc[0], sc[1]),
+                pa.quantize_kv_static_ref(vn, sc[2], sc[3]))
+    elif mode == "verify_dynamic":
+        wk_, wv_ = quantize_kv_ref(kn, 4), quantize_kv_ref(vn, 4)
+        waux = (wk_[0], wv_[0], wk_[1], wk_[2], wv_[1], wv_[2])
+    else:
+        waux = ()
+    assert len(gaux) == len(waux)
+    for a, b in zip(gaux, waux):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(96, 32, 64), (8, 32, 64), (96, 2, 128),
+                                   (8, 2, 128), (3, 5, 32)])
+def test_quantize_kv_static_kernel_bit_identical(dev, dtype, shape):
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=gen, device=dev) * 2).to(dtype)
+    scale, zero = _static_scales(x)
+    u = torch.rand((2,) + scale.shape, generator=gen, device=dev)
+    scale = scale * (0.5 + 1.5 * u[0])           # some codes clip
+    zero = zero + u[1] - 0.5                     # fractional
+    before = pa.quantize_kv_static.launches
+    got = pa.quantize_kv_static(x, scale, zero)
+    torch.cuda.synchronize()
+    assert pa.quantize_kv_static.launches == before + 1
+    assert inside_share(got, 8) > 0.5
+    assert torch.equal(got, pa.quantize_kv_static_ref(x, scale, zero))
+
+
+def test_quantize_kv_static_kernel_does_not_fuse_multiply_add(dev):
+    xs, S, Z = fma_tie_inputs()
+    x = torch.from_numpy(np.resize(xs, (-(-xs.size // 64), 2, 32))).to(dev)
+    sc = torch.full((2, 4), float(S), device=dev)
+    zc = torch.full((2, 4), float(Z), device=dev)
+    got = pa.quantize_kv_static(x, sc, zc).cpu().numpy()
+    xn = x.cpu().numpy()
+    want = np.clip(np.rint(S * xn + Z), -128, 127).astype(np.int8)
+    assert np.array_equal(got, want)
+
+
+def test_new_mode_wrappers_reject_bad_operands_and_never_take_plain(
+        dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    for mod, name in ((da, "decode_attention_ref"),
+                      (pa, "prefill_attention_ref"),
+                      (pa, "quantize_kv_static_ref"),
+                      (pa, "quantize_kv_ref"), (pa, "window_kv")):
+        monkeypatch.setattr(mod, name, boom)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v, kv_pos, q_pos, _ = _decode_inputs(gen, dev, 4, 64, 4, 2, 32,
+                                               False, torch.float32)
+    ks, kz = _static_scales(k)
+    qk = torch.zeros(k.shape, dtype=torch.int8, device=dev)
+    sc = (ks, kz, ks, kz)
+    decode_attention(q, qk, qk, kv_pos, q_pos, *sc)
+    pa.quantize_kv_static(k[0], ks, kz)
+    Sq = 4
+    qq, kn = q[0, :Sq].contiguous(), k[0, :Sq].contiguous()
+    qq = torch.randn((Sq, 4, 32), device=dev)
+    for verify in (False, True):
+        prefill_attention(qq, kn, kn, qk[0], qk[0], kv_pos[0], 10, Sq, *sc,
+                          verify=verify)
+    torch.cuda.synchronize()
+    bad = [
+        (ValueError, lambda: decode_attention(q, qk, qk, kv_pos, q_pos,
+                                              ks[:, :2], kz, ks, kz)),
+        (ValueError, lambda: decode_attention(q, qk, qk, kv_pos, q_pos,
+                                              ks[None], kz, ks, kz)),
+        (ValueError, lambda: decode_attention(q, qk, qk, kv_pos, q_pos,
+                                              ks.cpu(), kz, ks, kz)),
+        (ValueError, lambda: decode_attention(q, qk, qk, kv_pos, q_pos,
+                                              ks.double(), kz, ks, kz)),
+        (ValueError, lambda: pa.quantize_kv_static(k[0], ks[:1], kz[:1])),
+        (ValueError, lambda: pa.quantize_kv_static(k[0], ks.cpu(),
+                                                   kz.cpu())),
+        (TypeError, lambda: pa.quantize_kv_static(k[0].half(), ks, kz)),
+        (ValueError, lambda: prefill_attention(
+            qq, kn, kn, qk[0], qk[0], kv_pos[0], 10, Sq, ks[:, :2], kz, ks,
+            kz, verify=True)),
+        (ValueError, lambda: prefill_attention(
+            qq, kn, kn, qk[0], qk[0], kv_pos[0], 10, Sq, ks.cpu(), kz, ks,
+            kz)),
+    ]
+    for exc, call in bad:
+        with pytest.raises(exc):
+            call()
+
+
+def test_spec_engine_card_matches_cpu(dev):
+    """Reduced stablelm in fp32, INT4 target, INT2 draft, spec_k 3, over
+    int8 dynamic and static caches: the card's speculative tokens equal
+    its greedy tokens and the CPU's speculative tokens."""
+    from repro_torch.calib import collect_kv_stats, kv_static_scales
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg = get_arch("stablelm-1.6b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", device="cpu")
+    draft, _ = build_params(cfg, bits=2, method="splitquant", device="cpu")
+    rng = np.random.default_rng(4)
+    scales = kv_static_scales(collect_kv_stats(
+        cfg, params, [rng.integers(0, cfg.vocab, size=(2, 64))]))
+    prompts = seeded_prompts(cfg.vocab, 6, 3, 60, seed=1)
+    for kv_scales in (None, scales):
+        outs = {}
+        for d, spec_k in (("cpu", 3), ("cuda", 3), ("cuda", 0)):
+            p, dr = (params, draft) if d == "cpu" else \
+                (tree_to(params, dev), tree_to(draft, dev))
+            eng = Engine(cfg, p, EngineConfig(
+                n_slots=3, max_len=96, max_new_tokens=8, kv_mode="int8",
+                prefill_chunk=32, spec_k=spec_k), device=d,
+                kv_scales=kv_scales, draft_params=dr if spec_k else None)
+            for pr in prompts:
+                eng.submit(pr)
+            outs[(d, spec_k)] = [r.out for r in eng.drain()]
+        assert outs[("cuda", 3)] == outs[("cuda", 0)] == outs[("cpu", 3)]

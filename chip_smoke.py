@@ -29,8 +29,15 @@ Phases (any failure exits non-zero):
    The static and verify modes of the two attention kernels (decode at
    the same three shapes with static scales; a 96-token prefill chunk
    with static scales and a 4-row verify window over int8 dynamic, int8
-   static and fp32 caches at position 384) and ``quantize_kv_static``
-   (codes exact) are held to their plain versions the same way;
+   static and fp32 caches at position 384) are held to their plain
+   versions the same way, and so is the K/V cache write ``write_kv_rows``
+   (one launch a layer write: K and V quantized together, codes, scales
+   and kv_pos stored in the slot rows) in its dynamic, static and fp
+   modes at stablelm-1.6b's and chatglm3-6b's 96-row chunk (padded tail),
+   8-slot decode write and 4-row verify window sticking out past T: every
+   byte of the destination equal, with the wrapper's host time a call;
+   then the standalone ``quantize_kv`` and ``quantize_kv_static`` (the
+   same kernel with a dense destination) at 96 and 8 rows, exact;
 3. engine: stablelm-1.6b at its published widths (seeded random bf16
    weights, SplitQuant INT4 k=3, quantized on the card) served by the
    continuous-batching engine over an int8 slot cache: 8 slots,
@@ -39,19 +46,25 @@ Phases (any failure exits non-zero):
    set to 0 just before the run and read just after; each of the engine's
    kernels must be > 0, every matmul and every prefill-attention launch
    must be of its bf16 tensor-core variant, every decode-attention launch
-   must split T across blocks, only the dynamic modes may run, and the
-   decode and prefill attention launches per step and layer are printed;
-   then static: static KV scales from the port's ``collect_kv_stats`` over
-   4 seeded prompts of 256 tokens on the card, and the same run over
-   them: only the static decode and prefill modes and
-   ``quantize_kv_static`` may run; its numbers are printed beside the
-   dynamic run's; then spec: the first 8 of those requests through the
-   speculative engine (spec_k 3, an INT2 SplitQuant k=3 draft of the
-   same seeded weights, dequantized once to bf16, over the static
-   scales): every request its 32 tokens, verify launches over the static
-   cache and at least one rollback; it prints the acceptance rate, the
-   tokens a verify commits, tokens/s and the share of tokens identical to
-   the static run's greedy output (not gated: bf16 verify on the tensor
+   must split T across blocks, only the dynamic modes may run, every
+   forward pass must write each of the 24 layers' cache rows with exactly
+   one ``write_kv_rows`` launch in the cache's mode (writes = 24 x the
+   engine's decode steps and prefill chunks = attention launches, mode
+   by mode) and no standalone quantizer may run, and the decode and
+   prefill attention launches per step and layer are printed; then
+   static: static KV scales from the port's ``collect_kv_stats`` over 4
+   seeded prompts of 256 tokens on the card, and the same run over them:
+   only the static decode, prefill and write modes may run; its numbers
+   are printed beside the dynamic run's; then spec: the first 8 of those
+   requests through the speculative engine (spec_k 3, an INT2 SplitQuant
+   k=3 draft of the same seeded weights, dequantized once to bf16, over
+   the static scales): every request its 32 tokens, verify launches over
+   the static cache, at least one rollback, and one write a layer and
+   forward pass (static for the target's chunks, verify passes and
+   decode steps, dynamic for the draft's twin cache's chunks and draft
+   steps); it prints the acceptance rate, the tokens a verify commits,
+   tokens/s and the share of tokens identical to the static run's
+   greedy output (not gated: bf16 verify on the tensor
    cores and fp32 decode on the CUDA cores sum in different orders; with
    the target's top-2 margin where the first token differs);
 4. cross-checks: stablelm-1.6b ``.reduced()`` in fp32 through the engine
@@ -75,10 +88,12 @@ The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
 (``launches_by_path`` splits them, ``launches_by_variant`` splits those
 of the matmul and of the two attention kernels by variant and
-``launches_by_mode`` those of the attention kernels by mode; the
-act-quant kernels, on no serving path, report their kernel-phase
-launches); the last is ``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json``.
+``launches_by_mode`` those of the attention kernels and of the K/V write
+by mode; the write, the counterpart of both branches of the TPU prefill
+kernel's epilogue, is two entries: ``kv_write`` (its dynamic and fp
+modes) and ``kv_write_static``; the act-quant kernels, on no serving
+path, report their kernel-phase launches); the last is ``{"ok": true,
+"device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -102,10 +117,10 @@ TPU_KERNELS = {
     "act_split_quantize": "src/repro/kernels/act_quant.py:60",
     "act_split_quantize_static": "src/repro/kernels/act_quant.py:132",
     "prefill_attention": "src/repro/kernels/prefill_attention.py:299",
-    "quantize_kv": "src/repro/kernels/prefill_attention.py:232",
+    "kv_write": "src/repro/kernels/prefill_attention.py:232",
     "wkv_chunked": "src/repro/kernels/wkv_chunked.py:75",
     "decode_attention": "src/repro/kernels/decode_attention.py:164",
-    "quantize_kv_static": "src/repro/kernels/prefill_attention.py:241",
+    "kv_write_static": "src/repro/kernels/prefill_attention.py:241",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -113,23 +128,24 @@ SOURCES = {
     "act_split_quantize": CSRC + "act_quant.cu",
     "act_split_quantize_static": CSRC + "act_quant.cu",
     "prefill_attention": CSRC + "prefill_attention.cu",
-    "quantize_kv": CSRC + "prefill_attention.cu",
+    "kv_write": CSRC + "kv_write.cu",
     "wkv_chunked": CSRC + "wkv_chunked.cu",
     "decode_attention": CSRC + "decode_attention.cu",
-    "quantize_kv_static": CSRC + "prefill_attention.cu",
+    "kv_write_static": CSRC + "kv_write.cu",
 }
 #: the serving runs each kernel is on: "engine" (dynamic int8 scales),
 #: "static" (static scales), "spec" (speculative, static target, dynamic
-#: draft) and "wave" (rwkv6)
+#: draft) and "wave" (rwkv6). ``kv_write`` is ``write_kv_rows`` in its
+#: dynamic and fp modes, ``kv_write_static`` in its static mode.
 PATHS = {
     "splitquant_matmul": ("engine", "static", "spec", "wave"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
     "prefill_attention": ("engine", "static", "spec"),
-    "quantize_kv": ("engine", "spec"),
+    "kv_write": ("engine", "spec"),
     "wkv_chunked": ("wave",),
     "decode_attention": ("engine", "static", "spec"),
-    "quantize_kv_static": ("static", "spec"),
+    "kv_write_static": ("static", "spec"),
 }
 
 def fail(msg: str) -> None:
@@ -412,11 +428,10 @@ def decode_cases(torch, timer, rep):
             q, qk, qv, kv_pos, q_pos, *sc)))
 
 
-def prefill_cases(torch, timer, rep, qrep):
+def prefill_cases(torch, timer, rep):
     from repro_torch.kernels.decode_attention import dequant_chunk
     from repro_torch.kernels.prefill_attention import (prefill_attention,
                                                        prefill_attention_ref,
-                                                       quantize_kv,
                                                        quantize_kv_ref)
     gen = torch.Generator(device="cuda").manual_seed(2)
     T, C, Sq, pos_start, length = 1024, 4, 96, 384, 96
@@ -462,19 +477,6 @@ def prefill_cases(torch, timer, rep, qrep):
                 lib, nbytes, 4 * Hq * D * (Ec * Sq + pairs))
         log_against_sdpa(rep, host_us(torch, lambda: prefill_attention(
             q, kn, vn, ck, cv, kv_pos, pos_start, length, *sc)))
-        # the quantize kernel alone, at its two main-path shapes: the
-        # prefill epilogue (Sq, Hkv, D) and the decode write (N, Hkv, D)
-        for what, x in (("prefill chunk", kn), ("decode write",
-                                                f(8, Hkv, D))):
-            got_q = quantize_kv(x, C)
-            want_q = quantize_kv_ref(x, C)
-            torch.cuda.synchronize()
-            err = max(max_err(a, b) for a, b in zip(got_q, want_q))
-            n = x.numel()
-            qrep.add(f"{arch} {what} {tuple(x.shape)}", err, 0.0,
-                     timer(lambda: quantize_kv(x, C)),
-                     timer(lambda: quantize_kv_ref(x, C)), None,
-                     n * 2 + n + 2 * (n // (D // C)) * 4, 4 * n)
 
 
 def _sdpa_prefill(torch, timer, q, kd, vd, kn, vn, kv_pos, pos_start, length):
@@ -579,32 +581,102 @@ def prefill_mode_cases(torch, timer, rep):
                 *args, verify=verify)))
 
 
-def quantize_static_cases(torch, timer, rep):
-    """quantize_kv_static at its main-path shapes, the prefill epilogue
-    (96, Hkv, D) and the decode write (8, Hkv, D) of stablelm-1.6b and
-    chatglm3-6b, bf16 input: codes exactly the plain version's, with S and
-    Z drawn so that most codes fall strictly inside the range."""
-    from repro_torch.kernels.prefill_attention import (quantize_kv_static,
-                                                       quantize_kv_static_ref)
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    C = 4
-    for shape in ((96, 32, 64), (8, 32, 64), (96, 2, 128), (8, 2, 128)):
-        x = (torch.randn(shape, generator=gen, device="cuda") * 2).to(
-            torch.bfloat16)
-        scale, zero = static_scales_of(torch, x, C, gen)
-        got = quantize_kv_static(x, scale, zero)
-        want = quantize_kv_static_ref(x, scale, zero)
-        torch.cuda.synchronize()
-        inside = float(((got > -128) & (got < 127)).float().mean())
-        if inside <= 0.5:
-            fail(f"quantize_kv_static {shape}: only {inside:.2f} of the codes "
-                 f"fall inside the range; the check would test the clip")
-        n = x.numel()
-        rep.add(f"{shape} bf16 C={C} ({100 * inside:.0f}% inside)",
-                max_err(got, want), 0.0,
-                timer(lambda: quantize_kv_static(x, scale, zero)),
-                timer(lambda: quantize_kv_static_ref(x, scale, zero)), None,
-                n * 2 + n + 2 * shape[1] * C * 4, 4 * n)
+def kv_write_cases(torch, timer, rep, srep):
+    """The K/V cache write ``write_kv_rows`` (one launch a layer write:
+    K and V quantized together, codes, scales and kv_pos stored in the
+    slot rows) at its main-path shapes, bf16 K/V into a layer of 8 slots
+    x 1024 rows: stablelm-1.6b's and chatglm3-6b's 96-row chunk at 384
+    with a padded tail (length 90), their 8-slot decode write, and a
+    4-row verify window of the last slot at T - 2 (two rows past T,
+    dropped); in the dynamic and fp modes into ``rep`` and the static one
+    into ``srep``. Every byte of the destination (rows, scales, kv_pos;
+    stale bytes everywhere before) equals the plain version's, and most
+    static codes fall strictly inside the range. The bound counts K/V
+    read once, the kept rows' codes (fp32 rows), scales and kv_pos
+    written once, and the static constants and decode positions read.
+    Then the standalone ``quantize_kv`` and ``quantize_kv_static`` (the
+    same kernel with a dense destination) at 96 and 8 rows, codes and
+    scales exact."""
+    from repro_torch.kernels.prefill_attention import (
+        quantize_kv, quantize_kv_ref, quantize_kv_static,
+        quantize_kv_static_ref, write_kv_rows, write_kv_rows_ref)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    N, T, C = 8, 1024, 4
+    f = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    depths = torch.tensor([1000, 513, 0, 17, 256, 777, 64, 1023],
+                          dtype=torch.int32, device="cuda")
+    for arch, Hkv, D in (("stablelm-1.6b", 32, 64), ("chatglm3-6b", 2, 128)):
+        for what, R, kw, kept in (
+                ("chunk", 96, dict(slot=3, pos_start=384, length=90), 96),
+                ("decode", N, dict(positions=depths), N),
+                ("verify window", 4, dict(slot=N - 1, pos_start=T - 2,
+                                          length=2), 2)):
+            k = (f(R, Hkv, D) * 2).to(torch.bfloat16)
+            v = f(R, Hkv, D).to(torch.bfloat16)
+            for mode in ("dynamic", "static", "fp"):
+                kv_pos = torch.randint(-1, T, (N, T), generator=gen,
+                                       device="cuda", dtype=torch.int32)
+                if mode == "fp":
+                    dst = [f(N, T, Hkv, D), f(N, T, Hkv, D), kv_pos]
+                else:
+                    dst = [torch.randint(-128, 128, (N, T, Hkv, D),
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int8)
+                           for _ in range(2)] + [kv_pos]
+                    dst += [f(N, T, Hkv, C) for _ in range(4)] \
+                        if mode == "dynamic" else \
+                        [*static_scales_of(torch, k, C, gen),
+                         *static_scales_of(torch, v, C, gen)]
+                want = [t.clone() for t in dst]
+                write_kv_rows_ref(k, v, *want, **kw)
+                write_kv_rows(k, v, *dst, **kw)
+                torch.cuda.synchronize()
+                err = max(max_err(a, b) for a, b in zip(dst, want))
+                if mode == "static":
+                    codes = quantize_kv_static_ref(k, *dst[3:5])
+                    inside = float(((codes > -128) & (codes < 127)).float()
+                                   .mean())
+                    if inside <= 0.5:
+                        fail(f"kv_write {arch} {what}: only {inside:.2f} of "
+                             f"the static codes fall inside the range; the "
+                             f"check would test the clip")
+                row = 2 * Hkv * D * (4 if mode == "fp" else 1) + 4 + \
+                    (2 * 2 * Hkv * C * 4 if mode == "dynamic" else 0)
+                nbytes = 2 * R * Hkv * D * 2 + kept * row + \
+                    (4 * Hkv * C * 4 if mode == "static" else 0) + \
+                    (N * 4 if what == "decode" else 0)
+                r = srep if mode == "static" else rep
+                r.add(f"{arch} {what} ({R}, {Hkv}, {D}) {mode}", err, 0.0,
+                      timer(lambda: write_kv_rows(k, v, *dst, **kw)),
+                      timer(lambda: write_kv_rows_ref(k, v, *want, **kw)),
+                      None, nbytes, 4 * 2 * R * Hkv * D)
+                c = r.cases[-1]
+                c["bound_share"] = c["bound_ms"] / c["ms"]
+                c["host_us"] = host_us(torch, lambda: write_kv_rows(
+                    k, v, *dst, **kw))
+                log(f"  {'':18s} {'':44s} {100 * c['bound_share']:.2f}% of "
+                    f"its bound ({c['bound_by']}); wrapper host time "
+                    f"{c['host_us']:.1f} us a call")
+        # the standalone quantizers (the same kernel, a dense destination)
+        # at the chunk's and the decode write's rows, K alone
+        for R in (96, N):
+            x = (f(R, Hkv, D) * 2).to(torch.bfloat16)
+            sz = static_scales_of(torch, x, C, gen)
+            n = x.numel()
+            for r, name, fn, ref, nbytes in (
+                    (rep, "quantize_kv", lambda: quantize_kv(x, C),
+                     lambda: quantize_kv_ref(x, C), 3 * n + 8 * n // (D // C)),
+                    (srep, "quantize_kv_static",
+                     lambda: quantize_kv_static(x, *sz),
+                     lambda: quantize_kv_static_ref(x, *sz),
+                     3 * n + 8 * Hkv * C)):
+                got, want = fn(), ref()
+                torch.cuda.synchronize()
+                err = max(max_err(a, b) for a, b in
+                          zip(*(t if isinstance(t, tuple) else (t,)
+                                for t in (got, want))))
+                r.add(f"{arch} {name} ({R}, {Hkv}, {D})", err, 0.0,
+                      timer(fn), timer(ref), None, nbytes, 4 * n)
 
 
 def wkv_cases(torch, timer, rep):
@@ -734,6 +806,42 @@ def log_ptxas(out: str) -> None:
             f"{lib.prefill_attention_smem(D, 4, 1, 1024)} B")
 
 
+#: the ``write_kv_rows`` modes behind each of its two kernel names
+WRITE_NAMES = {"kv_write": ("dynamic", "fp"), "kv_write_static": ("static",)}
+
+
+def launch_counts(counters) -> dict:
+    """Each kernel's launches since the last reset (the write's two names
+    by their modes)."""
+    return {name: sum(c.mode_launches[m] for m in WRITE_NAMES[name])
+            if name in WRITE_NAMES else c.launches
+            for name, c in counters.items()}
+
+
+def one_write_per_layer(phase: str, n_layers: int, passes: dict) -> dict:
+    """The K/V writes of a serving run since the last reset: one
+    ``write_kv_rows`` launch a layer and forward pass, in its cache's
+    mode: ``passes`` gives the run's forward passes by cache mode, so the
+    writes of each mode must be ``n_layers`` times those (and equal that
+    mode's attention launches, one a layer and pass too); no other mode
+    and no standalone quantizer may run. Returns the writes by mode."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    writes = dict(pa.write_kv_rows.mode_launches)
+    want = {m: n_layers * passes.get(m, 0) for m in writes}
+    dm = da.decode_attention.mode_launches
+    pm = pa.prefill_attention.mode_launches
+    attn = {m: dm.get(m, 0) + pm[m] + pm[f"verify_{m}"] for m in writes}
+    if writes != want or writes != attn or not any(writes.values()) or \
+            pa.quantize_kv.launches or pa.quantize_kv_static.launches:
+        fail(f"{phase}: K/V writes by mode {writes}; expected {want} "
+             f"({n_layers} layers x forward passes by mode {passes}); "
+             f"attention launches by mode {attn}; standalone quantizes "
+             f"{pa.quantize_kv.launches} dynamic, "
+             f"{pa.quantize_kv_static.launches} static")
+    return writes
+
+
 def reset_counts(counters) -> None:
     """Every kernel's launch count to 0, the per-variant and per-mode
     counts of the matmul and the two attention kernels too."""
@@ -805,7 +913,7 @@ def serve_run(torch, counters, phase, cfg, params, ecfg, warmup, prompts,
     fin = eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = launch_counts(counters)
     if len(fin) != len(prompts) or \
             any(len(r.out) != ecfg.max_new_tokens for r in fin):
         fail(f"{phase}: expected {len(prompts)} requests x "
@@ -835,10 +943,9 @@ def engine_phase(torch, counters, params, kv_scales=None):
     dvariants = only_variant(counters, "decode_attention", phase)
     mode = "dynamic" if kv_scales is None else "static"
     modes = only_modes(counters, phase, {mode}, {mode})
-    if (launches["quantize_kv"] > 0) == (kv_scales is not None) or \
-            (launches["quantize_kv_static"] > 0) == (kv_scales is None):
-        fail(f"{phase}: quantize launches {launches['quantize_kv']} dynamic, "
-             f"{launches['quantize_kv_static']} static, for a {mode} cache")
+    writes = one_write_per_layer(
+        phase, cfg.n_layers,
+        {mode: eng.n_decode_steps + eng.n_prefill_chunks})
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.out) for r in fin)
     # the logits the engine samples from are finite at full width
@@ -866,6 +973,7 @@ def engine_phase(torch, counters, params, kv_scales=None):
            "decode_variants": dvariants,
            "decode_modes": modes["decode_attention"],
            "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes,
            "outputs": [r.out for r in fin],
            "decode_launches_per_step_layer":
                launches["decode_attention"] / eng.n_decode_steps
@@ -884,7 +992,8 @@ def engine_phase(torch, counters, params, kv_scales=None):
         f"MiB; launches {launches}; matmul launches by variant {variants}; "
         f"prefill attention launches by variant {pvariants}, by mode "
         f"{modes['prefill_attention']}; decode attention launches by variant "
-        f"{dvariants}, by mode {modes['decode_attention']}; per step and "
+        f"{dvariants}, by mode {modes['decode_attention']}; K/V writes by "
+        f"mode {writes} (one a layer and forward pass); per step and "
         f"layer: decode attention "
         f"{res['decode_launches_per_step_layer']:.2f}, prefill attention "
         f"{res['prefill_launches_per_chunk_layer']:.2f} (per chunk)")
@@ -941,6 +1050,12 @@ def spec_phase(torch, counters, params, scales, static_res):
     del draft
     modes = only_modes(counters, "spec", {"dynamic"},
                        {"static", "verify_static", "dynamic"})
+    # the target's cache is static, the draft's twin dynamic; the draft
+    # mirrors every prefill chunk
+    writes = one_write_per_layer("spec", cfg.n_layers, {
+        "static": eng.n_prefill_chunks + eng.n_verify_calls +
+        eng.n_decode_steps,
+        "dynamic": eng.n_prefill_chunks + eng._spec.n_draft_steps})
     if eng.n_rollbacks < 1:
         fail("spec: no rollback in the run")
     n_tok = sum(len(r.out) for r in fin)
@@ -965,6 +1080,7 @@ def spec_phase(torch, counters, params, scales, static_res):
            "launches": launches,
            "decode_modes": modes["decode_attention"],
            "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes,
            "identical_to_static_greedy_share": same / n_tok}
     diff = next(((i, j) for i, (r, g) in enumerate(zip(fin, greedy))
                  for j, (a, b) in enumerate(zip(r.out, g)) if a != b), None)
@@ -986,7 +1102,8 @@ def spec_phase(torch, counters, params, scales, static_res):
         f"steps); spec step p50 {res['spec_step_p50_s'] * 1e3:.1f} ms; peak "
         f"memory {res['peak_mem_bytes'] / 2**30:.2f} GiB; prefill attention by"
         f" mode {modes['prefill_attention']}, decode attention by mode "
-        f"{modes['decode_attention']}; {100 * same / n_tok:.1f}% of tokens "
+        f"{modes['decode_attention']}, K/V writes by mode {writes}; "
+        f"{100 * same / n_tok:.1f}% of tokens "
         f"identical to the static engine's greedy output"
         + ("" if diff is None else
            f" (first difference: request {diff[0]}, token {diff[1]}; the "
@@ -1090,7 +1207,7 @@ def rwkv_phase(torch, counters):
     fin = srv.serve([Request(i, p) for i, p in enumerate(prompts)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = launch_counts(counters)
     variants = only_variant(counters, "splitquant_matmul", "rwkv6")
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.out) for r in fin)
@@ -1175,8 +1292,7 @@ def main() -> None:
                                                act_split_quantize_static)
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.prefill_attention import (prefill_attention,
-                                                       quantize_kv,
-                                                       quantize_kv_static)
+                                                       write_kv_rows)
     from repro_torch.kernels.splitquant_matmul import splitquant_matmul
     from repro_torch.kernels.wkv_chunked import wkv_chunked
 
@@ -1203,22 +1319,24 @@ def main() -> None:
     log_ptxas(nvcc_out.getvalue())
 
     timer = Timer(torch)
+    tiny = torch.zeros(1, device="cuda")
+    floor_ms = timer(tiny.zero_)
+    log(f"timer floor: one launch that fills 4 bytes {floor_ms:.4f} ms")
     reps = {n: KernelReport(n) for n in TPU_KERNELS}
     log("kernels vs plain versions (bf16, main-path shapes):")
     matmul_cases(torch, timer, reps["splitquant_matmul"])
     decode_cases(torch, timer, reps["decode_attention"])
-    prefill_cases(torch, timer, reps["prefill_attention"],
-                  reps["quantize_kv"])
+    prefill_cases(torch, timer, reps["prefill_attention"])
     prefill_mode_cases(torch, timer, reps["prefill_attention"])
-    quantize_static_cases(torch, timer, reps["quantize_kv_static"])
+    kv_write_cases(torch, timer, reps["kv_write"], reps["kv_write_static"])
     wkv_cases(torch, timer, reps["wkv_chunked"])
     counters = {"splitquant_matmul": splitquant_matmul,
                 "act_split_quantize": act_split_quantize,
                 "act_split_quantize_static": act_split_quantize_static,
                 "prefill_attention": prefill_attention,
-                "quantize_kv": quantize_kv, "wkv_chunked": wkv_chunked,
+                "kv_write": write_kv_rows, "wkv_chunked": wkv_chunked,
                 "decode_attention": decode_attention,
-                "quantize_kv_static": quantize_kv_static}
+                "kv_write_static": write_kv_rows}
     reset_counts(counters)
     act_quant_cases(torch, timer, reps["act_split_quantize"],
                     reps["act_split_quantize_static"])
@@ -1274,6 +1392,10 @@ def main() -> None:
             "static": sta["decode_variants"]},
             "launches_by_mode": {k: r["decode_modes"]
                                  for k, r in serving.items()}}}
+    for n, ms in WRITE_NAMES.items():
+        extra[n] = {"launches_by_mode": {
+            k: {m: r["write_modes"][m] for m in ms}
+            for k, r in serving.items() if k in PATHS[n]}}
     kernels = [reps[n].entry(
         {p: runs[p][n] for p in PATHS[n]} or {"kernel phase": aq_launches[n]},
         **extra.get(n, {}))
@@ -1282,7 +1404,8 @@ def main() -> None:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card_line, "torch": torch.__version__,
-         "cuda": torch.version.cuda, "build_s": t_build, "engine": eng,
+         "cuda": torch.version.cuda, "build_s": t_build,
+         "timer_floor_ms": floor_ms, "engine": eng,
          "static": sta, "spec": spec, "static_calibration_s": t_cal,
          "cross_check": xc, "spec_cross_check": sxc, "rwkv6": rwkv,
          "rwkv6_cross_check": rxc,

@@ -9,11 +9,15 @@ sub-channel chunks quantized with their own dynamic range (SplitQuant
 §4.2); per-entry fp32 ``{k,v}_{scale,zero}`` (L, N, T, Hkv, C) start at
 scale 1 / zero 0 so unwritten rows dequantize to a finite 0. With static
 scales from a calibration recipe (``kv_scales=``) they are per-layer
-constants (L, 1, 1, Hkv, C) instead: writes quantize with them
-(:func:`quantize_kv_static`, no min/max reduce) and never write a scale.
+constants (L, 1, 1, Hkv, C) instead: writes quantize with them (no
+min/max reduce) and never write a scale.
 
 Where the JAX package donates the cache to a jitted step and gets a new
-one back, the port preallocates it once and updates it in place.
+one back, the port preallocates it once and updates it in place: every
+write of a layer (a decode step's tokens, a prefill chunk, a verify
+window) is one :func:`~repro_torch.kernels.prefill_attention.write_kv_rows`
+launch on the card, which quantizes K and V and stores codes, scales and
+``kv_pos`` into the slot rows itself.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.decode_attention import decode_attention, dequant_chunk
 from ..kernels.prefill_attention import (prefill_attention, quantize_kv,
-                                         quantize_kv_static)
+                                         quantize_kv_static, write_kv_rows)
 
 __all__ = ["SlotKVCache", "init_slot_cache", "check_static_scales",
            "quantize_kv", "quantize_kv_static", "slot_layer_write",
@@ -126,31 +130,29 @@ def check_static_scales(kv_scales: dict, L: int, Hkv: int,
     return got
 
 
+def _write_operands(cache: SlotKVCache, layer: int) -> tuple:
+    """:func:`write_kv_rows`'s destination of ``layer``: its K/V rows,
+    kv_pos and scales (per-entry (N, T, Hkv, C), static (Hkv, C), or
+    none over an fp32 cache)."""
+    if cache.static:
+        sc = cache.layer_scales(layer)
+    elif cache.mode == "int8":
+        sc = tuple(getattr(cache, f)[layer] for f in SCALE_KEYS)
+    else:
+        sc = ()
+    return (cache.k[layer], cache.v[layer], cache.kv_pos[layer], *sc)
+
+
 def slot_layer_write(cache: SlotKVCache, layer: int, k_new, v_new,
                      positions) -> None:
     """One decode step's cache write for one layer, in place: quantize
-    (int8 mode) and store each slot's new token at row positions % T.
-    k_new/v_new (N, 1, Hkv, D) post-RoPE; positions (N, 1)."""
-    N, T = cache.n_slots, cache.max_len
-    pos = positions[:, 0].to(torch.int32)
-    n_idx = torch.arange(N, device=pos.device)
-    t_idx = (pos % T).long()
-    cache.kv_pos[layer, n_idx, t_idx] = pos
-    if cache.static:
-        # the calibrated constants: no min/max reduce, no scale written
-        ks, kz, vs, vz = cache.layer_scales(layer)
-        cache.k[layer, n_idx, t_idx] = quantize_kv_static(k_new[:, 0], ks, kz)
-        cache.v[layer, n_idx, t_idx] = quantize_kv_static(v_new[:, 0], vs, vz)
-    elif cache.mode == "int8":
-        qk, ks, kz = quantize_kv(k_new[:, 0], cache.qchunks)
-        qv, vs, vz = quantize_kv(v_new[:, 0], cache.qchunks)
-        for buf, val in ((cache.k, qk), (cache.v, qv), (cache.k_scale, ks),
-                         (cache.k_zero, kz), (cache.v_scale, vs),
-                         (cache.v_zero, vz)):
-            buf[layer, n_idx, t_idx] = val
-    else:
-        cache.k[layer, n_idx, t_idx] = k_new[:, 0].to(cache.k.dtype)
-        cache.v[layer, n_idx, t_idx] = v_new[:, 0].to(cache.v.dtype)
+    (int8 mode) and store each slot's new token at row positions % T, in
+    one launch. k_new/v_new (N, 1, Hkv, D) post-RoPE; positions (N, 1)."""
+    pos = positions.reshape(-1)
+    if pos.dtype != torch.int32:
+        pos = pos.to(torch.int32)
+    write_kv_rows(k_new[:, 0], v_new[:, 0], *_write_operands(cache, layer),
+                  positions=pos)
 
 
 def fused_slot_attention(cache: SlotKVCache, layer: int, q, q_pos):
@@ -173,39 +175,29 @@ def fused_slot_attention(cache: SlotKVCache, layer: int, q, q_pos):
 def slot_chunk_prefill(cache: SlotKVCache, layer: int, q, k_new, v_new,
                        slot: int, pos_start: int, length: int, *,
                        verify: bool = False):
-    """One chunked-prefill step for one layer and one slot: fused
-    attention over the slot's earlier rows + the chunk's own K/V, then
-    the chunk (codes in int8 mode) is written into rows
-    [pos_start, pos_start + Sq) of the slot, in place. Only the first
-    ``length`` rows become visible; the padded tail is marked -1, and
-    rows at or past max_len are dropped (a bucket-padded last chunk may
-    stick out past the cache). ``verify``: the chunk is a speculative
-    draft window and attends its own K/V through the storage round trip
-    (the written bytes are the same). Returns o (Sq, Hq, D)."""
-    Sq = q.shape[0]
-    T = cache.max_len
-    attend = lambda *sc: prefill_attention(  # noqa: E731
-        q, k_new, v_new, cache.k[layer, slot], cache.v[layer, slot],
-        cache.kv_pos[layer, slot], pos_start, length, *sc, verify=verify)
-    if cache.static:
-        o, (qk, qv) = attend(*cache.layer_scales(layer))
-        rows = {"k": qk, "v": qv}
-    elif cache.mode == "int8":
-        o, (qk, qv, ks, kz, vs, vz) = attend(
-            *(getattr(cache, f)[layer, slot] for f in SCALE_KEYS))
-        rows = {"k": qk, "v": qv, "k_scale": ks, "k_zero": kz,
-                "v_scale": vs, "v_zero": vz}
-    else:
-        o, _ = attend()
-        rows = {"k": k_new, "v": v_new}
-    keep = min(Sq, T - pos_start)            # rows < max_len; drop the rest
-    end = pos_start + keep
-    for name, val in rows.items():
-        buf = getattr(cache, name)
-        buf[layer, slot, pos_start:end] = val[:keep].to(buf.dtype)
-    posv = torch.arange(pos_start, end, dtype=torch.int32, device=q.device)
-    posv[length:] = -1
-    cache.kv_pos[layer, slot, pos_start:end] = posv
+    """One chunked-prefill step for one layer and one slot, in place: the
+    chunk (codes in int8 mode) is written into rows [pos_start,
+    pos_start + Sq) of the slot first — only the first ``length`` rows
+    become visible, the padded tail is marked -1, and rows at or past
+    max_len are dropped (a bucket-padded last chunk may stick out past the
+    cache) — and then attends the slot's earlier rows plus its own K/V.
+    Writing first is safe: attention counts a cache row only where
+    0 <= kv_pos < pos_start, and the chunk's rows hold positions at or
+    past pos_start. ``verify``: the chunk is a speculative draft window
+    and attends its own K/V through the storage round trip, read back
+    from the rows just written; a window whose ``length`` reaches past
+    max_len (the engine never sends one) attends rows that were dropped,
+    so its codes are quantized apart from the cache instead, as the
+    standalone :func:`prefill_attention` does. Returns o (Sq, Hq, D)."""
+    k, v, kv_pos, *sc = _write_operands(cache, layer)
+    write_kv_rows(k_new, v_new, k, v, kv_pos, *sc, slot=slot,
+                  pos_start=pos_start, length=length)
+    if not cache.static:             # the slot's per-entry scales
+        sc = [s[slot] for s in sc]
+    cached = not (verify and sc and pos_start + length > cache.max_len)
+    o, _ = prefill_attention(q, k_new, v_new, k[slot], v[slot], kv_pos[slot],
+                             pos_start, length, *sc, verify=verify,
+                             window_cached=cached)
     return o
 
 

@@ -115,10 +115,9 @@ SIGNATURES = {
     # pos_start, length, int8, stat, verify, x_is_bf16, cache_rows,
     # cache_splits, qscale, stream
     "prefill_attention": [_P] * 20 + [_I] * 14 + [_F, _P],
-    # x, codes, scale, zero, groups, chunk_len, x_is_bf16, stream
-    "quantize_kv": [_P] * 4 + [_I] * 3 + [_P],
-    # x, scale, zero, codes, rows, Hkv, D, C, x_is_bf16, stream
-    "quantize_kv_static": [_P] * 4 + [_I] * 5 + [_P],
+    # k, v, dk, dv, kv_pos, pos, ks, kz, vs, vz, rows, T, Hkv, D, C, slot,
+    # pos_start, length, mode, x_is_bf16, stream
+    "kv_write": [_P] * 10 + [_I] * 10 + [_P],
     # r, k, v, w, u, s0, y, s_out, BH, T, K, V, VS, x_is_bf16, stream
     "wkv_chunked": [_P] * 8 + [_I] * 6 + [_P],
     # x, q, scale, zero, R, N, n_chunks, bits, x_is_bf16, stream

@@ -1,5 +1,5 @@
 // Fused chunked-prefill attention over one slot's KV cache for Hopper
-// (sm_90a), with the chunk's K/V quantized in an epilogue launch.
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/prefill_attention.py
 // (_prefill_kernel, pallas_call at :299; entry prefill_attention at
@@ -64,14 +64,14 @@
 // key row), then streams the V chunk through the same buffer; the
 // chunk's own K/V follow through the same loop with the causal mask.
 //
-// Epilogue (quantize_kv, a launch of its own from the same wrapper): one
-// thread per (token, head, sub-channel chunk) computes min/max -> (S, Z)
-// -> codes with common.cuh's exact-rounding helpers, so codes and scales
-// are bit-identical to engine.kvcache.quantize_kv. Static mode
-// (_quantize_chunk's static branch, :241-245, and the static decode
-// write): quantize_kv_static, one thread per element, clip(rint(S x + Z))
-// with the product and the sum rounded on their own (no FMA), as
-// _static_quantize_cols and engine.kvcache.quantize_kv_static round them.
+// Epilogue: the chunk's K/V codes are not this file's work. The engine
+// writes the chunk into the slot's rows first, with one kv_write launch
+// (csrc/kv_write.cu: K and V quantized together, codes, per-entry scales
+// and kv_pos stored in place), and attends after: every path counts a
+// cache row only where 0 <= kv_pos < pos_start, and the chunk's rows hold
+// positions at or past pos_start (or -1). The wrapper's standalone
+// contract, which returns the chunk's codes, launches the same kernel
+// through quantize_kv / quantize_kv_static.
 //
 // Static scales (`stat`, per_entry_scales=False at :109-122, :288): S and
 // Z are per-layer (Hkv, C) constants. The tensor-core block reads its
@@ -82,21 +82,22 @@
 //
 // Verify mode (`verify`, :200-216, jnp twin :383-396): the window of
 // spec_k + 1 draft tokens attends its own K/V through the storage round
-// trip, so each row scores what a plain decode step would. The wrapper
-// quantizes the window first (quantize_kv or quantize_kv_static: the
-// codes it writes into the slot anyway) and the chunk's split then walks
-// the window's codes through the same dequantization as the cache rows,
-// under the causal and key < length masks. Over an fp32 cache the round
-// trip is a cast to fp32, exact for fp32 and bf16 K/V: the fp kernel as
-// it is.
+// trip, so each row scores what a plain decode step would. Its codes
+// (and per-entry scales) are those the engine's kv_write has just stored
+// in the slot's rows [pos_start, pos_start + Sq): wk..wvz point there (the
+// standalone contract quantizes the window into buffers of its own), and
+// the chunk's split walks them through the same dequantization as the
+// cache rows, under the causal and key < length masks. Keys at or past
+// `length` are never loaded (a window padded past T would read beyond
+// the slot). Over an fp32 cache the round trip is a cast to fp32, exact
+// for fp32 and bf16 K/V: the fp kernel as it is.
 //
 // What holds it back (PERF.md, from clock64 stamps per phase on the H100
 // at stablelm-1.6b's and chatglm3-6b's Sq = 96 chunk): a block's two live
 // tiles each cost about as much to dequantize into bf16 (the 64 x D codes
 // of K and V, every block of a GQA group again) as to run through the
 // tensor cores and the softmax, and the last block's merge of the four
-// partials takes as long as one block's whole walk; the two quantize_kv
-// launches add 10-20% to the wrapper's device time. Shared memory rows
+// partials takes as long as one block's whole walk. Shared memory rows
 // are padded to D + 8 bf16 rather than swizzled: ldmatrix reads 8 rows of
 // 16 bytes at a 16-byte offset each, the same conflict-free pattern.
 //
@@ -250,12 +251,15 @@ prefill_fp32_kernel(const X* __restrict__ q, const X* __restrict__ kn,
   const int q_last = min(Sq, q0 + Bq) - 1;
   // (verify over an int8 cache: the window's codes, dequantized)
   const bool v8 = std::is_same<KV, int8_t>::value && s8.verify;
-  for (int t0 = 0; t0 < Sq && t0 < length && t0 <= q_last; t0 += TC) {
+  // keys at or past `length` are masked and never loaded: in verify mode
+  // the window's codes may be the slot's own rows, which end at T
+  const int kend = min(Sq, length);
+  for (int t0 = 0; t0 < kend && t0 <= q_last; t0 += TC) {
     const int stat = s8.stat;
     auto load = [&](const X* base, const int8_t* codes, const float* s,
                     const float* z) {
       return [=](int t, int d) {
-        if (t0 + t >= Sq) return 0.f;
+        if (t0 + t >= kend) return 0.f;
         const size_t row = (size_t)(t0 + t) * Hkv + h;
         if (v8)
           return rt::dequant_kv(codes[row * D + d], s[(stat ? (size_t)h : row) * C + d / cl],
@@ -729,46 +733,6 @@ cudaError_t dispatch_tc(const PArgs& a, int D, cudaStream_t st) {
   }
 }
 
-// Per-(row, chunk) dynamic INT8 quantization, bit-identical to
-// engine.kvcache.quantize_kv (value_range → qparams → quantize, bits=8,
-// asymmetric).
-template <typename X>
-__global__ void quantize_kv_kernel(const X* __restrict__ x, int8_t* __restrict__ codes,
-                                   float* __restrict__ scale, float* __restrict__ zero,
-                                   int groups, int chunk_len) {
-  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gi >= groups) return;
-  const X* p = x + (size_t)gi * chunk_len;
-  float beta = rt::to_f(p[0]), alpha = beta;
-  for (int i = 1; i < chunk_len; ++i) {
-    const float v = rt::to_f(p[i]);
-    beta = fminf(beta, v);
-    alpha = fmaxf(alpha, v);
-  }
-  const float s = rt::dyn_scale(beta, alpha, 255.f);
-  const float z = rt::dyn_zero(s, beta, 8);
-  scale[gi] = s;
-  zero[gi] = z;
-  int8_t* out = codes + (size_t)gi * chunk_len;
-  for (int i = 0; i < chunk_len; ++i) out[i] = rt::quant_code(s, rt::to_f(p[i]), z, -128.f, 127.f);
-}
-
-// Static INT8 quantization with per-layer (Hkv, C) constants, bit-identical
-// to engine.kvcache.quantize_kv_static: one thread per element of the
-// (rows, Hkv, D) input.
-template <typename X>
-__global__ void quantize_kv_static_kernel(const X* __restrict__ x,
-                                          const float* __restrict__ scale,
-                                          const float* __restrict__ zero,
-                                          int8_t* __restrict__ codes, long long n, int Hkv,
-                                          int D, int C) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int d = (int)(i % D), h = (int)((i / D) % Hkv);
-  const int j = h * C + d / (D / C);
-  codes[i] = rt::quant_code_static(scale[j], rt::to_f(x[i]), zero[j], -128.f, 127.f);
-}
-
 template <typename KV>
 cudaError_t launch_fp32(const void* q, const void* kn, const void* vn, const void* ck,
                         const void* cv, const int* kv_pos, const Int8Ops& s8, void* o,
@@ -855,44 +819,6 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
           QROWS / G, cache_rows, cache_splits, qscale};
   if (!int8) return (int)dispatch_tc<float, false>(p, D, st);
   return (int)(s_ ? dispatch_tc<int8_t, true>(p, D, st) : dispatch_tc<int8_t, false>(p, D, st));
-}
-
-// x (groups, chunk_len) → codes int8 (groups, chunk_len), scale/zero (groups,)
-int quantize_kv(const void* x, void* codes, void* scale, void* zero, int groups,
-                int chunk_len, int x_is_bf16, void* stream) {
-  if (groups <= 0 || chunk_len <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int threads = 128, blocks = (groups + threads - 1) / threads;
-  if (x_is_bf16)
-    quantize_kv_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)x, (int8_t*)codes, (float*)scale, (float*)zero, groups,
-        chunk_len);
-  else
-    quantize_kv_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)x, (int8_t*)codes, (float*)scale, (float*)zero, groups,
-        chunk_len);
-  return (int)cudaGetLastError();
-}
-
-// x (rows, Hkv, D) → codes int8 (rows, Hkv, D) under per-layer scale/zero
-// (Hkv, C)
-int quantize_kv_static(const void* x, const void* scale, const void* zero, void* codes,
-                       int rows, int Hkv, int D, int C, int x_is_bf16, void* stream) {
-  if (rows <= 0 || Hkv <= 0 || D <= 0 || C <= 0 || D % C != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long n = (long long)rows * Hkv * D;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  if (x_is_bf16)
-    quantize_kv_static_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)x, (const float*)scale, (const float*)zero, (int8_t*)codes,
-        n, Hkv, D, C);
-  else
-    quantize_kv_static_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)x, (const float*)scale, (const float*)zero, (int8_t*)codes, n, Hkv,
-        D, C);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -17,29 +17,43 @@ Shapes:
 Cache rows are valid iff 0 <= kv_pos < pos_start; the chunk's own K/V are
 attended at full precision under key <= query and key < length. In int8
 mode the chunk's K/V are quantized for the cache: dynamically per (token,
-head, sub-channel chunk) by :func:`quantize_kv`, bit-identical to
-``engine.kvcache.quantize_kv`` of the JAX package, or with the static
-constants by :func:`quantize_kv_static` (``quantize_kv_static``, the
-fractional zero folded into the rounding).
+head, sub-channel chunk), bit-identical to ``engine.kvcache.quantize_kv``
+of the JAX package, or with the static constants (``quantize_kv_static``,
+the fractional zero folded into the rounding).
+
+The cache write (the counterpart of the TPU kernel's epilogue
+``_quantize_chunk`` and of the JAX engine's scatter) is
+:func:`write_kv_rows`: one launch of ``csrc/kv_write.cu`` quantizes K and
+V together and stores codes, per-entry scales and ``kv_pos`` straight
+into a layer's slot rows, for a decode step (row n to slot n at
+positions[n] mod T) or for a chunk or verify window of one slot. The
+engine writes a chunk first and attends after (``window_cached=True``):
+the chunk's rows hold positions at or past pos_start, which no attention
+counts. :func:`quantize_kv` and :func:`quantize_kv_static` launch the
+same kernel with a dense destination; the standalone contract of
+:func:`prefill_attention` returns the chunk's codes through them.
 
 ``verify=True`` is the speculative verify pass: the chunk is a draft
 window, and it attends its own K/V through the storage round trip (the
 codes it writes, dequantized; over an fp32 cache a cast to fp32) so that
-each row scores what a plain decode step of its token would.
+each row scores what a plain decode step of its token would. With
+``window_cached`` those codes are read back from the slot's rows.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
 they launch the kernels or raise. The attention variant follows q's
 dtype: bf16 goes to the tensor-core kernel (``"bf16_tensor_core"``), which
 also cuts the key range across blocks as :func:`prefill_plan` says; fp32
 to the CUDA-core kernel (``"fp32_cuda_core"``), which keeps the fp32
-numbers. ``prefill_attention.launches``, ``quantize_kv.launches`` and
-``quantize_kv_static.launches`` count kernel launches,
-``prefill_attention.variant_launches`` the attention's by variant and
-``prefill_attention.mode_launches`` by mode (:data:`MODES`).
+numbers. ``prefill_attention.launches``, ``write_kv_rows.launches``,
+``quantize_kv.launches`` and ``quantize_kv_static.launches`` count kernel
+launches, ``prefill_attention.variant_launches`` the attention's by
+variant, ``prefill_attention.mode_launches`` by mode (:data:`MODES`) and
+``write_kv_rows.mode_launches`` the write's (:data:`WRITE_MODES`).
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -65,6 +79,9 @@ MAX_SPLITS = 16
 #: the modes that ``mode_launches`` counts
 MODES = ("fp", "dynamic", "static", "verify_fp", "verify_dynamic",
          "verify_static")
+#: the cache modes of the K/V write, as ``write_kv_rows.mode_launches``
+#: counts them, and their ids in ``csrc/kv_write.cu``
+WRITE_MODES = ("fp", "dynamic", "static")
 
 
 def prefill_mode(cache_k, k_scale, verify: bool) -> str:
@@ -142,7 +159,8 @@ def quantize_kv_ref(x: torch.Tensor, qchunks: int):
 
 def quantize_kv(x: torch.Tensor, qchunks: int):
     """Dynamic INT8 K/V quantization (see :func:`quantize_kv_ref`); the
-    CUDA kernel on the card, the plain version on the CPU."""
+    K/V write kernel with a dense destination on the card, the plain
+    version on the CPU."""
     if x.device.type == "cpu":
         return quantize_kv_ref(x, qchunks)
     build.check_cuda_operands(x)
@@ -156,14 +174,10 @@ def quantize_kv(x: torch.Tensor, qchunks: int):
     scale = torch.empty((*lead, H, qchunks), dtype=torch.float32,
                         device=x.device)
     zero = torch.empty_like(scale)
-    groups = scale.numel()
-    if groups:
-        lib = build.library()
-        err = lib.quantize_kv(x.data_ptr(), codes.data_ptr(),
-                              scale.data_ptr(), zero.data_ptr(), groups,
-                              D // qchunks, int(x.dtype == torch.bfloat16),
-                              build.stream_of(x))
-        build.check(lib, err, "quantize_kv")
+    if x.numel():
+        rows = math.prod(lead)
+        _kv_write(x, None, codes, None, None, None, (scale, zero, None, None),
+                  "dynamic", rows, rows, H, D, qchunks, 0, 0, rows)
         quantize_kv.launches += 1
     return codes, scale, zero
 
@@ -186,8 +200,8 @@ def quantize_kv_static_ref(x: torch.Tensor, scale, zero) -> torch.Tensor:
 def quantize_kv_static(x: torch.Tensor, scale, zero) -> torch.Tensor:
     """Static INT8 K/V quantization with one layer's constants (see
     :func:`quantize_kv_static_ref`): scale/zero (Hkv, C) or
-    (1, 1, Hkv, C). The CUDA kernel on the card, the plain version on the
-    CPU."""
+    (1, 1, Hkv, C). The K/V write kernel with a dense destination on the
+    card, the plain version on the CPU."""
     if x.device.type == "cpu":
         return quantize_kv_static_ref(x, scale, zero)
     build.check_cuda_operands(x, scale, zero)
@@ -204,19 +218,149 @@ def quantize_kv_static(x: torch.Tensor, scale, zero) -> torch.Tensor:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     x = x.contiguous()
     codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    rows = x.numel() // (H * D)
-    if rows:
-        lib = build.library()
-        err = lib.quantize_kv_static(
-            x.data_ptr(), scale.contiguous().data_ptr(),
-            zero.contiguous().data_ptr(), codes.data_ptr(), rows, H, D, C,
-            int(x.dtype == torch.bfloat16), build.stream_of(x))
-        build.check(lib, err, "quantize_kv_static")
+    if x.numel():
+        rows = math.prod(lead)
+        _kv_write(x, None, codes, None, None, None,
+                  (scale.contiguous(), zero.contiguous(), None, None),
+                  "static", rows, rows, H, D, C, 0, 0, rows)
         quantize_kv_static.launches += 1
     return codes
 
 
 quantize_kv_static.launches = 0
+
+
+# ------------------------------------------------------ the cache write ---
+def write_mode(dst_k, k_scale) -> str:
+    """The mode of a write into ``dst_k`` (one of :data:`WRITE_MODES`):
+    an fp32 destination is cast to, static scales are (Hkv, C), per-entry
+    ones (N, T, Hkv, C)."""
+    if dst_k.dtype != torch.int8:
+        return "fp"
+    return "static" if k_scale.dim() == 2 else "dynamic"
+
+
+def write_kv_rows_ref(k, v, dst_k, dst_v, kv_pos, k_scale=None, k_zero=None,
+                      v_scale=None, v_zero=None, *, positions=None,
+                      slot: int = 0, pos_start: int = 0,
+                      length: int = 0) -> None:
+    """Plain version of :func:`write_kv_rows`: the quantizers' plain
+    versions, then PyTorch index and slice assignments."""
+    mode = write_mode(dst_k, k_scale)
+    if mode == "static":
+        pairs = ((dst_k, quantize_kv_static_ref(k, k_scale, k_zero)),
+                 (dst_v, quantize_kv_static_ref(v, v_scale, v_zero)))
+    elif mode == "dynamic":
+        C = k_scale.shape[-1]
+        qk, ks, kz = quantize_kv_ref(k, C)
+        qv, vs, vz = quantize_kv_ref(v, C)
+        pairs = ((dst_k, qk), (dst_v, qv), (k_scale, ks), (k_zero, kz),
+                 (v_scale, vs), (v_zero, vz))
+    else:
+        pairs = ((dst_k, k), (dst_v, v))
+    N, T = dst_k.shape[:2]
+    if positions is not None:
+        pos = positions.reshape(-1).to(torch.int32)
+        n_idx = torch.arange(N, device=pos.device)
+        t_idx = (pos % T).long()
+        if kv_pos is not None:
+            kv_pos[n_idx, t_idx] = pos
+        for buf, val in pairs:
+            buf[n_idx, t_idx] = val.to(buf.dtype)
+        return
+    keep = max(0, min(k.shape[0], T - pos_start))    # rows past T: dropped
+    end = pos_start + keep
+    for buf, val in pairs:
+        buf[slot, pos_start:end] = val[:keep].to(buf.dtype)
+    if kv_pos is not None:
+        posv = torch.arange(pos_start, end, dtype=torch.int32,
+                            device=k.device)
+        posv[length:] = -1
+        kv_pos[slot, pos_start:end] = posv
+
+
+def write_kv_rows(k, v, dst_k, dst_v, kv_pos, k_scale=None, k_zero=None,
+                  v_scale=None, v_zero=None, *, positions=None, slot: int = 0,
+                  pos_start: int = 0, length: int = 0) -> None:
+    """One layer's K/V cache write, in place, in one launch.
+
+    k, v (R, Hkv, D) fp32 or bf16 post-RoPE; ``dst_k``/``dst_v`` the
+    layer's (N, T, Hkv, D) rows, int8 codes or fp32 (a cast); ``kv_pos``
+    (N, T) int32. Scales: per-entry (N, T, Hkv, C), written (dynamic);
+    per-layer (Hkv, C), read (static); none over an fp32 cache.
+    ``positions`` (N,) int32: a decode write, row n to slot n at row
+    positions[n] mod T, kv_pos = positions[n]. Otherwise a window of
+    ``slot``: row r to pos_start + r, dropped at or past T, kv_pos =
+    pos_start + r for r < ``length`` and -1 for the padded tail."""
+    if k.device.type == "cpu":
+        write_kv_rows_ref(k, v, dst_k, dst_v, kv_pos, k_scale, k_zero,
+                          v_scale, v_zero, positions=positions, slot=slot,
+                          pos_start=pos_start, length=length)
+        return
+    mode = write_mode(dst_k, k_scale)
+    scales = (k_scale, k_zero, v_scale, v_zero) if mode != "fp" else \
+        (None,) * 4
+    build.check_cuda_operands(k, v, dst_k, dst_v, kv_pos, positions, *scales)
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise TypeError(f"k/v must share one of float32, bfloat16, got "
+                        f"{k.dtype}, {v.dtype}")
+    if k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"k/v must be (R, Hkv, D), got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    R, Hkv, D = k.shape
+    if dst_k.dim() != 4 or dst_k.shape[2:] != (Hkv, D) or \
+            dst_v.shape != dst_k.shape or dst_v.dtype != dst_k.dtype or \
+            dst_k.dtype not in (torch.int8, torch.float32):
+        raise ValueError(f"the destination must be int8 or fp32 (N, T, "
+                         f"{Hkv}, {D}), got {tuple(dst_k.shape)} "
+                         f"{dst_k.dtype}")
+    N, T = dst_k.shape[:2]
+    if kv_pos.shape != (N, T) or kv_pos.dtype != torch.int32:
+        raise ValueError(f"kv_pos must be int32 ({N}, {T})")
+    C = k_scale.shape[-1] if mode != "fp" else 1
+    want = (Hkv, C) if mode == "static" else (N, T, Hkv, C)
+    if mode != "fp" and (D % C or any(
+            tuple(s.shape) != want or s.dtype != torch.float32
+            for s in scales)):
+        raise ValueError(f"{mode} scales must be fp32 {want} with "
+                         f"D % C == 0")
+    if not all(t.is_contiguous() for t in (dst_k, dst_v, kv_pos, *scales)
+               if t is not None):
+        raise ValueError("the destination, kv_pos and scales must be "
+                         "contiguous (written in place)")
+    if positions is not None:
+        if positions.shape != (N,) or R != N or \
+                positions.dtype != torch.int32 or \
+                not positions.is_contiguous():
+            raise ValueError(f"a decode write takes one row a slot and "
+                             f"contiguous int32 positions ({N},)")
+    elif not (0 <= slot < N and pos_start >= 0 and length >= 0):
+        raise ValueError(f"window out of range: slot {slot} of {N}, "
+                         f"pos_start {pos_start}, length {length}")
+    if R:
+        _kv_write(k.contiguous(), v.contiguous(), dst_k, dst_v, kv_pos,
+                  positions, scales, mode, R, T, Hkv, D, C, int(slot),
+                  int(pos_start), int(length))
+        write_kv_rows.launches += 1
+        write_kv_rows.mode_launches[mode] += 1
+
+
+write_kv_rows.launches = 0
+write_kv_rows.mode_launches = dict.fromkeys(WRITE_MODES, 0)
+
+
+def _kv_write(k, v, dst_k, dst_v, kv_pos, positions, scales, mode: str,
+              rows: int, T: int, Hkv: int, D: int, C: int, slot: int,
+              pos_start: int, length: int) -> None:
+    """Launch ``csrc/kv_write.cu`` (operands checked by the caller; ``v``
+    None: K alone)."""
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = build.library()
+    err = lib.kv_write(ptr(k), ptr(v), ptr(dst_k), ptr(dst_v), ptr(kv_pos),
+                       ptr(positions), *map(ptr, scales), rows, T, Hkv, D, C,
+                       slot, pos_start, length, WRITE_MODES.index(mode),
+                       int(k.dtype == torch.bfloat16), build.stream_of(k))
+    build.check(lib, err, "kv_write")
 
 
 def window_kv(k_new, v_new, cache_dtype, scales, verify: bool):
@@ -243,15 +387,32 @@ def _rows(scale, sl):
     return scale if scale.dim() == 2 else scale[sl]
 
 
+def cached_window(cache_k, cache_v, scales, pos_start: int, Sq: int):
+    """A verify window's K/V as fp32 read back from the int8 slot rows
+    [pos_start, pos_start + Sq) that :func:`write_kv_rows` has written:
+    the rows it kept (those below T) dequantized, the rest zeros (the
+    caller masks them)."""
+    T = cache_k.shape[0]
+    n = max(0, min(Sq, T - pos_start))
+    sl = slice(pos_start, pos_start + n)
+    ks, kz, vs, vz = scales
+    out = []
+    for codes, s, z in ((cache_k, ks, kz), (cache_v, vs, vz)):
+        x = dequant_chunk(codes[sl], _rows(s, sl), _rows(z, sl))
+        out.append(torch.cat([x, x.new_zeros((Sq - n, *x.shape[1:]))]))
+    return tuple(out)
+
+
 # ----------------------------------------------------------- attention ---
 def prefill_attention_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
                           pos_start: int, length: int, k_scale=None,
                           k_zero=None, v_scale=None, v_zero=None, *,
-                          kv_chunk=None, verify: bool = False
-                          ) -> torch.Tensor:
+                          kv_chunk=None, verify: bool = False,
+                          window_cached: bool = False) -> torch.Tensor:
     """Plain online-softmax sweep: the cache rows in chunks (dead chunks
-    skipped), then the chunk's own K/V (through :func:`window_kv`).
-    Returns (Sq, Hq, D) in q.dtype."""
+    skipped), then the chunk's own K/V (through :func:`window_kv`, or in
+    verify mode over an int8 cache with ``window_cached``, through
+    :func:`cached_window`). Returns (Sq, Hq, D) in q.dtype."""
     int8 = cache_k.dtype == torch.int8
     Sq, Hq, D = q.shape
     T, Hkv = cache_k.shape[0], cache_k.shape[1]
@@ -291,8 +452,11 @@ def prefill_attention_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
         m, l, acc = update(m, l, acc, kc, vc, valid[None])
     idx = torch.arange(Sq, device=dev)
     valid = (idx[None, :] <= idx[:, None]) & (idx[None, :] < length)
-    kn, vn = window_kv(k_new, v_new, cache_k.dtype,
-                       (k_scale, k_zero, v_scale, v_zero), verify)
+    scales = (k_scale, k_zero, v_scale, v_zero)
+    if verify and int8 and window_cached:
+        kn, vn = cached_window(cache_k, cache_v, scales, pos_start, Sq)
+    else:
+        kn, vn = window_kv(k_new, v_new, cache_k.dtype, scales, verify)
     m, l, acc = update(m, l, acc, kn, vn, valid)
     o = torch.where(l[..., None] > 0, acc / l.clamp(min=1e-30)[..., None], 0.0)
     return o.reshape(Sq, Hq, D).to(q.dtype)
@@ -417,7 +581,8 @@ def _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales):
 
 def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
                       pos_start: int, length: int, k_scale=None, k_zero=None,
-                      v_scale=None, v_zero=None, *, verify: bool = False):
+                      v_scale=None, v_zero=None, *, verify: bool = False,
+                      window_cached: bool = False):
     """Chunked-prefill attention plus, in int8 mode, the chunk's codes.
 
     fp mode (fp32 cache): returns (o, ()).
@@ -428,12 +593,23 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
     constants and nothing else is written.
     ``verify``: the speculative verify pass (module doc); the returned
     codes are the same.
+    ``window_cached``: the chunk is already in the slot's rows
+    [pos_start, pos_start + Sq) (:func:`write_kv_rows`): no quantizer
+    runs, (o, ()) is returned, and in verify mode over an int8 cache the
+    window attends those rows' codes, so ``length`` must not pass T -
+    pos_start.
     """
     scales = (k_scale, k_zero, v_scale, v_zero)
     int8 = cache_k.dtype == torch.int8
     static = int8 and k_scale.dim() == 2
     aux = ()
-    if int8:
+    if window_cached:
+        if int8 and verify and not 0 <= pos_start <= \
+                cache_k.shape[0] - length:
+            raise ValueError(f"a verify window read from the cache must lie "
+                             f"in it: pos_start {pos_start} + length "
+                             f"{length} > T {cache_k.shape[0]}")
+    elif int8:
         # the chunk's codes first: the epilogue's, and in verify mode what
         # the window attends
         if static:
@@ -446,7 +622,8 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
             aux = (qk, qv, ks, kz, vs, vz)
     if q.device.type == "cpu":
         o = prefill_attention_ref(q, k_new, v_new, cache_k, cache_v, kv_pos,
-                                  pos_start, length, *scales, verify=verify)
+                                  pos_start, length, *scales, verify=verify,
+                                  window_cached=window_cached)
         return o, aux
     _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales)
     Sq, Hq, D = q.shape
@@ -458,10 +635,17 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
         kv_pos = kv_pos.to(torch.int32)
     kv_pos = kv_pos.contiguous()
     sc = [s.contiguous() for s in scales] if int8 else [None] * 4
-    # the window's codes and per-entry scales (verify over an int8 cache)
+    # the window's codes and per-entry scales (verify over an int8 cache):
+    # the slot's rows from pos_start, or the codes quantized above
     win = [None] * 6
-    if int8 and verify:
-        win = list(aux[:2]) + ([None] * 4 if static else list(aux[2:]))
+    if int8 and verify and window_cached:
+        row = pos_start * Hkv
+        win = [ts[3].data_ptr() + row * D, ts[4].data_ptr() + row * D] + (
+            [None] * 4 if static else [s.data_ptr() + 4 * row * C
+                                       for s in sc])
+    elif int8 and verify:
+        win = [t.data_ptr() for t in aux[:2]] + (
+            [None] * 4 if static else [t.data_ptr() for t in aux[2:]])
     o = torch.empty_like(ts[0])
     variant = prefill_variant(q.dtype)
     part_o = part_ml = counter = None
@@ -482,8 +666,7 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
     lib = build.library()
     err = lib.prefill_attention(
         *(t.data_ptr() for t in ts), kv_pos.data_ptr(),
-        *(None if s is None else s.data_ptr() for s in sc),
-        *(None if w is None else w.data_ptr() for w in win),
+        *(None if s is None else s.data_ptr() for s in sc), *win,
         o.data_ptr(), part_o, part_ml, counter, Sq, T, Hq, Hkv, D, C,
         int(pos_start), int(length), int(int8), int(static),
         int(int8 and verify), int(variant == TENSOR_CORE), rows, splits,
@@ -496,12 +679,15 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
 
 
 def reset_counts() -> None:
-    """Set the attention's total, per-variant and per-mode launch counts
-    and the two quantize kernels' counts to 0."""
-    for fn in (prefill_attention, quantize_kv, quantize_kv_static):
+    """Set the attention's total, per-variant and per-mode launch counts,
+    the write's total and per-mode counts and the two standalone
+    quantizers' counts to 0."""
+    for fn in (prefill_attention, write_kv_rows, quantize_kv,
+               quantize_kv_static):
         fn.launches = 0
     for counts in (prefill_attention.variant_launches,
-                   prefill_attention.mode_launches):
+                   prefill_attention.mode_launches,
+                   write_kv_rows.mode_launches):
         for v in counts:
             counts[v] = 0
 

@@ -9,8 +9,9 @@ Decode: 8 slots at max_len 1024 (depths 1000, 513, 0, 17, 256, 777, 64,
 cache with 4 scales a head vector, bf16 q, for stablelm-1.6b (32
 kv-heads of 64) and chatglm3-6b (2 kv-heads of 128, 16 query heads each).
 Prefill: a 96-token chunk at pos_start 384 of a 1024-row slot, same
-archs, with the wrapper's two ``quantize_kv`` launches. For each plan
-setting (``BLOCKS_PER_SM``, ``MIN_SPLIT_TILES`` and ``MAX_SPLIT_TILES``
+archs, with the wrapper's two ``quantize_kv`` launches (the K/V write
+kernel with a dense destination). For each plan setting
+(``BLOCKS_PER_SM``, ``MIN_SPLIT_TILES`` and ``MAX_SPLIT_TILES``
 of ``kernels.decode_attention``, ``BLOCKS_PER_SM`` of
 ``kernels.prefill_attention``) it reports the device time of one call by
 kernel (``torch.profiler`` kernel events, the flush's fill kernel left
@@ -23,7 +24,11 @@ This is the measurement behind the plans' constants.
 ``--default-only`` times each shape once with the package's own plan and
 uses only the wrappers' public signatures, so the same file can time an
 older tree of the port (put its ``src`` on ``PYTHONPATH`` and run this
-file by path). Writes ``attention_sweep.json`` (``--default-only``:
+file by path). It also times the K/V cache write at its main-path rows
+(a 96-row chunk, the 8-slot decode write, a 4-row verify window; dynamic
+and static scales): the two standalone quantizes of K and V, and the
+one-launch ``write_kv_rows`` where the tree has it. Writes
+``attention_sweep.json`` (``--default-only``:
 ``attention_default_<label>.json``) under ``--out``.
 """
 from __future__ import annotations
@@ -160,11 +165,66 @@ def _wrapper(kernel):
         pa.prefill_attention
 
 
+def _static_scales(x, C):
+    """Static (S, Z) (Hkv, C) of x (R, Hkv, D) from its own range."""
+    H, D = x.shape[-2:]
+    xc = x.float().reshape(-1, H, C, D // C)
+    lo, hi = xc.amin(dim=(0, 3)), xc.amax(dim=(0, 3))
+    scale = 255.0 / (hi - lo)
+    return scale, -128.0 - scale * lo
+
+
+def _kv_cases(gen):
+    """(call, arch, shape, mode, fn) of the K/V cache write at its
+    main-path rows, bf16 K/V: a 96-row chunk at 384 (length 90), the
+    8-slot decode write and a 4-row verify window at T - 2 of a layer of
+    8 slots x 1024 rows. ``"quantize x2"`` is the two standalone
+    quantizes of K and V, through the public ``quantize_kv`` /
+    ``quantize_kv_static`` of every tree of the port; ``"write_kv_rows"``
+    the one-launch write, where the tree has it."""
+    N, T, C = 8, 1024, 4
+    f = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    depths = torch.tensor(DEPTHS, dtype=torch.int32, device="cuda")
+    for arch, (_, Hkv, D) in ARCHS.items():
+        for shape, R, kw in (
+                ("chunk", 96, dict(slot=3, pos_start=384, length=90)),
+                ("decode", N, dict(positions=depths)),
+                ("verify window", 4, dict(slot=N - 1, pos_start=T - 2,
+                                          length=2))):
+            k = (f(R, Hkv, D) * 2).to(torch.bfloat16)
+            v = f(R, Hkv, D).to(torch.bfloat16)
+            ks, kz = _static_scales(k, C)
+            vs, vz = _static_scales(v, C)
+            kv_pos = torch.full((N, T), -1, dtype=torch.int32, device="cuda")
+            codes = [torch.zeros((N, T, Hkv, D), dtype=torch.int8,
+                                 device="cuda") for _ in range(2)]
+            dyn = [torch.ones((N, T, Hkv, C), device="cuda")
+                   for _ in range(4)]
+            for mode in ("dynamic", "static"):
+                if mode == "dynamic":
+                    quant = lambda k=k, v=v: (pa.quantize_kv(k, C),
+                                              pa.quantize_kv(v, C))
+                    dst = [*codes, kv_pos, *dyn]
+                else:
+                    quant = lambda k=k, v=v, s=(ks, kz, vs, vz): (
+                        pa.quantize_kv_static(k, *s[:2]),
+                        pa.quantize_kv_static(v, *s[2:]))
+                    dst = [*codes, kv_pos, ks, kz, vs, vz]
+                yield "quantize x2", arch, shape, mode, quant
+                if hasattr(pa, "write_kv_rows"):
+                    yield ("write_kv_rows", arch, shape, mode,
+                           lambda k=k, v=v, dst=dst, kw=kw:
+                           pa.write_kv_rows(k, v, *dst, **kw))
+
+
 def default_only() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
-    return [_row(kernel, arch, T, lambda: _wrapper(kernel)(*args), flush)
+    rows = [_row(kernel, arch, T, lambda: _wrapper(kernel)(*args), flush)
             for kernel, arch, T, _, _, args in _cases(gen)]
+    rows += [_row(call, arch, 1024, fn, flush, shape=shape, mode=mode)
+             for call, arch, shape, mode, fn in _kv_cases(gen)]
+    return rows
 
 
 def sweep() -> list[dict]:

@@ -14,7 +14,11 @@ from the trace's kernel events:
 
 * the device busy share (union of kernel intervals over the window's
   wall time) — the rest is time the card waits for the host;
-* device time and launch count by kernel, the port's kernels by name;
+* device time and launch count by kernel, the port's kernels by name,
+  and the window's kernel launches in all (and per step), and its
+  device memory copies and fills (a copy between contiguous tensors of
+  one dtype, a slice assignment among them, is a ``cudaMemcpyAsync``, not
+  a kernel; the busy share counts kernels only);
 * the wall times of the window's decode steps and prefill chunks.
 
 ``--wave`` traces the rwkv6-3b wave loop of
@@ -30,7 +34,7 @@ INT2 SplitQuant k=3 draft (dequantized once to bf16) and spec_k 3; after
 the admission of the 8 requests, a window of 6 speculative steps, with
 each draft pass and each verify pass marked (``torch.profiler``
 ``record_function``): their count, wall time, the device busy time inside
-them and their kernels by name.
+them, their launches, copies and fills and their kernels by name.
 
 Runs on the CUDA card only. Writes ``profile_engine.json`` (or
 ``profile_wave.json``, ``profile_spec.json``) under ``--out`` (the
@@ -63,8 +67,7 @@ PORT_KERNELS = {"sq_matmul_wgmma_kernel": "splitquant_matmul (bf16 wgmma)",
                 "decode_split_kernel": "decode_attention",
                 "prefill_tc_kernel": "prefill_attention (bf16 tensor cores)",
                 "prefill_fp32_kernel": "prefill_attention (fp32 CUDA cores)",
-                "quantize_kv_kernel": "quantize_kv",
-                "quantize_kv_static_kernel": "quantize_kv_static",
+                "kv_write_kernel": "kv_write (K/V cache write)",
                 "wkv_kernel": "wkv_chunked"}
 
 
@@ -109,6 +112,8 @@ def profile_window(run, scratch: Path, ranges=()) -> dict:
     events = json.loads(scratch.read_text())["traceEvents"]
     scratch.unlink()
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    copies = [e["ts"] for e in events
+              if e.get("cat") in ("gpu_memcpy", "gpu_memset") and "dur" in e]
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernel")
     by = collections.defaultdict(lambda: [0.0, 0])
@@ -120,7 +125,8 @@ def profile_window(run, scratch: Path, ranges=()) -> dict:
     busy = _union(spans) * 1e-6
     rows = sorted(by.items(), key=lambda kv: -kv[1][0])
     out = {"steps": steps, "wall_s": wall, "device_busy_s": busy,
-           "device_busy_share": busy / wall,
+           "device_busy_share": busy / wall, "launches": len(kernels),
+           "copies": len(copies),
            "kernels": [{"name": k, "device_s": v[0] * 1e-6, "count": v[1]}
                        for k, v in rows]}
     for name in ranges:
@@ -141,6 +147,8 @@ def profile_window(run, scratch: Path, ranges=()) -> dict:
             "count": len(marks), "wall_s": wall_in,
             "device_busy_s": busy_in * 1e-6,
             "device_busy_share": busy_in * 1e-6 / wall_in if marks else None,
+            "launches": sum(v[1] for v in inside.values()),
+            "copies": sum(lo <= t < hi for lo, hi in marks for t in copies),
             "kernels": [{"name": k, "device_s": v[0] * 1e-6, "count": v[1]}
                         for k, v in sorted(inside.items(),
                                            key=lambda kv: -kv[1][0])]}
@@ -159,14 +167,20 @@ def engine_window(eng, run, scratch: Path) -> dict:
 def _print(title: str, w: dict, ranges=()) -> None:
     print(f"{title}: {w['steps']} steps; wall {w['wall_s'] * 1e3:.1f} ms, "
           f"device busy {w['device_busy_s'] * 1e3:.1f} ms "
-          f"({100 * w['device_busy_share']:.1f}%)")
+          f"({100 * w['device_busy_share']:.1f}%); {w['launches']} launches "
+          f"({w['launches'] / w['steps']:.1f} a step), {w['copies']} copies "
+          f"and fills ({w['copies'] / w['steps']:.1f} a step)")
     for k in w["kernels"][:12]:
         print(f"  {k['device_s'] * 1e3:10.3f} ms  {k['count']:7d}  "
               f"{k['name']}")
     for name in ranges:
         r = w[name]
         print(f"  {name}: {r['count']} ranges, wall {r['wall_s'] * 1e3:.1f} "
-              f"ms, device busy {r['device_busy_s'] * 1e3:.1f} ms")
+              f"ms, device busy {r['device_busy_s'] * 1e3:.1f} ms, "
+              f"{r['launches']} launches "
+              f"({r['launches'] / max(r['count'], 1):.1f} a range), "
+              f"{r['copies']} copies and fills "
+              f"({r['copies'] / max(r['count'], 1):.1f} a range)")
         for k in r["kernels"][:8]:
             print(f"    {k['device_s'] * 1e3:10.3f} ms  {k['count']:7d}  "
                   f"{k['name']}")

@@ -13,6 +13,8 @@ Tolerances: fp32 outputs atol 1e-4 relative to the output's scale
 WKV state (fp32 in both types) 1e-4 relative; the quantize epilogue's and
 the act-quant kernels' codes, scales and zeros exactly.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -812,3 +814,241 @@ def test_spec_engine_card_matches_cpu(dev):
                 eng.submit(pr)
             outs[(d, spec_k)] = [r.out for r in eng.drain()]
         assert outs[("cuda", 3)] == outs[("cuda", 0)] == outs[("cpu", 3)]
+
+
+# ----------------------------------------------------------- K/V write ---
+def _write_inputs(gen, dev, mode, dtype, R, N, T, Hkv, D, C=4):
+    """K/V rows (R, Hkv, D) with a constant chunk and a zero chunk, and a
+    layer's destination holding stale bytes everywhere (rows, kv_pos and
+    per-entry scales), so that a test sees every byte the write touches
+    and every byte it must leave; static scales (Hkv, C) are drawn from
+    the rows so that most codes fall inside the range. Returns (k, v,
+    the destination operands, their buffers): each per-slot buffer has
+    one guard slot after the N slots of its operand."""
+    f = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    k, v = f(R, Hkv, D) * 3, f(R, Hkv, D)
+    k[0, 0, :D // 4] = 0.0
+    v[R - 1, Hkv - 1, D // 4:D // 2] = -4.0
+    k, v = k.to(dtype), v.to(dtype)
+    if mode == "fp":
+        bufs, sc = [f(N + 1, T, Hkv, D), f(N + 1, T, Hkv, D)], []
+    else:
+        bufs = [torch.randint(-128, 128, (N + 1, T, Hkv, D), generator=gen,
+                              device=dev, dtype=torch.int8)
+                for _ in range(2)]
+        if mode == "dynamic":
+            bufs += [f(N + 1, T, Hkv, C) for _ in range(4)]
+            sc = []
+        else:
+            sc = []
+            for x in (k, v):
+                s, z = _static_scales(x, C)
+                u = torch.rand((2,) + s.shape, generator=gen, device=dev)
+                sc += [s * (0.5 + 1.5 * u[0]), z + u[1] - 0.5]
+    bufs.insert(2, torch.randint(-1, 3 * T, (N + 1, T), generator=gen,
+                                 device=dev, dtype=torch.int32))
+    return k, v, [b[:N] for b in bufs] + sc, bufs
+
+
+def _write_map(where, N, T, dev):
+    """(keywords of write_kv_rows, rows): a decode write (one row a slot,
+    one position past T), a padded chunk inside the slot, and a padded
+    window of the last slot sticking out past T (its rows end the
+    allocation)."""
+    if where == "decode":
+        pos = torch.tensor([5, T - 1, 0, T + 7][:N], dtype=torch.int32,
+                           device=dev)
+        return dict(positions=pos), N
+    if where == "chunk":
+        return dict(slot=1, pos_start=8, length=11), 16
+    return dict(slot=N - 1, pos_start=T - 5, length=3), 16
+
+
+@pytest.mark.parametrize("where", ["decode", "chunk", "past_T"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", pa.WRITE_MODES)
+def test_kv_write_kernel_bit_identical(dev, mode, dtype, D, where):
+    """The write kernel against its plain version, C = 4: every byte of
+    the destination (codes or fp32 rows, per-entry scales, kv_pos) equal,
+    written rows and untouched ones alike; one launch, counted by
+    mode."""
+    N, T, Hkv = 4, 40, 3
+    gen = torch.Generator(device=dev).manual_seed(
+        D + 7 * len(where) + pa.WRITE_MODES.index(mode))
+    kw, R = _write_map(where, N, T, dev)
+    k, v, dst, bufs = _write_inputs(gen, dev, mode, dtype, R, N, T, Hkv, D)
+    if mode == "static":
+        assert inside_share(pa.quantize_kv_static_ref(k, *dst[3:5]), 8) > 0.5
+    want = [b.clone() for b in bufs]
+    pa.write_kv_rows_ref(k, v, *[b[:N] for b in want], *dst[len(bufs):],
+                         **kw)
+    before = dict(pa.write_kv_rows.mode_launches)
+    pa.write_kv_rows(k, v, *dst, **kw)
+    torch.cuda.synchronize()
+    after = dict(pa.write_kv_rows.mode_launches)
+    assert after == dict(before, **{mode: before[mode] + 1})
+    for got, ref in zip(bufs, want):          # the guard slot included
+        assert torch.equal(got, ref)
+
+
+def _slot_caches(dev, cfg, mode, n_slots, T, seed):
+    """A port cache on the CPU with earlier rows written (a prefix in
+    each slot, through the plain route) and its copy on the card."""
+    from repro_torch.engine import kvcache as tkv
+    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    sc = None
+    if mode == "static":
+        g = torch.Generator().manual_seed(seed)
+        s = 127.0 / (2.0 + torch.rand((L, Hkv, 4), generator=g))
+        sc = {"k_scale": s, "k_zero": torch.rand((L, Hkv, 4), generator=g)
+              - 0.5, "v_scale": s * 1.5, "v_zero": -0.25 + 0 * s}
+    cpu = tkv.init_slot_cache(cfg, n_slots, T, device="cpu", kv_scales=sc,
+                              mode="fp" if mode == "fp" else "int8")
+    g = torch.Generator().manual_seed(seed + 1)
+    for layer in range(L):
+        for slot, depth in enumerate((30, 7, T - 9)[:n_slots]):
+            k, v = torch.randn((2, depth, Hkv, D), generator=g)
+            tkv.slot_chunk_prefill(cpu, layer,
+                                   torch.zeros((depth, cfg.n_heads, D)), k,
+                                   v, slot, 0, depth)
+    card = dataclasses.replace(cpu, **{
+        f.name: getattr(cpu, f.name).to(dev)
+        for f in dataclasses.fields(cpu)
+        if isinstance(getattr(cpu, f.name), torch.Tensor)})
+    return cpu, card
+
+
+@pytest.mark.parametrize("verify", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", pa.WRITE_MODES)
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "chatglm3-6b"])
+def test_slot_chunk_prefill_card_equals_plain(dev, arch, mode, dtype,
+                                              verify):
+    """The engine's chunk and verify steps on the card (one write launch,
+    then the attention, which in verify mode reads the window back from
+    the slot rows) against the same calls on a CPU copy of the cache (the
+    plain route), at full head layouts: the cache state exactly, the
+    outputs at the kernels' tolerance. The last slot's step sits near
+    max_len with its padded rows past T."""
+    from repro_torch.configs import get_arch
+    from repro_torch.engine import kvcache as tkv
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)   # full widths
+    T = 128
+    cpu, card = _slot_caches(dev, cfg, mode, 3, T, 31)
+    g = torch.Generator().manual_seed(32)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # (slot, pos_start, Sq, length): mid-slot, and near max_len; a verify
+    # window padded past T, and one whose length reaches past T (off the
+    # engine's path: its codes are quantized apart from the cache)
+    steps = [(0, 30, 16, 16), (2, T - 9, 16, 5)] if not verify else \
+        [(0, 30, 4, 4), (2, T - 2, 4, 2), (1, T - 3, 4, 4)]
+    before = pa.write_kv_rows.launches
+    for i, (slot, pos_start, Sq, length) in enumerate(steps):
+        q = torch.randn((Sq, Hq, D), generator=g).to(dtype)
+        k, v = (torch.randn((Sq, Hkv, D), generator=g).to(dtype)
+                for _ in range(2))
+        layer = i % cfg.n_layers
+        want = tkv.slot_chunk_prefill(cpu, layer, q, k, v, slot, pos_start,
+                                      length, verify=verify)
+        got = tkv.slot_chunk_prefill(card, layer, q.to(dev), k.to(dev),
+                                     v.to(dev), slot, pos_start, length,
+                                     verify=verify)
+        torch.cuda.synchronize()
+        _close(got.cpu(), want, 1e-4 if dtype == torch.float32 else 2e-2)
+        for f in ("k", "v", "kv_pos") + tkv.SCALE_KEYS:
+            assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    assert pa.write_kv_rows.launches == before + len(steps)
+
+
+@pytest.mark.parametrize("mode", pa.WRITE_MODES)
+def test_cache_writes_are_one_launch_a_layer(dev, mode):
+    """A decode write, a chunk and a verify window of one layer: one
+    write launch each in the cache's mode, no standalone quantize."""
+    from repro_torch.configs import get_arch
+    from repro_torch.engine import kvcache as tkv
+    cfg = get_arch("chatglm3-6b").reduced()
+    L, Hq, Hkv, D = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sc = None
+    if mode == "static":
+        sc = {"k_scale": torch.full((L, Hkv, 4), 40.0),
+              "k_zero": torch.full((L, Hkv, 4), 0.3),
+              "v_scale": torch.full((L, Hkv, 4), 30.0),
+              "v_zero": torch.full((L, Hkv, 4), -0.2)}
+    cache = tkv.init_slot_cache(cfg, 3, 32, mode="fp" if mode == "fp"
+                                else "int8", kv_scales=sc, device=dev)
+    counts = lambda: (dict(pa.write_kv_rows.mode_launches),  # noqa: E731
+                      pa.quantize_kv.launches,
+                      pa.quantize_kv_static.launches)
+    before = counts()
+    x = torch.randn((3, 1, Hkv, D), device=dev)
+    pos = torch.tensor([[3], [0], [9]], dtype=torch.int32, device=dev)
+    tkv.slot_layer_write(cache, 1, x, x, pos)
+    q, kn = torch.randn((8, Hq, D), device=dev), torch.randn((8, Hkv, D),
+                                                             device=dev)
+    tkv.slot_chunk_prefill(cache, 0, q, kn, kn, 1, 4, 6)
+    tkv.slot_chunk_prefill(cache, 0, q[:4], kn[:4], kn[:4], 2, 30, 2,
+                           verify=True)
+    torch.cuda.synchronize()
+    modes, qd, qs = counts()
+    assert modes == dict(before[0], **{mode: before[0][mode] + 3})
+    assert (qd, qs) == before[1:]
+    # a verify window whose length reaches past T (off the engine's path):
+    # the write, then the window's codes quantized apart (K and V)
+    tkv.slot_chunk_prefill(cache, 0, q[:4], kn[:4], kn[:4], 2, 30, 4,
+                           verify=True)
+    torch.cuda.synchronize()
+    modes, qd, qs = counts()
+    assert modes == dict(before[0], **{mode: before[0][mode] + 4})
+    assert (qd - before[1], qs - before[2]) == \
+        {"fp": (0, 0), "dynamic": (2, 0), "static": (0, 2)}[mode]
+
+
+def test_kv_write_rejects_bad_operands_and_never_takes_plain(dev,
+                                                             monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    for name in ("write_kv_rows_ref", "quantize_kv_ref",
+                 "quantize_kv_static_ref", "cached_window",
+                 "prefill_attention_ref", "window_kv"):
+        monkeypatch.setattr(pa, name, boom)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    N, T, Hkv, D = 4, 16, 2, 32
+    k, v, dst, _ = _write_inputs(gen, dev, "dynamic", torch.float32, N, N,
+                                 T, Hkv, D)
+    pos = torch.arange(N, dtype=torch.int32, device=dev)
+    pa.write_kv_rows(k, v, *dst, positions=pos)
+    pa.write_kv_rows(k, v, *dst, slot=1, pos_start=14, length=1)
+    pa.quantize_kv(k, 4)
+    pa.quantize_kv_static(k, dst[3][0, 0], dst[4][0, 0])
+    q = torch.randn((N, 4, D), device=dev)
+    prefill_attention(q, k, v, dst[0][1], dst[1][1], dst[2][1], 2, N,
+                      *(s[1] for s in dst[3:]), verify=True,
+                      window_cached=True)
+    torch.cuda.synchronize()
+    bad = [
+        (TypeError, lambda: pa.write_kv_rows(k.half(), v.half(), *dst,
+                                             positions=pos)),
+        (ValueError, lambda: pa.write_kv_rows(k, v.cpu(), *dst,
+                                              positions=pos)),
+        (ValueError, lambda: pa.write_kv_rows(k, v, *dst,
+                                              positions=pos.long())),
+        (ValueError, lambda: pa.write_kv_rows(k[:2], v[:2], *dst,
+                                              positions=pos[:2])),
+        (ValueError, lambda: pa.write_kv_rows(k, v, *dst, slot=N,
+                                              pos_start=0, length=1)),
+        (ValueError, lambda: pa.write_kv_rows(k, v, *dst[:3], dst[3][:, :1],
+                                              *dst[4:], positions=pos)),
+        (ValueError, lambda: pa.write_kv_rows(k, v, dst[0], dst[1],
+                                              dst[2].long(), *dst[3:],
+                                              positions=pos)),
+        (ValueError, lambda: pa.write_kv_rows(
+            k, v, dst[0].transpose(0, 1).contiguous().transpose(0, 1),
+            dst[1], *dst[2:], positions=pos)),
+        (ValueError, lambda: prefill_attention(
+            q, k, v, dst[0][1], dst[1][1], dst[2][1], T - 2, N,
+            *(s[1] for s in dst[3:]), verify=True, window_cached=True)),
+    ]
+    for exc, call in bad:
+        with pytest.raises(exc):
+            call()

@@ -37,7 +37,14 @@ Phases (any failure exits non-zero):
    8-slot decode write and 4-row verify window sticking out past T: every
    byte of the destination equal, with the wrapper's host time a call;
    then the standalone ``quantize_kv`` and ``quantize_kv_static`` (the
-   same kernel with a dense destination) at 96 and 8 rows, exact;
+   same kernel with a dense destination) at 96 and 8 rows, exact. The
+   chunked WKV runs at rwkv6-3b's wave prefill (320 heads at T=256 and
+   at the first wave's padded T=240) and at one sequence (40 heads),
+   printing its share of the bound, the fp32-core time of its operations
+   and its launch plan; the static act-quant kernel also runs on an odd
+   width and on views whose rows start off a 16-byte boundary (its
+   scalar head and tail), codes exact; the ``-Xptxas -v`` lines of both
+   are printed with the others;
 3. engine: stablelm-1.6b at its published widths (seeded random bf16
    weights, SplitQuant INT4 k=3, quantized on the card) served by the
    continuous-batching engine over an int8 slot cache: 8 slots,
@@ -681,38 +688,72 @@ def kv_write_cases(torch, timer, rep, srep):
 
 def wkv_cases(torch, timer, rep):
     """The chunked WKV at rwkv6-3b's full-width wave prefill: 8 sequences
-    x 40 heads, T=256, head size 64, bf16 r/k/v, fp32 w/u/s0."""
+    x 40 heads at T=256 and at the first wave's padded length T=240, and
+    one sequence (40 heads) at T=256; head size 64, bf16 r/k/v, fp32
+    w/u/s0."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.wkv_chunked import (CHUNK, wkv_chunked,
-                                                 wkv_chunked_ref)
+                                                 wkv_chunked_ref, wkv_plan)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    BH, T, K, V = 8 * 40, 256, 64, 64
-    f = lambda *s: torch.randn(s, generator=gen, device="cuda")
-    r, k, v = (f(BH, T, n).to(torch.bfloat16) for n in (K, K, V))
-    w = torch.exp(-torch.exp(f(BH, T, K) * 2 - 1))
-    u, s0 = f(BH, K) * 0.5, f(BH, K, V)
-    y, S = wkv_chunked(r, k, v, w, u, s0=s0)
-    y_ref, S_ref = wkv_chunked_ref(r, k, v, w, u, s0=s0)
-    torch.cuda.synchronize()
-    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(S).all())):
-        fail("wkv_chunked: non-finite output")
-    # y is rounded to bf16 on both sides: ≲ 2^-8 relative to its scale;
-    # S stays fp32 (summation order): 1e-4 relative
-    s_err = max_err(S, S_ref)
-    s_tol = 1e-4 * max(1.0, float(S_ref.abs().max()))
-    if not s_err <= s_tol:
-        fail(f"wkv_chunked: S_final max abs err {s_err} > tol {s_tol}")
-    tol = 2 ** -7 * max(1.0, float(y_ref.float().abs().max()))
-    n, L = T // CHUNK, CHUNK
-    pairs = L * (L + 1) // 2            # causal (t, s) pairs per chunk
-    ops = BH * n * (3 * K * pairs + 2 * V * pairs + 4 * L * K * V +
-                    2 * K * V + 4 * L * K)
-    nbytes = BH * T * (2 * K * 2 + V * 2 + K * 4 + V * 2) + BH * K * 4 + \
-        2 * BH * K * V * 4
-    rep.add(f"rwkv6-3b BH={BH} T={T} K={K} V={V} bf16, s0 "
-            f"(S_final err {s_err:.2e} tol {s_tol:.1e})", max_err(y, y_ref),
-            tol, timer(lambda: wkv_chunked(r, k, v, w, u, s0=s0)),
-            timer(lambda: wkv_chunked_ref(r, k, v, w, u, s0=s0)), None,
-            nbytes, ops)
+    K = V = 64
+    lib = build.library()
+    for BH, T in ((8 * 40, 256), (8 * 40, 240), (40, 256)):
+        f = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        r, k, v = (f(BH, T, n).to(torch.bfloat16) for n in (K, K, V))
+        w = torch.exp(-torch.exp(f(BH, T, K) * 2 - 1))
+        u, s0 = f(BH, K) * 0.5, f(BH, K, V)
+        y, S = wkv_chunked(r, k, v, w, u, s0=s0)
+        y_ref, S_ref = wkv_chunked_ref(r, k, v, w, u, s0=s0)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(y).all()) and
+                bool(torch.isfinite(S).all())):
+            fail("wkv_chunked: non-finite output")
+        # y is rounded to bf16 on both sides: ≲ 2^-8 relative to its
+        # scale; S stays fp32 (summation order): 1e-4 relative
+        s_err = max_err(S, S_ref)
+        s_tol = 1e-4 * max(1.0, float(S_ref.abs().max()))
+        if not s_err <= s_tol:
+            fail(f"wkv_chunked: S_final max abs err {s_err} > tol {s_tol}")
+        tol = 2 ** -7 * max(1.0, float(y_ref.float().abs().max()))
+        n, L = T // CHUNK, CHUNK
+        pairs = L * (L + 1) // 2            # causal (t, s) pairs per chunk
+        ops = BH * n * (3 * K * pairs + 2 * V * pairs + 4 * L * K * V +
+                        2 * K * V + 4 * L * K)
+        nbytes = BH * T * (2 * K * 2 + V * 2 + K * 4 + V * 2) + \
+            BH * K * 4 + 2 * BH * K * V * 4
+        plan = wkv_plan(BH, K, V, build.sm_count(0), 2)
+        if plan.smem != lib.wkv_chunked_smem(K, 1):
+            fail(f"wkv_chunked: the plan's shared memory {plan.smem} B is "
+                 f"not the kernel's {lib.wkv_chunked_smem(K, 1)} B")
+        rep.add(f"rwkv6-3b BH={BH} T={T} K={K} V={V} bf16, s0 "
+                f"(S_final err {s_err:.2e} tol {s_tol:.1e})",
+                max_err(y, y_ref), tol,
+                timer(lambda: wkv_chunked(r, k, v, w, u, s0=s0)),
+                timer(lambda: wkv_chunked_ref(r, k, v, w, u, s0=s0)), None,
+                nbytes, ops)
+        c = rep.cases[-1]
+        # the plan's slab against the narrower ones (direct launches of
+        # the library, not counted): the evidence for wkv_plan's choice
+        slabs = {}
+        for vs in (32, 16):
+            yy, ss = torch.empty_like(y), torch.empty_like(S)
+            launch = lambda: build.check(lib, lib.wkv_chunked(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), s0.data_ptr(), yy.data_ptr(), ss.data_ptr(),
+                BH, T, K, V, vs, 1, build.stream_of(r)), "wkv_chunked")
+            launch()
+            torch.cuda.synchronize()
+            if max_err(yy, y) > tol or max_err(ss, S) > s_tol:
+                fail(f"wkv_chunked: slab {vs} disagrees with slab {plan.vs}")
+            slabs[vs] = timer(launch)
+        c["slab_ms"] = {str(plan.vs): c["ms"],
+                        **{str(vs): t for vs, t in slabs.items()}}
+        log(f"  {'':18s} {'':44s} {100 * c['bound_ms'] / c['ms']:.1f}% of "
+            f"its bound ({c['bound_by']}); fp32-core floor "
+            f"{c['fp32_core_ms']:.5f} ms; slab {plan.vs} of {V} columns, "
+            f"{2 * BH * -(-V // plan.vs)} blocks of {plan.threads} threads, "
+            f"{plan.smem} B shared memory a block; slabs of 32 / 16 columns "
+            f"{slabs[32]:.4f} / {slabs[16]:.4f} ms")
 
 
 def static_qparams(torch, x, n_chunks, bits, gen):
@@ -772,14 +813,33 @@ def act_quant_cases(torch, timer, drep, srep):
                      timer(lambda: act_split_quantize_static_ref(
                          x, scale, zero, bits=bits)),
                      None, R * N * 2 + R * N + 2 * 3 * 4, 4 * R * N)
+    # the static kernel's scalar head and tail: an odd width on a view
+    # that starts one element into its storage (every row misaligned), and
+    # a view three elements in (a head of five columns, vectors, a tail)
+    for N, offset in ((2563, 1), (8960, 3)):
+        big = (torch.randn(R * N + offset, generator=gen, device="cuda") *
+               2).to(torch.bfloat16)
+        x = big[offset:].view(R, N)
+        scale, zero = static_qparams(torch, x, 3, 8, gen)
+        got = act_split_quantize_static(x, scale, zero, bits=8)
+        want = act_split_quantize_static_ref(x, scale, zero, bits=8)
+        torch.cuda.synchronize()
+        srep.add(f"R={R} N={N} bits=8 n_chunks=3 bf16, view +{offset}",
+                 max_err(got, want), 0.0,
+                 timer(lambda: act_split_quantize_static(x, scale, zero,
+                                                         bits=8)),
+                 timer(lambda: act_split_quantize_static_ref(
+                     x, scale, zero, bits=8)),
+                 None, R * N * 2 + R * N + 2 * 3 * 4, 4 * R * N)
 
 def log_ptxas(out: str) -> None:
     """Registers, spills and shared memory of each instantiation of the
-    tensor-core matmul kernel and of the two attention kernels, from the
-    build's ``-Xptxas -v`` output, and their dynamic shared memory at the
-    shapes of the kernel phase."""
+    tensor-core matmul kernel, the two attention kernels, the WKV kernel
+    and the static act-quant kernel, from the build's ``-Xptxas -v``
+    output, and their dynamic shared memory at the shapes of the kernel
+    phase."""
     kernels = ("sq_matmul_wgmma_kernel", "decode_split_kernel",
-               "prefill_tc_kernel")
+               "prefill_tc_kernel", "wkv_kernel", "act_quant_static_kernel")
     if not any(k in out for k in kernels):
         log("ptxas: the library was already built; no compiler output")
         return
@@ -804,6 +864,8 @@ def log_ptxas(out: str) -> None:
         log(f"attention dynamic shared memory per block, {arch} int8 C=4: "
             f"decode {smem[0]} B dynamic, {smem[1]} B static ({p}), prefill "
             f"{lib.prefill_attention_smem(D, 4, 1, 1024)} B")
+    log("wkv dynamic shared memory per block (K=V=64, bf16 / fp32): "
+        f"{lib.wkv_chunked_smem(64, 1)} / {lib.wkv_chunked_smem(64, 0)} B")
 
 
 #: the ``write_kv_rows`` modes behind each of its two kernel names

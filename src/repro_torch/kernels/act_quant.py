@@ -144,7 +144,6 @@ def act_split_quantize_static(x: torch.Tensor, scale: torch.Tensor,
                                    zero.data_ptr(), q.data_ptr(), R, N,
                                    n_chunks, bits,
                                    int(x.dtype == torch.bfloat16),
-                                   build.sm_count(x.device.index or 0),
                                    build.stream_of(x))
         build.check(lib, err, "act_split_quantize_static")
         act_split_quantize_static.launches += 1

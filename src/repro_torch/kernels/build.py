@@ -122,14 +122,16 @@ SIGNATURES = {
     "wkv_chunked": [_P] * 8 + [_I] * 6 + [_P],
     # x, q, scale, zero, R, N, n_chunks, bits, x_is_bf16, stream
     "act_quant_dynamic": [_P] * 4 + [_I] * 5 + [_P],
-    # x, scale, zero, q, R, N, n_chunks, bits, x_is_bf16, sms, stream
-    "act_quant_static": [_P] * 4 + [_I] * 6 + [_P],
+    # x, scale, zero, q, R, N, n_chunks, bits, x_is_bf16, stream
+    "act_quant_static": [_P] * 4 + [_I] * 5 + [_P],
     # bits, bm -> bytes (not an error code)
     "splitquant_matmul_smem": [_I] * 2,
     # D, C, int8, stat, group, warps -> bytes (not an error code)
     "decode_attention_smem": [_I] * 6,
     # D, C, int8, T -> bytes (not an error code)
     "prefill_attention_smem": [_I] * 4,
+    # K, x_is_bf16 -> bytes (not an error code)
+    "wkv_chunked_smem": [_I] * 2,
 }
 
 

@@ -19,6 +19,9 @@ counts kernel launches.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import build
@@ -81,13 +84,64 @@ def wkv_step_ref(r, k, v, w, u, *, s0=None):
     return torch.stack(ys, dim=1).to(r.dtype), S
 
 
-def _slab(BH: int, V: int, sms: int) -> int:
-    """Value columns per block: all of V, halved (down to 16) while the
-    grid would give fewer than two blocks per SM."""
-    vs = V
-    while BH * (V // vs) < 2 * sms and vs % 2 == 0 and vs // 2 >= 16:
-        vs //= 2
-    return vs
+#: the kernel's shape: a cluster of two blocks a (head, slab), each block
+#: four warps over half the keys (padded to 64 or 128), a warp per 16
+#: columns of a slab of at most 64
+THREADS = 128
+BLOCKS_PER_SLAB = 2
+COLS_PER_WARP = 16
+MAX_SLAB = 64
+
+
+class WkvPlan(NamedTuple):
+    """Launch plan of the chunked WKV kernel: ``vs`` value columns a
+    cluster of two blocks (grid (BH, 2·ceil(V / vs))), ``threads`` a
+    block and ``smem`` bytes of dynamic shared memory a block."""
+    vs: int
+    threads: int
+    smem: int
+
+
+def _smem(K: int, itemsize: int) -> int:
+    """Bytes of a block's shared memory (``smem_bytes`` in the source),
+    with KH = 32 or 64 keys a block: two sets (by chunk parity) of r, k,
+    cp, c (16, KH + 4), r·exp(cp), k·exp(c_last − c) (16, KH + 8) and
+    exp(c_last) (KH) in fp32; att's two TF32 parts (16, 20), the peer's
+    share of y (2 x 128 x 4) and u (KH); one buffer of the next chunk's
+    r, k (input type) and w (fp32) (16, KH), two of the v slab (16, 64)."""
+    kh = 32 if K <= 64 else 64
+    pset = 4 * CHUNK * (kh + 4) + 2 * CHUNK * (kh + 8) + kh
+    f32 = 2 * pset + 2 * CHUNK * 20 + 2 * 4 * 32 * 4 + kh
+    return (4 * f32 + 2 * CHUNK * kh * itemsize + CHUNK * kh * 4 +
+            2 * CHUNK * 64 * itemsize)
+
+
+@functools.lru_cache(maxsize=None)
+def wkv_plan(BH: int, K: int, V: int, sms: int, itemsize: int = 2) -> WkvPlan:
+    """The value slab of the kernel's clusters: of the slabs that cut V
+    into 1, 2, 3, ... parts of at most :data:`MAX_SLAB` columns (rounded
+    up to whole warps of 16), the one that puts the fewest blocks on the
+    busiest SM, the widest of those. A block's time is set by its 16
+    dependent chunks, and a narrower slab recomputes the exponent terms
+    and att, so more blocks an SM only cost; with 2·BH blocks of the
+    whole slab at BH = 320 or 1280 heads the busiest SM of an H100 has
+    within 1.1x of the mean."""
+    if not (0 < K <= 128 and 0 < V <= 128 and BH > 0 and sms > 0):
+        raise ValueError(f"no plan for BH={BH}, K={K}, V={V}, sms={sms}")
+    cpw = COLS_PER_WARP
+    cands = []
+    for n in range(1, V + 1):
+        per = -(-V // n)                            # ceil(V / n)
+        vs = min(V, -(-per // cpw) * cpw)           # whole warps of columns
+        if -(-V // vs) != n:
+            continue
+        if vs <= MAX_SLAB:
+            cands.append(vs)
+        if vs <= cpw:
+            break
+    busiest = lambda vs: -(-BLOCKS_PER_SLAB * BH * -(-V // vs) // sms)
+    vs = min(cands, key=lambda c: (busiest(c), -c))
+    return WkvPlan(vs, THREADS, _smem(K, itemsize))
 
 
 def wkv_chunked(r, k, v, w, u, *, s0=None):
@@ -123,7 +177,8 @@ def wkv_chunked(r, k, v, w, u, *, s0=None):
     s0 = s0.contiguous() if s0 is not None else None
     y = torch.empty((BH, T, V), dtype=r.dtype, device=r.device)
     s_out = torch.empty((BH, K, V), dtype=torch.float32, device=r.device)
-    vs = _slab(BH, V, build.sm_count(r.device.index or 0))
+    vs = wkv_plan(BH, K, V, build.sm_count(r.device.index or 0),
+                  r.element_size()).vs
     lib = build.library()
     err = lib.wkv_chunked(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                           w.data_ptr(), u.data_ptr(),

@@ -437,7 +437,9 @@ def _wkv_inputs(gen, dev, BH, T, K, V, dtype, with_s0, decay_scale=2.0):
 
 
 @pytest.mark.parametrize("BH,T,K,V", [(8, 32, 32, 32), (3, 48, 16, 24),
-                                      (320, 256, 64, 64)])
+                                      (320, 256, 64, 64), (40, 256, 64, 64),
+                                      (320, 240, 64, 64), (8, 16, 32, 32),
+                                      (4, 64, 128, 128), (3, 32, 20, 20)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_s0", [False, True])
 def test_wkv_kernel_vs_plain(dev, BH, T, K, V, dtype, with_s0):
@@ -454,9 +456,10 @@ def test_wkv_kernel_vs_plain(dev, BH, T, K, V, dtype, with_s0):
     _close(S, S_ref, 1e-4)
 
 
-def test_wkv_kernel_extreme_decay_stays_finite(dev):
+@pytest.mark.parametrize("K", [32, 64])
+def test_wkv_kernel_extreme_decay_stays_finite(dev, K):
     gen = torch.Generator(device=dev).manual_seed(7)
-    r, k, v, _, u, s0 = _wkv_inputs(gen, dev, 4, 32, 32, 32, torch.float32,
+    r, k, v, _, u, s0 = _wkv_inputs(gen, dev, 4, 32, K, K, torch.float32,
                                     True)
     w = torch.zeros_like(r)                  # decay underflowed to 0
     y, S = wk.wkv_chunked(r, k, v, w, u, s0=s0)
@@ -465,6 +468,16 @@ def test_wkv_kernel_extreme_decay_stays_finite(dev):
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(S).all())
     _close(y, y_ref, 1e-4)
     _close(S, S_ref, 1e-4)
+
+
+@pytest.mark.parametrize("K", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_plan_shared_memory_is_the_kernels(dev, K, dtype):
+    from repro_torch.kernels import build
+    p = wk.wkv_plan(320, K, K, build.sm_count(dev.index or 0),
+                    torch.empty((), dtype=dtype).element_size())
+    assert p.smem == build.library().wkv_chunked_smem(
+        K, int(dtype == torch.bfloat16))
 
 
 def _no_plain(monkeypatch):
@@ -573,12 +586,24 @@ def test_act_quant_dynamic_kernel_exact(dev, bits, R, N, n_chunks, dtype):
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("R,N,n_chunks", [(5, 97, 3), (256, 128, 4),
-                                          (2048, 2560, 3), (2048, 8960, 3)])
+@pytest.mark.parametrize("R,N,n_chunks,offset", [
+    (5, 97, 3, 0), (256, 128, 4, 0), (2048, 2560, 3, 0), (2048, 8960, 3, 0),
+    (5, 97, 3, 1), (64, 8, 8, 0), (64, 8, 8, 3), (64, 2560, 3, 5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_act_quant_static_kernel_exact(dev, bits, R, N, n_chunks, dtype):
+def test_act_quant_static_kernel_exact(dev, bits, R, N, n_chunks, offset,
+                                       dtype):
+    """``offset``: x is a view that starts that many elements into its
+    storage (1: ``big[1:]``-like, misaligned rows at odd N; at N % 8 == 0
+    every row starts short of a 16-byte boundary, so the kernel takes a
+    scalar head, vectors, and a scalar tail)."""
     gen = torch.Generator(device=dev).manual_seed(R + N + bits + 1)
     x = _act_input(gen, dev, R, N, dtype)
+    if offset:
+        big = torch.zeros(R * N + offset, dtype=dtype, device=dev)
+        big[offset:] = x.reshape(-1)
+        x = big[offset:].view(R, N)
+        assert x.data_ptr() % 16
+        assert x.is_contiguous()
     scale, zero = static_qparams(x, n_chunks, bits, gen)
     before = aq.act_split_quantize_static.launches
     got = aq.act_split_quantize_static(x, scale, zero, bits=bits)

@@ -8,9 +8,10 @@ Phases (any failure exits non-zero):
 1. set-up: the card's name and power limit, torch and CUDA versions, and
    the build of every kernel from ``src/repro_torch/kernels/csrc``;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the shapes its path gives it (stablelm-1.6b's engine, rwkv6-3b's
-   wave prefill and decode, and rwkv6-3b activation widths for the two
-   act-quant kernels, which no serving path runs), with its time (CUDA
+   card, at the shapes its path gives it (stablelm-1.6b's engine and its
+   dense_wave prefill's largest M, rwkv6-3b's wave prefill and decode,
+   and rwkv6-3b activation widths for the two act-quant kernels, which no
+   serving path runs), with its time (CUDA
    events, warmed up, L2 flushed and the host let run ahead between
    launches: device time, not the wrapper's host time), the plain version's
    time, a one-call PyTorch yardstick where one exists, and the least
@@ -41,10 +42,12 @@ Phases (any failure exits non-zero):
    chunked WKV runs at rwkv6-3b's wave prefill (320 heads at T=256 and
    at the first wave's padded T=240) and at one sequence (40 heads),
    printing its share of the bound, the fp32-core time of its operations
-   and its launch plan; the static act-quant kernel also runs on an odd
-   width and on views whose rows start off a 16-byte boundary (its
-   scalar head and tail), codes exact; the ``-Xptxas -v`` lines of both
-   are printed with the others;
+   and its launch plan; both act-quant kernels also run on odd widths
+   and on views whose rows start off a 16-byte boundary (their scalar
+   heads and tails; the dynamic kernel on 2562 columns in 3 chunks,
+   aligned and one element in, and on a view three elements in), codes,
+   scales and zeros exact; the ``-Xptxas -v`` lines of the WKV and both
+   act-quant kernels are printed with the others;
 3. engine: stablelm-1.6b at its published widths (seeded random bf16
    weights, SplitQuant INT4 k=3, quantized on the card) served by the
    continuous-batching engine over an int8 slot cache: 8 slots,
@@ -74,11 +77,21 @@ Phases (any failure exits non-zero):
    greedy output (not gated: bf16 verify on the tensor
    cores and fp32 decode on the CUDA cores sum in different orders; with
    the target's top-2 margin where the first token differs);
+   then dense_wave: the same weights and 16 requests through the wave
+   ``Server`` (waves of 8, left-padded, a bf16 ``KVCache`` of 1024 rows a
+   wave, attention in plain PyTorch): the counts are set to 0 just before
+   the run and read just after; every request its 32 tokens,
+   ``splitquant_matmul`` launched and only its bf16 tensor-core variant,
+   and no attention kernel, K/V write or quantizer launched; it prints
+   the wave-prefill p50, decode-step p50, tokens/s and peak memory beside
+   the card's name and power limit;
 4. cross-checks: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
-   tokens; and the speculative engine (INT2 draft, spec_k 3) over int8
+   tokens; the speculative engine (INT2 draft, spec_k 3) over int8
    dynamic and static caches: card spec tokens == card greedy tokens ==
-   CPU spec tokens;
+   CPU spec tokens; and the dense wave ``Server`` over two left-padded
+   waves of mixed lengths, one request with a budget of 1: identical
+   greedy tokens;
 5. rwkv6: rwkv6-3b at its published widths (seeded random bf16 weights,
    SplitQuant INT4 k=3 of 257 matrices, quantized on the card) served by
    the wave loop: waves of 8, 16 seeded requests of 64-256 prompt tokens
@@ -93,7 +106,8 @@ Phases (any failure exits non-zero):
 
 The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
-(``launches_by_path`` splits them, ``launches_by_variant`` splits those
+(``launches_by_path`` splits them: engine, static, spec, dense_wave and
+wave, ``launches_by_variant`` splits those
 of the matmul and of the two attention kernels by variant and
 ``launches_by_mode`` those of the attention kernels and of the K/V write
 by mode; the write, the counterpart of both branches of the TPU prefill
@@ -142,10 +156,11 @@ SOURCES = {
 }
 #: the serving runs each kernel is on: "engine" (dynamic int8 scales),
 #: "static" (static scales), "spec" (speculative, static target, dynamic
-#: draft) and "wave" (rwkv6). ``kv_write`` is ``write_kv_rows`` in its
-#: dynamic and fp modes, ``kv_write_static`` in its static mode.
+#: draft), "dense_wave" (stablelm-1.6b through the wave loop) and "wave"
+#: (rwkv6). ``kv_write`` is ``write_kv_rows`` in its dynamic and fp
+#: modes, ``kv_write_static`` in its static mode.
 PATHS = {
-    "splitquant_matmul": ("engine", "static", "spec", "wave"),
+    "splitquant_matmul": ("engine", "static", "spec", "dense_wave", "wave"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
     "prefill_attention": ("engine", "static", "spec"),
@@ -284,10 +299,17 @@ def matmul_cases(torch, timer, rep):
     from repro_torch.kernels.ref import (dequant_weight_ref,
                                          splitquant_matmul_ref)
     from repro_torch.kernels.splitquant_matmul import splitquant_matmul
+    from repro_torch.launch.serve import dense_wave_workload
     gen = torch.Generator(device="cuda").manual_seed(0)
     bits, k = 4, 3
+    # M at the dense_wave phase's largest wave prefill: a wave's rows times
+    # its longest prompt
+    _, scfg, _, _, prompts = dense_wave_workload()
+    B = scfg.max_batch
+    m_wave = max(len(w) * max(map(len, w)) for w in
+                 (prompts[i:i + B] for i in range(0, len(prompts), B)))
     # (arch, K, N, M at decode, at a prefill chunk and at a wave prefill)
-    shapes = [("stablelm-1.6b", K, N, (8, 96)) for K, N in (
+    shapes = [("stablelm-1.6b", K, N, (8, 96, m_wave)) for K, N in (
         (2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352))] + \
         [("rwkv6-3b", K, N, (8, 96, 2048)) for K, N in (
             (2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536))]
@@ -776,7 +798,7 @@ def act_quant_cases(torch, timer, drep, srep):
     """Both act-quant kernels at rwkv6-3b activation shapes (a wave of
     2048 tokens at widths 2560 and 8960, bf16), exactly equal to their
     plain versions: dynamic with 4 chunks, static with 3 (uneven on both
-    widths)."""
+    widths); then odd widths and views off a 16-byte boundary."""
     from repro_torch.kernels.act_quant import (
         act_split_quantize, act_split_quantize_ref, act_split_quantize_static,
         act_split_quantize_static_ref)
@@ -813,9 +835,28 @@ def act_quant_cases(torch, timer, drep, srep):
                      timer(lambda: act_split_quantize_static_ref(
                          x, scale, zero, bits=bits)),
                      None, R * N * 2 + R * N + 2 * 3 * 4, 4 * R * N)
-    # the static kernel's scalar head and tail: an odd width on a view
-    # that starts one element into its storage (every row misaligned), and
-    # a view three elements in (a head of five columns, vectors, a tail)
+    # the scalar heads and tails: an odd width on a view that starts one
+    # element into its storage (every row misaligned), and a view three
+    # elements in (a head of five columns, vectors, a tail); the dynamic
+    # kernel on 2562 columns in 3 chunks (854 each: every chunk starts
+    # elsewhere against a 16-byte boundary), aligned and one element in,
+    # and on the 8960-wide view three elements in
+    for N, offset in ((2562, 0), (2562, 1), (8960, 3)):
+        big = (torch.randn(R * N + offset, generator=gen, device="cuda") *
+               2).to(torch.bfloat16)
+        x = big[offset:].view(R, N)
+        n_chunks = 3 if N == 2562 else 4
+        got = act_split_quantize(x, bits=8, n_chunks=n_chunks)
+        want = act_split_quantize_ref(x, bits=8, n_chunks=n_chunks)
+        torch.cuda.synchronize()
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        drep.add(f"R={R} N={N} bits=8 n_chunks={n_chunks} bf16, view "
+                 f"+{offset}", err, 0.0,
+                 timer(lambda: act_split_quantize(x, bits=8,
+                                                  n_chunks=n_chunks)),
+                 timer(lambda: act_split_quantize_ref(x, bits=8,
+                                                      n_chunks=n_chunks)),
+                 None, R * N * 2 + R * N + 2 * R * n_chunks * 4, 4 * R * N)
     for N, offset in ((2563, 1), (8960, 3)):
         big = (torch.randn(R * N + offset, generator=gen, device="cuda") *
                2).to(torch.bfloat16)
@@ -835,11 +876,12 @@ def act_quant_cases(torch, timer, drep, srep):
 def log_ptxas(out: str) -> None:
     """Registers, spills and shared memory of each instantiation of the
     tensor-core matmul kernel, the two attention kernels, the WKV kernel
-    and the static act-quant kernel, from the build's ``-Xptxas -v``
+    and the two act-quant kernels, from the build's ``-Xptxas -v``
     output, and their dynamic shared memory at the shapes of the kernel
     phase."""
     kernels = ("sq_matmul_wgmma_kernel", "decode_split_kernel",
-               "prefill_tc_kernel", "wkv_kernel", "act_quant_static_kernel")
+               "prefill_tc_kernel", "wkv_kernel", "act_quant_static_kernel",
+               "act_quant_dynamic_kernel")
     if not any(k in out for k in kernels):
         log("ptxas: the library was already built; no compiler output")
         return
@@ -1338,6 +1380,120 @@ def rwkv_cross_check(torch):
         fail(f"rwkv6 cross-check: card {outs['cuda']} != cpu {outs['cpu']}")
     return {"requests": len(prompts), "identical": same}
 
+def dense_wave_phase(torch, counters, params, card_line):
+    """stablelm-1.6b at full width through the wave ``Server``
+    (``launch.serve.dense_wave_workload``): a bf16 ``KVCache`` of 1024 rows
+    a wave, attention in plain PyTorch. The counts are set to 0 just
+    before the run and read just after: every request its 32 tokens,
+    ``splitquant_matmul`` launched and only its bf16 tensor-core variant,
+    no other kernel (no attention kernel, no K/V write, no quantizer)."""
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.launch.serve import dense_wave_workload
+    from repro_torch.models import transformer
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+
+    cfg, scfg, _, warmup, prompts = dense_wave_workload()
+    Server(cfg, params, ServeConfig(max_batch=8, max_new_tokens=2,
+                                    max_len=scfg.max_len),
+           device="cuda").serve([Request(0, warmup)])
+    srv = Server(cfg, params, scfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    fin = srv.serve([Request(i, p) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    variants = only_variant(counters, "splitquant_matmul", "dense_wave")
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(r.out) for r in fin)
+    if len(fin) != len(prompts) or \
+            any(len(r.out) != scfg.max_new_tokens for r in fin):
+        fail(f"dense_wave: expected {len(prompts)} requests x "
+             f"{scfg.max_new_tokens} tokens, got {[len(r.out) for r in fin]}")
+    if any(not 0 <= t < cfg.vocab for r in fin for t in r.out):
+        fail("dense_wave: token id out of vocab")
+    if launches["splitquant_matmul"] <= 0:
+        fail("dense_wave: splitquant_matmul was not launched on its path")
+    others = {n: c for n, c in launches.items() if n != "splitquant_matmul"}
+    if any(others.values()) or pa.quantize_kv.launches or \
+            pa.quantize_kv_static.launches:
+        fail(f"dense_wave: kernels off the path were launched: {others}, "
+             f"standalone quantizes {pa.quantize_kv.launches} / "
+             f"{pa.quantize_kv_static.launches}")
+    # the logits the server samples from are finite at full width
+    logits, cache = transformer.prefill(
+        params, cfg, {"tokens": torch.as_tensor(prompts[0][None],
+                                                device="cuda")},
+        max_len=scfg.max_len)
+    if logits.shape != (1, len(prompts[0]), cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()) or \
+            cache.k.dtype != torch.bfloat16:
+        fail("dense_wave: non-finite or misshapen logits, or a cache not in "
+             "bf16, at full width")
+    kv_bytes = 2 * cfg.n_layers * scfg.max_batch * scfg.max_len * \
+        cfg.n_kv_heads * cfg.head_dim * 2
+    del cache, logits
+    res = {"arch": cfg.name, "card": card_line, "requests": len(fin),
+           "new_tokens": n_tok,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "waves": len(srv.wave_prefill_s), "wall_s": wall,
+           "wave_prefill_p50_s": percentile(srv.wave_prefill_s, 50),
+           "wave_prefill_s": srv.wave_prefill_s,
+           "decode_step_p50_s": percentile(srv.decode_step_s, 50),
+           "decode_steps": len(srv.decode_step_s),
+           "tokens_per_s": n_tok / wall, "peak_mem_bytes": peak,
+           "kv_cache_bytes": kv_bytes, "launches": launches,
+           "matmul_variants": variants}
+    log(f"dense_wave: stablelm-1.6b full width through the wave Server, "
+        f"waves of {scfg.max_batch}, bf16 KV cache of {scfg.max_len} rows "
+        f"({kv_bytes / 2**30:.2f} GiB a wave); {len(fin)} requests in "
+        f"{res['waves']} waves, {res['prompt_tokens']} prompt + {n_tok} new "
+        f"tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} tok/s; wave "
+        f"prefill p50 {res['wave_prefill_p50_s'] * 1e3:.1f} ms; decode step "
+        f"p50 {res['decode_step_p50_s'] * 1e3:.2f} ms; "
+        f"{res['decode_steps']} decode steps; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}; matmul launches by "
+        f"variant {variants} [card: {card_line}]")
+    return res
+
+
+def dense_wave_cross_check(torch):
+    """stablelm-1.6b ``.reduced()`` in fp32 (INT4 SplitQuant weights)
+    through the wave ``Server`` on the card and on the CPU with the same
+    weights, over two left-padded waves of mixed lengths, one request
+    with a budget of 1: identical greedy tokens."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.launch.serve import build_params
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+    cfg = get_arch("stablelm-1.6b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")
+    rng = np.random.default_rng(5)
+    lens = (40, 7, 23, 2, 31, 16, 9, 55)
+    budgets = (None, None, 1, None, None, None, None, None)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lens]
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", tree_to(params, "cuda"))):
+        srv = Server(cfg, p, ServeConfig(max_batch=4, max_new_tokens=16,
+                                         max_len=128), device=dev)
+        outs[dev] = [r.out for r in srv.serve(
+            [Request(i, pr, b) for i, (pr, b) in
+             enumerate(zip(prompts, budgets))])]
+    same = outs["cpu"] == outs["cuda"]
+    log(f"dense_wave cross-check: stablelm-1.6b reduced fp32, two waves of "
+        f"4 left-padded to 40 and 55, 8 requests x 16 tokens (one 1): card "
+        f"tokens {'==' if same else '!='} CPU tokens")
+    if not same or [len(o) for o in outs["cpu"]] != \
+            [16, 16, 1, 16, 16, 16, 16, 16]:
+        fail(f"dense_wave cross-check: card {outs['cuda']} != cpu "
+             f"{outs['cpu']}")
+    return {"requests": len(prompts), "identical": same}
+
+
 def main() -> None:
     try:
         import torch
@@ -1432,17 +1588,21 @@ def main() -> None:
         f"{sta['kv_cache_bytes'] / 2**20:.1f} vs "
         f"{eng['kv_cache_bytes'] / 2**20:.1f} MiB")
     spec = spec_phase(torch, counters, params, scales, sta)
+    dense = dense_wave_phase(torch, counters, params, card_line)
     del params
     xc = cross_check(torch)
     sxc = spec_cross_check(torch)
+    dxc = dense_wave_cross_check(torch)
     rwkv = rwkv_phase(torch, counters)
     rxc = rwkv_cross_check(torch)
 
     serving = {"engine": eng, "static": sta, "spec": spec}
     runs = {"engine": eng["launches"], "static": sta["launches"],
-            "spec": spec["launches"], "wave": rwkv["launches"]}
+            "spec": spec["launches"], "dense_wave": dense["launches"],
+            "wave": rwkv["launches"]}
     extra = {"splitquant_matmul": {"launches_by_variant": {
         "engine": eng["matmul_variants"], "static": sta["matmul_variants"],
+        "dense_wave": dense["matmul_variants"],
         "wave": rwkv["matmul_variants"]}},
         "prefill_attention": {"launches_by_variant": {
             "engine": eng["prefill_variants"],
@@ -1469,7 +1629,8 @@ def main() -> None:
          "cuda": torch.version.cuda, "build_s": t_build,
          "timer_floor_ms": floor_ms, "engine": eng,
          "static": sta, "spec": spec, "static_calibration_s": t_cal,
-         "cross_check": xc, "spec_cross_check": sxc, "rwkv6": rwkv,
+         "cross_check": xc, "spec_cross_check": sxc, "dense_wave": dense,
+         "dense_wave_cross_check": dxc, "rwkv6": rwkv,
          "rwkv6_cross_check": rxc,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))

@@ -32,6 +32,34 @@ from ..core.splitquant import activation_chunk_bounds
 from . import build
 
 
+#: the dynamic kernel's 16-byte vectors a lane (at most; each takes 16
+#: bytes of a block's shared memory a thread) and warps a (row, chunk) (at
+#: most; a block holds eight warps)
+DYN_MAX_VECS = 8
+DYN_MAX_WARPS = 8
+
+
+def dynamic_plan(cw: int, itemsize: int) -> tuple[int, int]:
+    """(warps a (row, chunk), 16-byte vectors a lane) of the dynamic
+    kernel for chunks of ``cw`` columns of ``itemsize`` bytes: the fewest
+    warps (a power of two up to 8) whose lanes take every whole vector of
+    the chunk with at most :data:`DYN_MAX_VECS` each, then the fewest
+    vectors a lane (a power of two) that do. A chunk has at most
+    ``cw * itemsize // 16`` whole vectors, whatever its alignment; one
+    wider than 8 warps x 8 vectors a lane takes rounds (the kernel reads
+    it twice). :mod:`repro_torch.launch.act_quant_sweep` times all 16
+    plans the launcher takes."""
+    nv = cw * itemsize // 16
+    warps = 1
+    while warps < DYN_MAX_WARPS and nv > 32 * warps * DYN_MAX_VECS:
+        warps *= 2
+    need = -(-nv // (32 * warps))
+    vecs = 1
+    while vecs < min(need, DYN_MAX_VECS):
+        vecs *= 2
+    return warps, vecs
+
+
 def _check_bits(bits: int) -> None:
     if not 2 <= bits <= 8:
         raise ValueError(f"bits must be in [2, 8], got {bits}")
@@ -76,16 +104,28 @@ def act_split_quantize(x: torch.Tensor, *, bits: int = 8,
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     x = x.contiguous()
+    return launch_dynamic(x, bits, n_chunks,
+                          dynamic_plan(N // n_chunks, x.element_size()))
+
+
+def launch_dynamic(x: torch.Tensor, bits: int, n_chunks: int,
+                   plan: tuple[int, int]):
+    """The dynamic kernel's launch at ``plan`` (warps a (row, chunk),
+    16-byte vectors a lane) on a contiguous CUDA ``x`` whose arguments
+    :func:`act_split_quantize` has checked; ``launch.act_quant_sweep``
+    times every plan through it."""
+    R, N = x.shape
     q = torch.empty((R, N), dtype=torch.int8, device=x.device)
     scale = torch.empty((R, n_chunks), dtype=torch.float32, device=x.device)
     zero = torch.empty_like(scale)
     if R:
         lib = build.library()
+        warps, vecs = plan
         err = lib.act_quant_dynamic(x.data_ptr(), q.data_ptr(),
                                     scale.data_ptr(), zero.data_ptr(), R, N,
                                     n_chunks, bits,
-                                    int(x.dtype == torch.bfloat16),
-                                    build.stream_of(x))
+                                    int(x.dtype == torch.bfloat16), warps,
+                                    vecs, build.stream_of(x))
         build.check(lib, err, "act_split_quantize")
         act_split_quantize.launches += 1
     return q, scale, zero

@@ -8,15 +8,31 @@
 //
 // What bounds them: both read x once and write int8 codes (plus two fp32
 // per (row, chunk) for the dynamic form), a few operations per byte, so
-// the card's bound is the bytes. The dynamic form reads its chunk twice
-// (min/max, then codes); the second read is from L1/L2 at these widths.
+// the card's bound is the bytes.
 //
-// Dynamic: one warp per (row, chunk), eight rows per block and one chunk
-// per grid column. Lanes stride over the chunk (neighbouring lanes on
-// neighbouring columns), reduce min/max with shuffles in fp32, and every
-// lane derives the same (S, Z) with common.cuh's exact helpers. As in the
-// TPU kernel (and unlike core.quantize.qparams), a degenerate range gets
-// zero 0. Codes, scales and zeros are bit-identical to the reference.
+// Dynamic: a group of W warps (1, 2, 4 or 8, from the wrapper's
+// dynamic_plan) owns one (row, chunk); a block of eight warps takes 8 / W
+// consecutive (row, chunk) pairs, so its loads are one contiguous stretch
+// of x. The chunk is read from HBM once: a scalar head up to the first
+// 16-byte boundary of its x, whole 16-byte vectors (8 bf16 or 4 fp32),
+// then a scalar tail; lane j of the group takes vectors j, j + G, ... (G
+// lanes in the group), at most V of them, and one head or tail element.
+// What bounds it is the bytes in flight: every vector of the chunk is
+// copied by cp.async into the lane's own column of a shared-memory buffer
+// (4·V KB a block) before the min/max reduction, so they wait there and
+// not in registers (40 a thread; seven or eight blocks an SM, where
+// holding them in registers allowed three). min/max are reduced by
+// __shfl_xor_sync in the warp, then through shared memory across the
+// group's warps. Every lane derives the same (S, Z) with common.cuh's
+// exact helpers (as in the TPU kernel, and unlike core.quantize.qparams,
+// a degenerate range gets zero 0) and quantizes its vectors from the
+// buffer; codes leave as one 8-byte (bf16) or 4-byte (fp32) word a
+// vector, byte by byte only where q's row is off that alignment relative
+// to x's (a view whose data pointer is off a 16-byte boundary). A chunk
+// wider than G·V vectors (bf16 past 16,384 columns, fp32 past 8,192)
+// takes rounds of G·V vectors: min/max over all rounds, then each round
+// copied again for its codes. Codes, scales and zeros are bit-identical
+// to the reference.
 //
 // Static: a thread owns eight consecutive columns over a group of rows
 // (see act_quant_static_kernel). The per-chunk (S, Z) are gathered per
@@ -29,38 +45,145 @@
 // thread, where the first design ran a 64-bit modulo and a division per
 // element.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int DW = 8;          // warps a block of the dynamic kernel
 
-template <typename X>
-__global__ void __launch_bounds__(WARPS * 32)
+// The 16-byte vector's values as floats: 8 bf16 or 4 fp32.
+__device__ __forceinline__ void unpack_vec(const uint4& w, float (&o)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(u[i] << 16);
+    o[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack_vec(const uint4& w, float (&o)[4]) {
+  o[0] = __uint_as_float(w.x);
+  o[1] = __uint_as_float(w.y);
+  o[2] = __uint_as_float(w.z);
+  o[3] = __uint_as_float(w.w);
+}
+
+// Round r's vectors of this lane, v = gl + G·(r·V + j) for j < V and
+// v < nv, copied into its own column of buf (buf[j][threadIdx.x]) by
+// cp.async: the bytes in flight wait in shared memory, not in registers.
+template <int V>
+__device__ __forceinline__ void stage_round(const uint4* __restrict__ pv, int gl, int G,
+                                            int nv, int r, uint4 (*buf)[DW * 32]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int v = gl + G * (r * V + j);
+    if (v < nv) sm90::cp_async16(sm90::smem_addr(&buf[j][threadIdx.x]), pv + v);
+  }
+  sm90::cp_async_commit();
+}
+
+template <typename X, int V>
+__global__ void __launch_bounds__(DW * 32)
 act_quant_dynamic_kernel(const X* __restrict__ x, int8_t* __restrict__ q,
-                         float* __restrict__ scale, float* __restrict__ zero, int R,
-                         int N, int n_chunks, int bits) {
+                         float* __restrict__ scale, float* __restrict__ zero, int items,
+                         int N, int n_chunks, int bits, int W) {
+  constexpr int EPV = 16 / (int)sizeof(X);      // x values a vector
+  __shared__ uint4 buf[V][DW * 32];
+  __shared__ float red[2][DW];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * WARPS + warp, chunk = blockIdx.y;
-  if (row >= R) return;
+  const int item = blockIdx.x * (DW / W) + warp / W;   // (row, chunk)
+  const int G = W * 32, gl = (warp % W) * 32 + lane;   // lanes, lane in group
+  const bool valid = item < items;
+  const int row = valid ? item / n_chunks : 0, chunk = valid ? item % n_chunks : 0;
   const int cw = N / n_chunks;
   const size_t off = (size_t)row * N + (size_t)chunk * cw;
   const X* p = x + off;
+  // head: the columns before p's first 16-byte boundary; then nv vectors
+  const int hd = min((int)(((16u - ((uint32_t)(uintptr_t)p & 15u)) & 15u) / sizeof(X)), cw);
+  const int nv = (cw - hd) / EPV, tl = cw - hd - nv * EPV;
+  const uint4* pv = reinterpret_cast<const uint4*>(p + hd);
+  const int rounds = (nv + G * V - 1) / (G * V);
+  // the one head or tail column of this lane, if any (hd, tl < EPV <= 8)
+  const int ecol = !valid ? -1 : gl < hd ? gl : (gl >= EPV && gl < EPV + tl) ? hd + nv * EPV + gl - EPV : -1;
+
+  if (valid) stage_round<V>(pv, gl, G, nv, 0, buf);
   float beta = __int_as_float(0x7f800000), alpha = -beta;   // +inf, -inf
-  for (int i = lane; i < cw; i += 32) {
-    const float v = rt::to_f(p[i]);
-    beta = fminf(beta, v);
-    alpha = fmaxf(alpha, v);
+  float e = 0.f;
+  if (ecol >= 0) {
+    e = rt::to_f(p[ecol]);
+    beta = alpha = e;
+  }
+  // a lane reads back only the vectors it copied: its own wait suffices
+  for (int r = 0; r < rounds; ++r) {
+    if (r > 0) stage_round<V>(pv, gl, G, nv, r, buf);
+    sm90::cp_async_wait<0>();
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (gl + G * (r * V + j) < nv) {
+        float f[EPV];
+        unpack_vec(buf[j][threadIdx.x], f);
+#pragma unroll
+        for (int i = 0; i < EPV; ++i) {
+          beta = fminf(beta, f[i]);
+          alpha = fmaxf(alpha, f[i]);
+        }
+      }
+    }
   }
   beta = rt::warp_min(beta);
   alpha = rt::warp_max(alpha);
+  if (W > 1) {                                   // uniform over the block
+    if (lane == 0) {
+      red[0][warp] = beta;
+      red[1][warp] = alpha;
+    }
+    __syncthreads();
+    const int w0 = warp - warp % W;
+    for (int i = 0; i < W; ++i) {
+      beta = fminf(beta, red[0][w0 + i]);
+      alpha = fmaxf(alpha, red[1][w0 + i]);
+    }
+  }
+  if (!valid) return;
   const float s = rt::dyn_scale(beta, alpha, (float)((1 << bits) - 1));
   const float z = __fsub_rn(alpha, beta) > 0.f ? rt::dyn_zero(s, beta, bits) : 0.f;
   const float qmin = -(float)(1 << (bits - 1)), qmax = (float)((1 << (bits - 1)) - 1);
-  int8_t* out = q + off;
-  for (int i = lane; i < cw; i += 32) out[i] = rt::quant_code(s, rt::to_f(p[i]), z, qmin, qmax);
-  if (lane == 0) {
-    scale[(size_t)row * n_chunks + chunk] = s;
-    zero[(size_t)row * n_chunks + chunk] = z;
+  int8_t* out = q + off + hd;
+  // q's vectors share x's alignment unless x is a view off 16 bytes
+  const bool qvec = ((uintptr_t)out & (EPV - 1)) == 0;
+  for (int r = 0; r < rounds; ++r) {
+    if (rounds > 1) {
+      stage_round<V>(pv, gl, G, nv, r, buf);
+      sm90::cp_async_wait<0>();
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int v = gl + G * (r * V + j);
+      if (v < nv) {
+        float f[EPV];
+        unpack_vec(buf[j][threadIdx.x], f);
+        uint32_t w[EPV / 4];
+#pragma unroll
+        for (int i = 0; i < EPV / 4; ++i) w[i] = 0u;
+#pragma unroll
+        for (int i = 0; i < EPV; ++i)
+          w[i / 4] |= (uint32_t)(uint8_t)rt::quant_code(s, f[i], z, qmin, qmax) << (8 * (i % 4));
+        int8_t* dst = out + (size_t)v * EPV;
+        if (qvec) {
+          if constexpr (EPV == 8)
+            __stcs(reinterpret_cast<uint2*>(dst), make_uint2(w[0], w[1]));
+          else
+            __stcs(reinterpret_cast<unsigned int*>(dst), w[0]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < EPV; ++i) dst[i] = (int8_t)(w[i / 4] >> (8 * (i % 4)));
+        }
+      }
+    }
+  }
+  if (ecol >= 0) q[off + ecol] = rt::quant_code(s, e, z, qmin, qmax);
+  if (gl == 0) {
+    scale[item] = s;
+    zero[item] = z;
   }
 }
 
@@ -200,26 +323,53 @@ act_quant_static_kernel(const X* __restrict__ x, const float* __restrict__ scale
   }
 }
 
+// The dynamic kernel at its plan: warps (1, 2, 4, 8) a (row, chunk) and
+// vecs (1, 2, 4, 8) 16-byte vectors a lane, from the wrapper's dynamic_plan.
+template <typename X>
+void launch_dynamic(const X* x, int8_t* q, float* scale, float* zero, int items, int N,
+                    int n_chunks, int bits, int warps, int vecs, cudaStream_t st) {
+  const int grid = (items + DW / warps - 1) / (DW / warps);
+  switch (vecs) {
+    case 1:
+      act_quant_dynamic_kernel<X, 1><<<grid, DW * 32, 0, st>>>(x, q, scale, zero, items, N,
+                                                               n_chunks, bits, warps);
+      break;
+    case 2:
+      act_quant_dynamic_kernel<X, 2><<<grid, DW * 32, 0, st>>>(x, q, scale, zero, items, N,
+                                                               n_chunks, bits, warps);
+      break;
+    case 4:
+      act_quant_dynamic_kernel<X, 4><<<grid, DW * 32, 0, st>>>(x, q, scale, zero, items, N,
+                                                               n_chunks, bits, warps);
+      break;
+    default:
+      act_quant_dynamic_kernel<X, 8><<<grid, DW * 32, 0, st>>>(x, q, scale, zero, items, N,
+                                                               n_chunks, bits, warps);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// x (R, N) → q int8 (R, N), scale/zero fp32 (R, n_chunks); N % n_chunks == 0
+// x (R, N) → q int8 (R, N), scale/zero fp32 (R, n_chunks); N % n_chunks == 0.
 int act_quant_dynamic(const void* x, void* q, void* scale, void* zero, int R, int N,
-                      int n_chunks, int bits, int x_is_bf16, void* stream) {
+                      int n_chunks, int bits, int x_is_bf16, int warps, int vecs,
+                      void* stream) {
   if (R <= 0 || n_chunks <= 0 || N % n_chunks != 0 || N < n_chunks || bits < 2 ||
-      bits > 8)
+      bits > 8 || (long long)R * n_chunks > 0x7fffffffLL ||
+      (warps != 1 && warps != 2 && warps != 4 && warps != 8) ||
+      (vecs != 1 && vecs != 2 && vecs != 4 && vecs != 8) ||
+      (uintptr_t)x % (x_is_bf16 ? 2 : 4) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((R + WARPS - 1) / WARPS, n_chunks);
+  const int items = R * n_chunks;
   if (x_is_bf16)
-    act_quant_dynamic_kernel<__nv_bfloat16><<<grid, WARPS * 32, 0, st>>>(
-        (const __nv_bfloat16*)x, (int8_t*)q, (float*)scale, (float*)zero, R, N,
-        n_chunks, bits);
+    launch_dynamic((const __nv_bfloat16*)x, (int8_t*)q, (float*)scale, (float*)zero, items,
+                   N, n_chunks, bits, warps, vecs, st);
   else
-    act_quant_dynamic_kernel<float><<<grid, WARPS * 32, 0, st>>>(
-        (const float*)x, (int8_t*)q, (float*)scale, (float*)zero, R, N, n_chunks,
-        bits);
+    launch_dynamic((const float*)x, (int8_t*)q, (float*)scale, (float*)zero, items, N,
+                   n_chunks, bits, warps, vecs, st);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Quantized serving entry point of the port: seeded random weights at an
 arch's published shapes, SplitQuant-quantized and packed, served by the
-continuous-batching engine over an optionally INT8 slot cache, or, for a
-family without a slot-cache layout (RWKV6), by the wave loop.
+continuous-batching engine over an optionally INT8 slot cache, or, with
+``--wave`` or for a family without a slot-cache layout (RWKV6), by the
+wave loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --reduced --bits 4 --kv-mode int8 --requests 8 --device cpu
@@ -9,6 +10,8 @@ family without a slot-cache layout (RWKV6), by the wave loop.
         --reduced --requests 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --reduced --spec-k 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --wave --device cpu
 
 ``--spec-k`` serves with self-speculative decoding, the target drafting
 for itself (as the JAX package's ``--spec-k`` without a draft recipe).
@@ -73,6 +76,19 @@ def smoke_workload():
     return cfg, ecfg, quant, warmup, prompts
 
 
+def dense_wave_workload():
+    """The full-width dense wave-loop workload that ``chip_smoke.py``
+    drives: :func:`smoke_workload`'s stablelm-1.6b weights, warm-up prompt
+    and 16 requests (16-512 prompt tokens, 32 new tokens each), served by
+    the wave ``Server`` in waves of 8 into a KV cache of 1024 rows.
+
+    Returns (cfg, scfg, quant, warmup_prompt, prompts), where ``quant``
+    holds the keyword arguments of :func:`build_params`."""
+    cfg, _, quant, warmup, prompts = smoke_workload()
+    scfg = ServeConfig(max_batch=8, max_new_tokens=32, max_len=1024)
+    return cfg, scfg, quant, warmup, prompts
+
+
 def rwkv_smoke_workload():
     """The full-width wave-loop workload that ``chip_smoke.py`` drives:
     rwkv6-3b, SplitQuant INT4 k=3 weights (seed 0), waves of up to 8,
@@ -102,6 +118,9 @@ def main(argv=None):
                     choices=["splitquant", "baseline", "none"])
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--wave", action="store_true",
+                    help="serve a dense model with the wave loop, not the "
+                         "engine")
     ap.add_argument("--slots", type=int, default=4,
                     help="engine slots, or the wave size of the wave loop")
     ap.add_argument("--kv-mode", default="int8", choices=["fp", "int8"])
@@ -131,7 +150,7 @@ def main(argv=None):
               f"{report['deployed_bytes'] / 2**20:.1f} MiB")
     # the JAX package's launch/serve.py draws the same prompts
     prompts = seeded_prompts(cfg.vocab, args.requests, 4, 11)
-    if cfg.family in ENGINE_FAMILIES:
+    if cfg.family in ENGINE_FAMILIES and not args.wave:
         eng = Engine(cfg, params, EngineConfig(
             n_slots=args.slots, max_len=256,
             max_new_tokens=args.max_new_tokens, kv_mode=args.kv_mode,
@@ -147,8 +166,9 @@ def main(argv=None):
             how += (f", {eng.n_spec_steps} speculative steps, acceptance "
                     f"{eng.sched.acceptance_rate()}")
     else:
-        print(f"note: {cfg.family!r} family has no slot-cache layout yet; "
-              f"serving with the wave loop")
+        if cfg.family not in ENGINE_FAMILIES:
+            print(f"note: {cfg.family!r} family has no slot-cache layout "
+                  f"yet; serving with the wave loop")
         srv = Server(cfg, params, ServeConfig(
             max_batch=args.slots, max_new_tokens=args.max_new_tokens),
             device=device)

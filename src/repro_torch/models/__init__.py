@@ -1,5 +1,5 @@
-"""Models of the port: the dense decoder over the engine's slot cache
-(:mod:`.transformer`) and RWKV6 (:mod:`.rwkv6`).
+"""Models of the port: the dense decoder over a plain KV cache or the
+engine's slot cache (:mod:`.transformer`) and RWKV6 (:mod:`.rwkv6`).
 :func:`get_model` maps a config's family to its module."""
 from __future__ import annotations
 

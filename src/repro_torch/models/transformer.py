@@ -1,17 +1,24 @@
-"""Dense decoder-only LM over the engine's slot cache (port of the slot
-entry points of ``repro.models.transformer``).
+"""Dense decoder-only LM (port of ``repro.models.transformer`` for the
+dense family): the forward over no cache, a plain ``KVCache`` (the wave
+loop's prefill and decode step) or the engine's slot cache (its decode
+step, chunked prefill and speculative verify).
 
 Parameters are plain nested dicts with the JAX package's names; the layer
 stack is a Python list of per-layer dicts (the JAX ``(L, …)`` stack and
-its ``lax.scan`` become a loop). The initializer is the port's own,
-seeded by a ``torch.Generator``, at the same shapes.
+its ``lax.scan`` become a loop shared by every entry point). The
+initializer is the port's own, seeded by a ``torch.Generator``, at the
+same shapes. The JAX forward's third output, the MoE auxiliary loss, is
+left out: the MoE family is not ported.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
-from .attention import attention_block
+from .attention import KVCache, attention_block
 from .common import (apply_norm, dense, dtype_of, embed_init, embed_lookup,
                      he_init, init_norm)
 from .ffn import apply_ffn, init_ffn
@@ -52,23 +59,139 @@ def init(cfg, seed: int = 0, device=None):
     return params
 
 
+def _layers(params, cfg, x, positions, cache=None, **attn_kw):
+    """The layer stack: norm, attention, residual, norm, FFN, residual.
+    Returns (x, the layers' (k, v) with ``want_kv``, else Nones)."""
+    kvs = []
+    for layer, lp in enumerate(params["layers"]):
+        h = apply_norm(x, lp["ln1"], cfg.norm_type)
+        a, kv = attention_block(lp["attn"], h, cfg, positions, cache, layer,
+                                window=cfg.window, **attn_kw)
+        x = x + a
+        h = apply_norm(x, lp["ln2"], cfg.norm_type)
+        x = x + apply_ffn(lp["ffn"], h, cfg.ffn_type)
+        kvs.append(kv)
+    return x, kvs
+
+
+def _head(params, cfg, x):
+    """Final norm and the LM head; fp32 logits."""
+    x = apply_norm(x, params["final_norm"], cfg.norm_type)
+    return dense(x, params["lm_head"]).float()
+
+
+def embed_inputs(params, cfg, batch):
+    """tokens → (B, S, d), positions (S,). Text only: the VLM's patch
+    prefix is not ported."""
+    if "patch_embeds" in batch:
+        raise NotImplementedError("the VLM patch prefix is not ported")
+    tokens = batch["tokens"]
+    x = embed_lookup(params["embed"], tokens)
+    return x, torch.arange(tokens.shape[1], dtype=torch.int32,
+                           device=tokens.device)
+
+
+def forward(params, cfg, batch, cache: Optional[KVCache] = None,
+            positions=None, *, want_cache=False,
+            cache_len: Optional[int] = None, pad_mask=None):
+    """Returns (logits (B, S, V) fp32, new_cache). ``cache`` ⇒ a decode
+    step at ``positions`` (1,), the cache updated in place and returned;
+    ``want_cache`` ⇒ prefill, assembling a fresh cache of ``cache_len``
+    rows from the computed K/V. ``pad_mask`` (B, S) marks True = padding
+    tokens whose K/V are never attended to (left- or right-padded
+    batched prefill)."""
+    if positions is None and cache is None:
+        x, positions = embed_inputs(params, cfg, batch)
+    else:
+        x = embed_lookup(params["embed"], batch["tokens"])
+    kv_pos_override = None
+    if pad_mask is not None and cache is None:
+        kv_pos_override = torch.where(pad_mask, -1,
+                                      positions[None, :].to(torch.int32))
+    x, kvs = _layers(params, cfg, x, positions, cache,
+                     want_kv=want_cache and cache is None,
+                     kv_pos_override=kv_pos_override)
+    logits = _head(params, cfg, x)
+    if cache is None and want_cache:
+        cache = assemble_cache(cfg, kvs, positions, max_len=cache_len,
+                               pad_mask=pad_mask)
+    return logits, cache
+
+
+def assemble_cache(cfg, kvs, positions, max_len: Optional[int] = None,
+                   pad_mask=None):
+    """Build a decode cache from prefill K/V (``kvs``: one (k, v) of
+    (B, S, Hkv, D) a layer): every position, padded with empty rows to
+    ``max_len``. With ``pad_mask`` (B, S), slot_pos becomes per-request
+    (L, B, T) and padded entries are marked -1 (never attended). The
+    windowed ring layout (griffin's local attention) is not ported."""
+    k = torch.stack([kv[0] for kv in kvs])              # (L, B, S, Hkv, D)
+    v = torch.stack([kv[1] for kv in kvs])
+    L, B, S = k.shape[:3]
+    if cfg.window is not None and S > cfg.window:
+        raise NotImplementedError(
+            "the windowed ring cache (griffin, recurrentgemma-9b) is not "
+            "ported")
+    T = max_len or S
+    if T < S:
+        raise ValueError(f"max_len {T} is shorter than the prompt, {S}")
+    pad = T - S
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    sp = torch.cat([positions.to(torch.int32),
+                    torch.full((pad,), -1, dtype=torch.int32,
+                               device=positions.device)])
+    if pad_mask is not None:
+        padb = F.pad(pad_mask, (0, pad), value=True)
+        sp = torch.where(padb, -1, sp[None, :])                  # (B, T)
+        return KVCache(k, v, sp.expand(L, B, T).contiguous())
+    return KVCache(k, v, sp.expand(L, T).contiguous())
+
+
+def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> KVCache:
+    """An empty cache of ``max_len`` rows (``window`` rows for windowed
+    attention) on ``device`` (the card unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    T = min(cfg.window, max_len) if cfg.window else max_len
+    shape = (cfg.n_layers, batch_size, T, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   slot_pos=torch.full((cfg.n_layers, T), -1,
+                                       dtype=torch.int32, device=device))
+
+
+def decode_step(params, cfg, cache: KVCache, tokens, pos):
+    """One decode step of the whole batch at position ``pos`` (an int,
+    shared by the batch). tokens: (B, 1) int. The cache is updated in
+    place. Returns (logits (B, 1, V) fp32, cache)."""
+    positions = torch.full((1,), int(pos), dtype=torch.int32,
+                           device=tokens.device)
+    return forward(params, cfg, {"tokens": tokens}, cache=cache,
+                   positions=positions)
+
+
+def prefill(params, cfg, batch, max_len: Optional[int] = None, *,
+            pad_mask=None):
+    """Prefill = one forward assembling a cache of ``max_len`` rows.
+    Returns (logits (B, S, V) fp32, cache)."""
+    return forward(params, cfg, batch, want_cache=True, cache_len=max_len,
+                   pad_mask=pad_mask)
+
+
 def _forward_slots(params, cfg, cache, tokens, positions, slot_chunk=None,
                    verify: bool = False):
     x = embed_lookup(params["embed"], tokens)
-    for layer, lp in enumerate(params["layers"]):
-        h = apply_norm(x, lp["ln1"], cfg.norm_type)
-        x = x + attention_block(lp["attn"], h, cfg, positions, cache, layer,
-                                slot_chunk=slot_chunk, spec_verify=verify)
-        h = apply_norm(x, lp["ln2"], cfg.norm_type)
-        x = x + apply_ffn(lp["ffn"], h, cfg.ffn_type)
+    x, _ = _layers(params, cfg, x, positions, cache, slot_chunk=slot_chunk,
+                   spec_verify=verify)
     if slot_chunk is not None and not verify:
         # only the chunk's last valid token feeds the head (the engine
         # samples the first generated token from it): (1, 1, V), not
         # (1, Sc, V)
         length = slot_chunk[2]
         x = x[:, length - 1:length]
-    x = apply_norm(x, params["final_norm"], cfg.norm_type)
-    return dense(x, params["lm_head"]).float()
+    return _head(params, cfg, x)
 
 
 def decode_step_slots(params, cfg, cache, tokens, pos):

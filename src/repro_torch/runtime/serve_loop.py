@@ -2,19 +2,20 @@
 ``repro.runtime.serve_loop``).
 
 Requests are grouped into prefill waves of up to ``max_batch``; each
-wave is left-padded to its longest prompt, prefilled in one forward, then
-decodes together until every member finishes: a finished (or short)
-request's row stays in the batch until the wave's longest generation
-completes. Greedy sampling runs on the device, with one (B,) copy of the
-tokens to the host per step for the eos/limit bookkeeping.
+wave is left-padded with token 0 to its longest prompt, prefilled in one
+forward, then decodes together until every member finishes: a finished
+(or short) request's row stays in the batch until the wave's longest
+generation completes. Greedy sampling runs on the device, with one (B,)
+copy of the tokens to the host per step for the eos/limit bookkeeping.
 
-The port serves the family without a slot-cache layout this way: RWKV6.
-As in the JAX package, its waves are left-padded with token 0 and the
-pads are folded into the recurrent state (``rwkv6.prefill`` takes no pad
-mask). Dense models go through :class:`repro_torch.engine.Engine`: their
-wave path (``transformer.prefill``/``decode_step`` over a KV cache) is not
-ported, nor is temperature sampling (torch's generator cannot reproduce
-``jax.random.categorical``); both raise.
+Dense models prefill into a ``KVCache`` of ``max_len`` rows with a pad
+mask, so the pads' K/V are never attended to (their entries hold
+position -1), and decode at the wave's shared position, as the JAX
+``Server`` does; the engine (:class:`repro_torch.engine.Engine`) is their
+default path, this loop the baseline. RWKV6 folds the pads into its
+recurrent state (``rwkv6.prefill`` takes no pad mask), as in the JAX
+package. Temperature sampling is not ported (torch's generator cannot
+reproduce ``jax.random.categorical``) and raises.
 """
 from __future__ import annotations
 
@@ -28,11 +29,17 @@ import torch
 from ..device import resolve_device
 from ..models import get_model
 
+#: families whose prefill takes ``max_len`` and a pad mask (per-request KV
+#: validity) and whose decode step takes the wave's position (the JAX
+#: package's list also holds moe and vlm, which are not ported)
+PAD_MASK_FAMILIES = ("dense",)
+
 
 @dataclasses.dataclass
 class ServeConfig:
     max_batch: int = 8
     max_new_tokens: int = 32
+    max_len: int = 256              # KV cache rows of a dense wave
     temperature: float = 0.0        # 0 ⇒ greedy
     eos_id: int = -1                # -1 ⇒ never stop early
 
@@ -53,11 +60,6 @@ class Server:
     ending in the tokens' copy to the host (which waits for the card)."""
 
     def __init__(self, cfg, params, serve_cfg: ServeConfig, device=None):
-        if cfg.family == "dense":
-            raise NotImplementedError(
-                "the dense wave loop (transformer.prefill/decode_step over "
-                "a KV cache) is not ported; serve dense models with "
-                "repro_torch.engine.Engine")
         if serve_cfg.temperature > 0:
             raise NotImplementedError(
                 "temperature sampling is not ported (greedy only): torch's "
@@ -77,22 +79,32 @@ class Server:
 
     def prefill_wave(self, prompts):
         """Left-pad ``prompts`` with token 0 to the longest, prefill them
-        in one forward and pick each row's first token → (state, tokens
-        on the device, tokens as host ints)."""
+        in one forward (dense: into a cache of ``max_len`` rows, the pads
+        masked) and pick each row's first token → (state, tokens on the
+        device, tokens as host ints). The wave decodes from position
+        ``max(len(p) for p in prompts)``."""
         S = max(len(p) for p in prompts)
         toks = np.zeros((len(prompts), S), np.int64)
+        pad = np.ones((len(prompts), S), bool)
         for j, p in enumerate(prompts):
             toks[j, S - len(p):] = p                       # left-pad
+            pad[j, S - len(p):] = False
+        kw = {}
+        if self.cfg.family in PAD_MASK_FAMILIES:
+            kw = dict(max_len=self.scfg.max_len,
+                      pad_mask=torch.from_numpy(pad).to(self.device))
         logits, cache = self.model.prefill(
             self.params, self.cfg,
-            {"tokens": torch.from_numpy(toks).to(self.device)})
+            {"tokens": torch.from_numpy(toks).to(self.device)}, **kw)
         return (cache, *self._greedy(logits))
 
-    def decode_wave(self, cache, tok_d):
+    def decode_wave(self, cache, tok_d, pos=None):
         """One greedy step of the whole wave from its last tokens
-        ``tok_d`` (B,) → (state, tokens on the device, host ints)."""
+        ``tok_d`` (B,) at position ``pos`` (dense only) → (state, tokens
+        on the device, host ints)."""
+        args = (pos,) if self.cfg.family in PAD_MASK_FAMILIES else ()
         logits, cache = self.model.decode_step(self.params, self.cfg, cache,
-                                               tok_d[:, None])
+                                               tok_d[:, None], *args)
         return (cache, *self._greedy(logits))
 
     def serve(self, requests: list[Request]) -> list[Request]:
@@ -114,9 +126,11 @@ class Server:
                 r.out.append(t)
                 if len(r.out) >= limits[j]:
                     r.done = True
+            pos = max(len(r.prompt) for r in wave)
             for _ in range(max(limits + [1]) - 1):
                 t0 = time.perf_counter()
-                cache, tok_d, tok = self.decode_wave(cache, tok_d)
+                cache, tok_d, tok = self.decode_wave(cache, tok_d, pos)
+                pos += 1
                 self.decode_step_s.append(time.perf_counter() - t0)
                 alive = False
                 for j, r in enumerate(wave):

@@ -585,6 +585,40 @@ def test_act_quant_dynamic_kernel_exact(dev, bits, R, N, n_chunks, dtype):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("bits", range(2, 9))
+@pytest.mark.parametrize("R,N,n_chunks,offset", [
+    (7, 2562, 3, 0), (7, 2562, 3, 1), (33, 8960, 4, 3), (5, 96, 3, 1),
+    (3, 40000, 2, 1), (9, 16392, 1, 0), (1, 5, 5, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quant_dynamic_kernel_odd_shapes_exact(dev, bits, R, N, n_chunks,
+                                                  offset, dtype):
+    """Rows that fill no whole block, chunks whose width is no multiple
+    of a 16-byte vector (2562 in 3 chunks: each chunk starts elsewhere
+    against a 16-byte boundary), views ``offset`` elements into their
+    storage, chunks wider than eight warps hold (rounds: 40000 in 2, and
+    16392 in fp32) and chunks narrower than a vector; with a constant
+    chunk and an all-zero chunk in the last row."""
+    gen = torch.Generator(device=dev).manual_seed(R * N + bits + offset)
+    x = torch.randn((R, N), generator=gen, device=dev) * 2
+    x[0, 0] = 50.0
+    cw = N // n_chunks
+    x[-1, :cw] = -2.25                            # a constant chunk
+    if n_chunks > 1:
+        x[-1, -cw:] = 0.0                         # an all-zero chunk
+    big = torch.zeros(R * N + offset, dtype=dtype, device=dev)
+    big[offset:] = x.reshape(-1).to(dtype)
+    x = big[offset:].view(R, N)
+    assert x.is_contiguous() and (offset == 0) == (x.data_ptr() % 16 == 0)
+    before = aq.act_split_quantize.launches
+    got = aq.act_split_quantize(x, bits=bits, n_chunks=n_chunks)
+    torch.cuda.synchronize()
+    assert aq.act_split_quantize.launches == before + 1
+    want = aq.act_split_quantize_ref(x, bits=bits, n_chunks=n_chunks)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert float(got[2][-1, 0]) == 0.0            # the constant chunk's zero
+
+
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("R,N,n_chunks,offset", [
     (5, 97, 3, 0), (256, 128, 4, 0), (2048, 2560, 3, 0), (2048, 8960, 3, 0),
@@ -648,6 +682,43 @@ def test_wave_server_card_matches_cpu(dev):
         if d == "cuda":
             assert wk.wkv_chunked.launches - before == cfg.n_layers
     assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "chatglm3-6b"])
+def test_dense_wave_server_card_matches_cpu(dev, arch):
+    """Reduced dense models in fp32 with INT4 SplitQuant weights: the
+    wave server on the card gives the CPU server's greedy tokens over
+    two left-padded waves of mixed lengths (one request with a budget of
+    1), through the matmul kernel and no attention kernel or K/V
+    write."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.launch.serve import build_params
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+    cfg = get_arch(arch).reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", device="cpu")
+    rng = np.random.default_rng(4)
+    lens = [30, 3, 17, 9, 1, 24, 12, 5]
+    budgets = [None, 1, None, None, None, None, 1, None]
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lens]
+    outs = {}
+    for d, p in (("cpu", params), ("cuda", tree_to(params, dev))):
+        srv = Server(cfg, p, ServeConfig(max_batch=4, max_new_tokens=8,
+                                         max_len=48), device=d)
+        before = (sqm.splitquant_matmul.launches,
+                  da.decode_attention.launches, pa.prefill_attention.launches,
+                  sum(pa.write_kv_rows.mode_launches.values()))
+        fin = srv.serve([Request(i, pr, b) for i, (pr, b) in
+                         enumerate(zip(prompts, budgets))])
+        outs[d] = [r.out for r in fin]
+        if d == "cuda":
+            after = (sqm.splitquant_matmul.launches,
+                     da.decode_attention.launches,
+                     pa.prefill_attention.launches,
+                     sum(pa.write_kv_rows.mode_launches.values()))
+            assert after[0] > before[0] and after[1:] == before[1:]
+    assert outs["cuda"] == outs["cpu"]
+    assert [len(o) for o in outs["cpu"]] == [8, 1, 8, 8, 8, 8, 1, 8]
 
 
 # ------------------------------------- static and verify attention modes ---

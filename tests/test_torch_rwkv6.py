@@ -231,10 +231,19 @@ def test_get_model_and_unported_paths_raise(pair):
     jcfg, cfg, qtree, port, _ = pair
     dense = t_arch("stablelm-1.6b").reduced()
     assert get_model(dense) is transformer and get_model(cfg) is tr
+    # the dense family is served by the wave loop too
+    srv = tsl.Server(dense, transformer.init(dense, seed=0, device="cpu"),
+                     tsl.ServeConfig(max_batch=2, max_new_tokens=2),
+                     device="cpu")
+    reqs = srv.serve([tsl.Request(i, np.arange(1, n)) for i, n in
+                      enumerate((3, 6, 2))])
+    assert [len(r.out) for r in reqs] == [2, 2, 2]
+    assert len(srv.wave_prefill_s) == 2
     toks = {"tokens": torch.zeros((1, 16), dtype=torch.long)}
     calls = [
         lambda: get_model(dataclasses.replace(cfg, family="moe")),
-        lambda: tsl.Server(dense, {}, tsl.ServeConfig(), device="cpu"),
+        lambda: tsl.Server(dense, {}, tsl.ServeConfig(temperature=0.7),
+                           device="cpu"),
         lambda: tsl.Server(cfg, port, tsl.ServeConfig(temperature=0.7),
                            device="cpu"),
         lambda: tr.prefill(port, cfg, toks, pad_mask=torch.ones(1, 16)),

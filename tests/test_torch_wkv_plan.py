@@ -19,7 +19,14 @@ kernel and static act-quant kernel, on the CPU (no card, no CUDA):
   N // n_chunks and N % n_chunks, a vector straddling a boundary taking
   each column's own chunk) equals the JAX package's ``chunk_id_map`` for
   every width 1..300, every chunk count up to 8 and every start offset
-  0..7 elements, in bf16 and fp32.
+  0..7 elements, in bf16 and fp32;
+- the dynamic act-quant kernel's assignment of each (row, chunk)'s
+  columns to the lanes of its warps (a scalar head to the chunk's first
+  16-byte boundary, 16-byte vectors in rounds of ``dynamic_plan``'s
+  lanes x vectors, a scalar tail) takes every column of every chunk
+  exactly once, with aligned vector loads and one round unless the chunk
+  outgrows eight warps, for every width 1..300 and chunk count up to 8,
+  the serving widths and wider, at start offsets 0..7 elements.
 """
 import math
 
@@ -32,6 +39,7 @@ import torch
 from repro.kernels.act_quant import chunk_id_map as j_chunk_id_map
 from repro.kernels.wkv_chunked import wkv_chunked_jnp
 
+from repro_torch.kernels.act_quant import DYN_MAX_WARPS, dynamic_plan
 from repro_torch.kernels.wkv_chunked import (BLOCKS_PER_SLAB, CHUNK,
                                              MAX_SLAB, THREADS, wkv_plan)
 
@@ -276,3 +284,70 @@ def test_static_act_quant_columns_match_jax_chunk_ids(widths, itemsize):
                 assert (ids >= 0).all(), (N, n_chunks, offset)
                 assert np.array_equal(ids, want), (N, n_chunks, offset)
                 assert aligned, (N, n_chunks, offset)
+
+
+# -------------------------------------------- dynamic act-quant columns ---
+def _dynamic_columns(R, N, n_chunks, offset, itemsize):
+    """Times each column of x (R, N) is taken by the dynamic act-quant
+    kernel, as the kernel assigns them, for x starting ``offset``
+    elements after a 256-byte boundary (q starts on one); checks each
+    vector load's 16-byte alignment and returns (counts, rounds of the
+    widest chunk, whether every code vector's store is aligned, warps a
+    chunk)."""
+    epv = 16 // itemsize
+    cw = N // n_chunks
+    warps, vecs = dynamic_plan(cw, itemsize)
+    G = 32 * warps
+    counts = np.zeros(R * N, np.int64)
+    max_rounds, qvec_all = 0, True
+    for row in range(R):
+        for chunk in range(n_chunks):
+            off = row * N + chunk * cw
+            addr = (offset + off) * itemsize
+            hd = min((16 - addr % 16) % 16 // itemsize, cw)
+            nv = (cw - hd) // epv
+            tl = cw - hd - nv * epv
+            rounds = -(-nv // (G * vecs))
+            max_rounds = max(max_rounds, rounds)
+            gl = np.arange(G)
+            ecol = np.where(gl < hd, gl,
+                            np.where((gl >= epv) & (gl < epv + tl),
+                                     hd + nv * epv + gl - epv, -1))
+            np.add.at(counts, off + ecol[ecol >= 0], 1)
+            k = np.arange(rounds * vecs)
+            v = (gl[None, :] + G * k[:, None]).ravel()
+            v = v[v < nv]
+            assert ((addr + (hd + v * epv) * itemsize) % 16 == 0).all()
+            cols = off + hd + v[:, None] * epv + np.arange(epv)[None, :]
+            np.add.at(counts, cols.ravel(), 1)
+            qvec_all &= nv == 0 or (off + hd) % epv == 0
+    return counts, max_rounds, qvec_all, warps
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("widths", [range(1, 151), range(151, 301)])
+def test_dynamic_act_quant_columns_cover_each_chunk_once(widths, itemsize):
+    for N in widths:
+        for n_chunks in (c for c in range(1, 9) if N % c == 0):
+            for offset in (0, 1, 3, 7):
+                counts, rounds, qvec, _ = _dynamic_columns(
+                    2, N, n_chunks, offset, itemsize)
+                assert (counts == 1).all(), (N, n_chunks, offset)
+                assert rounds <= 1
+                # q's code vectors are aligned whenever x starts aligned
+                assert qvec or offset % (16 // itemsize), (N, n_chunks)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("N,n_chunks,offset", [
+    (2560, 4, 0), (8960, 4, 0), (2562, 3, 0), (2562, 3, 1), (8960, 4, 3),
+    (16384, 1, 0), (16392, 1, 5), (40000, 2, 1)])
+def test_dynamic_act_quant_columns_at_serving_widths(N, n_chunks, offset,
+                                                     itemsize):
+    counts, rounds, _, warps = _dynamic_columns(3, N, n_chunks, offset,
+                                                itemsize)
+    assert (counts == 1).all()
+    # one round (one read of x) unless the chunk outgrows eight warps of
+    # eight vectors a lane
+    assert rounds == 1 or warps == DYN_MAX_WARPS
+    assert (rounds > 1) == (N == 40000 or (N >= 16384 and itemsize == 4))

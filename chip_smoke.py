@@ -21,7 +21,8 @@ Phases (any failure exits non-zero):
    the build's ``-Xptxas -v`` lines of the tensor-core matmul kernel and
    of the two attention kernels (registers, spills, shared memory) are
    printed first. The decode cases (stablelm-1.6b and chatglm3-6b at 8
-   slots of 1024 rows, stablelm-1.6b at 4096) and the prefill cases
+   slots of 1024 rows, stablelm-1.6b at 4096, and the first two over a
+   bf16 cache) and the prefill cases
    print their share of the bound, their speed against SDPA and the
    wrapper's host time per call. Decode attention does its work as
    fp32 FMAs on the CUDA cores (prefill, for bf16 q, on the tensor
@@ -30,11 +31,12 @@ Phases (any failure exits non-zero):
    The static and verify modes of the two attention kernels (decode at
    the same three shapes with static scales; a 96-token prefill chunk
    with static scales and a 4-row verify window over int8 dynamic, int8
-   static and fp32 caches at position 384) are held to their plain
+   static and fp32 caches at position 384; a 96-token chunk and the
+   4-row verify window over a bf16 cache) are held to their plain
    versions the same way, and so is the K/V cache write ``write_kv_rows``
    (one launch a layer write: K and V quantized together, codes, scales
    and kv_pos stored in the slot rows) in its dynamic, static and fp
-   modes at stablelm-1.6b's and chatglm3-6b's 96-row chunk (padded tail),
+   modes (fp into fp32 and into bf16 rows) at stablelm-1.6b's and chatglm3-6b's 96-row chunk (padded tail),
    8-slot decode write and 4-row verify window sticking out past T: every
    byte of the destination equal, with the wrapper's host time a call;
    then the standalone ``quantize_kv`` and ``quantize_kv_static`` (the
@@ -84,14 +86,35 @@ Phases (any failure exits non-zero):
    ``splitquant_matmul`` launched and only its bf16 tensor-core variant,
    and no attention kernel, K/V write or quantizer launched; it prints
    the wave-prefill p50, decode-step p50, tokens/s and peak memory beside
-   the card's name and power limit;
+   the card's name and power limit; then engine_bf16: the same weights
+   and 16 requests through the engine over an fp slot cache in bf16 (the
+   JAX engine's ``kv_dtype="bfloat16"``, 1.6 GB): every request its 32
+   tokens, every decode-attention, prefill-attention and K/V-write launch
+   over the bf16 cache in mode fp (``dtype_launches``), one write a layer
+   and forward pass, every matmul ``bf16_wgmma``; then oneshot: 8 of the
+   requests with one-shot prefill (``prefill_chunk=0``) over the int8
+   dynamic cache: every budget served, one prefill and one fp
+   materialization a request, no prefill-attention launch, one K/V write
+   a layer per admission and per decode step; then sampling: the port's
+   sampler on a seeded full-vocab logits row at T = 0.7, 1e5 draws held
+   to softmax(logits / T) by a chi-square bound (64 hot tokens and the
+   rest, the 1 - 1e-6 quantile of 64 degrees of freedom, 132.79), and the
+   bf16-cache engine at T = 0.7 over 8 requests (every budget, every
+   token in the vocab); each of these resets the counts just before its
+   run, reads them just after and prints its numbers beside the card's
+   name and power limit; then percentile_quant: ``quantize_tree``
+   with the percentile-clipped baseline (99%, INT4) of the full-width
+   stablelm-1.6b tree on the card, timed, and one 2048 x 5632 leaf
+   quantized on the card and on the CPU: codes and scales identical;
 4. cross-checks: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
    tokens; the speculative engine (INT2 draft, spec_k 3) over int8
    dynamic and static caches: card spec tokens == card greedy tokens ==
-   CPU spec tokens; and the dense wave ``Server`` over two left-padded
+   CPU spec tokens; the dense wave ``Server`` over two left-padded
    waves of mixed lengths, one request with a budget of 1: identical
-   greedy tokens;
+   greedy tokens; and the engine over a bf16 fp cache, with one-shot
+   prefill over an int8 cache, and through the materialize read path
+   (``fused_attn=False``): identical greedy tokens each;
 5. rwkv6: rwkv6-3b at its published widths (seeded random bf16 weights,
    SplitQuant INT4 k=3 of 257 matrices, quantized on the card) served by
    the wave loop: waves of 8, 16 seeded requests of 64-256 prompt tokens
@@ -106,11 +129,12 @@ Phases (any failure exits non-zero):
 
 The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
-(``launches_by_path`` splits them: engine, static, spec, dense_wave and
-wave, ``launches_by_variant`` splits those
-of the matmul and of the two attention kernels by variant and
+(``launches_by_path`` splits them: engine, static, spec, dense_wave,
+wave, engine_bf16, oneshot and sampling, ``launches_by_variant`` splits
+those of the matmul and of the two attention kernels by variant,
 ``launches_by_mode`` those of the attention kernels and of the K/V write
-by mode; the write, the counterpart of both branches of the TPU prefill
+by mode and ``launches_by_cache_dtype`` theirs by the cache's dtype in
+the runs of this slice; the write, the counterpart of both branches of the TPU prefill
 kernel's epilogue, is two entries: ``kv_write`` (its dynamic and fp
 modes) and ``kv_write_static``; the act-quant kernels, on no serving
 path, report their kernel-phase launches); the last is ``{"ok": true,
@@ -156,19 +180,28 @@ SOURCES = {
 }
 #: the serving runs each kernel is on: "engine" (dynamic int8 scales),
 #: "static" (static scales), "spec" (speculative, static target, dynamic
-#: draft), "dense_wave" (stablelm-1.6b through the wave loop) and "wave"
-#: (rwkv6). ``kv_write`` is ``write_kv_rows`` in its dynamic and fp
-#: modes, ``kv_write_static`` in its static mode.
+#: draft), "dense_wave" (stablelm-1.6b through the wave loop), "wave"
+#: (rwkv6), "engine_bf16" (an fp cache in bf16), "oneshot" (one-shot
+#: prefill over the int8 dynamic cache: no prefill attention) and
+#: "sampling" (the bf16-cache engine at temperature 0.7). ``kv_write`` is
+#: ``write_kv_rows`` in its dynamic and fp modes, ``kv_write_static`` in
+#: its static mode.
 PATHS = {
-    "splitquant_matmul": ("engine", "static", "spec", "dense_wave", "wave"),
+    "splitquant_matmul": ("engine", "static", "spec", "dense_wave", "wave",
+                          "engine_bf16", "oneshot", "sampling"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
-    "prefill_attention": ("engine", "static", "spec"),
-    "kv_write": ("engine", "spec"),
+    "prefill_attention": ("engine", "static", "spec", "engine_bf16",
+                          "sampling"),
+    "kv_write": ("engine", "spec", "engine_bf16", "oneshot", "sampling"),
     "wkv_chunked": ("wave",),
-    "decode_attention": ("engine", "static", "spec"),
+    "decode_attention": ("engine", "static", "spec", "engine_bf16",
+                         "oneshot", "sampling"),
     "kv_write_static": ("static", "spec"),
 }
+#: the 1 - 1e-6 quantile of chi-square with 64 degrees of freedom (the
+#: sampling phase's 64 hot tokens and the rest)
+CHI2_64 = 132.79
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -457,6 +490,48 @@ def decode_cases(torch, timer, rep):
             q, qk, qv, kv_pos, q_pos, *sc)))
 
 
+def decode_bf16_cases(torch, timer, rep):
+    """Decode attention over a bf16 cache (the engine's
+    ``kv_dtype="bfloat16"``), bf16 q, at stablelm-1.6b's and chatglm3-6b's
+    T = 1024 serving shapes, beside SDPA on the same bf16 K/V; the bound
+    counts the live rows' 2 x D bf16 values."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    N = 8
+    for arch, Hq, Hkv, D, T in (("stablelm-1.6b", 32, 32, 64, 1024),
+                                ("chatglm3-6b", 32, 2, 128, 1024)):
+        q, _, _, kv_pos, q_pos, _ = _decode_inputs(torch, gen, N, T, Hq, Hkv,
+                                                   D, 4)
+        k, v = (torch.randn((N, T, Hkv, D), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        got = decode_attention(q, k, v, kv_pos, q_pos)
+        want = decode_attention_ref(q, k, v, kv_pos, q_pos)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()) or \
+                not bool((got[2] == 0).all()):
+            fail(f"decode {arch} bf16 cache: non-finite output or non-zero "
+                 f"empty slot")
+        tol = 2 ** -7 * max(1.0, float(want.float().abs().max()))
+        valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+        G = Hq // Hkv
+        ks_ = k.transpose(1, 2).repeat_interleave(G, 1)
+        vs_ = v.transpose(1, 2).repeat_interleave(G, 1)
+        mask = valid[:, None, None, :]
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], ks_, vs_, attn_mask=mask))
+        E = int(valid.sum())
+        nbytes = E * Hkv * 2 * D * 2 + N * T * 4 + N * 4 + 2 * N * Hq * D * 2
+        rep.add(f"{arch} N={N} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 cache",
+                max_err(got, want), tol,
+                timer(lambda: decode_attention(q, k, v, kv_pos, q_pos)),
+                timer(lambda: decode_attention_ref(q, k, v, kv_pos, q_pos)),
+                lib, nbytes, 4 * E * Hq * D)
+        log_against_sdpa(rep, host_us(torch, lambda: decode_attention(
+            q, k, v, kv_pos, q_pos)))
+
+
 def prefill_cases(torch, timer, rep):
     from repro_torch.kernels.decode_attention import dequant_chunk
     from repro_torch.kernels.prefill_attention import (prefill_attention,
@@ -533,8 +608,10 @@ def prefill_mode_cases(torch, timer, rep):
     shapes: a 96-token chunk with static scales, and a 4-row verify
     window (spec_k = 3) over int8 dynamic, int8 static and fp32 caches,
     each at position 384 of a 1024-row slot, for stablelm-1.6b and
-    chatglm3-6b; the times are the wrapper's (with its quantize launches).
-    The codes the wrapper returns must equal the plain quantizers'."""
+    chatglm3-6b; then a bf16 cache (the engine's ``kv_dtype="bfloat16"``)
+    under the 96-token chunk and the 4-row verify window; the times are
+    the wrapper's (with its quantize launches). The codes the wrapper
+    returns must equal the plain quantizers'."""
     from repro_torch.kernels.decode_attention import dequant_chunk
     from repro_torch.kernels.prefill_attention import (
         prefill_attention, prefill_attention_ref, quantize_kv_ref,
@@ -542,7 +619,8 @@ def prefill_mode_cases(torch, timer, rep):
     gen = torch.Generator(device="cuda").manual_seed(5)
     T, C, pos_start = 1024, 4, 384
     cases = [("static", 96, False), ("dynamic", 4, True),
-             ("static", 4, True), ("fp32", 4, True)]
+             ("static", 4, True), ("fp32", 4, True), ("bf16", 96, False),
+             ("bf16", 4, True)]
     for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
                              ("chatglm3-6b", 32, 2, 128)):
         for mode, Sq, verify in cases:
@@ -561,6 +639,8 @@ def prefill_mode_cases(torch, timer, rep):
                 ck, ks, kz = quantize_kv_ref(kc, C)
                 cv, vs, vz = quantize_kv_ref(vc, C)
                 sc = (ks, kz, vs, vz)
+            elif mode == "bf16":
+                ck, cv, sc = kc, vc, ()
             else:
                 ck, cv, sc = kc.float(), vc.float(), ()
             kv_pos = torch.full((T,), -1, dtype=torch.int32, device="cuda")
@@ -585,7 +665,7 @@ def prefill_mode_cases(torch, timer, rep):
                 fail(f"prefill {arch} {mode}: the chunk's codes differ from "
                      f"the plain quantizer's")
             tol = 2 ** -7 * max(1.0, float(want.float().abs().max()))
-            kd, vd = (ck, cv) if mode == "fp32" else \
+            kd, vd = (ck, cv) if mode in ("fp32", "bf16") else \
                 (dequant_chunk(ck, ks, kz), dequant_chunk(cv, vs, vz))
             wkd, wvd = window_kv(kn, vn, ck.dtype, sc, verify)
             lib = _sdpa_prefill(torch, timer, q, kd, vd, wkd, wvd, kv_pos,
@@ -593,13 +673,14 @@ def prefill_mode_cases(torch, timer, rep):
             Ec = int(((kv_pos >= 0) & (kv_pos < pos_start)).sum())
             pairs = sum(min(i + 1, length) for i in range(Sq))
             row = {"static": 2 * D, "dynamic": 2 * D + 2 * 2 * C * 4,
-                   "fp32": 2 * D * 4}[mode]
-            out = {"static": 2 * Sq * Hkv * D, "fp32": 0,
+                   "fp32": 2 * D * 4, "bf16": 2 * D * 2}[mode]
+            out = {"static": 2 * Sq * Hkv * D, "fp32": 0, "bf16": 0,
                    "dynamic": 2 * Sq * Hkv * (D + 2 * C * 4)}[mode]
             nbytes = Ec * Hkv * row + T * 4 + (Sq * Hq * D * 2) * 2 + \
                 2 * Sq * Hkv * D * 2 + out + \
                 (4 * Hkv * C * 4 if mode == "static" else 0)
-            rep.add(f"{arch} {'verify ' if verify else ''}{mode} Sq={Sq} "
+            rep.add(f"{arch} {'verify ' if verify else ''}{mode}"
+                    f"{' cache' if mode == 'bf16' else ''} Sq={Sq} "
                     f"pos_start={pos_start} T={T} Hkv={Hkv} D={D}",
                     max_err(got, want), tol,
                     timer(lambda: prefill_attention(*args, verify=verify)),
@@ -617,8 +698,8 @@ def kv_write_cases(torch, timer, rep, srep):
     x 1024 rows: stablelm-1.6b's and chatglm3-6b's 96-row chunk at 384
     with a padded tail (length 90), their 8-slot decode write, and a
     4-row verify window of the last slot at T - 2 (two rows past T,
-    dropped); in the dynamic and fp modes into ``rep`` and the static one
-    into ``srep``. Every byte of the destination (rows, scales, kv_pos;
+    dropped); in the dynamic and fp modes (fp32 and bf16 destinations)
+    into ``rep`` and the static one into ``srep``. Every byte of the destination (rows, scales, kv_pos;
     stale bytes everywhere before) equals the plain version's, and most
     static codes fall strictly inside the range. The bound counts K/V
     read once, the kept rows' codes (fp32 rows), scales and kv_pos
@@ -642,10 +723,13 @@ def kv_write_cases(torch, timer, rep, srep):
                                           length=2), 2)):
             k = (f(R, Hkv, D) * 2).to(torch.bfloat16)
             v = f(R, Hkv, D).to(torch.bfloat16)
-            for mode in ("dynamic", "static", "fp"):
+            for mode in ("dynamic", "static", "fp", "fp bf16"):
                 kv_pos = torch.randint(-1, T, (N, T), generator=gen,
                                        device="cuda", dtype=torch.int32)
-                if mode == "fp":
+                if mode == "fp bf16":
+                    dst = [f(N, T, Hkv, D).to(torch.bfloat16),
+                           f(N, T, Hkv, D).to(torch.bfloat16), kv_pos]
+                elif mode == "fp":
                     dst = [f(N, T, Hkv, D), f(N, T, Hkv, D), kv_pos]
                 else:
                     dst = [torch.randint(-128, 128, (N, T, Hkv, D),
@@ -669,7 +753,8 @@ def kv_write_cases(torch, timer, rep, srep):
                         fail(f"kv_write {arch} {what}: only {inside:.2f} of "
                              f"the static codes fall inside the range; the "
                              f"check would test the clip")
-                row = 2 * Hkv * D * (4 if mode == "fp" else 1) + 4 + \
+                row = 2 * Hkv * D * {"fp": 4, "fp bf16": 2}.get(mode, 1) + \
+                    4 + \
                     (2 * 2 * Hkv * C * 4 if mode == "dynamic" else 0)
                 nbytes = 2 * R * Hkv * D * 2 + kept * row + \
                     (4 * Hkv * C * 4 if mode == "static" else 0) + \
@@ -905,7 +990,9 @@ def log_ptxas(out: str) -> None:
                 for st in (0, 1)]
         log(f"attention dynamic shared memory per block, {arch} int8 C=4: "
             f"decode {smem[0]} B dynamic, {smem[1]} B static ({p}), prefill "
-            f"{lib.prefill_attention_smem(D, 4, 1, 1024)} B")
+            f"{lib.prefill_attention_smem(D, 4, 1, 1024)} B; bf16 cache: "
+            f"decode {lib.decode_attention_smem(D, 0, 2, 0, p.group, p.warps)}"
+            f" B, prefill {lib.prefill_attention_smem(D, 0, 2, 1024)} B")
     log("wkv dynamic shared memory per block (K=V=64, bf16 / fp32): "
         f"{lib.wkv_chunked_smem(64, 1)} / {lib.wkv_chunked_smem(64, 0)} B")
 
@@ -997,11 +1084,18 @@ def percentile(xs, p):
     return float(np.percentile(np.asarray(xs, dtype=np.float64), p))
 
 
+def engine_mod():
+    import importlib
+    return importlib.import_module("repro_torch.engine.engine")
+
+
 def serve_run(torch, counters, phase, cfg, params, ecfg, warmup, prompts,
               **engine_kw):
     """One engine serving run at full width: a warm-up engine, then the
     run with every launch count set to 0 just before and read just after.
-    Returns (engine, finished requests, wall seconds, launches)."""
+    Returns (engine, finished requests, wall seconds, launches); the
+    engine's ``materializations_in_run`` counts the run's one-shot fp
+    prefill materializations."""
     from repro_torch.engine import Engine
     warm = Engine(cfg, params, ecfg, device="cuda", **engine_kw)
     warm.submit(warmup, 4)
@@ -1011,6 +1105,7 @@ def serve_run(torch, counters, phase, cfg, params, ecfg, warmup, prompts,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
+    mat0 = engine_mod().FP_PREFILL_MATERIALIZATIONS
     t0 = time.perf_counter()
     for p in prompts:
         eng.submit(p)
@@ -1018,6 +1113,8 @@ def serve_run(torch, counters, phase, cfg, params, ecfg, warmup, prompts,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(counters)
+    eng.materializations_in_run = \
+        engine_mod().FP_PREFILL_MATERIALIZATIONS - mat0
     if len(fin) != len(prompts) or \
             any(len(r.out) != ecfg.max_new_tokens for r in fin):
         fail(f"{phase}: expected {len(prompts)} requests x "
@@ -1494,6 +1591,285 @@ def dense_wave_cross_check(torch):
     return {"requests": len(prompts), "identical": same}
 
 
+# ----------------------------------------------- the engine's options ---
+def cache_dtypes(phase: str, want: str) -> dict:
+    """The attention kernels' and the K/V write's launches by cache dtype
+    since the last reset: every one over a ``want`` cache."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    out = {"decode_attention": dict(da.decode_attention.dtype_launches),
+           "prefill_attention": dict(pa.prefill_attention.dtype_launches),
+           "kv_write": dict(pa.write_kv_rows.dtype_launches)}
+    for name, d in out.items():
+        if any(v for k, v in d.items() if k != want):
+            fail(f"{phase}: {name} launched over caches by dtype {d}; "
+                 f"expected {want} only")
+    return out
+
+
+def mode_counts() -> dict:
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    return {"decode_modes": dict(da.decode_attention.mode_launches),
+            "prefill_modes": dict(pa.prefill_attention.mode_launches),
+            "write_modes": dict(pa.write_kv_rows.mode_launches)}
+
+
+def engine_bf16_phase(torch, counters, params, card_line):
+    """stablelm-1.6b at full width over an fp slot cache in bf16
+    (``launch.serve.bf16_cache_workload``: 8 slots x 1024 rows, 1.6 GB,
+    96-token chunks, 16 requests, greedy). Gates: every request its 32
+    tokens; every decode-attention, prefill-attention and K/V-write launch
+    over the bf16 cache in mode fp; one write a layer and forward pass;
+    every matmul launch ``bf16_wgmma``."""
+    from repro_torch.launch.serve import bf16_cache_workload
+    cfg, ecfg, _, warmup, prompts = bf16_cache_workload()
+    phase = "engine_bf16"
+    eng, fin, wall, launches = serve_run(torch, counters, phase, cfg, params,
+                                         ecfg, warmup, prompts)
+    if eng.cache.k.dtype != torch.bfloat16:
+        fail(f"{phase}: the cache is {eng.cache.k.dtype}, not bf16")
+    variants = only_variant(counters, "splitquant_matmul", phase)
+    modes = only_modes(counters, phase, {"fp"}, {"fp"})
+    dtypes = cache_dtypes(phase, "bfloat16")
+    writes = one_write_per_layer(
+        phase, cfg.n_layers, {"fp": eng.n_decode_steps + eng.n_prefill_chunks})
+    n_tok = sum(len(r.out) for r in fin)
+    res = {"arch": cfg.name, "card": card_line, "kv_cache": "bf16",
+           "requests": len(fin), "new_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "ttft_p50_s": percentile([r.ttft for r in fin], 50),
+           "decode_step_p50_s": percentile(eng.decode_step_s, 50),
+           "prefill_chunk_p50_s": percentile(eng.prefill_chunk_s, 50),
+           "decode_steps": eng.n_decode_steps,
+           "prefill_chunks": eng.n_prefill_chunks,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "kv_cache_bytes": eng.cache.nbytes(), "launches": launches,
+           "matmul_variants": variants,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes, "cache_dtypes": dtypes,
+           "outputs": [r.out for r in fin]}
+    log(f"{phase}: stablelm-1.6b full width over a bf16 fp cache "
+        f"({res['kv_cache_bytes'] / 2**30:.2f} GiB), {len(fin)} requests, "
+        f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
+        f"tok/s; TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
+        f"{res['decode_step_p50_s'] * 1e3:.2f} ms; prefill chunk p50 "
+        f"{res['prefill_chunk_p50_s'] * 1e3:.2f} ms; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; launches {launches}; by "
+        f"cache dtype {dtypes}; K/V writes by mode {writes} (one a layer and "
+        f"forward pass) [card: {card_line}]")
+    return res
+
+
+def oneshot_phase(torch, counters, params, card_line):
+    """One-shot prefill (``prefill_chunk=0``) at full width over the int8
+    dynamic cache, the first 8 requests of the smoke workload. Gates:
+    every request its budget; one prefill and one fp materialization a
+    request; no prefill-attention launch; one K/V write a layer per
+    admission and per decode step, and one decode attention a layer per
+    decode step."""
+    import dataclasses
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.launch.serve import smoke_workload
+    cfg, ecfg, _, warmup, prompts = smoke_workload()
+    prompts = prompts[:8]
+    ecfg = dataclasses.replace(ecfg, prefill_chunk=0)
+    phase = "oneshot"
+    eng, fin, wall, launches = serve_run(torch, counters, phase, cfg, params,
+                                         ecfg, warmup, prompts)
+    L, n = cfg.n_layers, len(prompts)
+    if eng.n_prefills != n or eng.materializations_in_run != n or \
+            eng.n_prefill_chunks:
+        fail(f"{phase}: {eng.n_prefills} one-shot prefills, "
+             f"{eng.materializations_in_run} materializations and "
+             f"{eng.n_prefill_chunks} chunks for {n} requests")
+    if counters["prefill_attention"].launches:
+        fail(f"{phase}: prefill attention launched "
+             f"{counters['prefill_attention'].launches} times")
+    writes = dict(pa.write_kv_rows.mode_launches)
+    want = {"fp": 0, "dynamic": L * (n + eng.n_decode_steps), "static": 0}
+    dmodes = dict(da.decode_attention.mode_launches)
+    if writes != want or dmodes != {"fp": 0, "dynamic":
+                                    L * eng.n_decode_steps, "static": 0} or \
+            pa.quantize_kv.launches or pa.quantize_kv_static.launches:
+        fail(f"{phase}: K/V writes by mode {writes} (expected {want}); decode "
+             f"attention by mode {dmodes}; standalone quantizes "
+             f"{pa.quantize_kv.launches} / {pa.quantize_kv_static.launches}")
+    variants = only_variant(counters, "splitquant_matmul", phase)
+    dtypes = cache_dtypes(phase, "int8")
+    n_tok = sum(len(r.out) for r in fin)
+    res = {"arch": cfg.name, "card": card_line, "kv_cache": "int8 dynamic",
+           "requests": n, "new_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "ttft_p50_s": percentile([r.ttft for r in fin], 50),
+           "prefill_p50_s": percentile(eng.prefill_s, 50),
+           "decode_step_p50_s": percentile(eng.decode_step_s, 50),
+           "prefills": eng.n_prefills,
+           "materializations": eng.materializations_in_run,
+           "decode_steps": eng.n_decode_steps,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "matmul_variants": variants,
+           "cache_dtypes": dtypes, **mode_counts()}
+    log(f"{phase}: one-shot prefill, int8 dynamic cache, {n} requests, "
+        f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
+        f"tok/s; TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms; one-shot prefill "
+        f"p50 {res['prefill_p50_s'] * 1e3:.1f} ms; decode step p50 "
+        f"{res['decode_step_p50_s'] * 1e3:.2f} ms; {eng.n_prefills} prefills, "
+        f"{eng.materializations_in_run} fp materializations; K/V writes by "
+        f"mode {writes} ({L} x (admissions + decode steps)); launches "
+        f"{launches} [card: {card_line}]")
+    return res
+
+
+def sampling_phase(torch, counters, params, card_line):
+    """Temperature sampling on the card. 1: ``sample_tokens`` on a fixed
+    seeded logits row over the full vocab (100352: N(0, 1) but for 64 hot
+    tokens at 10 + U(0, 1.5)), T = 0.7, 1e5 draws in batches of 2000
+    rows: the 64 hot tokens and the rest within the 1 - 1e-6 chi-square
+    bound (64 degrees of freedom) of softmax(logits / T), each bin
+    expecting at least 5. 2: the bf16-cache engine at T = 0.7 over 8
+    requests: every budget served, every token inside the vocab."""
+    import dataclasses
+    from repro_torch.engine.engine import sample_tokens
+    from repro_torch.launch.serve import bf16_cache_workload
+    cfg, ecfg, _, warmup, prompts = bf16_cache_workload()
+    V, n, T, batch = cfg.vocab, 100_000, 0.7, 2000
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(V, generator=g)
+    hot = torch.randperm(V, generator=g)[:64].sort().values
+    logits[hot] = 10.0 + 1.5 * torch.rand(64, generator=g)
+    p = torch.softmax(logits.double() / T, -1)
+    expect = n * torch.cat([p[hot], 1 - p[hot].sum()[None]])
+    if float(expect.min()) < 5:
+        fail(f"sampling: a bin expects {float(expect.min()):.2f} < 5 draws")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    row = logits.to("cuda").expand(batch, V)
+    counts = torch.zeros(V, dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n // batch):
+        counts += torch.bincount(sample_tokens(row, T, gen), minlength=V)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    counts = counts.cpu().double()
+    o = torch.cat([counts[hot], (n - counts[hot].sum())[None]])
+    chi2 = float(((o - expect) ** 2 / expect).sum())
+    if not chi2 < CHI2_64:
+        fail(f"sampling: chi-square {chi2:.2f} >= {CHI2_64} over 65 bins")
+    log(f"sampling: {n} draws at T={T} over a {V}-token row in "
+        f"{t_draw:.3f} s ({n // batch} batches of {batch} rows); chi-square "
+        f"{chi2:.2f} < {CHI2_64} (65 bins, hot mass "
+        f"{float(p[hot].sum()):.4f}, least expected bin "
+        f"{float(expect.min()):.1f}) [card: {card_line}]")
+    ecfg = dataclasses.replace(ecfg, temperature=T)
+    eng, fin, wall, launches = serve_run(torch, counters, "sampling", cfg,
+                                         params, ecfg, warmup, prompts[:8])
+    dtypes = cache_dtypes("sampling", "bfloat16")
+    n_tok = sum(len(r.out) for r in fin)
+    res = {"card": card_line, "draws": n, "temperature": T, "vocab": V,
+           "chi2": chi2, "chi2_bound": CHI2_64, "draw_s": t_draw,
+           "hot_mass": float(p[hot].sum()),
+           "engine": {"requests": len(fin), "new_tokens": n_tok,
+                      "wall_s": wall, "tokens_per_s": n_tok / wall,
+                      "decode_step_p50_s": percentile(eng.decode_step_s, 50),
+                      "distinct_tokens": len({t for r in fin for t in r.out}),
+                      "cache_dtypes": dtypes},
+           "launches": launches, **mode_counts()}
+    log(f"sampling: the bf16-cache engine at T={T}, {len(fin)} requests x "
+        f"{ecfg.max_new_tokens} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tok/s, {res['engine']['distinct_tokens']} "
+        f"distinct tokens")
+    return res
+
+
+def percentile_phase(torch, card_line):
+    """The percentile-clipped baseline at full width on the card:
+    ``quantize_tree(method="percentile")`` (99%, INT4, k=1) of the seeded
+    stablelm-1.6b tree, timed; then one 2048 x 5632 bf16 leaf quantized
+    on the card and on the CPU: codes, scales and zeros identical."""
+    from repro_torch.core.quantize import QuantConfig
+    from repro_torch.core.splitquant import baseline_quant_tensor
+    from repro_torch.launch.serve import build_params, smoke_workload
+    cfg = smoke_workload()[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, report = build_params(cfg, device="cuda", bits=4,
+                                  method="percentile", seed=0)
+    torch.cuda.synchronize()
+    t_tree = time.perf_counter() - t0
+    methods = {e["method"] for e in report["per_path"].values()}
+    if methods != {"percentile"} or not report["quantized"]:
+        fail(f"percentile_quant: methods {methods}")
+    head = params["lm_head"]
+    if head.k != 1 or not bool(torch.isfinite(head.scale).all()):
+        fail("percentile_quant: the lm_head is not one finite range")
+    del params
+    g = torch.Generator().manual_seed(6)
+    w = (torch.randn((2048, 5632), generator=g) * 0.02).to(torch.bfloat16)
+    qcfg = QuantConfig(bits=4, percentile=0.99)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = baseline_quant_tensor(w.to("cuda"), qcfg)
+    torch.cuda.synchronize()
+    t_leaf = time.perf_counter() - t0
+    cpu = baseline_quant_tensor(w, qcfg)
+    same = all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+               for f in ("q", "scale", "zero"))
+    if not same:
+        fail(f"percentile_quant: the card's leaf differs from the CPU's "
+             f"(scale {card.scale.tolist()} vs {cpu.scale.tolist()})")
+    res = {"card": card_line, "tree_s": t_tree,
+           "matrices": len(report["quantized"]),
+           "deployed_bytes": report["deployed_bytes"],
+           "leaf_s": t_leaf, "leaf_identical_to_cpu": same,
+           "lm_head_elements": head.shape[0] * head.shape[1]}
+    log(f"percentile_quant: quantize_tree(method=percentile, 99%, INT4) of "
+        f"stablelm-1.6b at full width ({res['matrices']} matrices, the "
+        f"lm_head {res['lm_head_elements']} elements) on the card in "
+        f"{t_tree:.2f} s; a 2048 x 5632 leaf in {t_leaf * 1e3:.1f} ms, codes "
+        f"and scales identical to the CPU's [card: {card_line}]")
+    return res
+
+
+def options_cross_check(torch):
+    """stablelm-1.6b ``.reduced()`` in fp32 (INT4 SplitQuant weights) on
+    the card and on the CPU with the same weights: the greedy engine over
+    a bf16 fp cache, the one-shot int8 engine and the ``fused_attn=False``
+    engine each give identical tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg = get_arch("stablelm-1.6b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")
+    prompts = seeded_prompts(cfg.vocab, 8, 16, 200, seed=3)
+    res = {}
+    for name, kw in (("bf16_cache", dict(kv_mode="fp", kv_dtype="bfloat16")),
+                     ("oneshot_int8", dict(kv_mode="int8", prefill_chunk=0)),
+                     ("materialize", dict(kv_mode="int8",
+                                          fused_attn=False))):
+        outs = {}
+        for dev, p in (("cpu", params), ("cuda", tree_to(params, "cuda"))):
+            eng = Engine(cfg, p, EngineConfig(n_slots=4, max_len=256,
+                                              max_new_tokens=16, **kw),
+                         device=dev)
+            for pr in prompts:
+                eng.submit(pr)
+            outs[dev] = [r.out for r in eng.drain()]
+        same = outs["cpu"] == outs["cuda"]
+        log(f"options cross-check ({name}): stablelm-1.6b reduced fp32, 8 "
+            f"requests x 16 tokens: card tokens {'==' if same else '!='} CPU "
+            f"tokens")
+        if not same:
+            fail(f"options cross-check ({name}): card {outs['cuda']} != cpu "
+                 f"{outs['cpu']}")
+        res[name] = {"requests": len(prompts), "identical": same}
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -1544,6 +1920,7 @@ def main() -> None:
     log("kernels vs plain versions (bf16, main-path shapes):")
     matmul_cases(torch, timer, reps["splitquant_matmul"])
     decode_cases(torch, timer, reps["decode_attention"])
+    decode_bf16_cases(torch, timer, reps["decode_attention"])
     prefill_cases(torch, timer, reps["prefill_attention"])
     prefill_mode_cases(torch, timer, reps["prefill_attention"])
     kv_write_cases(torch, timer, reps["kv_write"], reps["kv_write_static"])
@@ -1589,35 +1966,54 @@ def main() -> None:
         f"{eng['kv_cache_bytes'] / 2**20:.1f} MiB")
     spec = spec_phase(torch, counters, params, scales, sta)
     dense = dense_wave_phase(torch, counters, params, card_line)
+    bf16 = engine_bf16_phase(torch, counters, params, card_line)
+    one = oneshot_phase(torch, counters, params, card_line)
+    samp = sampling_phase(torch, counters, params, card_line)
     del params
+    torch.cuda.empty_cache()
+    pq = percentile_phase(torch, card_line)
     xc = cross_check(torch)
     sxc = spec_cross_check(torch)
     dxc = dense_wave_cross_check(torch)
+    oxc = options_cross_check(torch)
     rwkv = rwkv_phase(torch, counters)
     rxc = rwkv_cross_check(torch)
 
-    serving = {"engine": eng, "static": sta, "spec": spec}
+    serving = {"engine": eng, "static": sta, "spec": spec,
+               "engine_bf16": bf16, "oneshot": one, "sampling": samp}
     runs = {"engine": eng["launches"], "static": sta["launches"],
             "spec": spec["launches"], "dense_wave": dense["launches"],
-            "wave": rwkv["launches"]}
+            "wave": rwkv["launches"], "engine_bf16": bf16["launches"],
+            "oneshot": one["launches"], "sampling": samp["launches"]}
+    by_dtype = {"engine_bf16": bf16["cache_dtypes"],
+                "oneshot": one["cache_dtypes"],
+                "sampling": samp["engine"]["cache_dtypes"]}
     extra = {"splitquant_matmul": {"launches_by_variant": {
         "engine": eng["matmul_variants"], "static": sta["matmul_variants"],
         "dense_wave": dense["matmul_variants"],
-        "wave": rwkv["matmul_variants"]}},
+        "wave": rwkv["matmul_variants"],
+        "engine_bf16": bf16["matmul_variants"],
+        "oneshot": one["matmul_variants"]}},
         "prefill_attention": {"launches_by_variant": {
             "engine": eng["prefill_variants"],
             "static": sta["prefill_variants"]},
             "launches_by_mode": {k: r["prefill_modes"]
-                                 for k, r in serving.items()}},
+                                 for k, r in serving.items()},
+            "launches_by_cache_dtype": {k: d["prefill_attention"]
+                                        for k, d in by_dtype.items()}},
         "decode_attention": {"launches_by_variant": {
             "engine": eng["decode_variants"],
             "static": sta["decode_variants"]},
             "launches_by_mode": {k: r["decode_modes"]
-                                 for k, r in serving.items()}}}
+                                 for k, r in serving.items()},
+            "launches_by_cache_dtype": {k: d["decode_attention"]
+                                        for k, d in by_dtype.items()}}}
     for n, ms in WRITE_NAMES.items():
         extra[n] = {"launches_by_mode": {
             k: {m: r["write_modes"][m] for m in ms}
             for k, r in serving.items() if k in PATHS[n]}}
+    extra["kv_write"]["launches_by_cache_dtype"] = {
+        k: d["kv_write"] for k, d in by_dtype.items()}
     kernels = [reps[n].entry(
         {p: runs[p][n] for p in PATHS[n]} or {"kernel phase": aq_launches[n]},
         **extra.get(n, {}))
@@ -1631,7 +2027,9 @@ def main() -> None:
          "static": sta, "spec": spec, "static_calibration_s": t_cal,
          "cross_check": xc, "spec_cross_check": sxc, "dense_wave": dense,
          "dense_wave_cross_check": dxc, "rwkv6": rwkv,
-         "rwkv6_cross_check": rxc,
+         "rwkv6_cross_check": rxc, "engine_bf16": bf16, "oneshot": one,
+         "sampling": samp, "percentile_quant": pq,
+         "options_cross_check": oxc,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -2,8 +2,8 @@
 
 Input: the JAX parameter tree as nested dicts of numpy arrays, with each
 ``SplitQuantTensor`` given as a dict ``{q, cid, scale, zero, bits, k,
-orig_shape}`` and the layer stack as ``(L, …)`` leaves under
-``"layers"``. Output: the port's tree — the same names, the stack as a
+orig_shape}`` (scales per tensor (k,) or per output column (k, out)) and
+the layer stack as ``(L, …)`` leaves under ``"layers"``. Output: the port's tree — the same names, the stack as a
 list of per-layer dicts, and every quantized matrix packed for the
 kernel. The caller flattens JAX arrays to numpy; this module imports
 neither ``jax`` nor the JAX package.
@@ -36,8 +36,6 @@ def _leaf(node, dtype):
             scale=torch.from_numpy(np.array(node["scale"], np.float32)),
             zero=torch.from_numpy(np.array(node["zero"], np.float32)),
             bits=int(node["bits"]), k=int(node["k"]), orig_dtype=dtype)
-        if sqt.scale.ndim != 1:
-            raise NotImplementedError("per-channel scales are not ported")
         return pack_for_kernel(sqt)
     return torch.from_numpy(np.array(node))
 

@@ -13,6 +13,12 @@ so that the tests can feed the JAX package's centroids and demand
 identical codes: :func:`fit_centroids` (the port's own k-means on a
 strided sample) and :func:`assign_and_quantize` (nearest centroid, first
 index on ties, then per-cluster min/max → eqs. 1-3).
+
+With ``cfg.per_channel`` the ranges are per (cluster, output column):
+``scale``/``zero`` are (k, out) and each element takes its cluster's
+value in its column. ``k=1`` with ``cfg.percentile`` is the percentile
+clipping baseline the paper argues against: one range from the clipped
+distribution (per tensor, or per column).
 """
 from __future__ import annotations
 
@@ -21,20 +27,21 @@ import dataclasses
 import torch
 
 from .kmeans import kmeans_1d
-from .quantize import QuantConfig, dequantize, qparams, quantize
+from .quantize import (QuantConfig, dequantize, linear_percentile, qparams,
+                       quantize)
 
 _BIG = torch.finfo(torch.float32).max
 
 
 @dataclasses.dataclass
 class SplitQuantTensor:
-    """One matrix or vector quantized with per-tensor per-cluster scales
-    (k=1 is plain per-tensor PTQ)."""
+    """One matrix or vector quantized with per-cluster scales, per tensor
+    (k,) or per output column (k, out) (k=1 is plain PTQ)."""
 
     q: torch.Tensor        # int8 codes, orig shape
     cid: torch.Tensor      # uint8 cluster ids, orig shape
-    scale: torch.Tensor    # (k,) fp32
-    zero: torch.Tensor     # (k,) fp32
+    scale: torch.Tensor    # (k,) or (k, out) fp32
+    zero: torch.Tensor     # like scale
     bits: int
     k: int
     orig_dtype: torch.dtype
@@ -43,9 +50,42 @@ class SplitQuantTensor:
     def shape(self):
         return tuple(self.q.shape)
 
+    @property
+    def per_channel(self) -> bool:
+        return self.scale.dim() == 2
+
+    def _select(self, vals: torch.Tensor) -> torch.Tensor:
+        """(k,) or (k, out) → each element's value of its cluster (and
+        column)."""
+        return select_per_element(vals, self.cid)
+
     def dequantize(self) -> torch.Tensor:
-        c = self.cid.long()
-        return dequantize(self.q, self.scale[c], self.zero[c], self.orig_dtype)
+        return dequantize(self.q, self._select(self.scale),
+                          self._select(self.zero), self.orig_dtype)
+
+    def split_layers(self) -> list[torch.Tensor]:
+        """The paper's literal k split tensors: Ŵ_c = Ŵ ⊙ [cid == c]."""
+        w_hat = self.dequantize()
+        return [torch.where(self.cid == c, w_hat, 0).to(self.orig_dtype)
+                for c in range(self.k)]
+
+    def nbytes_deployed(self) -> int:
+        """Deployed footprint, as the JAX package counts it: packed codes
+        + 2-bit cids + scales."""
+        n = self.q.numel()
+        cid_bits = 2 * n if self.k > 1 else 0
+        return (self.bits * n + cid_bits) // 8 + \
+            4 * (self.scale.numel() + self.zero.numel())
+
+
+def select_per_element(vals: torch.Tensor, cid: torch.Tensor) -> torch.Tensor:
+    """Per-cluster values (k,), or per (cluster, last-axis column)
+    (k, out), taken per element by its cluster id."""
+    c = cid.long()
+    if vals.dim() == 1:
+        return vals[c]
+    return torch.gather(vals.t().expand(*cid.shape[:-1], -1, -1), -1,
+                        c[..., None])[..., 0]
 
 
 def strided_sample(flat: torch.Tensor, sample_size: int) -> torch.Tensor:
@@ -82,22 +122,55 @@ def assign_and_quantize(w: torch.Tensor, centroids: torch.Tensor,
     return quantize_clusters(wf, cid, k, cfg, w.dtype)
 
 
+def _masked_range(x: torch.Tensor, mask: torch.Tensor, dim=None):
+    """min/max of x where mask (over ``dim``, None = all), a degenerate
+    [0, 0] range where mask holds nothing."""
+    if dim is None:
+        lo = torch.where(mask, x, _BIG).min()
+        hi = torch.where(mask, x, -_BIG).max()
+        empty = ~mask.any()
+    else:
+        lo = torch.where(mask, x, _BIG).amin(dim=dim)
+        hi = torch.where(mask, x, -_BIG).amax(dim=dim)
+        empty = ~mask.any(dim=dim)
+    return torch.where(empty, 0.0, lo), torch.where(empty, 0.0, hi)
+
+
 def quantize_clusters(wf: torch.Tensor, cid: torch.Tensor, k: int,
                       cfg: QuantConfig, orig_dtype) -> SplitQuantTensor:
-    """Per-cluster min/max ranges → (scale, zero) → codes."""
-    betas, alphas = [], []
-    for c in range(k):
-        mask = cid == c
-        lo = torch.where(mask, wf, _BIG).min()
-        hi = torch.where(mask, wf, -_BIG).max()
-        empty = ~mask.any()
-        betas.append(torch.where(empty, 0.0, lo))
-        alphas.append(torch.where(empty, 0.0, hi))
-    scale, zero = qparams(torch.stack(betas), torch.stack(alphas), cfg)
-    c = cid.long()
-    q = quantize(wf, scale[c], zero[c], cfg)
+    """Per-cluster min/max ranges (per output column with
+    ``cfg.per_channel``: over the rows of each (cluster, column)) →
+    (scale, zero) → codes."""
+    red = (tuple(range(wf.dim() - 1))
+           if cfg.per_channel and wf.dim() >= 2 else None)
+    ranges = [_masked_range(wf, cid == c, red) for c in range(k)]
+    scale, zero = qparams(torch.stack([r[0] for r in ranges]),
+                          torch.stack([r[1] for r in ranges]), cfg)
+    q = quantize(wf, select_per_element(scale, cid),
+                 select_per_element(zero, cid), cfg)
     return SplitQuantTensor(q=q, cid=cid, scale=scale, zero=zero,
                             bits=cfg.bits, k=k, orig_dtype=orig_dtype)
+
+
+def percentile_quant(w: torch.Tensor, cfg: QuantConfig) -> SplitQuantTensor:
+    """k=1 with ``cfg.percentile``: the range from the clipped
+    distribution, per tensor (scale (1,)) or, with ``cfg.per_channel``,
+    per output column over the rows (scale (1, out)); codes clip to the
+    code range."""
+    wf = w.float()
+    p = cfg.percentile
+    if cfg.per_channel and w.dim() >= 2:
+        red = tuple(range(w.dim() - 1))
+        beta = linear_percentile(wf, (1 - p) * 100, red)[None]
+        alpha = linear_percentile(wf, p * 100, red)[None]
+    else:
+        beta = linear_percentile(wf, (1 - p) * 100).reshape(1)
+        alpha = linear_percentile(wf, p * 100).reshape(1)
+    scale, zero = qparams(beta, alpha, cfg)
+    cid = torch.zeros(w.shape, dtype=torch.uint8, device=w.device)
+    q = quantize(wf, scale[0], zero[0], cfg)
+    return SplitQuantTensor(q=q, cid=cid, scale=scale, zero=zero,
+                            bits=cfg.bits, k=1, orig_dtype=w.dtype)
 
 
 def splitquant_tensor(gen: torch.Generator, w: torch.Tensor,
@@ -105,7 +178,10 @@ def splitquant_tensor(gen: torch.Generator, w: torch.Tensor,
                       sample_size: int = 1 << 18,
                       kmeans_iters: int = 25) -> SplitQuantTensor:
     """Cluster ``w``'s values into k groups and quantize each with its own
-    scale (paper §4.1). ``k=1`` degenerates to baseline per-tensor PTQ."""
+    scale (paper §4.1). ``k=1`` degenerates to baseline per-tensor PTQ
+    (percentile-clipped with ``cfg.percentile``)."""
+    if k == 1 and cfg.percentile is not None:
+        return percentile_quant(w, cfg)
     if k == 1:
         cid = torch.zeros(w.shape, dtype=torch.uint8, device=w.device)
         return quantize_clusters(w.float(), cid, 1, cfg, w.dtype)
@@ -115,7 +191,8 @@ def splitquant_tensor(gen: torch.Generator, w: torch.Tensor,
 
 def baseline_quant_tensor(w: torch.Tensor, cfg: QuantConfig
                           ) -> SplitQuantTensor:
-    """Plain per-tensor PTQ (one min/max scale set) as k=1."""
+    """Plain PTQ (one scale set; the percentile clip with
+    ``cfg.percentile``) as k=1."""
     return splitquant_tensor(None, w, cfg, k=1)
 
 
@@ -130,3 +207,26 @@ def activation_chunk_bounds(n: int, n_chunks: int) -> list[int]:
     for c in range(n_chunks):
         bounds.append(bounds[-1] + base + (1 if c < rem else 0))
     return bounds
+
+
+def split_activation_fake_quant(x: torch.Tensor, cfg: QuantConfig,
+                                n_chunks: int = 3, dim: int = -1
+                                ) -> torch.Tensor:
+    """Paper §4.2, simulated: split an activation along ``dim`` into
+    ``n_chunks`` chunks (the ``array_split`` partition, so indivisible
+    widths still split), quantize each with its own dynamic min/max
+    range, and concatenate, in x's dtype."""
+    dim = dim % x.dim()
+    outs = []
+    for part in torch.tensor_split(x, max(1, min(n_chunks, x.shape[dim])),
+                                   dim=dim):
+        scale, zero = qparams(part.float().min(), part.float().max(), cfg)
+        outs.append(dequantize(quantize(part, scale, zero, cfg), scale,
+                               zero, x.dtype))
+    return torch.cat(outs, dim=dim)
+
+
+def effective_scales(sqt: SplitQuantTensor) -> torch.Tensor:
+    """Per-cluster scale factors, the paper's resolution metric (§4:
+    a larger S is a finer resolution)."""
+    return sqt.scale

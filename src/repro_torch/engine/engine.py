@@ -5,14 +5,19 @@
 :class:`~repro_torch.engine.kvcache.SlotKVCache` (optionally INT8) and
 the model's slot entry points. Each :meth:`Engine.step`
 
-1. admits queued requests into free slots;
-2. spends at most ``prefill_chunk`` prompt tokens on mid-prefill slots
-   (FCFS), streaming whole chunks through
+1. admits queued requests into free slots — with ``prefill_chunk=0``
+   each is prefilled at once (ONE-SHOT: a dense ``transformer.prefill``
+   of the right-padded prompt, written into its slot by
+   ``kvcache.write_prefill``, one K/V write launch a layer);
+2. otherwise spends at most ``prefill_chunk`` prompt tokens on
+   mid-prefill slots (FCFS), streaming whole chunks through
    ``transformer.prefill_chunk_slots`` — and, while no slot is decoding,
    keeps prefilling until one joins the decode batch;
 3. runs ONE batched decode step over all N slots at their own
-   positions, with greedy argmax on the device and one (N,) copy to the
-   host — or, with ``spec_k > 0``, one speculative step
+   positions, sampling on the device (greedy argmax, or with
+   ``temperature > 0`` a draw from softmax(logits / T) with the engine's
+   ``torch.Generator``) and copying the (N,) tokens to the host — or,
+   with ``spec_k > 0``, one speculative step
    (:meth:`Engine._spec_step`: the draft proposes, the target verifies
    each slot's window in one pass, 1..spec_k+1 tokens commit per slot);
 4. retires finished slots (``clear_slot``) so the next step refills them.
@@ -27,11 +32,15 @@ Chunk sizes are ``bucket_len(n, prefill_bucket, prefill_chunk)``, as in
 the JAX engine, so both fill the cache with the same rows. An int8 cache
 takes static per-layer scales from a calibration recipe with
 ``kv_scales=`` (or hot-swapped into a live dynamic cache by
-:meth:`Engine.load_kv_scales`). Not ported yet: the draft from a
-calibration recipe (``draft_recipe``; pass ``draft_params=``), faults and
-retry, journal and snapshots, metrics and tracing, the flight recorder,
-deadlines and cancel, overload shedding and degradation, one-shot
-prefill and temperature sampling.
+:meth:`Engine.load_kv_scales`); an fp cache is stored in ``kv_dtype``
+(fp32 or bf16). ``fused_attn=False`` decodes through the materialize read
+path (each layer's cache copied to full precision and attended in plain
+PyTorch), the JAX package's oracle. Torch cannot reproduce
+``jax.random.categorical``: temperature sampling draws other tokens than
+the JAX engine from the same distribution. Not ported yet: the draft from
+a calibration recipe (``draft_recipe``; pass ``draft_params=``), faults
+and retry, journal and snapshots, metrics and tracing, the flight
+recorder, deadlines and cancel, overload shedding and degradation.
 """
 from __future__ import annotations
 
@@ -44,10 +53,31 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer
+from ..models.common import dtype_of
 from .kvcache import (clear_slot, hotswap_static_scales, init_slot_cache,
-                      rollback_slot)
+                      rollback_slot, write_prefill)
 from .scheduler import EngineRequest, Scheduler, SubmitError
 from .spec import SpecDecoder, accept_length, verify_argmax
+
+#: One-shot prefills so far in this process: each dispatch materializes a
+#: dense full-precision (L, S, Hkv, D) cache that ``write_prefill`` then
+#: writes into the slot (a speculative engine's draft mirror counts
+#: once more). The chunked path never bumps it.
+FP_PREFILL_MATERIALIZATIONS = 0
+
+
+def sample_tokens(logits, temperature: float, generator=None
+                  ) -> torch.Tensor:
+    """logits (..., V) → token ids (...) on their device: the argmax when
+    ``temperature <= 0``, else one draw a row from softmax(logits / T)
+    (fp32) with ``generator`` (the JAX package's
+    ``jax.random.categorical``, whose bits torch cannot reproduce)."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    toks = torch.multinomial(flat, 1, generator=generator)
+    return toks.reshape(probs.shape[:-1])
 
 
 def bucket_len(n: int, bucket: int, max_len: int) -> int:
@@ -63,9 +93,15 @@ class EngineConfig:
     eos_id: int = -1                    # -1 ⇒ never stop early
     kv_mode: str = "fp"                 # "fp" | "int8" (SplitQuant §4.2)
     kv_qchunks: int = 4                 # ranges per head vector (int8)
-    prefill_bucket: int = 16            # chunk lengths round up to this
-    prefill_chunk: int = 96             # prompt tokens per step
-    temperature: float = 0.0            # 0 ⇒ greedy (sampling not ported)
+    kv_dtype: str = "float32"           # fp-mode storage: float32 | bfloat16
+    prefill_bucket: int = 16            # chunk and one-shot prompt lengths
+                                        # round up to this
+    fused_attn: bool = True             # decode reads the cache through the
+                                        # fused kernel; False = materialize
+                                        # then attend (the oracle path)
+    prefill_chunk: int = 96             # prompt tokens per step; 0 =
+                                        # one-shot prefill at admission
+    temperature: float = 0.0            # 0 ⇒ greedy
     spec_k: int = 0                     # >0: self-speculative decoding, up
                                         # to spec_k draft tokens per slot
                                         # and step; token-identical to
@@ -86,11 +122,14 @@ class Engine:
     requires ``kv_mode="int8"``. ``draft_params``: the draft's weights for
     ``spec_k > 0`` (the same architecture, typically a low-bit SplitQuant
     copy, on the same device); without them the target drafts for itself.
+    ``generator``: the ``torch.Generator`` temperature sampling draws
+    from, on ``device`` (the counterpart of the JAX engine's ``rng=``);
+    by default one seeded 0.
     """
 
     def __init__(self, cfg, params, ecfg: EngineConfig, device=None,
                  clock=time.perf_counter, *, kv_scales=None,
-                 draft_params=None):
+                 draft_params=None, generator=None):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"the port's engine serves dense decoders, got "
@@ -104,12 +143,6 @@ class Engine:
                 "0): the lossless accept rule compares argmax tokens; "
                 "temperature sampling needs speculative rejection "
                 "sampling, which is not wired up")
-        if ecfg.temperature > 0:
-            raise NotImplementedError("temperature sampling is not ported "
-                                      "(greedy only)")
-        if ecfg.prefill_chunk <= 0:
-            raise NotImplementedError("one-shot prefill is not ported; "
-                                      "prefill_chunk must be > 0")
         if ecfg.spec_k and ecfg.draft_recipe:
             raise NotImplementedError("draft recipes (calibration) are not "
                                       "ported; pass draft_params=")
@@ -121,10 +154,13 @@ class Engine:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine runs on {self.device}")
         self.clock = clock
+        self.generator = (generator if generator is not None else
+                          torch.Generator(device=self.device).manual_seed(0))
         self.sched = Scheduler(ecfg.n_slots, clock=clock)
         self.cache = init_slot_cache(
             cfg, ecfg.n_slots, ecfg.max_len, mode=ecfg.kv_mode,
-            qchunks=ecfg.kv_qchunks, kv_scales=kv_scales, device=self.device)
+            dtype=dtype_of(ecfg.kv_dtype), qchunks=ecfg.kv_qchunks,
+            kv_scales=kv_scales, device=self.device)
         self._spec = None
         if ecfg.spec_k:
             self._spec = SpecDecoder(
@@ -136,8 +172,10 @@ class Engine:
         self._prefill_prog = np.zeros(N, np.int64)
         self._uid = 0
         self.n_decode_steps = 0
+        self.n_prefills = 0             # one-shot admissions
         self.n_prefill_chunks = 0
         self.decode_step_s: list[float] = []
+        self.prefill_s: list[float] = []
         self.prefill_chunk_s: list[float] = []
         self.n_spec_steps = 0
         self.n_verify_calls = 0
@@ -185,10 +223,17 @@ class Engine:
         self._pos[slot] = 0
         self._last_tok[slot] = 0
 
-    def _start_decoding(self, slot: int, req: EngineRequest, first: int,
+    def _sample(self, logits) -> torch.Tensor:
+        """logits (..., V) → token ids (...) on the device, greedy or
+        drawn with the engine's generator (:func:`sample_tokens`)."""
+        return sample_tokens(logits, self.ecfg.temperature, self.generator)
+
+    def _start_decoding(self, slot: int, req: EngineRequest, logits_row,
                         S: int) -> None:
-        """The prompt is written: take the first generated token and move
-        the slot into decode (or retire it on eos / exhausted budget)."""
+        """The prompt is written: sample the first generated token from
+        the prompt's last logits row (V,) and move the slot into decode
+        (or retire it on eos / exhausted budget)."""
+        first = int(self._sample(logits_row))
         req.t_first_token = self.clock()
         if first == self.ecfg.eos_id:
             self._retire(slot, "eos")
@@ -200,6 +245,36 @@ class Engine:
             self._retire(slot, "budget")
         elif S >= self.ecfg.max_len:
             self._retire(slot, "max_len")
+
+    def _admit_one(self, slot: int, req: EngineRequest) -> None:
+        """One-shot admission (``prefill_chunk=0``): a dense prefill of
+        the prompt right-padded to its bucket (the full-precision
+        (L, S, Hkv, D) materialization), written into the slot by
+        ``write_prefill``, then the first token from the logits row of
+        the prompt's last token."""
+        global FP_PREFILL_MATERIALIZATIONS
+        if req.max_new_tokens <= 0:
+            req.t_first_token = req.t_submit
+            self.sched.retire(slot, reason="zero_budget")
+            return
+        t0 = self.clock()
+        S = len(req.prompt)
+        Sp = bucket_len(S, self.ecfg.prefill_bucket, self.ecfg.max_len)
+        toks = np.zeros((1, Sp), np.int64)
+        toks[0, :S] = req.prompt                      # right-pad
+        toks = torch.from_numpy(toks).to(self.device)
+        logits, pcache = transformer.prefill(self.params, self.cfg,
+                                             {"tokens": toks})
+        self.n_prefills += 1
+        FP_PREFILL_MATERIALIZATIONS += 1
+        # only [0, S) becomes visible; the bucket's padding stays masked
+        write_prefill(self.cache, slot, pcache, S)
+        del pcache
+        if self._spec is not None:    # the draft's own materialization
+            self._spec.prefill_oneshot(toks, slot, S)
+            FP_PREFILL_MATERIALIZATIONS += 1
+        self._start_decoding(slot, req, logits[0, S - 1], S)
+        self.prefill_s.append(self.clock() - t0)
 
     def _admit_chunked(self, slot: int, req: EngineRequest) -> None:
         if req.max_new_tokens <= 0:
@@ -244,22 +319,23 @@ class Engine:
             self.n_prefill_chunks += 1
             if done >= S:                             # prompt complete
                 self.sched.finish_prefill(slot)
-                first = int(torch.argmax(logits[0]))
-                self._start_decoding(slot, req, first, S)
+                self._start_decoding(slot, req, logits[0], S)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)   # the chunk's device time
             self.prefill_chunk_s.append(self.clock() - t0)
         return spent
 
     def _decode(self) -> np.ndarray:
-        """One batched greedy decode step over all N slots; returns the
-        per-slot tokens on the host (one (N,) copy)."""
+        """One batched decode step over all N slots, sampled on the
+        device; returns the per-slot tokens on the host (one (N,)
+        copy)."""
         t0 = self.clock()
         tokens = torch.from_numpy(self._last_tok[:, None]).to(self.device)
         pos = torch.from_numpy(self._pos).to(self.device)
-        logits = transformer.decode_step_slots(self.params, self.cfg,
-                                               self.cache, tokens, pos)
-        toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        logits = transformer.decode_step_slots(
+            self.params, self.cfg, self.cache, tokens, pos,
+            fused=self.ecfg.fused_attn)
+        toks = self._sample(logits[:, -1]).cpu().numpy()
         self.n_decode_steps += 1
         self.decode_step_s.append(self.clock() - t0)
         return toks
@@ -332,12 +408,17 @@ class Engine:
         Returns the requests that finished in this step."""
         n_done_before = len(self.sched.finished)
         for slot, req in self.sched.admit():
-            self._admit_chunked(slot, req)
-        self._prefill_work()
-        # nobody is decoding ⇒ nobody can be stalled: keep prefilling
-        # until a slot joins the decode batch
-        while not self.sched.active_slots() and self.sched.prefill_slots():
+            if self.ecfg.prefill_chunk:
+                self._admit_chunked(slot, req)
+            else:
+                self._admit_one(slot, req)
+        if self.ecfg.prefill_chunk:
             self._prefill_work()
+            # nobody is decoding ⇒ nobody can be stalled: keep prefilling
+            # until a slot joins the decode batch
+            while not self.sched.active_slots() and \
+                    self.sched.prefill_slots():
+                self._prefill_work()
         active = self.sched.active_slots()
         if active and self._spec is not None:
             self._spec_step(active)

@@ -10,14 +10,22 @@ sub-channel chunks quantized with their own dynamic range (SplitQuant
 scale 1 / zero 0 so unwritten rows dequantize to a finite 0. With static
 scales from a calibration recipe (``kv_scales=``) they are per-layer
 constants (L, 1, 1, Hkv, C) instead: writes quantize with them (no
-min/max reduce) and never write a scale.
+min/max reduce) and never write a scale. In fp mode the rows are stored
+in the cache's float type, fp32 (the JAX engine's default) or bf16 (its
+``kv_dtype="bfloat16"``): writes cast to it, reads widen it to fp32.
 
 Where the JAX package donates the cache to a jitted step and gets a new
 one back, the port preallocates it once and updates it in place: every
 write of a layer (a decode step's tokens, a prefill chunk, a verify
 window) is one :func:`~repro_torch.kernels.prefill_attention.write_kv_rows`
 launch on the card, which quantizes K and V and stores codes, scales and
-``kv_pos`` into the slot rows itself.
+``kv_pos`` into the slot rows itself. A one-shot prefill
+(:func:`write_prefill`) is one such launch a layer.
+
+:func:`materialize_layer` and :func:`slot_layer_update` are the JAX
+package's materialize read path (``fused_attn=False``): a full-precision
+copy of a layer's whole cache, attended in plain PyTorch. It is the
+oracle the fused decode kernel is held to, and JAX computes it in jnp.
 """
 from __future__ import annotations
 
@@ -32,17 +40,19 @@ from ..kernels.prefill_attention import (prefill_attention, quantize_kv,
                                          quantize_kv_static, write_kv_rows)
 
 __all__ = ["SlotKVCache", "init_slot_cache", "check_static_scales",
-           "quantize_kv", "quantize_kv_static", "slot_layer_write",
+           "quantize_kv", "quantize_kv_static", "dequantize_kv",
+           "slot_layer_write", "materialize_layer", "slot_layer_update",
            "fused_slot_attention", "slot_chunk_prefill",
-           "hotswap_static_scales", "clear_slot", "rollback_slot"]
+           "hotswap_static_scales", "write_prefill", "clear_slot",
+           "rollback_slot"]
 
 SCALE_KEYS = ("k_scale", "k_zero", "v_scale", "v_zero")
 
 
 @dataclasses.dataclass
 class SlotKVCache:
-    """mode="fp": fp32 k/v (the JAX engine's default storage), scales are
-    zero-size placeholders (L, N, T, Hkv, 0). mode="int8": int8 codes +
+    """mode="fp": fp32 or bf16 k/v (the JAX engine's ``kv_dtype``), scales
+    are zero-size placeholders (L, N, T, Hkv, 0). mode="int8": int8 codes +
     per-entry scales (L, N, T, Hkv, C), or, with ``static``, per-layer
     constants (L, 1, 1, Hkv, C)."""
 
@@ -76,12 +86,13 @@ class SlotKVCache:
 
 
 def init_slot_cache(cfg, n_slots: int, max_len: int, *, mode: str = "fp",
-                    qchunks: int = 4, kv_scales=None,
+                    dtype=torch.float32, qchunks: int = 4, kv_scales=None,
                     device=None) -> SlotKVCache:
     """Preallocate the engine cache for a dense config on ``device`` (the
-    card unless ``device="cpu"``). ``kv_scales`` (int8 mode only): static
-    constants from a calibration recipe, ``k_scale / k_zero / v_scale /
-    v_zero`` each (L, Hkv, C)."""
+    card unless ``device="cpu"``). ``dtype``: the fp mode's storage type
+    (the kernels take fp32 and bf16). ``kv_scales`` (int8 mode only):
+    static constants from a calibration recipe, ``k_scale / k_zero /
+    v_scale / v_zero`` each (L, Hkv, C)."""
     device = resolve_device(device)
     if mode not in ("fp", "int8"):
         raise ValueError(f"unknown KV cache mode {mode!r}")
@@ -91,7 +102,7 @@ def init_slot_cache(cfg, n_slots: int, max_len: int, *, mode: str = "fp",
     if mode == "int8" and D % qchunks:
         raise ValueError(f"head_dim {D} not divisible by qchunks {qchunks}")
     shape = (L, n_slots, max_len, Hkv, D)
-    kv_dtype = torch.int8 if mode == "int8" else torch.float32
+    kv_dtype = torch.int8 if mode == "int8" else dtype
     kv = dict(k=torch.zeros(shape, dtype=kv_dtype, device=device),
               v=torch.zeros(shape, dtype=kv_dtype, device=device),
               kv_pos=torch.full((L, n_slots, max_len), -1, dtype=torch.int32,
@@ -130,10 +141,17 @@ def check_static_scales(kv_scales: dict, L: int, Hkv: int,
     return got
 
 
+def dequantize_kv(q, scale, zero, dtype=torch.float32) -> torch.Tensor:
+    """codes (..., Hkv, D), scale/zero (..., Hkv, C) → x̂ (..., Hkv, D)
+    in ``dtype``: (q - Z) / S in fp32 per sub-channel chunk, then
+    cast."""
+    return dequant_chunk(q, scale, zero).to(dtype)
+
+
 def _write_operands(cache: SlotKVCache, layer: int) -> tuple:
     """:func:`write_kv_rows`'s destination of ``layer``: its K/V rows,
     kv_pos and scales (per-entry (N, T, Hkv, C), static (Hkv, C), or
-    none over an fp32 cache)."""
+    none over a float cache)."""
     if cache.static:
         sc = cache.layer_scales(layer)
     elif cache.mode == "int8":
@@ -153,6 +171,30 @@ def slot_layer_write(cache: SlotKVCache, layer: int, k_new, v_new,
         pos = pos.to(torch.int32)
     write_kv_rows(k_new[:, 0], v_new[:, 0], *_write_operands(cache, layer),
                   positions=pos)
+
+
+def materialize_layer(cache: SlotKVCache, layer: int,
+                      dtype=torch.float32) -> tuple:
+    """Full-precision (k, v) (N, T, Hkv, D) of ``layer``'s whole cache in
+    ``dtype``: the codes dequantized with their per-entry or static
+    scales, or the float rows cast. The materialize read path: a full
+    dequant pass and an fp copy per call."""
+    if cache.mode == "int8":
+        sc = (cache.layer_scales(layer) if cache.static else
+              tuple(getattr(cache, f)[layer] for f in SCALE_KEYS))
+        return (dequantize_kv(cache.k[layer], sc[0], sc[1], dtype),
+                dequantize_kv(cache.v[layer], sc[2], sc[3], dtype))
+    return cache.k[layer].to(dtype), cache.v[layer].to(dtype)
+
+
+def slot_layer_update(cache: SlotKVCache, layer: int, k_new, v_new,
+                      positions) -> tuple:
+    """The materialize path's write and read: :func:`slot_layer_write`
+    (in place), then the layer's whole cache in k_new's dtype. Returns
+    (k_full, v_full, kv_pos) with k_full/v_full (N, T, Hkv, D)."""
+    slot_layer_write(cache, layer, k_new, v_new, positions)
+    k_full, v_full = materialize_layer(cache, layer, k_new.dtype)
+    return k_full, v_full, cache.kv_pos[layer]
 
 
 def fused_slot_attention(cache: SlotKVCache, layer: int, q, q_pos):
@@ -224,6 +266,29 @@ def hotswap_static_scales(cache: SlotKVCache, kv_scales) -> SlotKVCache:
             codes[layer] = quantize_kv_static(x, got[f"{f}_scale"][layer, 0, 0],
                                               got[f"{f}_zero"][layer, 0, 0])
     return dataclasses.replace(cache, static=True, **got)
+
+
+def write_prefill(cache: SlotKVCache, slot: int, prefill_cache,
+                  length: int) -> None:
+    """Write one request's one-shot prefill K/V (a
+    :class:`~repro_torch.models.attention.KVCache` of batch 1, k/v
+    (L, 1, S, Hkv, D)) into ``slot``, in place: one
+    :func:`write_kv_rows` launch a layer, in the cache's mode (codes and
+    per-entry scales, codes with the static constants, or a cast). The
+    slot's whole kv_pos row is rewritten: positions [0, length) become
+    visible and every other row reads -1, which clears a previous
+    occupant and the bucket's right-padding. The padding rows' codes (S
+    > length) are written too and stay masked."""
+    k, v = prefill_cache.k, prefill_cache.v
+    S = k.shape[2]
+    if S > cache.max_len:
+        raise ValueError(f"prefill length {S} exceeds cache max_len "
+                         f"{cache.max_len}")
+    clear_slot(cache, slot)
+    for layer in range(k.shape[0]):
+        write_kv_rows(k[layer, 0], v[layer, 0],
+                      *_write_operands(cache, layer), slot=slot,
+                      pos_start=0, length=length)
 
 
 def clear_slot(cache: SlotKVCache, slot: int) -> None:

@@ -22,7 +22,9 @@ import torch
 
 from ..core.apply import dequantize_tree
 from ..models import transformer
-from .kvcache import clear_slot, init_slot_cache, rollback_slot
+from ..models.common import dtype_of
+from .kvcache import clear_slot, init_slot_cache, rollback_slot, \
+    write_prefill
 
 
 def accept_length(drafts, target_toks, window: int) -> int:
@@ -71,10 +73,19 @@ class SpecDecoder:
         self.params = draft_params
         self.cache = init_slot_cache(cfg, ecfg.n_slots, ecfg.max_len,
                                      mode=ecfg.kv_mode,
+                                     dtype=dtype_of(ecfg.kv_dtype),
                                      qchunks=ecfg.kv_qchunks, device=device)
         self.n_draft_steps = 0
 
     # ------------------------------------------------- slot lifecycle ----
+    def prefill_oneshot(self, toks, slot: int, length: int) -> None:
+        """Mirror a one-shot admission (tokens (1, S) on the device): the
+        draft's own dense prefill, written into its cache by
+        ``write_prefill``."""
+        _, pcache = transformer.prefill(self.params, self.cfg,
+                                        {"tokens": toks})
+        write_prefill(self.cache, slot, pcache, length)
+
     def prefill_chunk(self, toks, slot: int, pos_start: int,
                       length: int) -> None:
         """Mirror one prefill chunk (tokens (1, Sc) on the device)."""
@@ -115,7 +126,8 @@ class SpecDecoder:
             logits = transformer.decode_step_slots(
                 self.params, self.cfg, self.cache,
                 torch.from_numpy(cur_tok[:, None]).to(self.device),
-                torch.from_numpy(cur_pos).to(self.device))
+                torch.from_numpy(cur_pos).to(self.device),
+                fused=self.ecfg.fused_attn)
             toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
             self.n_draft_steps += 1
             if j < self.k:

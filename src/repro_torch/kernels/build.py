@@ -107,17 +107,17 @@ SIGNATURES = {
     # splits, k_per_split, stream
     "splitquant_matmul": [_P] * 7 + [_I] * 9 + [_P],
     # q, k, v, kv_pos, q_pos, ks, kz, vs, vz, o, part_o, part_ml, counter,
-    # N, T, Hq, Hkv, D, C, int8, stat, q_is_bf16, group, rows, splits,
+    # N, T, Hq, Hkv, D, C, kv_bytes, stat, q_is_bf16, group, rows, splits,
     # warps, qscale, stream
     "decode_attention": [_P] * 13 + [_I] * 13 + [_F, _P],
     # q, k_new, v_new, ck, cv, kv_pos, ks, kz, vs, vz, wk, wv, wks, wkz,
     # wvs, wvz, o, part_o, part_ml, counter, Sq, T, Hq, Hkv, D, C,
-    # pos_start, length, int8, stat, verify, x_is_bf16, cache_rows,
+    # pos_start, length, kv_bytes, stat, verify, x_is_bf16, cache_rows,
     # cache_splits, qscale, stream
     "prefill_attention": [_P] * 20 + [_I] * 14 + [_F, _P],
     # k, v, dk, dv, kv_pos, pos, ks, kz, vs, vz, rows, T, Hkv, D, C, slot,
-    # pos_start, length, mode, x_is_bf16, stream
-    "kv_write": [_P] * 10 + [_I] * 10 + [_P],
+    # pos_start, length, mode, x_is_bf16, dst_is_bf16, stream
+    "kv_write": [_P] * 10 + [_I] * 11 + [_P],
     # r, k, v, w, u, s0, y, s_out, BH, T, K, V, VS, x_is_bf16, stream
     "wkv_chunked": [_P] * 8 + [_I] * 6 + [_P],
     # x, q, scale, zero, R, N, n_chunks, bits, x_is_bf16, warps, vecs,
@@ -127,9 +127,9 @@ SIGNATURES = {
     "act_quant_static": [_P] * 4 + [_I] * 5 + [_P],
     # bits, bm -> bytes (not an error code)
     "splitquant_matmul_smem": [_I] * 2,
-    # D, C, int8, stat, group, warps -> bytes (not an error code)
+    # D, C, kv_bytes, stat, group, warps -> bytes (not an error code)
     "decode_attention_smem": [_I] * 6,
-    # D, C, int8, T -> bytes (not an error code)
+    # D, C, kv_bytes, T -> bytes (not an error code)
     "prefill_attention_smem": [_I] * 4,
     # K, x_is_bf16 -> bytes (not an error code)
     "wkv_chunked_smem": [_I] * 2,

@@ -73,12 +73,20 @@
 // dequantize as (q - Z) / S as in the dynamic mode. One runtime flag, no
 // further instantiation.
 //
+// Float caches (fp mode): fp32, or bf16 as the JAX engine stores its fp
+// cache with kv_dtype="bfloat16" (src/repro/kernels/decode_attention.py:
+// 109-110 reads it and casts it to fp32). A bf16 row is D * 2 bytes, half
+// the fp32 row, so a stage holds half the bytes and the same swizzle and
+// cp.async copies move it; each value is widened to fp32 exactly (its
+// bits as the high half of a float) where it is read, and the arithmetic
+// is the fp32 cache's. One more cache type of the template.
+//
 // Heads: a block takes GB = 16, 4 or 1 query heads of a group (the
 // largest that divides G); the group's kv-head is read once per block.
 //
 // Shared memory is dynamic: GB*D*4 bytes of q (and C chunk sums on the
 // row path, and the static table of 6 * C floats) plus, per warp, two stages of 32 rows of K and V codes (row
-// pitch D*sizeof(KV)) and the scale arrays (S and Z of K and V, and 1/S of
+// pitch D*sizeof(KV): 1, 2 or 4 bytes a value) and the scale arrays (S and Z of K and V, and 1/S of
 // each on the column path; row pitch C + 1 floats), a 32 x (GB+1) float P
 // buffer and 64 valid-row masks. Registers, spills and the bytes a block
 // takes at the serving shapes are printed by chip_smoke.py (PERF.md).
@@ -157,6 +165,21 @@ struct Swizzle {
   __device__ __forceinline__ int x16(int r) const { return ((r >> shift) & mask) << 4; }
   __device__ __forceinline__ int at(int r, int c) const { return r * kp + ((c << 4) ^ x16(r)); }
 };
+
+// Four bf16 values (8 bytes) widened to floats exactly.
+__device__ __forceinline__ float4 bf16x4_f(const unsigned char* p) {
+  const uint2 w = *(const uint2*)p;
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+// Four cache values of a float cache (fp32 or bf16) at element offset d
+// of a row, through the row's chunk swizzle.
+template <typename KV>
+__device__ __forceinline__ float4 row4(const unsigned char* row, int d, int swl) {
+  if constexpr (std::is_same<KV, __nv_bfloat16>::value) return bf16x4_f(row + ((d * 2) ^ swl));
+  else return *(const float4*)(row + ((d * 4) ^ swl));
+}
 
 // Log-sum-exp merge of `parts` partial states (max, sum, acc) of GB query
 // heads in a fixed order, empty ones (sum 0) weighing 0. The weights come
@@ -457,7 +480,7 @@ decode_split_kernel(Args a) {
       }
     } else {
       for (int d = 0; d < D; d += 4) {
-        const float4 kv = *(const float4*)(kr + ((d * 4) ^ swl));
+        const float4 kv = row4<KV>(kr, d, swl);
 #pragma unroll
         for (int g = 0; g < GB; ++g) {
           const float4 q4 = *(const float4*)&qs[g * D + d];
@@ -531,7 +554,7 @@ decode_split_kernel(Args a) {
 #pragma unroll
         for (int d = 0; d < DM; d += 4) {
           if (d >= D) break;
-          const float4 v4 = *(const float4*)(vr + ((d * 4) ^ swl));
+          const float4 v4 = row4<KV>(vr, d, swl);
           accr[d] = fmaf(p_row, v4.x, accr[d]);
           accr[d + 1] = fmaf(p_row, v4.y, accr[d + 1]);
           accr[d + 2] = fmaf(p_row, v4.z, accr[d + 2]);
@@ -558,6 +581,8 @@ decode_split_kernel(Args a) {
           const float* srow = sb + r * srp + c;
           vv = rt::dequant_kv_rcp(rt::code_f(w ^ 0x80808080u, bj), srow[VS * saq],
                                   srow[VR * saq], srow[VZ * saq]);
+        } else if (sizeof(KV) == 2) {  // the bf16 in the word's low or high half
+          vv = __uint_as_float(bj ? (w & 0xffff0000u) : (w << 16));
         } else {
           vv = __uint_as_float(w);
         }
@@ -734,10 +759,12 @@ cudaError_t dispatch_group(const Args& a, int group, int warps, cudaStream_t st)
 
 }  // namespace
 
-// Bytes of dynamic shared memory a block takes (0 if it does not fit).
-extern "C" int decode_attention_smem(int D, int C, int int8, int stat, int group,
+// Bytes of dynamic shared memory a block takes (0 if it does not fit);
+// kv_bytes: the cache's element size, 1 (int8), 2 (bf16) or 4 (fp32).
+extern "C" int decode_attention_smem(int D, int C, int kv_bytes, int stat, int group,
                                      int warps) {
-  return (int)block_smem(D, int8 ? C : 0, int8 ? 1 : 4, group, int8 && stat, warps);
+  const bool int8 = kv_bytes == 1;
+  return (int)block_smem(D, int8 ? C : 0, kv_bytes, group, int8 && stat, warps);
 }
 
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
@@ -745,11 +772,13 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* ks, const void* kz, const void* vs,
                                 const void* vz, void* o, void* part_o,
                                 void* part_ml, void* counter, int N, int T,
-                                int Hq, int Hkv, int D, int C, int int8,
+                                int Hq, int Hkv, int D, int C, int kv_bytes,
                                 int stat, int q_is_bf16, int group, int rows,
                                 int splits, int warps, float qscale,
                                 void* stream) {
+  const bool int8 = kv_bytes == 1;
   if (N <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      (kv_bytes != 1 && kv_bytes != 2 && kv_bytes != 4) ||
       (D != 32 && D != 64 && D != 128) || rows <= 0 || rows % TR != 0 || splits <= 0 || splits > MAX_SPLITS ||
       (long long)(splits - 1) * rows >= T || (long long)splits * rows < T ||
       warps < 1 || warps > MAX_WARPS || rows / TR > warps * MAX_TW ||
@@ -769,9 +798,12 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
          N, T, Hq, Hkv, D, int8 ? C : 0, cl_shift, rows, splits,
          int8 && stat ? 1 : 0, qscale};
   cudaStream_t st = (cudaStream_t)stream;
+  using BF = __nv_bfloat16;
   if (q_is_bf16)
-    return (int)(int8 ? dispatch_group<int8_t, __nv_bfloat16>(a, group, warps, st)
-                      : dispatch_group<float, __nv_bfloat16>(a, group, warps, st));
+    return (int)(int8 ? dispatch_group<int8_t, BF>(a, group, warps, st)
+                 : kv_bytes == 2 ? dispatch_group<BF, BF>(a, group, warps, st)
+                                 : dispatch_group<float, BF>(a, group, warps, st));
   return (int)(int8 ? dispatch_group<int8_t, float>(a, group, warps, st)
-                    : dispatch_group<float, float>(a, group, warps, st));
+               : kv_bytes == 2 ? dispatch_group<BF, float>(a, group, warps, st)
+                               : dispatch_group<float, float>(a, group, warps, st));
 }

@@ -90,7 +90,18 @@
 // cache rows, under the causal and key < length masks. Keys at or past
 // `length` are never loaded (a window padded past T would read beyond
 // the slot). Over an fp32 cache the round trip is a cast to fp32, exact
-// for fp32 and bf16 K/V: the fp kernel as it is.
+// for fp32 and bf16 K/V: the fp kernel as it is. Over a bf16 cache it is
+// kn.astype(bf16).astype(f32) (:218-219): exact for bf16 K/V (the
+// tensor-core kernel's), a rounding to nearest even for the CUDA-core
+// kernel's fp32 K/V, which it applies where it loads the window.
+//
+// bf16 cache (fp mode; the JAX engine's kv_dtype="bfloat16", read and
+// cast to fp32 at :187-189): one more cache type of both kernels. The
+// tensor-core kernel's raw stage holds the bf16 rows as they lie in the
+// cache and copies them into its bf16 K and V tiles unchanged, with no
+// dequantization and no rounding (an fp32 cache is rounded to bf16
+// there); the CUDA-core kernel widens each value to fp32 exactly
+// (load_cache).
 //
 // What holds it back (PERF.md, from clock64 stamps per phase on the H100
 // at stablelm-1.6b's and chatglm3-6b's Sq = 96 chunk): a block's two live
@@ -194,6 +205,12 @@ struct Int8Ops {
   int stat, verify;
 };
 
+// A float rounded to bf16 (nearest even) and widened back: the verify
+// window's storage round trip over a bf16 cache.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 template <typename KV, typename X>
 __global__ void __launch_bounds__(THREADS)
 prefill_fp32_kernel(const X* __restrict__ q, const X* __restrict__ kn,
@@ -251,6 +268,8 @@ prefill_fp32_kernel(const X* __restrict__ q, const X* __restrict__ kn,
   const int q_last = min(Sq, q0 + Bq) - 1;
   // (verify over an int8 cache: the window's codes, dequantized)
   const bool v8 = std::is_same<KV, int8_t>::value && s8.verify;
+  // (verify over a bf16 cache: the window's K/V rounded to bf16)
+  const bool v16 = std::is_same<KV, __nv_bfloat16>::value && s8.verify;
   // keys at or past `length` are masked and never loaded: in verify mode
   // the window's codes may be the slot's own rows, which end at T
   const int kend = min(Sq, length);
@@ -264,7 +283,8 @@ prefill_fp32_kernel(const X* __restrict__ q, const X* __restrict__ kn,
         if (v8)
           return rt::dequant_kv(codes[row * D + d], s[(stat ? (size_t)h : row) * C + d / cl],
                                 z[(stat ? (size_t)h : row) * C + d / cl]);
-        return rt::to_f(base[row * D + d]);
+        const float x = rt::to_f(base[row * D + d]);
+        return v16 ? round_bf16(x) : x;
       };
     };
     chunk_update(sm, R, D, load(kn, s8.wk, s8.wks, s8.wkz),
@@ -335,6 +355,7 @@ template <int D, typename KV, bool STAT>
 __global__ void __launch_bounds__(TC_THREADS)
 prefill_tc_kernel(PArgs a) {
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
+  constexpr bool KV16 = std::is_same<KV, __nv_bfloat16>::value;
   constexpr int BP = TcGeo<D>::BP, KD = D / 16, ND = D / 8, NT = KT / 8;
   using G_ = TcGeo<D>;
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -477,7 +498,7 @@ prefill_tc_kernel(PArgs a) {
       const unsigned char* src = raw + (kv * KT + r) * RB;
       uint2 out = make_uint2(0u, 0u);
       if (ok) {
-        if (raw16) {
+        if (raw16 || KV16) {  // bf16 rows, the chunk's or a bf16 cache's: as they are
           out = *(const uint2*)(src + d * 2);
         } else if (INT8) {
           const uint32_t w = *(const uint32_t*)(src + d) ^ 0x80808080u;
@@ -758,9 +779,10 @@ cudaError_t launch_fp32(const void* q, const void* kn, const void* vn, const voi
 
 extern "C" {
 
-// Bytes of dynamic shared memory a tensor-core block takes.
-int prefill_attention_smem(int D, int C, int int8, int T) {
-  const int kv = int8 ? 1 : 4, c = int8 ? C : 0;
+// Bytes of dynamic shared memory a tensor-core block takes; kv_bytes: the
+// cache's element size, 1 (int8), 2 (bf16) or 4 (fp32).
+int prefill_attention_smem(int D, int C, int kv_bytes, int T) {
+  const int kv = kv_bytes, c = kv_bytes == 1 ? C : 0;
   switch (D) {
     case 32: return TcGeo<32>::bytes(kv, c, T);
     case 64: return TcGeo<64>::bytes(kv, c, T);
@@ -772,7 +794,9 @@ int prefill_attention_smem(int D, int C, int int8, int T) {
 // int8 modes: ks..vz are the cache's scales, per-entry (T, Hkv, C) or,
 // with `stat`, per-layer (Hkv, C); with `verify`, wk/wv are the window's
 // codes (Sq, Hkv, D) and wks..wvz its per-entry scales (Sq, Hkv, C; unused
-// with `stat`, where the window takes the same constants).
+// with `stat`, where the window takes the same constants). kv_bytes: the
+// cache's element size, 1 (int8 codes), 2 (bf16) or 4 (fp32); `verify`
+// over a float cache rounds the window to the cache's type.
 int prefill_attention(const void* q, const void* kn, const void* vn,
                       const void* ck, const void* cv, const void* kv_pos,
                       const void* ks, const void* kz, const void* vs,
@@ -780,16 +804,18 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
                       const void* wks, const void* wkz, const void* wvs,
                       const void* wvz, void* o, void* part_o, void* part_ml,
                       void* counter, int Sq, int T, int Hq, int Hkv, int D,
-                      int C, int pos_start, int length, int int8, int stat,
+                      int C, int pos_start, int length, int kv_bytes, int stat,
                       int verify, int x_is_bf16, int cache_rows, int cache_splits,
                       float qscale, void* stream) {
+  const bool int8 = kv_bytes == 1;
   if (Sq <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
+      (kv_bytes != 1 && kv_bytes != 2 && kv_bytes != 4) ||
       (int8 && (C <= 0 || D % C != 0)) || (int8 && verify && (!wk || !wv)) ||
       (int8 && verify && !stat && (!wks || !wkz || !wvs || !wvz)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const auto* kp = (const int*)kv_pos;
-  const bool s_ = int8 && stat, v_ = int8 && verify;
+  const bool s_ = int8 && stat, v_ = verify != 0;
   Int8Ops s8{(const float*)ks, (const float*)kz, (const float*)vs, (const float*)vz,
              (const int8_t*)wk, (const int8_t*)wv,
              (const float*)(s_ ? ks : wks), (const float*)(s_ ? kz : wkz),
@@ -798,8 +824,11 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
   if (!x_is_bf16)
     return (int)(int8 ? launch_fp32<int8_t>(q, kn, vn, ck, cv, kp, s8, o, Sq, T, Hq,
                                             Hkv, D, C, pos_start, length, qscale, st)
-                      : launch_fp32<float>(q, kn, vn, ck, cv, kp, s8, o, Sq, T, Hq,
-                                           Hkv, D, C, pos_start, length, qscale, st));
+                 : kv_bytes == 2
+                     ? launch_fp32<__nv_bfloat16>(q, kn, vn, ck, cv, kp, s8, o, Sq, T, Hq,
+                                                  Hkv, D, C, pos_start, length, qscale, st)
+                     : launch_fp32<float>(q, kn, vn, ck, cv, kp, s8, o, Sq, T, Hq,
+                                          Hkv, D, C, pos_start, length, qscale, st));
   const int G = Hq / Hkv;
   int cl_shift = 0;
   if (int8) {
@@ -817,6 +846,7 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
           (float*)part_o, (float*)part_ml, (int*)counter,
           Sq, T, Hq, Hkv, int8 ? C : 0, cl_shift, pos_start, length,
           QROWS / G, cache_rows, cache_splits, qscale};
+  if (kv_bytes == 2) return (int)dispatch_tc<__nv_bfloat16, false>(p, D, st);
   if (!int8) return (int)dispatch_tc<float, false>(p, D, st);
   return (int)(s_ ? dispatch_tc<int8_t, true>(p, D, st) : dispatch_tc<int8_t, false>(p, D, st));
 }

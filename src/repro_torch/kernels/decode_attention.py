@@ -5,7 +5,8 @@ plan, and its plain PyTorch versions.
 
 Shapes (one layer, one query token per slot):
   q       (N, Hq, D)     post-RoPE queries
-  k, v    (N, T, Hkv, D) int8 codes (int8 mode) or fp32 (fp mode)
+  k, v    (N, T, Hkv, D) int8 codes (int8 mode), or fp32 or bf16 (fp
+          mode: the engine's ``kv_dtype``)
   kv_pos  (N, T) int32   absolute position per row, -1 = empty
   q_pos   (N,)   int32   per-slot current position
   scales  fp32, int8 mode: per-entry (N, T, Hkv, C) ("dynamic"), or
@@ -25,7 +26,8 @@ call), ``decode_attention.variant_launches`` splits them by plan:
 ``"split"`` (T cut across blocks, merged in the kernel) and ``"whole"``
 (one block per (slot, head group) walks all of T), and
 ``decode_attention.mode_launches`` by mode: ``"fp"``, ``"dynamic"`` and
-``"static"``.
+``"static"``, and ``decode_attention.dtype_launches`` by the cache's dtype
+(:data:`CACHE_DTYPES`). A float16 cache is refused.
 """
 from __future__ import annotations
 
@@ -58,6 +60,10 @@ SPLIT = "split"
 WHOLE = "whole"
 #: the modes that ``mode_launches`` counts
 MODES = ("fp", "dynamic", "static")
+#: the cache dtypes the kernels take, by the names ``dtype_launches``
+#: counts (shared with the prefill attention and the K/V write)
+CACHE_DTYPES = {torch.int8: "int8", torch.float32: "float32",
+                torch.bfloat16: "bfloat16"}
 
 
 def is_static(scale, N: int, T: int) -> bool:
@@ -263,8 +269,9 @@ def _check_cuda(q, k, v, kv_pos, q_pos, scales):
         raise ValueError("kv_pos must be (N, T) and q_pos (N,)")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k.dtype not in (torch.int8, torch.float32) or v.dtype != k.dtype:
-        raise TypeError(f"the cache must be int8 or float32, got {k.dtype}")
+    if k.dtype not in CACHE_DTYPES or v.dtype != k.dtype:
+        raise TypeError(f"the cache must be int8, float32 or bfloat16, got "
+                        f"{k.dtype}, {v.dtype}")
     if k.dtype == torch.int8:
         if any(s is None for s in scales):
             raise ValueError("int8 mode requires all four scale arrays")
@@ -320,22 +327,24 @@ def decode_attention(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,
     err = lib.decode_attention(
         *(t.data_ptr() for t in ts), kv_pos.data_ptr(), q_pos.data_ptr(),
         *(None if s is None else s.data_ptr() for s in sc), o.data_ptr(),
-        part_o, part_ml, counter, N, T, Hq, Hkv, D, C, int(int8),
+        part_o, part_ml, counter, N, T, Hq, Hkv, D, C, k.element_size(),
         int(mode == "static"), int(q.dtype == torch.bfloat16), p.group,
         p.rows, p.splits, p.warps, D ** -0.5, build.stream_of(q))
     build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
     decode_attention.variant_launches[SPLIT if p.splits > 1 else WHOLE] += 1
     decode_attention.mode_launches[mode] += 1
+    decode_attention.dtype_launches[CACHE_DTYPES[k.dtype]] += 1
     return o
 
 
 def reset_counts() -> None:
-    """Set the total, the per-variant and the per-mode launch counts to
-    0."""
+    """Set the total, the per-variant, the per-mode and the per-dtype
+    launch counts to 0."""
     decode_attention.launches = 0
     for counts in (decode_attention.variant_launches,
-                   decode_attention.mode_launches):
+                   decode_attention.mode_launches,
+                   decode_attention.dtype_launches):
         for v in counts:
             counts[v] = 0
 
@@ -343,3 +352,4 @@ def reset_counts() -> None:
 decode_attention.launches = 0
 decode_attention.variant_launches = {SPLIT: 0, WHOLE: 0}
 decode_attention.mode_launches = dict.fromkeys(MODES, 0)
+decode_attention.dtype_launches = dict.fromkeys(CACHE_DTYPES.values(), 0)

@@ -16,7 +16,7 @@ from typing import Union
 import torch
 
 from ..core.quantize import dequantize
-from ..core.splitquant import SplitQuantTensor
+from ..core.splitquant import SplitQuantTensor, select_per_element
 from .packing import pack_cids, pack_codes, unpack_cids, unpack_codes
 from .splitquant_matmul import splitquant_matmul
 
@@ -27,7 +27,8 @@ class PackedWeight:
 
     ``qp`` (K·bits/8, N) uint8 codes packed along K, ``cp`` (K/4, N) uint8
     cluster ids, ``recip``/``shift`` (k, N) fp32 with ŵ = q·recip + shift.
-    ``scale``/``zero`` (k,) are kept for the exact eq. (4) dequantization
+    ``scale``/``zero`` (k,), or (k, N) per output column, are kept for
+    the exact eq. (4) dequantization
     (:meth:`dequantize`), which is what the JAX package's
     ``dequantize_tree`` returns."""
 
@@ -49,8 +50,9 @@ class PackedWeight:
 
     def dequantize(self) -> torch.Tensor:
         q = unpack_codes(self.qp, self.bits)
-        c = unpack_cids(self.cp).long()
-        return dequantize(q, self.scale[c], self.zero[c], self.orig_dtype)
+        c = unpack_cids(self.cp)
+        return dequantize(q, select_per_element(self.scale, c),
+                          select_per_element(self.zero, c), self.orig_dtype)
 
     def nbytes_deployed(self) -> int:
         return sum(t.numel() * t.element_size()
@@ -59,10 +61,14 @@ class PackedWeight:
 
 def dequant_constants(scale: torch.Tensor, zero: torch.Tensor, N: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-cluster (k,) scale/zero → (k, N) recip = 1/scale and
-    shift = -zero/scale, so ŵ = q·recip + shift."""
-    scale = scale.float()[:, None].expand(-1, N)
-    zero = zero.float()[:, None].expand(-1, N)
+    """Per-cluster (k,) scale/zero, broadcast over the N columns, or
+    per (cluster, column) (k, N) → (k, N) recip = 1/scale and
+    shift = -zero/scale, so ŵ = q·recip + shift (the kernel reads (k, N)
+    either way)."""
+    if scale.dim() == 1:
+        scale = scale.float()[:, None].expand(-1, N)
+        zero = zero.float()[:, None].expand(-1, N)
+    scale, zero = scale.float(), zero.float()
     return (1.0 / scale).contiguous(), (-zero / scale).contiguous()
 
 

@@ -7,7 +7,7 @@ PyTorch versions.
 Shapes:
   q             (Sq, Hq, D)   post-RoPE chunk queries (Sq = padded chunk)
   k_new, v_new  (Sq, Hkv, D)  post-RoPE chunk K/V, full precision
-  cache_k/v     (T, Hkv, D)   the slot's rows: int8 codes or fp32
+  cache_k/v     (T, Hkv, D)   the slot's rows: int8 codes, or fp32 or bf16
   kv_pos        (T,) int32    absolute position per row, -1 = empty
   pos_start     int           absolute position of chunk token 0
   length        int           valid tokens in the chunk
@@ -35,7 +35,8 @@ same kernel with a dense destination; the standalone contract of
 
 ``verify=True`` is the speculative verify pass: the chunk is a draft
 window, and it attends its own K/V through the storage round trip (the
-codes it writes, dequantized; over an fp32 cache a cast to fp32) so that
+codes it writes, dequantized; over a float cache a cast to its type and
+back to fp32) so that
 each row scores what a plain decode step of its token would. With
 ``window_cached`` those codes are read back from the slot's rows.
 
@@ -48,7 +49,10 @@ numbers. ``prefill_attention.launches``, ``write_kv_rows.launches``,
 ``quantize_kv.launches`` and ``quantize_kv_static.launches`` count kernel
 launches, ``prefill_attention.variant_launches`` the attention's by
 variant, ``prefill_attention.mode_launches`` by mode (:data:`MODES`) and
-``write_kv_rows.mode_launches`` the write's (:data:`WRITE_MODES`).
+``write_kv_rows.mode_launches`` the write's (:data:`WRITE_MODES`), and
+``prefill_attention.dtype_launches`` and ``write_kv_rows.dtype_launches``
+each by the cache's dtype (:data:`CACHE_DTYPES`: int8, float32,
+bfloat16; a float16 cache is refused).
 """
 from __future__ import annotations
 
@@ -60,8 +64,8 @@ import torch
 
 from ..core.quantize import QuantConfig, qparams, quantize, value_range
 from . import build
-from .decode_attention import (NEG_INF, dequant_chunk, merge_partials,
-                               pick_kv_chunk)
+from .decode_attention import (CACHE_DTYPES, NEG_INF, dequant_chunk,
+                               merge_partials, pick_kv_chunk)
 
 KV_QCFG = QuantConfig(bits=8, symmetric=False)
 
@@ -233,7 +237,7 @@ quantize_kv_static.launches = 0
 # ------------------------------------------------------ the cache write ---
 def write_mode(dst_k, k_scale) -> str:
     """The mode of a write into ``dst_k`` (one of :data:`WRITE_MODES`):
-    an fp32 destination is cast to, static scales are (Hkv, C), per-entry
+    a float (fp32 or bf16) destination is cast to, static scales are (Hkv, C), per-entry
     ones (N, T, Hkv, C)."""
     if dst_k.dtype != torch.int8:
         return "fp"
@@ -285,9 +289,10 @@ def write_kv_rows(k, v, dst_k, dst_v, kv_pos, k_scale=None, k_zero=None,
     """One layer's K/V cache write, in place, in one launch.
 
     k, v (R, Hkv, D) fp32 or bf16 post-RoPE; ``dst_k``/``dst_v`` the
-    layer's (N, T, Hkv, D) rows, int8 codes or fp32 (a cast); ``kv_pos``
-    (N, T) int32. Scales: per-entry (N, T, Hkv, C), written (dynamic);
-    per-layer (Hkv, C), read (static); none over an fp32 cache.
+    layer's (N, T, Hkv, D) rows, int8 codes, or fp32 or bf16 (a cast,
+    rounded to nearest even); ``kv_pos`` (N, T) int32. Scales: per-entry
+    (N, T, Hkv, C), written (dynamic); per-layer (Hkv, C), read (static);
+    none over a float cache.
     ``positions`` (N,) int32: a decode write, row n to slot n at row
     positions[n] mod T, kv_pos = positions[n]. Otherwise a window of
     ``slot``: row r to pos_start + r, dropped at or past T, kv_pos =
@@ -310,9 +315,9 @@ def write_kv_rows(k, v, dst_k, dst_v, kv_pos, k_scale=None, k_zero=None,
     R, Hkv, D = k.shape
     if dst_k.dim() != 4 or dst_k.shape[2:] != (Hkv, D) or \
             dst_v.shape != dst_k.shape or dst_v.dtype != dst_k.dtype or \
-            dst_k.dtype not in (torch.int8, torch.float32):
-        raise ValueError(f"the destination must be int8 or fp32 (N, T, "
-                         f"{Hkv}, {D}), got {tuple(dst_k.shape)} "
+            dst_k.dtype not in CACHE_DTYPES:
+        raise ValueError(f"the destination must be int8, fp32 or bf16 (N, "
+                         f"T, {Hkv}, {D}), got {tuple(dst_k.shape)} "
                          f"{dst_k.dtype}")
     N, T = dst_k.shape[:2]
     if kv_pos.shape != (N, T) or kv_pos.dtype != torch.int32:
@@ -343,10 +348,12 @@ def write_kv_rows(k, v, dst_k, dst_v, kv_pos, k_scale=None, k_zero=None,
                   int(pos_start), int(length))
         write_kv_rows.launches += 1
         write_kv_rows.mode_launches[mode] += 1
+        write_kv_rows.dtype_launches[CACHE_DTYPES[dst_k.dtype]] += 1
 
 
 write_kv_rows.launches = 0
 write_kv_rows.mode_launches = dict.fromkeys(WRITE_MODES, 0)
+write_kv_rows.dtype_launches = dict.fromkeys(CACHE_DTYPES.values(), 0)
 
 
 def _kv_write(k, v, dst_k, dst_v, kv_pos, positions, scales, mode: str,
@@ -359,7 +366,8 @@ def _kv_write(k, v, dst_k, dst_v, kv_pos, positions, scales, mode: str,
     err = lib.kv_write(ptr(k), ptr(v), ptr(dst_k), ptr(dst_v), ptr(kv_pos),
                        ptr(positions), *map(ptr, scales), rows, T, Hkv, D, C,
                        slot, pos_start, length, WRITE_MODES.index(mode),
-                       int(k.dtype == torch.bfloat16), build.stream_of(k))
+                       int(k.dtype == torch.bfloat16),
+                       int(dst_k.dtype == torch.bfloat16), build.stream_of(k))
     build.check(lib, err, "kv_write")
 
 
@@ -367,7 +375,8 @@ def window_kv(k_new, v_new, cache_dtype, scales, verify: bool):
     """The chunk's own K/V as fp32, as the chunk attends them: at full
     precision, or (``verify``) through the storage round trip — per-entry
     quantize and dequantize, static quantize and dequantize (``scales``
-    (Hkv, C)), or a cast to the cache's float type."""
+    (Hkv, C)), or a cast to the cache's float type (a rounding to bf16
+    for fp32 K/V over a bf16 cache)."""
     if not verify:
         return k_new.float(), v_new.float()
     if cache_dtype != torch.int8:
@@ -553,10 +562,9 @@ def _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales):
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise TypeError("q/k_new/v_new must share one of float32, bfloat16")
-    if cache_k.dtype not in (torch.int8, torch.float32) or \
-            cache_v.dtype != cache_k.dtype:
-        raise TypeError(f"the cache must be int8 or float32, got "
-                        f"{cache_k.dtype}")
+    if cache_k.dtype not in CACHE_DTYPES or cache_v.dtype != cache_k.dtype:
+        raise TypeError(f"the cache must be int8, float32 or bfloat16, got "
+                        f"{cache_k.dtype}, {cache_v.dtype}")
     if cache_k.dtype == torch.int8:
         if any(s is None for s in scales):
             raise ValueError("int8 mode requires all four scale arrays")
@@ -585,7 +593,7 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
                       window_cached: bool = False):
     """Chunked-prefill attention plus, in int8 mode, the chunk's codes.
 
-    fp mode (fp32 cache): returns (o, ()).
+    fp mode (fp32 or bf16 cache): returns (o, ()).
     int8 per-entry scales (T, Hkv, C): returns (o, (qk, qv, ks, kz, vs,
     vz)) — the chunk's codes and fresh per-entry scales, for the caller
     to write into the slot.
@@ -668,26 +676,29 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
         *(t.data_ptr() for t in ts), kv_pos.data_ptr(),
         *(None if s is None else s.data_ptr() for s in sc), *win,
         o.data_ptr(), part_o, part_ml, counter, Sq, T, Hq, Hkv, D, C,
-        int(pos_start), int(length), int(int8), int(static),
-        int(int8 and verify), int(variant == TENSOR_CORE), rows, splits,
+        int(pos_start), int(length), cache_k.element_size(), int(static),
+        int(verify), int(variant == TENSOR_CORE), rows, splits,
         D ** -0.5, build.stream_of(q))
     build.check(lib, err, "prefill_attention")
     prefill_attention.launches += 1
     prefill_attention.variant_launches[variant] += 1
     prefill_attention.mode_launches[mode] += 1
+    prefill_attention.dtype_launches[CACHE_DTYPES[cache_k.dtype]] += 1
     return o, aux
 
 
 def reset_counts() -> None:
-    """Set the attention's total, per-variant and per-mode launch counts,
-    the write's total and per-mode counts and the two standalone
-    quantizers' counts to 0."""
+    """Set the attention's total, per-variant, per-mode and per-dtype
+    launch counts, the write's total, per-mode and per-dtype counts and
+    the two standalone quantizers' counts to 0."""
     for fn in (prefill_attention, write_kv_rows, quantize_kv,
                quantize_kv_static):
         fn.launches = 0
     for counts in (prefill_attention.variant_launches,
                    prefill_attention.mode_launches,
-                   write_kv_rows.mode_launches):
+                   prefill_attention.dtype_launches,
+                   write_kv_rows.mode_launches,
+                   write_kv_rows.dtype_launches):
         for v in counts:
             counts[v] = 0
 
@@ -695,3 +706,4 @@ def reset_counts() -> None:
 prefill_attention.launches = 0
 prefill_attention.variant_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
 prefill_attention.mode_launches = dict.fromkeys(MODES, 0)
+prefill_attention.dtype_launches = dict.fromkeys(CACHE_DTYPES.values(), 0)

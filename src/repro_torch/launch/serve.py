@@ -12,9 +12,15 @@ wave loop.
         --reduced --spec-k 3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --reduced --wave --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --method percentile --no-fused-attn --prefill-chunk 0 \
+        --device cpu
 
 ``--spec-k`` serves with self-speculative decoding, the target drafting
 for itself (as the JAX package's ``--spec-k`` without a draft recipe).
+``--method percentile`` quantizes with the percentile-clipped baseline
+(99%), ``--no-fused-attn`` decodes through the materialize read path and
+``--prefill-chunk 0`` prefills each prompt in one shot at admission.
 
 Without ``--device`` it runs on the CUDA card, and fails if there is
 none.
@@ -22,6 +28,7 @@ none.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -49,8 +56,9 @@ def seeded_prompts(vocab: int, n: int, lo: int, hi: int, seed: int = 0):
 
 def build_params(cfg, *, bits: int, method: str, seed: int = 0,
                  device=None):
-    """Seeded init of ``cfg``'s family + quantization (SplitQuant k=3, or
-    the k=1 baseline), packed once, on ``device``."""
+    """Seeded init of ``cfg``'s family + quantization (SplitQuant k=3, the
+    k=1 baseline, or the k=1 percentile-clipped baseline; ``none`` leaves
+    the weights in floating point), packed once, on ``device``."""
     params = get_model(cfg).init(cfg, seed=seed, device=device)
     if method == "none":
         return params, None
@@ -73,6 +81,17 @@ def smoke_workload():
     quant = dict(bits=4, method="splitquant", seed=0)
     warmup = seeded_prompts(cfg.vocab, 1, 100, 100, seed=99)[0]
     prompts = seeded_prompts(cfg.vocab, 16, 16, 512, seed=0)
+    return cfg, ecfg, quant, warmup, prompts
+
+
+def bf16_cache_workload():
+    """:func:`smoke_workload` over an fp slot cache in bf16 (the JAX
+    engine's ``kv_dtype="bfloat16"``): the same stablelm-1.6b weights,
+    8 slots x 1024 rows, 96-token chunks and 16 requests, greedy.
+
+    Returns (cfg, ecfg, quant, warmup_prompt, prompts)."""
+    cfg, ecfg, quant, warmup, prompts = smoke_workload()
+    ecfg = dataclasses.replace(ecfg, kv_mode="fp", kv_dtype="bfloat16")
     return cfg, ecfg, quant, warmup, prompts
 
 
@@ -115,7 +134,8 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--bits", type=int, default=4)
     ap.add_argument("--method", default="splitquant",
-                    choices=["splitquant", "baseline", "none"])
+                    choices=["splitquant", "baseline", "percentile",
+                             "none"])
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--wave", action="store_true",
@@ -124,6 +144,12 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4,
                     help="engine slots, or the wave size of the wave loop")
     ap.add_argument("--kv-mode", default="int8", choices=["fp", "int8"])
+    ap.add_argument("--fused-attn", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="decode attention reads the slot cache through the "
+                         "fused kernel; --no-fused-attn materializes each "
+                         "layer's cache and attends it in plain PyTorch "
+                         "(the oracle path)")
     ap.add_argument("--prefill-chunk", type=int,
                     default=EngineConfig.prefill_chunk)
     ap.add_argument("--spec-k", type=int, default=0,
@@ -154,14 +180,16 @@ def main(argv=None):
         eng = Engine(cfg, params, EngineConfig(
             n_slots=args.slots, max_len=256,
             max_new_tokens=args.max_new_tokens, kv_mode=args.kv_mode,
-            prefill_chunk=args.prefill_chunk, spec_k=args.spec_k),
+            fused_attn=args.fused_attn, prefill_chunk=args.prefill_chunk,
+            spec_k=args.spec_k),
             device=device)
         for p in prompts:
             eng.submit(p)
         t0 = time.perf_counter()
         fin = eng.drain()
         how = (f"{eng.n_decode_steps} decode steps, "
-               f"{eng.n_prefill_chunks} prefill chunks")
+               f"{eng.n_prefill_chunks} prefill chunks, "
+               f"{eng.n_prefills} one-shot prefills")
         if args.spec_k:
             how += (f", {eng.n_spec_steps} speculative steps, acceptance "
                     f"{eng.sched.acceptance_rate()}")

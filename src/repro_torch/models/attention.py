@@ -116,7 +116,8 @@ def _cache_update(cache: KVCache, layer: int, k, v, positions):
 
 def attention_block(p, x, cfg, positions, cache=None, layer: int = 0, *,
                     window=None, want_kv=False, kv_pos_override=None,
-                    slot_chunk=None, spec_verify: bool = False):
+                    slot_chunk=None, spec_verify: bool = False,
+                    fused_attn: bool = True):
     """Projections + RoPE + (cache) + causal attention (within ``window``
     positions, if given) + output projection.
 
@@ -131,7 +132,10 @@ def attention_block(p, x, cfg, positions, cache=None, layer: int = 0, *,
     - the engine's :class:`~repro_torch.engine.kvcache.SlotKVCache`,
       updated in place at ``layer``. Decode (``slot_chunk=None``, S == 1):
       positions (N, 1); the new K/V are written (quantized in int8 mode)
-      and attention reads the cache through the fused decode kernel.
+      and attention reads the cache through the fused decode kernel,
+      or, with ``fused_attn=False``, ``attend`` reads a full-precision
+      copy of the layer's whole cache in the step's dtype (the
+      materialize path, the fused kernel's oracle).
       Chunked prefill (``slot_chunk=(slot, pos_start, length)``, B == 1):
       positions (Sq,); the chunk attends the slot's earlier rows plus its
       own K/V, and its codes are written into rows [pos_start, +Sq).
@@ -160,15 +164,15 @@ def attention_block(p, x, cfg, positions, cache=None, layer: int = 0, *,
         o = attend(q, ck, cv, positions, kv_pos, window=window)
     else:
         o = _slot_attention(cache, layer, q, k, v, positions, slot_chunk,
-                            spec_verify, window)
+                            spec_verify, window, fused_attn)
     return dense(o.reshape(B, S, Hq * D), p["wo"], p.get("bo")), kv
 
 
 def _slot_attention(cache, layer, q, k, v, positions, slot_chunk,
-                    spec_verify, window):
+                    spec_verify, window, fused_attn=True):
     """The engine's slot-cache branches of :func:`attention_block`."""
     from ..engine.kvcache import (fused_slot_attention, slot_chunk_prefill,
-                                  slot_layer_write)
+                                  slot_layer_update, slot_layer_write)
     if window is not None:
         raise NotImplementedError("slot-cache attention takes no window")
     B, S = q.shape[:2]
@@ -178,6 +182,9 @@ def _slot_attention(cache, layer, q, k, v, positions, slot_chunk,
         slot, pos_start, length = slot_chunk
         return slot_chunk_prefill(cache, layer, q[0], k[0], v[0], slot,
                                   pos_start, length, verify=spec_verify)[None]
+    if S == 1 and not fused_attn:
+        kf, vf, kv_pos = slot_layer_update(cache, layer, k, v, positions)
+        return attend(q, kf, vf, positions, kv_pos)
     if S == 1:
         slot_layer_write(cache, layer, k, v, positions)
         return fused_slot_attention(cache, layer, q[:, 0],

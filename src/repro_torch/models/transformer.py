@@ -181,10 +181,10 @@ def prefill(params, cfg, batch, max_len: Optional[int] = None, *,
 
 
 def _forward_slots(params, cfg, cache, tokens, positions, slot_chunk=None,
-                   verify: bool = False):
+                   verify: bool = False, fused: bool = True):
     x = embed_lookup(params["embed"], tokens)
     x, _ = _layers(params, cfg, x, positions, cache, slot_chunk=slot_chunk,
-                   spec_verify=verify)
+                   spec_verify=verify, fused_attn=fused)
     if slot_chunk is not None and not verify:
         # only the chunk's last valid token feeds the head (the engine
         # samples the first generated token from it): (1, 1, V), not
@@ -194,12 +194,16 @@ def _forward_slots(params, cfg, cache, tokens, positions, slot_chunk=None,
     return _head(params, cfg, x)
 
 
-def decode_step_slots(params, cfg, cache, tokens, pos):
+def decode_step_slots(params, cfg, cache, tokens, pos, *,
+                      fused: bool = True):
     """One decode step over every slot of the cache (updated in place).
-    tokens (N, 1) int; pos (N,) per-slot absolute positions. Returns
-    logits (N, 1, V) fp32."""
+    tokens (N, 1) int; pos (N,) per-slot absolute positions. ``fused``:
+    attention reads the cache through the fused decode kernel; False
+    materializes each layer's cache in the step's dtype and attends it in
+    plain PyTorch. Returns logits (N, 1, V) fp32."""
     positions = pos.reshape(-1, 1).to(torch.int32)
-    return _forward_slots(params, cfg, cache, tokens, positions)
+    return _forward_slots(params, cfg, cache, tokens, positions,
+                          fused=fused)
 
 
 def prefill_chunk_slots(params, cfg, cache, tokens, slot: int,

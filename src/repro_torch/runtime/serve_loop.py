@@ -5,8 +5,10 @@ Requests are grouped into prefill waves of up to ``max_batch``; each
 wave is left-padded with token 0 to its longest prompt, prefilled in one
 forward, then decodes together until every member finishes: a finished
 (or short) request's row stays in the batch until the wave's longest
-generation completes. Greedy sampling runs on the device, with one (B,)
-copy of the tokens to the host per step for the eos/limit bookkeeping.
+generation completes. Sampling runs on the device (greedy argmax, or with
+``temperature > 0`` a draw from softmax(logits / T) with the server's
+``torch.Generator``), with one (B,) copy of the tokens to the host per
+step for the eos/limit bookkeeping.
 
 Dense models prefill into a ``KVCache`` of ``max_len`` rows with a pad
 mask, so the pads' K/V are never attended to (their entries hold
@@ -14,8 +16,8 @@ position -1), and decode at the wave's shared position, as the JAX
 ``Server`` does; the engine (:class:`repro_torch.engine.Engine`) is their
 default path, this loop the baseline. RWKV6 folds the pads into its
 recurrent state (``rwkv6.prefill`` takes no pad mask), as in the JAX
-package. Temperature sampling is not ported (torch's generator cannot
-reproduce ``jax.random.categorical``) and raises.
+package. Torch's generator cannot reproduce ``jax.random.categorical``:
+at a temperature the tokens are other draws from the same distribution.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..engine.engine import sample_tokens
 from ..models import get_model
 
 #: families whose prefill takes ``max_len`` and a pad mask (per-request KV
@@ -57,24 +60,28 @@ class Server:
     """Minimal wave-batching server on ``device`` (the card unless
     ``device="cpu"``). ``wave_prefill_s`` and ``decode_step_s`` record the
     host-clock time of each wave's prefill and each decode step, both
-    ending in the tokens' copy to the host (which waits for the card)."""
+    ending in the tokens' copy to the host (which waits for the card).
+    ``generator``: the ``torch.Generator`` temperature sampling draws
+    from, on ``device`` (the JAX ``Server``'s ``rng=``); by default one
+    seeded 0."""
 
-    def __init__(self, cfg, params, serve_cfg: ServeConfig, device=None):
-        if serve_cfg.temperature > 0:
-            raise NotImplementedError(
-                "temperature sampling is not ported (greedy only): torch's "
-                "generator cannot reproduce jax.random.categorical")
+    def __init__(self, cfg, params, serve_cfg: ServeConfig, device=None,
+                 generator=None):
         self.cfg = cfg
         self.model = get_model(cfg)
         self.params = params
         self.scfg = serve_cfg
         self.device = resolve_device(device)
+        self.generator = (generator if generator is not None else
+                          torch.Generator(device=self.device).manual_seed(0))
         self.wave_prefill_s: list[float] = []
         self.decode_step_s: list[float] = []
 
-    def _greedy(self, logits):
-        """The last position's argmax, on the device and as host ints."""
-        tok = logits[:, -1].argmax(-1)
+    def _sample(self, logits):
+        """The last position's token, on the device and as host ints:
+        its argmax, or at a temperature a draw from softmax(logits / T)."""
+        tok = sample_tokens(logits[:, -1], self.scfg.temperature,
+                            self.generator)
         return tok, tok.tolist()
 
     def prefill_wave(self, prompts):
@@ -96,16 +103,16 @@ class Server:
         logits, cache = self.model.prefill(
             self.params, self.cfg,
             {"tokens": torch.from_numpy(toks).to(self.device)}, **kw)
-        return (cache, *self._greedy(logits))
+        return (cache, *self._sample(logits))
 
     def decode_wave(self, cache, tok_d, pos=None):
-        """One greedy step of the whole wave from its last tokens
+        """One step of the whole wave from its last tokens
         ``tok_d`` (B,) at position ``pos`` (dense only) → (state, tokens
         on the device, host ints)."""
         args = (pos,) if self.cfg.family in PAD_MASK_FAMILIES else ()
         logits, cache = self.model.decode_step(self.params, self.cfg, cache,
                                                tok_d[:, None], *args)
-        return (cache, *self._greedy(logits))
+        return (cache, *self._sample(logits))
 
     def serve(self, requests: list[Request]) -> list[Request]:
         scfg = self.scfg

@@ -137,15 +137,18 @@ def test_matmul_kernel_rejects_untested_bits(dev):
         splitquant_matmul(x, qp, cp, recip, shift, bits=3, k=3)
 
 
-def test_attention_kernels_reject_bf16_cache(dev):
+def test_attention_kernels_reject_fp16_cache(dev):
     gen = torch.Generator(device=dev).manual_seed(4)
     q, k, v, kv_pos, q_pos, sc = _decode_inputs(gen, dev, 4, 64, 4, 4, 32,
                                                 False, torch.bfloat16)
     with pytest.raises(TypeError):
-        decode_attention(q, k.bfloat16(), v.bfloat16(), kv_pos, q_pos, *sc)
+        decode_attention(q, k.half(), v.half(), kv_pos, q_pos, *sc)
     with pytest.raises(TypeError):
-        prefill_attention(q, q, q, k[0].bfloat16(), v[0].bfloat16(),
-                          kv_pos[0], 10, 4)
+        prefill_attention(q, q, q, k[0].half(), v[0].half(), kv_pos[0], 10,
+                          4)
+    with pytest.raises(ValueError):
+        pa.write_kv_rows(q[:, :4], q[:, :4], k.half(), v.half(), kv_pos,
+                         positions=q_pos)
 
 
 def _decode_inputs(gen, dev, N, T, Hq, Hkv, D, int8, dtype):
@@ -1148,3 +1151,167 @@ def test_kv_write_rejects_bad_operands_and_never_takes_plain(dev,
     for exc, call in bad:
         with pytest.raises(exc):
             call()
+
+
+# ------------------------------------------------------ bf16 slot cache ---
+def _bf16(gen, dev, *shape):
+    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32)])
+@pytest.mark.parametrize("T", [100, 1000, 4096])
+def test_decode_bf16_cache_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype):
+    """The split-T kernel over a bf16 cache (T = 1000: off the 32-row
+    tiles), at the depths that probe its plan, against the plain version;
+    one launch, counted by mode fp and dtype bfloat16."""
+    N = 7
+    p = da.decode_plan(N, T, Hkv, Hq // Hkv, _sms(dev))
+    depths = _split_depths(T, p.rows)
+    gen = torch.Generator(device=dev).manual_seed(T + Hkv + D + 1)
+    q = torch.randn((N, Hq, D), generator=gen, device=dev).to(dtype)
+    k, v = _bf16(gen, dev, N, T, Hkv, D), _bf16(gen, dev, N, T, Hkv, D)
+    kv_pos = torch.full((N, T), -1, dtype=torch.int32, device=dev)
+    for n, depth in enumerate(depths):
+        kv_pos[n, :depth] = torch.arange(depth, device=dev)
+    kv_pos[N - 1, T - 5:] = torch.arange(5, device=dev)
+    q_pos = torch.tensor([max(d - 1, 0) for d in depths] + [4],
+                         dtype=torch.int32, device=dev)
+    before = (dict(decode_attention.mode_launches),
+              dict(decode_attention.dtype_launches))
+    got = decode_attention(q, k, v, kv_pos, q_pos)
+    torch.cuda.synchronize()
+    assert decode_attention.mode_launches["fp"] == before[0]["fp"] + 1
+    assert decode_attention.dtype_launches == dict(
+        before[1], bfloat16=before[1]["bfloat16"] + 1)
+    want = decode_attention_ref(q, k, v, kv_pos, q_pos)
+    assert got.dtype == dtype and got.shape == (N, Hq, D)
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+    assert torch.all(got[depths.index(0)] == 0)          # empty slot
+
+
+@pytest.mark.parametrize("verify", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32)])
+@pytest.mark.parametrize("pos_start,Sq", [(0, 16), (37, 96), (384, 96),
+                                          (900, 4)])
+def test_prefill_bf16_cache_kernel_vs_plain(dev, pos_start, Sq, Hq, Hkv, D,
+                                            dtype, verify):
+    """Both prefill kernels (bf16 q: tensor cores; fp32 q: CUDA cores)
+    over a bf16 cache, plain and as the verify pass (fp32 windows round
+    to bf16 there), against the plain version."""
+    T = 1024
+    length = Sq if verify else max(1, Sq - Sq // 4)
+    gen = torch.Generator(device=dev).manual_seed(Sq + pos_start + D + 2)
+    q, kn, vn, ck, cv, kv_pos, _ = _chunk_inputs(
+        gen, dev, Sq, T, Hq, Hkv, D, False, dtype, pos_start)
+    ck, cv = ck.to(torch.bfloat16), cv.to(torch.bfloat16)
+    before = (dict(prefill_attention.mode_launches),
+              prefill_attention.dtype_launches["bfloat16"])
+    got, aux = prefill_attention(q, kn, vn, ck, cv, kv_pos, pos_start,
+                                 length, verify=verify)
+    torch.cuda.synchronize()
+    mode = "verify_fp" if verify else "fp"
+    assert prefill_attention.mode_launches[mode] == before[0][mode] + 1
+    assert prefill_attention.dtype_launches["bfloat16"] == before[1] + 1
+    want = prefill_attention_ref(q, kn, vn, ck, cv, kv_pos, pos_start,
+                                 length, verify=verify)
+    assert aux == () and got.dtype == dtype and got.shape == (Sq, Hq, D)
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("where", ["decode", "chunk", "past_T"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_write_bf16_destination_bit_identical(dev, dtype, D, where,
+                                                 offset):
+    """The write into a bf16 cache (rounded to nearest even) against its
+    plain version: every byte of the destination and kv_pos equal, the
+    guard slot untouched; ``offset``: K/V and the destination are views
+    that many elements into their storage (smaller vectors)."""
+    N, T, Hkv = 4, 40, 3
+    gen = torch.Generator(device=dev).manual_seed(D + len(where) + offset)
+    kw, R = _write_map(where, N, T, dev)
+
+    def view(x):
+        big = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        out = big[offset:].view(x.shape)
+        out.copy_(x)
+        return out
+    k, v = (view(torch.randn((R, Hkv, D), generator=gen, device=dev)
+                 .to(dtype) * 3) for _ in range(2))
+    bufs = [view(_bf16(gen, dev, N + 1, T, Hkv, D)) for _ in range(2)]
+    bufs.append(torch.randint(-1, 3 * T, (N + 1, T), generator=gen,
+                              device=dev, dtype=torch.int32))
+    want = [b.clone() for b in bufs]
+    pa.write_kv_rows_ref(k, v, *[b[:N] for b in want], **kw)
+    before = (dict(pa.write_kv_rows.mode_launches),
+              dict(pa.write_kv_rows.dtype_launches))
+    pa.write_kv_rows(k, v, *[b[:N] for b in bufs], **kw)
+    torch.cuda.synchronize()
+    assert pa.write_kv_rows.mode_launches == dict(
+        before[0], fp=before[0]["fp"] + 1)
+    assert pa.write_kv_rows.dtype_launches == dict(
+        before[1], bfloat16=before[1]["bfloat16"] + 1)
+    for got, ref in zip(bufs, want):
+        assert torch.equal(got, ref)
+
+
+def test_bf16_cache_smem_says_two_bytes(dev):
+    lib = pa.build.library()
+    for D in (32, 64, 128):
+        w = 4
+        b16 = lib.decode_attention_smem(D, 0, 2, 0, 1, w)
+        b32 = lib.decode_attention_smem(D, 0, 4, 0, 1, w)
+        assert 0 < b16 < b32
+        assert lib.prefill_attention_smem(D, 0, 2, 1024) < \
+            lib.prefill_attention_smem(D, 0, 4, 1024)
+
+
+def test_sampler_distribution_on_the_card(dev):
+    """sample_tokens on the card, a seeded logits row at T = 0.7, 2e4
+    draws: the 64 hot tokens and the rest within the 1 - 1e-6 chi-square
+    bound (64 degrees of freedom: 132.79) of softmax(logits / T)."""
+    from repro_torch.engine.engine import sample_tokens
+    V, n, T = 4096, 20_000, 0.7
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(V, generator=g)
+    hot = torch.randperm(V, generator=g)[:64].sort().values
+    logits[hot] = 4.0 + 1.5 * torch.rand(64, generator=g)
+    p = torch.softmax(logits.double() / T, -1)
+    expect = n * torch.cat([p[hot], 1 - p[hot].sum()[None]])
+    assert float(expect.min()) >= 5
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = sample_tokens(logits.to(dev).expand(n, V), T, gen).cpu()
+    counts = torch.bincount(toks, minlength=V).double()
+    o = torch.cat([counts[hot], (n - counts[hot].sum())[None]])
+    assert float(((o - expect) ** 2 / expect).sum()) < 132.79
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_mode="fp", kv_dtype="bfloat16", prefill_chunk=32),
+    dict(kv_mode="int8", prefill_chunk=0),
+    dict(kv_mode="int8", prefill_chunk=32, fused_attn=False),
+    dict(kv_mode="fp", kv_dtype="bfloat16", prefill_chunk=0, spec_k=2)],
+    ids=["bf16-cache", "oneshot-int8", "materialize", "bf16-oneshot-spec"])
+def test_engine_options_card_match_cpu(dev, kw):
+    """Reduced stablelm in fp32 with INT4 SplitQuant weights: the card's
+    greedy tokens equal the CPU's over a bf16 cache, with one-shot
+    prefill, through the materialize read path, and speculating over
+    one-shot admissions."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg = get_arch("stablelm-1.6b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", device="cpu")
+    prompts = seeded_prompts(cfg.vocab, 6, 3, 60, seed=1)
+    outs = {}
+    for d, p in (("cpu", params), ("cuda", tree_to(params, dev))):
+        eng = Engine(cfg, p, EngineConfig(n_slots=3, max_len=96,
+                                          max_new_tokens=8, **kw), device=d)
+        for pr in prompts:
+            eng.submit(pr)
+        outs[d] = [r.out for r in eng.drain()]
+    assert outs["cuda"] == outs["cpu"]

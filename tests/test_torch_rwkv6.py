@@ -239,13 +239,18 @@ def test_get_model_and_unported_paths_raise(pair):
                       enumerate((3, 6, 2))])
     assert [len(r.out) for r in reqs] == [2, 2, 2]
     assert len(srv.wave_prefill_s) == 2
+    # both families serve at a temperature too: every budget met
+    for c, p in ((dense, transformer.init(dense, seed=0, device="cpu")),
+                 (cfg, port)):
+        reqs = tsl.Server(c, p, tsl.ServeConfig(
+            max_batch=2, max_new_tokens=3, temperature=0.7),
+            device="cpu").serve([tsl.Request(i, np.arange(1, n)) for i, n
+                                 in enumerate((3, 6, 2))])
+        assert [len(r.out) for r in reqs] == [3, 3, 3]
+        assert all(0 <= t < c.vocab for r in reqs for t in r.out)
     toks = {"tokens": torch.zeros((1, 16), dtype=torch.long)}
     calls = [
         lambda: get_model(dataclasses.replace(cfg, family="moe")),
-        lambda: tsl.Server(dense, {}, tsl.ServeConfig(temperature=0.7),
-                           device="cpu"),
-        lambda: tsl.Server(cfg, port, tsl.ServeConfig(temperature=0.7),
-                           device="cpu"),
         lambda: tr.prefill(port, cfg, toks, pad_mask=torch.ones(1, 16)),
         lambda: tr.prefill(port, cfg, toks, moe_blocks=2),
         lambda: tr.verify_step_slots(),

@@ -17,7 +17,8 @@ Phases (any failure exits non-zero):
    time, a one-call PyTorch yardstick where one exists, and the least
    time the card could take (the larger of bytes over 3.35 TB/s and
    operations over the bf16 tensor-core rate, 989 TFLOP/s); the matmul
-   cases also print their achieved TFLOP/s and share of the bound, and
+   cases (INT4 at every shape, INT2 and INT8 at stablelm-1.6b's decode
+   and chunk M) also print their achieved TFLOP/s and share of the bound, and
    the build's ``-Xptxas -v`` lines of the tensor-core matmul kernel and
    of the two attention kernels (registers, spills, shared memory) are
    printed first. The decode cases (stablelm-1.6b and chatglm3-6b at 8
@@ -106,11 +107,28 @@ Phases (any failure exits non-zero):
    with the percentile-clipped baseline (99%, INT4) of the full-width
    stablelm-1.6b tree on the card, timed, and one 2048 x 5632 leaf
    quantized on the card and on the CPU: codes and scales identical;
+   then recipe: ``layer_sensitivity`` of the seeded bf16 stablelm-1.6b
+   tree at bits (2, 4, 8) over 2 x 128 seeded tokens, ``greedy_allocate``
+   midway between uniform INT2 and INT4 bytes (feasible, within budget,
+   ``quantize_tree`` bits as allocated), static KV scales on the mixed
+   tree, a checkpoint and QuantRecipe written to a temporary directory
+   (free space checked first) and read back by ``load_recipe_params``
+   with k-means made to fail (bit-identical weights), then the 16
+   requests served from the recipe: tokens equal to an engine over the
+   in-memory mixed tree with the same scales, matmul launches at every
+   allocated bit-width (``bits_launches``) and at no other, all
+   ``bf16_wgmma``, only static attention and write modes, one write a
+   layer and forward pass; it prints the sensitivity's seconds and top
+   3, the checkpoint's bytes, save and load seconds, tokens/s, TTFT p50
+   and peak memory beside the card's name and power limit;
 4. cross-checks: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
    tokens; the speculative engine (INT2 draft, spec_k 3) over int8
    dynamic and static caches: card spec tokens == card greedy tokens ==
-   CPU spec tokens; the dense wave ``Server`` over two left-padded
+   CPU spec tokens, and on each device the draft minted from
+   ``draft_recipe`` (its checkpoint and recipe in a temporary directory)
+   gives the tokens and proposed / accepted counts of the same draft as
+   ``draft_params=``; the dense wave ``Server`` over two left-padded
    waves of mixed lengths, one request with a budget of 1: identical
    greedy tokens; and the engine over a bf16 fp cache, with one-shot
    prefill over an int8 cache, and through the materialize read path
@@ -130,8 +148,9 @@ Phases (any failure exits non-zero):
 The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
 (``launches_by_path`` splits them: engine, static, spec, dense_wave,
-wave, engine_bf16, oneshot and sampling, ``launches_by_variant`` splits
-those of the matmul and of the two attention kernels by variant,
+wave, engine_bf16, oneshot, sampling and recipe, ``launches_by_variant``
+splits those of the matmul and of the two attention kernels by variant,
+``launches_by_bits`` the matmul's of the recipe run by bit-width,
 ``launches_by_mode`` those of the attention kernels and of the K/V write
 by mode and ``launches_by_cache_dtype`` theirs by the cache's dtype in
 the runs of this slice; the write, the counterpart of both branches of the TPU prefill
@@ -182,22 +201,24 @@ SOURCES = {
 #: "static" (static scales), "spec" (speculative, static target, dynamic
 #: draft), "dense_wave" (stablelm-1.6b through the wave loop), "wave"
 #: (rwkv6), "engine_bf16" (an fp cache in bf16), "oneshot" (one-shot
-#: prefill over the int8 dynamic cache: no prefill attention) and
-#: "sampling" (the bf16-cache engine at temperature 0.7). ``kv_write`` is
+#: prefill over the int8 dynamic cache: no prefill attention),
+#: "sampling" (the bf16-cache engine at temperature 0.7) and "recipe" (a
+#: mixed INT2/INT4/INT8 tree restored from a checkpoint, static scales
+#: from its recipe). ``kv_write`` is
 #: ``write_kv_rows`` in its dynamic and fp modes, ``kv_write_static`` in
 #: its static mode.
 PATHS = {
     "splitquant_matmul": ("engine", "static", "spec", "dense_wave", "wave",
-                          "engine_bf16", "oneshot", "sampling"),
+                          "engine_bf16", "oneshot", "sampling", "recipe"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
     "prefill_attention": ("engine", "static", "spec", "engine_bf16",
-                          "sampling"),
+                          "sampling", "recipe"),
     "kv_write": ("engine", "spec", "engine_bf16", "oneshot", "sampling"),
     "wkv_chunked": ("wave",),
     "decode_attention": ("engine", "static", "spec", "engine_bf16",
-                         "oneshot", "sampling"),
-    "kv_write_static": ("static", "spec"),
+                         "oneshot", "sampling", "recipe"),
+    "kv_write_static": ("static", "spec", "recipe"),
 }
 #: the 1 - 1e-6 quantile of chi-square with 64 degrees of freedom (the
 #: sampling phase's 64 hot tokens and the rest)
@@ -334,19 +355,24 @@ def matmul_cases(torch, timer, rep):
     from repro_torch.kernels.splitquant_matmul import splitquant_matmul
     from repro_torch.launch.serve import dense_wave_workload
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bits, k = 4, 3
+    k = 3
     # M at the dense_wave phase's largest wave prefill: a wave's rows times
     # its longest prompt
     _, scfg, _, _, prompts = dense_wave_workload()
     B = scfg.max_batch
     m_wave = max(len(w) * max(map(len, w)) for w in
                  (prompts[i:i + B] for i in range(0, len(prompts), B)))
-    # (arch, K, N, M at decode, at a prefill chunk and at a wave prefill)
-    shapes = [("stablelm-1.6b", K, N, (8, 96, m_wave)) for K, N in (
-        (2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352))] + \
-        [("rwkv6-3b", K, N, (8, 96, 2048)) for K, N in (
-            (2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536))]
-    for arch, K, N, Ms in shapes:
+    # (arch, K, N, M at decode, at a prefill chunk and at a wave prefill,
+    # bits): INT4 as every serving run quantizes, INT2 and INT8 (the
+    # recipe phase's mixed tree) at the stablelm decode and chunk M
+    stablelm = ((2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352))
+    shapes = [("stablelm-1.6b", K, N, (8, 96, m_wave), 4)
+              for K, N in stablelm] + \
+        [("rwkv6-3b", K, N, (8, 96, 2048), 4) for K, N in (
+            (2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536))] + \
+        [("stablelm-1.6b", K, N, (8, 96), bits) for bits in (2, 8)
+         for K, N in stablelm]
+    for arch, K, N, Ms, bits in shapes:
         qp = torch.randint(0, 256, (K * bits // 8, N), generator=gen,
                            dtype=torch.uint8, device="cuda")
         cids = torch.randint(0, k, (K, N), generator=gen, device="cuda")
@@ -370,7 +396,7 @@ def matmul_cases(torch, timer, rep):
                 2 * k * N * 4 + M * N * 2
             ms = timer(lambda: splitquant_matmul(x, qp, cp, recip, shift,
                                                  bits=bits, k=k))
-            rep.add(f"{arch} M={M} K={K} N={N} bf16 int4 k=3",
+            rep.add(f"{arch} M={M} K={K} N={N} bf16 int{bits} k=3",
                     max_err(got, want), tol, ms,
                     timer(lambda: splitquant_matmul_ref(x, qp, cp, recip,
                                                         shift, bits)),
@@ -1341,7 +1367,15 @@ def spec_cross_check(torch):
     """stablelm-1.6b reduced in fp32, INT4 target and INT2 draft,
     spec_k = 3, over int8 dynamic and static caches: the card's
     speculative tokens equal the card's greedy tokens and the CPU's
-    speculative tokens."""
+    speculative tokens; and on each device an engine whose draft is
+    minted from ``draft_recipe`` (the INT2 draft's checkpoint and a
+    recipe, saved in a temporary directory) gives the same tokens and
+    the same proposed and accepted counts as the draft passed as
+    ``draft_params=``."""
+    import os
+    import tempfile
+    from repro_torch.calib import QuantRecipe
+    from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_arch
     from repro_torch.core.apply import tree_to
     from repro_torch.engine import Engine, EngineConfig
@@ -1354,28 +1388,58 @@ def spec_cross_check(torch):
     scales, _ = calibrate(torch, cfg, params, "cpu", S=64)
     prompts = seeded_prompts(cfg.vocab, 8, 16, 200, seed=2)
     res = {}
-    for mode, kv_scales in (("dynamic", None), ("static", scales)):
-        outs = {}
-        for dev, spec_k in (("cpu", 3), ("cuda", 3), ("cuda", 0)):
-            p, d = (params, draft) if dev == "cpu" else \
-                (tree_to(params, "cuda"), tree_to(draft, "cuda"))
-            eng = Engine(cfg, p, EngineConfig(
-                n_slots=4, max_len=256, max_new_tokens=16, kv_mode="int8",
-                prefill_chunk=96, spec_k=spec_k), device=dev,
-                kv_scales=kv_scales, draft_params=d if spec_k else None)
-            for pr in prompts:
-                eng.submit(pr)
-            outs[(dev, spec_k)] = [r.out for r in eng.drain()]
-        same = outs[("cuda", 3)] == outs[("cuda", 0)] == outs[("cpu", 3)]
-        log(f"spec cross-check: stablelm-1.6b reduced fp32, int8 {mode} KV, "
-            f"spec_k 3 with an INT2 draft, 8 requests x 16 tokens: card spec "
-            f"tokens {'==' if same else '!='} card greedy tokens == CPU spec "
-            f"tokens")
-        if not same:
-            fail(f"spec cross-check ({mode}): card spec {outs[('cuda', 3)]}, "
-                 f"card greedy {outs[('cuda', 0)]}, cpu spec "
-                 f"{outs[('cpu', 3)]}")
-        res[mode] = {"requests": len(prompts), "identical": same}
+    with tempfile.TemporaryDirectory() as rdir:
+        ckpt.save(os.path.join(rdir, "ckpt"), 0, draft)
+        QuantRecipe(name=f"{cfg.name}-int2-draft", arch=cfg.name,
+                    ckpt_dir="ckpt").save(rdir)
+        for mode, kv_scales in (("dynamic", None), ("static", scales)):
+            outs, counts = {}, {}
+            for dev, spec_k, how in (("cpu", 3, "params"),
+                                     ("cuda", 3, "params"), ("cuda", 0, ""),
+                                     ("cpu", 3, "recipe"),
+                                     ("cuda", 3, "recipe")):
+                p, d = (params, draft) if dev == "cpu" else \
+                    (tree_to(params, "cuda"), tree_to(draft, "cuda"))
+                eng = Engine(cfg, p, EngineConfig(
+                    n_slots=4, max_len=256, max_new_tokens=16,
+                    kv_mode="int8", prefill_chunk=96, spec_k=spec_k,
+                    draft_recipe=rdir if how == "recipe" else None),
+                    device=dev, kv_scales=kv_scales,
+                    draft_params=d if how == "params" else None)
+                for pr in prompts:
+                    eng.submit(pr)
+                outs[(dev, spec_k, how)] = [r.out for r in eng.drain()]
+                counts[(dev, how)] = (eng.sched.spec_proposed,
+                                      eng.sched.spec_accepted)
+            same = outs[("cuda", 3, "params")] == outs[("cuda", 0, "")] == \
+                outs[("cpu", 3, "params")]
+            log(f"spec cross-check: stablelm-1.6b reduced fp32, int8 {mode} "
+                f"KV, spec_k 3 with an INT2 draft, 8 requests x 16 tokens: "
+                f"card spec tokens {'==' if same else '!='} card greedy "
+                f"tokens == CPU spec tokens")
+            if not same:
+                fail(f"spec cross-check ({mode}): card spec "
+                     f"{outs[('cuda', 3, 'params')]}, card greedy "
+                     f"{outs[('cuda', 0, '')]}, cpu spec "
+                     f"{outs[('cpu', 3, 'params')]}")
+            for dev in ("cpu", "cuda"):
+                ok = outs[(dev, 3, "recipe")] == outs[(dev, 3, "params")] \
+                    and counts[(dev, "recipe")] == counts[(dev, "params")]
+                log(f"spec cross-check ({mode}, {dev}): the draft from "
+                    f"draft_recipe {'==' if ok else '!='} the draft as "
+                    f"draft_params (tokens; proposed, accepted "
+                    f"{counts[(dev, 'recipe')]} vs {counts[(dev, 'params')]})")
+                if not ok:
+                    fail(f"spec cross-check ({mode}, {dev}): draft_recipe "
+                         f"gave {outs[(dev, 3, 'recipe')]} "
+                         f"{counts[(dev, 'recipe')]}, draft_params "
+                         f"{outs[(dev, 3, 'params')]} "
+                         f"{counts[(dev, 'params')]}")
+            res[mode] = {"requests": len(prompts), "identical": same,
+                         "draft_recipe_identical": True,
+                         "proposed_accepted": {
+                             f"{dev}_{how}": list(c)
+                             for (dev, how), c in counts.items()}}
     return res
 
 
@@ -1396,7 +1460,7 @@ def rwkv_phase(torch, counters):
         f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), init + "
         f"SplitQuant INT4 k=3 of {len(report['quantized'])} matrices on the "
         f"card in {t_quant:.2f} s ({report['deployed_bytes'] / 2**20:.1f} "
-        f"MiB packed)")
+        f"MiB deployed)")
     Server(cfg, params, ServeConfig(max_batch=8, max_new_tokens=2),
            device=device).serve([Request(i, p)
                                  for i, p in enumerate(warmup)])
@@ -1833,6 +1897,204 @@ def percentile_phase(torch, card_line):
     return res
 
 
+@contextlib.contextmanager
+def _no_kmeans():
+    """Make the port's k-means raise for as long as the context is open
+    (serving from a recipe must never cluster)."""
+    import repro_torch.core.kmeans as kmeans_mod
+    import repro_torch.core.splitquant as splitquant_mod
+
+    def boom(*a, **kw):
+        raise AssertionError("k-means ran while serving from a recipe")
+
+    saved = kmeans_mod.kmeans_1d, splitquant_mod.kmeans_1d
+    kmeans_mod.kmeans_1d = splitquant_mod.kmeans_1d = boom
+    try:
+        yield
+    finally:
+        kmeans_mod.kmeans_1d, splitquant_mod.kmeans_1d = saved
+
+
+def _same_packed(torch, a, b, path="") -> None:
+    """Fail unless two trees hold the same dense tensors and bit-identical
+    packed weights."""
+    from repro_torch.kernels.ops import PackedWeight
+    if isinstance(b, dict):
+        for key in b:
+            _same_packed(torch, a[key], b[key], f"{path}/{key}")
+    elif isinstance(b, list):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_packed(torch, x, y, f"{path}/{i}")
+    elif isinstance(b, PackedWeight):
+        same = isinstance(a, PackedWeight) and \
+            (a.bits, a.k, a.shape, a.orig_dtype) == \
+            (b.bits, b.k, b.shape, b.orig_dtype) and \
+            all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in ("qp", "cp", "recip", "shift", "scale", "zero"))
+        if not same:
+            fail(f"recipe: the restored {path} differs from the saved one")
+    elif not (a.dtype == b.dtype and torch.equal(a, b)):
+        fail(f"recipe: the restored {path} differs from the saved one")
+
+
+def _ckpt_bytes(tree) -> int:
+    """The bytes of a checkpoint of ``tree``: every quantized weight as
+    1-byte codes and 1-byte cluster ids plus fp32 scales and zeros, every
+    dense leaf in fp32."""
+    from repro_torch.kernels.ops import PackedWeight
+    if isinstance(tree, dict):
+        return sum(_ckpt_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_ckpt_bytes(v) for v in tree)
+    if isinstance(tree, PackedWeight):
+        return 2 * tree.shape[0] * tree.shape[1] + 8 * tree.scale.numel()
+    return 4 * tree.numel()
+
+
+def recipe_phase(torch, counters, card_line):
+    """Calibrate, save and serve a mixed-precision recipe at full width:
+    ``layer_sensitivity`` of the seeded bf16 stablelm-1.6b tree at bits
+    (2, 4, 8), SplitQuant k=3, over one seeded calibration batch of
+    2 x 128 tokens; ``greedy_allocate`` at the budget midway between
+    uniform INT2 and uniform INT4; ``quantize_tree`` with its overrides;
+    static KV scales from ``collect_kv_stats`` on the mixed tree; a
+    checkpoint and a QuantRecipe in a temporary directory (free space
+    checked first); ``load_recipe_params`` with k-means made to fail; then
+    the smoke workload's 16 requests served from the recipe, gated on
+    the in-memory mixed tree's tokens (same scales, same run), on matmul
+    launches at every allocated bit-width (``bits_launches``), all
+    ``bf16_wgmma``, and on static attention and write launches only."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.calib import (QuantRecipe, greedy_allocate,
+                                   layer_sensitivity, sensitivity_summary,
+                                   uniform_bytes)
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.apply import QuantPolicy, quantize_tree
+    from repro_torch.core.quantize import QuantConfig
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import splitquant_matmul as sqm
+    from repro_torch.launch.serve import load_recipe_params, smoke_workload
+    from repro_torch.models import get_model, transformer
+
+    cfg, ecfg, quant, warmup, prompts = smoke_workload()
+    dense = get_model(cfg).init(cfg, seed=quant["seed"], device="cuda")
+    toks = np.random.default_rng(11).integers(0, cfg.vocab, size=(2, 128))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = layer_sensitivity(
+        0, cfg, dense, lambda p, b: transformer.forward(p, cfg, b)[0],
+        {"tokens": toks}, policy=QuantPolicy(k=3), bits_list=(2, 4, 8))
+    torch.cuda.synchronize()
+    t_sens = time.perf_counter() - t0
+    top3 = sensitivity_summary(table, bits=2)[:3]
+    lo, hi = uniform_bytes(table, 2), uniform_bytes(table, 4)
+    budget = (lo + hi) // 2
+    alloc = greedy_allocate(table, budget)
+    if not alloc["feasible"] or alloc["total_bytes"] > budget:
+        fail(f"recipe: allocation at {budget} bytes: feasible "
+             f"{alloc['feasible']}, {alloc['total_bytes']} bytes")
+    t0 = time.perf_counter()
+    mixed, report = quantize_tree(dense, QuantPolicy(
+        cfg=QuantConfig(bits=4)), seed=0, overrides=alloc["overrides"])
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    got_bits = {p: e["bits"] for p, e in report["per_path"].items()}
+    if got_bits != alloc["assignment"]:
+        fail(f"recipe: quantize_tree bits {got_bits} != the allocation's "
+             f"{alloc['assignment']}")
+    chosen = sorted(set(alloc["assignment"].values()))
+    scales, t_cal = calibrate(torch, cfg, mixed, "cuda")
+    need = _ckpt_bytes(mixed)
+    with tempfile.TemporaryDirectory() as rdir:
+        free = shutil.disk_usage(rdir).free
+        if free < 1.2 * need:
+            fail(f"recipe: {free / 2**30:.1f} GiB free under {rdir}, the "
+                 f"checkpoint needs about {need / 2**30:.1f} GiB")
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(rdir, "ckpt"), 0, mixed)
+        QuantRecipe(
+            name=f"{cfg.name}-mixed-splitquant", arch=cfg.name,
+            policies=alloc["overrides"], kv_scales=scales,
+            kv_qchunks=ecfg.kv_qchunks, ckpt_dir="ckpt",
+            meta={"budget_bytes": budget,
+                  "deployed_bytes": report["deployed_bytes"],
+                  "avg_bits": alloc["avg_bits"], "reduced": False,
+                  "sensitivity_top": top3}).save(rdir)
+        t_save = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(rdir) for f in fs)
+        t0 = time.perf_counter()
+        with _no_kmeans():
+            restored, rec, rscales = load_recipe_params(
+                rdir, dense, arch=cfg.name, reduced=False)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    del dense
+    _same_packed(torch, restored, mixed)
+    ref = Engine(cfg, mixed, ecfg, device="cuda", kv_scales=scales)
+    for p in prompts:
+        ref.submit(p)
+    want = [r.out for r in ref.drain()]
+    del ref, mixed
+    eng, fin, wall, launches = serve_run(
+        torch, counters, "recipe", cfg, restored, ecfg, warmup, prompts,
+        kv_scales=rscales)
+    by_bits = dict(sqm.splitquant_matmul.bits_launches)
+    variants = only_variant(counters, "splitquant_matmul", "recipe")
+    modes = only_modes(counters, "recipe", {"static"}, {"static"})
+    writes = one_write_per_layer(
+        "recipe", cfg.n_layers,
+        {"static": eng.n_decode_steps + eng.n_prefill_chunks})
+    if any(by_bits[b] <= 0 for b in chosen) or \
+            any(n for b, n in by_bits.items() if b not in chosen):
+        fail(f"recipe: matmul launches by bits {by_bits}; the allocation "
+             f"chose {chosen}")
+    outs = [r.out for r in fin]
+    if outs != want:
+        fail("recipe: the engine over the restored recipe gave other tokens "
+             "than the engine over the in-memory mixed tree")
+    n_tok = sum(len(o) for o in outs)
+    peak = torch.cuda.max_memory_allocated()
+    res = {"card": card_line, "sensitivity_s": t_sens,
+           "sensitivity_top3_kl_int2": top3,
+           "table_bytes": {b: uniform_bytes(table, b) for b in (2, 4, 8)},
+           "budget_bytes": budget, "total_bytes": alloc["total_bytes"],
+           "avg_bits": alloc["avg_bits"], "assignment": alloc["assignment"],
+           "quantize_s": t_quant, "calibration_s": t_cal,
+           "deployed_bytes": report["deployed_bytes"],
+           "checkpoint_bytes": ckpt_bytes, "free_bytes": free,
+           "save_s": t_save, "load_s": t_load, "requests": len(fin),
+           "new_tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_p50_s": percentile([r.ttft for r in fin], 50),
+           "decode_step_p50_s": percentile(eng.decode_step_s, 50),
+           "peak_mem_bytes": peak, "launches": launches,
+           "bits_launches": by_bits, "matmul_variants": variants,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes, "identical_to_in_memory": True}
+    log(f"recipe: layer_sensitivity of {len(table)} groups x bits (2, 4, 8) "
+        f"over 2 x 128 tokens in {t_sens:.2f} s; most sensitive at INT2 "
+        f"(kl): {', '.join(f'{p} {kl:.4f}' for p, kl in top3)}")
+    log(f"recipe: budget {budget} B (uniform INT2 {lo}, INT4 {hi}); "
+        f"greedy allocation {alloc['total_bytes']} B, {alloc['avg_bits']:.3f} "
+        f"bits on average, bits by path {alloc['assignment']}; quantized in "
+        f"{t_quant:.2f} s; KV scales in {t_cal:.2f} s")
+    log(f"recipe: checkpoint + recipe {ckpt_bytes / 1e9:.3f} GB written in "
+        f"{t_save:.2f} s ({free / 2**30:.1f} GiB were free), restored by "
+        f"load_recipe_params with no k-means in {t_load:.2f} s, bit-identical")
+    log(f"recipe: {len(fin)} requests from the restored recipe, tokens == the "
+        f"in-memory mixed tree's; {n_tok} new tokens in {wall:.3f} s = "
+        f"{res['tokens_per_s']:.1f} tok/s; TTFT p50 "
+        f"{res['ttft_p50_s'] * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} "
+        f"GiB; matmul launches by bits {by_bits}, by variant {variants}; "
+        f"attention by mode {modes}; K/V writes by mode {writes} "
+        f"[card: {card_line}]")
+    return res
+
+
 def options_cross_check(torch):
     """stablelm-1.6b ``.reduced()`` in fp32 (INT4 SplitQuant weights) on
     the card and on the CPU with the same weights: the greedy engine over
@@ -1949,7 +2211,7 @@ def main() -> None:
         f"{cfg.vocab}): init + SplitQuant INT4 k=3 of "
         f"{len(report['quantized'])} matrices on the card in "
         f"{time.perf_counter() - t0:.2f} s "
-        f"({report['deployed_bytes'] / 2**20:.1f} MiB packed)")
+        f"({report['deployed_bytes'] / 2**20:.1f} MiB deployed)")
     eng = engine_phase(torch, counters, params)
     scales, t_cal = calibrate(torch, cfg, params, "cuda")
     log(f"static KV scales: collect_kv_stats over 4 seeded prompts of 256 "
@@ -1971,6 +2233,8 @@ def main() -> None:
     samp = sampling_phase(torch, counters, params, card_line)
     del params
     torch.cuda.empty_cache()
+    rec = recipe_phase(torch, counters, card_line)
+    torch.cuda.empty_cache()
     pq = percentile_phase(torch, card_line)
     xc = cross_check(torch)
     sxc = spec_cross_check(torch)
@@ -1980,11 +2244,13 @@ def main() -> None:
     rxc = rwkv_cross_check(torch)
 
     serving = {"engine": eng, "static": sta, "spec": spec,
-               "engine_bf16": bf16, "oneshot": one, "sampling": samp}
+               "engine_bf16": bf16, "oneshot": one, "sampling": samp,
+               "recipe": rec}
     runs = {"engine": eng["launches"], "static": sta["launches"],
             "spec": spec["launches"], "dense_wave": dense["launches"],
             "wave": rwkv["launches"], "engine_bf16": bf16["launches"],
-            "oneshot": one["launches"], "sampling": samp["launches"]}
+            "oneshot": one["launches"], "sampling": samp["launches"],
+            "recipe": rec["launches"]}
     by_dtype = {"engine_bf16": bf16["cache_dtypes"],
                 "oneshot": one["cache_dtypes"],
                 "sampling": samp["engine"]["cache_dtypes"]}
@@ -1993,7 +2259,9 @@ def main() -> None:
         "dense_wave": dense["matmul_variants"],
         "wave": rwkv["matmul_variants"],
         "engine_bf16": bf16["matmul_variants"],
-        "oneshot": one["matmul_variants"]}},
+        "oneshot": one["matmul_variants"],
+        "recipe": rec["matmul_variants"]},
+        "launches_by_bits": {"recipe": rec["bits_launches"]}},
         "prefill_attention": {"launches_by_variant": {
             "engine": eng["prefill_variants"],
             "static": sta["prefill_variants"]},
@@ -2028,7 +2296,7 @@ def main() -> None:
          "cross_check": xc, "spec_cross_check": sxc, "dense_wave": dense,
          "dense_wave_cross_check": dxc, "rwkv6": rwkv,
          "rwkv6_cross_check": rxc, "engine_bf16": bf16, "oneshot": one,
-         "sampling": samp, "percentile_quant": pq,
+         "sampling": samp, "recipe": rec, "percentile_quant": pq,
          "options_cross_check": oxc,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))

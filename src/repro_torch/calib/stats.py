@@ -1,5 +1,6 @@
-"""K/V range statistics and the static scales derived from them (port of
-the KV part of ``repro.calib.stats``).
+"""Range statistics and the static scales derived from them (port of
+``repro.calib.stats``, without ``collect_act_stats``: its instrumented
+forward is the encoder family's, which is not ported).
 
 :func:`collect_kv_stats` measures per-(layer, kv-head, sub-channel chunk)
 min/max of the K/V that the engine's slot cache stores, over seeded
@@ -10,16 +11,56 @@ runtime min/max reduce. The JAX package reduces the cache of a one-shot
 through ``prefill_chunk_slots`` into an fp32 slot cache and reduces the
 rows written: the same K/V, summed in another order (equal to the JAX
 function's at fp32 rounding).
+
+:class:`ActStats`, :func:`_merge` and :func:`act_static_scales` are the
+numpy half of the activation statistics: they merge per-batch stats and
+turn them into the recipe's ``act_scales`` payload, whoever collected
+them.
 """
 from __future__ import annotations
 
-from typing import Iterable
+import dataclasses
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
 from ..engine.kvcache import init_slot_cache
 from ..models import transformer
+
+
+@dataclasses.dataclass
+class ActStats:
+    """Merged activation statistics. ``sites[name]`` maps each stat
+    (min/max/p_lo/p_hi one per layer (L,), chunk_min/chunk_max (L, C)) to
+    a numpy array."""
+
+    sites: dict
+    n_chunks: int
+    percentile: float
+    n_batches: int = 0
+
+
+def _merge(acc: Optional[dict], new: dict, n_seen: int) -> dict:
+    """Merge one batch's stats into the accumulator: exact running
+    min/max, and a running mean of the per-batch percentiles (one batch
+    cannot see the global quantiles)."""
+    new = {k: {s: np.asarray(v) for s, v in d.items()}
+           for k, d in new.items()}
+    if acc is None:
+        return new
+    out = {}
+    for site, d in new.items():
+        a = acc[site]
+        out[site] = {
+            "min": np.minimum(a["min"], d["min"]),
+            "max": np.maximum(a["max"], d["max"]),
+            "chunk_min": np.minimum(a["chunk_min"], d["chunk_min"]),
+            "chunk_max": np.maximum(a["chunk_max"], d["chunk_max"]),
+            "p_lo": a["p_lo"] + (d["p_lo"] - a["p_lo"]) / (n_seen + 1),
+            "p_hi": a["p_hi"] + (d["p_hi"] - a["p_hi"]) / (n_seen + 1),
+        }
+    return out
 
 
 def collect_kv_stats(cfg, params, batches: Iterable[np.ndarray], *,
@@ -104,4 +145,22 @@ def kv_static_scales(kv_stats: dict, *, bits: int = 8,
         scale, zero = static_qparams(beta, alpha, bits=bits)
         out[f"{name}_scale"] = scale
         out[f"{name}_zero"] = zero
+    return out
+
+
+def act_static_scales(stats: ActStats, *, bits: int = 8,
+                      use_percentile: bool = False) -> dict:
+    """Per-site static activation (S, Z) from merged stats, per layer and
+    chunk: {site: {"scale": (L, C), "zero": (L, C)}}, with exact
+    fractional zero-points by :func:`static_qparams`. ``use_percentile``
+    clips to the calibrated percentile range instead of min/max."""
+    out = {}
+    for site, d in stats.sites.items():
+        beta = np.asarray(d["chunk_min"], np.float32)
+        alpha = np.asarray(d["chunk_max"], np.float32)
+        if use_percentile:
+            beta = np.maximum(beta, d["p_lo"][..., None])
+            alpha = np.minimum(alpha, d["p_hi"][..., None])
+        scale, zero = static_qparams(beta, alpha, bits=bits)
+        out[site] = {"scale": scale, "zero": zero}
     return out

@@ -136,7 +136,8 @@ def quantize_tree(params, policy: QuantPolicy, seed: int = 0,
     ``policy``, keyed by the JAX package's lowercase paths (module doc);
     a path that matches no quantizable leaf raises. ``report["per_path"]``
     gives each such path's bits, k, method and deployed bytes (summed
-    over the layers)."""
+    over the layers); bytes are counted as the JAX package counts them
+    (:meth:`SplitQuantTensor.nbytes_deployed`)."""
     out = _copy_tree(params)
     report = {"quantized": [], "skipped": [], "deployed_bytes": 0,
               "orig_bytes": 0, "per_path": {}}
@@ -163,14 +164,15 @@ def quantize_tree(params, policy: QuantPolicy, seed: int = 0,
             sq = baseline_quant_tensor(leaf, eff.cfg)
         else:
             raise ValueError(f"unknown method {eff.method!r}")
-        packed = pack_for_kernel(sq)
-        box[key] = packed
+        box[key] = pack_for_kernel(sq)
         report["quantized"].append(path_s)
         entry = report["per_path"].setdefault(
             jpath, {"bits": eff.cfg.bits, "k": sq.k, "method": eff.method,
                     "bytes": 0})
-        entry["bytes"] += packed.nbytes_deployed()
-        report["deployed_bytes"] += packed.nbytes_deployed()
+        # the JAX package's count (codes, 2-bit cids when k > 1, scales),
+        # not the kernel layout's (PackedWeight.nbytes_packed)
+        entry["bytes"] += sq.nbytes_deployed()
+        report["deployed_bytes"] += sq.nbytes_deployed()
         report["orig_bytes"] += leaf.numel() * 4
     if unused:
         raise ValueError(f"overrides matched no quantizable leaf: "

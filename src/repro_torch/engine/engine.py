@@ -37,10 +37,12 @@ takes static per-layer scales from a calibration recipe with
 path (each layer's cache copied to full precision and attended in plain
 PyTorch), the JAX package's oracle. Torch cannot reproduce
 ``jax.random.categorical``: temperature sampling draws other tokens than
-the JAX engine from the same distribution. Not ported yet: the draft from
-a calibration recipe (``draft_recipe``; pass ``draft_params=``), faults
-and retry, journal and snapshots, metrics and tracing, the flight
-recorder, deadlines and cancel, overload shedding and degradation.
+the JAX engine from the same distribution. A speculative engine takes its
+draft as ``draft_params=`` or mints it from a calibration recipe
+(``draft_recipe``, :func:`~repro_torch.engine.spec.load_draft_params`).
+Not ported yet: faults and retry, journal and snapshots, metrics and
+tracing, the flight recorder, deadlines and cancel, overload shedding and
+degradation.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ from ..models.common import dtype_of
 from .kvcache import (clear_slot, hotswap_static_scales, init_slot_cache,
                       rollback_slot, write_prefill)
 from .scheduler import EngineRequest, Scheduler, SubmitError
-from .spec import SpecDecoder, accept_length, verify_argmax
+from .spec import (SpecDecoder, accept_length, load_draft_params,
+                   verify_argmax)
 
 #: One-shot prefills so far in this process: each dispatch materializes a
 #: dense full-precision (L, S, Hkv, D) cache that ``write_prefill`` then
@@ -106,8 +109,9 @@ class EngineConfig:
                                         # to spec_k draft tokens per slot
                                         # and step; token-identical to
                                         # spec_k=0 greedy
-    draft_recipe: Optional[str] = None  # calibration recipe of the draft
-                                        # (not ported: pass draft_params=)
+    draft_recipe: Optional[str] = None  # calibration recipe dir the draft
+                                        # is minted from when no
+                                        # draft_params are given
     draft_dequantize: bool = True       # expand the draft's packed low-bit
                                         # weights once at engine start
 
@@ -121,7 +125,8 @@ class Engine:
     recipe, ``k_scale / k_zero / v_scale / v_zero`` (L, Hkv, C) arrays;
     requires ``kv_mode="int8"``. ``draft_params``: the draft's weights for
     ``spec_k > 0`` (the same architecture, typically a low-bit SplitQuant
-    copy, on the same device); without them the target drafts for itself.
+    copy, on the same device); without them the draft is minted from
+    ``ecfg.draft_recipe``, and without that the target drafts for itself.
     ``generator``: the ``torch.Generator`` temperature sampling draws
     from, on ``device`` (the counterpart of the JAX engine's ``rng=``);
     by default one seeded 0.
@@ -143,9 +148,6 @@ class Engine:
                 "0): the lossless accept rule compares argmax tokens; "
                 "temperature sampling needs speculative rejection "
                 "sampling, which is not wired up")
-        if ecfg.spec_k and ecfg.draft_recipe:
-            raise NotImplementedError("draft recipes (calibration) are not "
-                                      "ported; pass draft_params=")
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
@@ -163,9 +165,11 @@ class Engine:
             kv_scales=kv_scales, device=self.device)
         self._spec = None
         if ecfg.spec_k:
-            self._spec = SpecDecoder(
-                cfg, ecfg, params if draft_params is None else draft_params,
-                self.device)
+            if draft_params is None:
+                draft_params = (load_draft_params(ecfg.draft_recipe, params,
+                                                  cfg)
+                                if ecfg.draft_recipe else params)
+            self._spec = SpecDecoder(cfg, ecfg, draft_params, self.device)
         N = ecfg.n_slots
         self._last_tok = np.zeros(N, np.int64)
         self._pos = np.zeros(N, np.int64)

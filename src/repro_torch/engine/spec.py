@@ -12,8 +12,9 @@ every committed token is the target's argmax given the committed prefix
 and the output is token-identical to plain greedy decoding. The rejected
 rows of both caches are undone by ``kvcache.rollback_slot``.
 
-Not ported: ``load_draft_params`` (a calibration recipe; the draft comes
-in as ``draft_params=``), the tracer spans and the metrics registry.
+The draft comes in as ``draft_params=`` or from a calibration recipe
+(:func:`load_draft_params`). Not ported: the tracer spans and the metrics
+registry.
 """
 from __future__ import annotations
 
@@ -25,6 +26,35 @@ from ..models import transformer
 from ..models.common import dtype_of
 from .kvcache import clear_slot, init_slot_cache, rollback_slot, \
     write_prefill
+
+
+def load_draft_params(recipe_dir: str, params, cfg):
+    """Mint the draft weight tree from a saved QuantRecipe: restore the
+    pre-quantized checkpoint if the recipe ships one (no k-means at engine
+    start; on the device of ``params``), else apply the recipe's per-path
+    mixed-precision policies to the target's own ``params``, which must
+    then be dense. The draft is the SAME model, just low-bit."""
+    from ..calib.recipe import QuantRecipe
+    from ..checkpoint import ckpt
+    from ..core.apply import QuantPolicy, quantize_tree
+
+    rec = QuantRecipe.load(recipe_dir)
+    if rec.arch and rec.arch != cfg.name:
+        raise ValueError(
+            f"draft recipe {recipe_dir!r} was calibrated for arch "
+            f"{rec.arch!r}, serving {cfg.name!r} — a mismatched draft "
+            f"would propose garbage and pay full verify cost for it")
+    ck = rec.resolve_ckpt_dir(recipe_dir)
+    if ck is not None:
+        draft, _ = ckpt.restore(ck, params)
+        return draft
+    if rec.policies:
+        draft, _ = quantize_tree(params, QuantPolicy(), seed=0,
+                                 overrides=rec.policies)
+        return draft
+    raise ValueError(
+        f"draft recipe {recipe_dir!r} carries neither a pre-quantized "
+        f"checkpoint nor quantization policies — nothing to draft with")
 
 
 def accept_length(drafts, target_toks, window: int) -> int:

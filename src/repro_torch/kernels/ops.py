@@ -54,7 +54,21 @@ class PackedWeight:
         return dequantize(q, select_per_element(self.scale, c),
                           select_per_element(self.zero, c), self.orig_dtype)
 
-    def nbytes_deployed(self) -> int:
+    def unpack(self) -> SplitQuantTensor:
+        """The SplitQuantTensor this weight was packed from: int8 codes and
+        uint8 cluster ids of the original (K, N) shape, with its scales
+        and zeros (what a checkpoint stores)."""
+        return SplitQuantTensor(q=unpack_codes(self.qp, self.bits),
+                                cid=unpack_cids(self.cp), scale=self.scale,
+                                zero=self.zero, bits=self.bits, k=self.k,
+                                orig_dtype=self.orig_dtype)
+
+    def nbytes_packed(self) -> int:
+        """Bytes the kernel layout holds on the device: packed codes, K/4
+        cluster-id bytes (even at k = 1) and fp32 (k, N) ``recip`` /
+        ``shift``. Not the deployed bytes a quantization report and the
+        allocation count, which are the JAX package's
+        (:meth:`SplitQuantTensor.nbytes_deployed`)."""
         return sum(t.numel() * t.element_size()
                    for t in (self.qp, self.cp, self.recip, self.shift))
 

@@ -9,7 +9,8 @@ bf16 goes to the tensor-core kernel (``"bf16_wgmma"``), fp32 to the
 CUDA-core kernel (``"fp32_cuda_core"``), which keeps the fp32 numbers
 (the tensor cores would round them to TF32). :func:`plan` picks the
 tiles and the K splits. ``splitquant_matmul.launches`` counts kernel
-launches in all, ``splitquant_matmul.variant_launches`` by variant.
+launches in all, ``splitquant_matmul.variant_launches`` by variant and
+``splitquant_matmul.bits_launches`` by the weight's bit-width.
 """
 from __future__ import annotations
 
@@ -111,15 +112,20 @@ def splitquant_matmul(x: torch.Tensor, q_packed: torch.Tensor,
     build.check(lib, err, "splitquant_matmul")
     splitquant_matmul.launches += 1
     splitquant_matmul.variant_launches[p.variant] += 1
+    splitquant_matmul.bits_launches[bits] += 1
     return y
 
 
 def reset_counts() -> None:
-    """Set the total and the per-variant launch counts to 0."""
+    """Set the total, the per-variant and the per-bit-width launch counts
+    to 0."""
     splitquant_matmul.launches = 0
-    for v in splitquant_matmul.variant_launches:
-        splitquant_matmul.variant_launches[v] = 0
+    for counts in (splitquant_matmul.variant_launches,
+                   splitquant_matmul.bits_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 splitquant_matmul.launches = 0
 splitquant_matmul.variant_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
+splitquant_matmul.bits_launches = {2: 0, 4: 0, 8: 0}

@@ -16,8 +16,23 @@ wave loop.
         --reduced --method percentile --no-fused-attn --prefill-chunk 0 \
         --device cpu
 
+Calibrated serving: ``--save-recipe DIR`` runs the offline step once
+(quantize the weights, collect static KV scales over seeded calibration
+prompts, write a quantized checkpoint and a QuantRecipe, in the JAX
+package's formats) and exits; ``--recipe DIR`` then serves from it: the
+weights restore pre-quantized (no k-means at start-up) and the int8 cache
+takes the recipe's static scales. ``--ckpt-dir`` restores the params half
+of a training checkpoint before quantizing.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --bits 2 --save-recipe /tmp/rec --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --recipe /tmp/rec --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --spec-k 3 --draft-recipe /tmp/rec --device cpu
+
 ``--spec-k`` serves with self-speculative decoding, the target drafting
-for itself (as the JAX package's ``--spec-k`` without a draft recipe).
+for itself, or the draft minted from ``--draft-recipe``.
 ``--method percentile`` quantizes with the percentile-clipped baseline
 (99%), ``--no-fused-attn`` decodes through the materialize read path and
 ``--prefill-chunk 0`` prefills each prompt in one shot at admission.
@@ -29,11 +44,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
+from ..calib import QuantRecipe, collect_kv_stats, kv_static_scales
+from ..checkpoint import ckpt
 from ..configs import get_arch
 from ..core.apply import QuantPolicy, quantize_tree
 from ..core.quantize import QuantConfig
@@ -64,6 +82,68 @@ def build_params(cfg, *, bits: int, method: str, seed: int = 0,
         return params, None
     policy = QuantPolicy(cfg=QuantConfig(bits=bits), method=method)
     return quantize_tree(params, policy, seed=seed)
+
+
+def load_recipe_params(recipe_dir, params, arch=None, reduced=None):
+    """(params, recipe, kv_scales) from a saved QuantRecipe: restore the
+    pre-quantized checkpoint if the recipe points at one (no k-means; on
+    the device of ``params``), else apply the recipe's per-path policies
+    to the dense ``params``.
+
+    ``arch``/``reduced``: when given, checked against the recipe's
+    provenance, so a mismatched recipe fails here and not deep inside a
+    checkpoint lookup or a shape error."""
+    rec = QuantRecipe.load(recipe_dir)
+    if arch is not None and rec.arch and rec.arch != arch:
+        raise ValueError(f"recipe {recipe_dir!r} was calibrated for arch "
+                         f"{rec.arch!r}, serving {arch!r}")
+    if reduced is not None and "reduced" in rec.meta \
+            and bool(rec.meta["reduced"]) != bool(reduced):
+        raise ValueError(f"recipe {recipe_dir!r} was calibrated with "
+                         f"reduced={rec.meta['reduced']}, serving "
+                         f"reduced={reduced}")
+    ck = rec.resolve_ckpt_dir(recipe_dir)
+    if ck is not None:
+        params, step = ckpt.restore(ck, params)
+        print(f"recipe: restored pre-quantized weights (step {step}) — "
+              f"no k-means at startup")
+    elif rec.policies:
+        params, report = quantize_tree(params, QuantPolicy(), seed=0,
+                                       overrides=rec.policies)
+        print(f"recipe: quantized {len(report['quantized'])} tensors from "
+              f"recipe policies ({report['deployed_bytes']/2**20:.1f} MiB)")
+    return params, rec, rec.kv_scales
+
+
+def save_recipe(recipe_dir, cfg, params, *, arch: str, bits: int,
+                method: str, reduced: bool) -> QuantRecipe:
+    """Offline calibration: quantize the dense ``params`` uniformly, measure
+    KV ranges over the JAX package's seeded calibration prompts (4 batches
+    of 4 x 48 tokens), and write a quantized checkpoint (``ckpt/``) and a
+    QuantRecipe pointing at it under ``recipe_dir``."""
+    policy = QuantPolicy(cfg=QuantConfig(bits=bits), method=method)
+    qtree, report = quantize_tree(params, policy, seed=0)
+    kv_scales = None
+    if cfg.family in ENGINE_FAMILIES:
+        rng = np.random.default_rng(0)
+        # long calibration prompts: RoPE'd K ranges depend on position,
+        # so coverage must reach past the serving prompt lengths
+        calib = [rng.integers(0, cfg.vocab, size=(4, 48)) for _ in range(4)]
+        kv_scales = kv_static_scales(
+            collect_kv_stats(cfg, qtree, calib, qchunks=4))
+    os.makedirs(recipe_dir, exist_ok=True)
+    ckpt.save(os.path.join(recipe_dir, "ckpt"), 0, qtree)
+    rec = QuantRecipe(
+        name=f"{cfg.name}-int{bits}-{method}", arch=arch,
+        policies={p: {"bits": d["bits"], "k": d["k"], "method": d["method"]}
+                  for p, d in report["per_path"].items()},
+        kv_scales=kv_scales, kv_qchunks=4, ckpt_dir="ckpt",
+        meta={"deployed_bytes": report["deployed_bytes"],
+              "orig_bytes": report["orig_bytes"], "reduced": reduced})
+    rec.save(recipe_dir)
+    print(f"saved recipe + quantized ckpt to {recipe_dir} "
+          f"({report['deployed_bytes']/2**20:.1f} MiB deployed)")
+    return rec
 
 
 def smoke_workload():
@@ -155,6 +235,18 @@ def main(argv=None):
     ap.add_argument("--spec-k", type=int, default=0,
                     help="self-speculative decoding: draft tokens per step "
                          "(the target drafts for itself)")
+    ap.add_argument("--draft-recipe", default=None,
+                    help="calibration recipe dir the speculative draft is "
+                         "minted from (needs --spec-k)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore trained weights (the params half of a "
+                         "training checkpoint) before quantizing")
+    ap.add_argument("--recipe", default=None,
+                    help="serve from a saved calibration recipe dir: "
+                         "pre-quantized weights + static KV scales")
+    ap.add_argument("--save-recipe", default=None,
+                    help="run offline calibration, write recipe + "
+                         "quantized ckpt to this dir, and exit")
     ap.add_argument("--device", default=None,
                     help="'cpu' runs the plain PyTorch versions; default "
                          "is the CUDA card")
@@ -164,12 +256,32 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.draft_recipe and not args.spec_k:
+        raise ValueError(
+            "--draft-recipe only takes effect with --spec-k > 0 — the "
+            "recipe would be silently ignored and serving would proceed "
+            "plain-greedy")
     t0 = time.perf_counter()
-    params, report = build_params(cfg, bits=args.bits, method=args.method,
-                                  device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    if report is not None:
+    params = get_model(cfg).init(cfg, seed=0, device=device)
+    if args.ckpt_dir:
+        (params, _), step = ckpt.restore(args.ckpt_dir, (params, None))
+        print(f"restored step {step}")
+    if args.save_recipe:
+        save_recipe(args.save_recipe, cfg, params, arch=args.arch,
+                    bits=args.bits, method=args.method, reduced=args.reduced)
+        return
+    kv_scales, kv_qchunks = None, EngineConfig.kv_qchunks
+    if args.recipe:
+        params, rec, kv_scales = load_recipe_params(
+            args.recipe, params, arch=args.arch, reduced=args.reduced)
+        kv_qchunks = rec.kv_qchunks        # scales are (L, Hkv, kv_qchunks)
+        if args.kv_mode != "int8":
+            kv_scales = None               # static scales only apply to int8
+    elif args.method != "none":
+        params, report = quantize_tree(params, QuantPolicy(
+            cfg=QuantConfig(bits=args.bits), method=args.method), seed=0)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
         print(f"quantized {len(report['quantized'])} tensors to "
               f"INT{args.bits} ({args.method}) in "
               f"{time.perf_counter() - t0:.2f} s; deployed "
@@ -180,9 +292,10 @@ def main(argv=None):
         eng = Engine(cfg, params, EngineConfig(
             n_slots=args.slots, max_len=256,
             max_new_tokens=args.max_new_tokens, kv_mode=args.kv_mode,
-            fused_attn=args.fused_attn, prefill_chunk=args.prefill_chunk,
-            spec_k=args.spec_k),
-            device=device)
+            kv_qchunks=kv_qchunks, fused_attn=args.fused_attn,
+            prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
+            draft_recipe=args.draft_recipe),
+            device=device, kv_scales=kv_scales)
         for p in prompts:
             eng.submit(p)
         t0 = time.perf_counter()

@@ -129,6 +129,67 @@ def test_matmul_split_k_bf16_is_deterministic(dev, M, K, N):
     _close(a, splitquant_matmul_ref(x, qp, cp, recip, shift, 4), 2e-2)
 
 
+def test_matmul_counts_launches_by_bits(dev):
+    """One launch at each of bits 2, 4 and 8 adds one to its bit-width's
+    count and to no other; ``reset_counts`` zeroes them."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((8, 256), generator=gen, device=dev).to(torch.bfloat16)
+    for bits in (2, 4, 8):
+        qp, cp, recip, shift = _packed(gen, 256, 384, bits, 3, dev)
+        before = dict(splitquant_matmul.bits_launches)
+        splitquant_matmul(x, qp, cp, recip, shift, bits=bits, k=3)
+        after = splitquant_matmul.bits_launches
+        assert after[bits] == before[bits] + 1
+        assert all(after[b] == before[b] for b in after if b != bits)
+    sqm.reset_counts()
+    assert not any(splitquant_matmul.bits_launches.values())
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A mixed INT2/INT4/INT8 bf16 tree quantized on the card (the
+    percentile baseline on the lm_head) saved from CUDA tensors and
+    restored onto the card into a dense tree: every PackedWeight equal to
+    the original, on the card, and the logits through it equal."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import QuantPolicy, quantize_tree
+    from repro_torch.core.quantize import QuantConfig
+    from repro_torch.kernels.ops import PackedWeight
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_arch("stablelm-1.6b").reduced(),
+                              param_dtype="bfloat16")
+    dense = transformer.init(cfg, seed=0, device=dev)
+    tree, _ = quantize_tree(dense, QuantPolicy(cfg=QuantConfig(bits=4)),
+                            overrides={"layers/attn/wq": {"bits": 2},
+                                       "layers/ffn/w_up": {"bits": 8},
+                                       "lm_head": {"method": "percentile"}})
+    ckpt.save(str(tmp_path), 0, tree)
+    got, _ = ckpt.restore(str(tmp_path), transformer.init(cfg, seed=1,
+                                                          device=dev))
+
+    def walk(a, b):
+        if isinstance(b, dict):
+            for key in b:
+                walk(a[key], b[key])
+        elif isinstance(b, list):
+            for x, y in zip(a, b):
+                walk(x, y)
+        elif isinstance(b, PackedWeight):
+            assert (a.bits, a.k, a.shape, a.orig_dtype) == \
+                (b.bits, b.k, b.shape, b.orig_dtype)
+            for f in ("qp", "cp", "recip", "shift", "scale", "zero"):
+                x, y = getattr(a, f), getattr(b, f)
+                assert x.device.type == "cuda" and torch.equal(x, y), f
+        else:
+            assert a.device.type == "cuda" and torch.equal(a, b)
+    walk(got, tree)
+    assert got["layers"][0]["attn"]["wq"].bits == 2
+    toks = torch.arange(1, 17, device=dev)[None]
+    want = transformer.forward(tree, cfg, {"tokens": toks})[0]
+    assert torch.equal(transformer.forward(got, cfg, {"tokens": toks})[0],
+                       want)
+
+
 def test_matmul_kernel_rejects_untested_bits(dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     qp, cp, recip, shift = _packed(gen, 64, 32, 4, 3, dev)

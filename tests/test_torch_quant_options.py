@@ -259,9 +259,10 @@ def test_quantize_tree_overrides_match_jax():
     tq_tree, trep = tapply.quantize_tree(
         tparams, tapply.QuantPolicy(cfg=tq.QuantConfig(bits=4)),
         overrides=overrides)
-    strip = lambda rep: {p: {k: v for k, v in e.items() if k != "bytes"}  # noqa
-                         for p, e in rep["per_path"].items()}
-    assert strip(trep) == strip(jrep)
+    # bits, k, method and deployed bytes, counted as JAX counts them
+    assert trep["per_path"] == jrep["per_path"]
+    for key in ("deployed_bytes", "orig_bytes"):
+        assert trep[key] == jrep[key], key
     lay = tq_tree["layers"][0]
     assert isinstance(lay["ffn"]["w_down"], torch.Tensor)
     assert lay["attn"]["wq"].bits == 2 and lay["attn"]["wq"].k == 1
@@ -277,6 +278,40 @@ def test_quantize_tree_overrides_match_jax():
         with pytest.raises(ValueError, match="matched no"):
             tapply.quantize_tree(tparams, tapply.QuantPolicy(),
                                  overrides=bad)
+
+
+@pytest.mark.parametrize("method,per_channel", [
+    ("splitquant", True), ("baseline", False), ("baseline", True),
+    ("percentile", False), ("percentile", True)])
+def test_quantize_tree_report_bytes_match_jax(method, per_channel):
+    """The report's per-path and total bytes are JAX's count (packed codes,
+    2-bit cids only when k > 1, the (k,) or (k, N) scales), not the kernel
+    layout's, for every method and layout (per-tensor SplitQuant: the
+    overrides test). SplitQuant per channel: the JAX tree's own report
+    against its leaves through the bridge."""
+    jparams, tparams = _stablelm()
+    if method == "splitquant" and per_channel:
+        qtree, jrep = _jax_quantized(per_channel=True)
+        port = bridge.from_jax_tree(_to_numpy_tree(qtree),
+                                    dtype=torch.float32, device="cpu")
+        per_path = {}
+        for layer in port["layers"]:
+            for grp in ("attn", "ffn"):
+                for name, w in layer[grp].items():
+                    per_path[f"layers/{grp}/{name}"] = per_path.get(
+                        f"layers/{grp}/{name}", 0) + w.unpack().nbytes_deployed()
+        per_path["lm_head"] = port["lm_head"].unpack().nbytes_deployed()
+        assert per_path == {p: e["bytes"] for p, e in jrep["per_path"].items()}
+        assert sum(per_path.values()) == jrep["deployed_bytes"]
+        return
+    jcfg = jq.QuantConfig(bits=2, per_channel=per_channel)
+    _, jrep = j_quantize_tree(jax.random.PRNGKey(1), jparams,
+                              JPolicy(cfg=jcfg, method=method))
+    _, trep = tapply.quantize_tree(tparams, tapply.QuantPolicy(
+        cfg=tq.QuantConfig(bits=2, per_channel=per_channel), method=method))
+    assert trep["per_path"] == jrep["per_path"]
+    for key in ("deployed_bytes", "orig_bytes"):
+        assert trep[key] == jrep[key], key
 
 
 # ------------------------------------------- per-channel through the port ---

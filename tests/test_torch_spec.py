@@ -255,8 +255,27 @@ def test_spec_refuses_other_families():
             n_slots=1, max_len=16, spec_k=2), device="cpu")
 
 
-def test_draft_recipe_not_ported(setup):
-    with pytest.raises(NotImplementedError, match="draft_params"):
-        Engine(setup["cfg"], setup["params"], EngineConfig(
-            n_slots=1, max_len=16, spec_k=2, draft_recipe="recipe"),
-            device="cpu")
+def test_draft_recipe_not_ported(setup, tmp_path, monkeypatch):
+    """``draft_recipe`` serves: a recipe pointing at the JAX package's
+    INT2 checkpoint of the draft mints, with no k-means, the same draft
+    as ``draft_params=``: the same tokens and the same proposed and
+    accepted counts, as the JAX engine's."""
+    from repro.calib import QuantRecipe as JRecipe
+    from repro.checkpoint import ckpt as jck
+    import repro_torch.core.splitquant as splitquant_mod
+
+    jck.save(str(tmp_path / "ckpt"), 0, setup["jdraft"])
+    JRecipe(arch=setup["cfg"].name, ckpt_dir="ckpt").save(str(tmp_path))
+
+    def boom(*a, **kw):
+        raise AssertionError("k-means ran while minting the draft")
+    monkeypatch.setattr(splitquant_mod, "kmeans_1d", boom)
+    want, weng = run_port(setup, "int8", 3, draft=setup["draft"])
+    eng = Engine(setup["cfg"], setup["params"], EngineConfig(
+        **_ecfg("int8", 3), draft_recipe=str(tmp_path)), device="cpu")
+    for p, b in zip(setup["prompts"], BUDGETS):
+        eng.submit(p, b)
+    assert [r.out for r in eng.drain()] == want
+    assert (eng.sched.spec_proposed, eng.sched.spec_accepted) == \
+        (weng.sched.spec_proposed, weng.sched.spec_accepted)
+    assert eng.sched.spec_accepted < eng.sched.spec_proposed

@@ -121,6 +121,28 @@ Phases (any failure exits non-zero):
    layer and forward pass; it prints the sensitivity's seconds and top
    3, the checkpoint's bytes, save and load seconds, tokens/s, TTFT p50
    and peak memory beside the card's name and power limit;
+3b. reliability, right after the static phase: chaos — the engine
+   phase's run under a seeded fault storm with the JAX package's chaos
+   rates (``CHAOS_SPEC``: step exceptions 0.15, corrupted tokens 0.10,
+   stragglers 0.05 at 0.5 ms, poisoned requests 0.25, at most 60
+   faults), every failed decode attempt rolled back and run again: every
+   uid retired once with a schema reason, steps retried, every poisoned
+   uid "failed", every survivor's tokens equal to the engine phase's, no
+   slot occupied after the drain, the engine phase's kernel variants and
+   modes and one write a layer and forward pass (failed attempts
+   included); it prints retries, quarantines, the injected faults,
+   tokens/s and decode-step p50 beside the engine phase's. Then
+   recovery — the static phase's run with a request journal and a
+   snapshot every 20 steps in a temporary directory, crashed by a seeded
+   ``InjectedCrash`` (``CRASH_SPEC``) after a snapshot with slots
+   occupied; the engine is freed and a new one recovers from snapshot +
+   journal and drains: at least one request restored, the journal's
+   pre-crash retires and the new engine's finishes partition the 16
+   uids, every token equal to the static phase's, the merged journal
+   valid with snapshot and restore events, the registry's restore and
+   replay counts, no slot occupied, static modes only; it prints the
+   snapshot's bytes and write seconds, the restore's and the recovery's
+   seconds, and the restored and re-enqueued counts;
 4. cross-checks: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
    tokens; the speculative engine (INT2 draft, spec_k 3) over int8
@@ -148,7 +170,8 @@ Phases (any failure exits non-zero):
 The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
 (``launches_by_path`` splits them: engine, static, spec, dense_wave,
-wave, engine_bf16, oneshot, sampling and recipe, ``launches_by_variant``
+wave, engine_bf16, oneshot, sampling, recipe, chaos and recovery,
+``launches_by_variant``
 splits those of the matmul and of the two attention kernels by variant,
 ``launches_by_bits`` the matmul's of the recipe run by bit-width,
 ``launches_by_mode`` those of the attention kernels and of the K/V write
@@ -204,25 +227,40 @@ SOURCES = {
 #: prefill over the int8 dynamic cache: no prefill attention),
 #: "sampling" (the bf16-cache engine at temperature 0.7) and "recipe" (a
 #: mixed INT2/INT4/INT8 tree restored from a checkpoint, static scales
-#: from its recipe). ``kv_write`` is
+#: from its recipe), "chaos" (the engine phase's run under a seeded fault
+#: storm) and "recovery" (the static phase's run crashed after a snapshot
+#: and recovered in a new engine; both engines' launches). ``kv_write`` is
 #: ``write_kv_rows`` in its dynamic and fp modes, ``kv_write_static`` in
 #: its static mode.
 PATHS = {
     "splitquant_matmul": ("engine", "static", "spec", "dense_wave", "wave",
-                          "engine_bf16", "oneshot", "sampling", "recipe"),
+                          "engine_bf16", "oneshot", "sampling", "recipe",
+                          "chaos", "recovery"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
     "prefill_attention": ("engine", "static", "spec", "engine_bf16",
-                          "sampling", "recipe"),
-    "kv_write": ("engine", "spec", "engine_bf16", "oneshot", "sampling"),
+                          "sampling", "recipe", "chaos", "recovery"),
+    "kv_write": ("engine", "spec", "engine_bf16", "oneshot", "sampling",
+                 "chaos"),
     "wkv_chunked": ("wave",),
     "decode_attention": ("engine", "static", "spec", "engine_bf16",
-                         "oneshot", "sampling", "recipe"),
-    "kv_write_static": ("static", "spec", "recipe"),
+                         "oneshot", "sampling", "recipe", "chaos",
+                         "recovery"),
+    "kv_write_static": ("static", "spec", "recipe", "recovery"),
 }
 #: the 1 - 1e-6 quantile of chi-square with 64 degrees of freedom (the
 #: sampling phase's 64 hot tokens and the rest)
 CHI2_64 = 132.79
+#: the chaos phase's fault storm: the rates of the JAX package's chaos
+#: test; seed 0 poisons 5 of the 16 requests and, at this schedule, fails
+#: no whole batch (3 unattributable failures in a row), so 11 survive
+CHAOS_SPEC = dict(seed=0, step_exception_rate=0.15, nan_logits_rate=0.10,
+                  slow_step_rate=0.05, slow_step_s=0.0005, poison_rate=0.25,
+                  max_faults=60)
+#: the recovery phase's crash: seed 42 at rate 0.02 fires at the boundary
+#: before step 52 of the run's 91, after the snapshots of steps 20 and 40
+CRASH_SPEC = dict(seed=42, crash_rate=0.02, max_faults=1)
+SNAPSHOT_EVERY = 20
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -1115,6 +1153,18 @@ def engine_mod():
     return importlib.import_module("repro_torch.engine.engine")
 
 
+def warm_up(cfg, params, ecfg, warmup, **engine_kw) -> None:
+    """One request of 4 tokens through a throw-away engine of the run's
+    configuration (no faults, journal or snapshots)."""
+    import dataclasses
+    from repro_torch.engine import Engine
+    warm = Engine(cfg, params, dataclasses.replace(
+        ecfg, fault_spec=None, journal_path=None, snapshot_path=None,
+        snapshot_every=0), device="cuda", **engine_kw)
+    warm.submit(warmup, 4)
+    warm.drain()
+
+
 def serve_run(torch, counters, phase, cfg, params, ecfg, warmup, prompts,
               **engine_kw):
     """One engine serving run at full width: a warm-up engine, then the
@@ -1123,10 +1173,7 @@ def serve_run(torch, counters, phase, cfg, params, ecfg, warmup, prompts,
     engine's ``materializations_in_run`` counts the run's one-shot fp
     prefill materializations."""
     from repro_torch.engine import Engine
-    warm = Engine(cfg, params, ecfg, device="cuda", **engine_kw)
-    warm.submit(warmup, 4)
-    warm.drain()
-    del warm
+    warm_up(cfg, params, ecfg, warmup, **engine_kw)
     eng = Engine(cfg, params, ecfg, device="cuda", **engine_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1224,6 +1271,281 @@ def engine_phase(torch, counters, params, kv_scales=None):
         f"layer: decode attention "
         f"{res['decode_launches_per_step_layer']:.2f}, prefill attention "
         f"{res['prefill_launches_per_chunk_layer']:.2f} (per chunk)")
+    return res
+
+
+def reliability_gates(torch, counters, phase, cfg, launches, mode, passes):
+    """The launch gates of a reliability run: each kernel of its path
+    launched, every launch of the bf16 tensor-core matmul and prefill and
+    of the split decode (the engine phase's variants), only ``mode``'s
+    attention and write modes, one write a layer and forward pass
+    (``passes``: the run's forward passes, failed decode attempts
+    included). Returns (matmul, prefill, decode variants, modes,
+    writes)."""
+    for name in (n for n, p in PATHS.items() if phase in p):
+        if launches[name] <= 0:
+            fail(f"{phase}: kernel {name} was not launched on its path")
+    variants = tuple(only_variant(counters, n, phase)
+                     for n in ("splitquant_matmul", "prefill_attention",
+                               "decode_attention"))
+    modes = only_modes(counters, phase, {mode}, {mode})
+    writes = one_write_per_layer(phase, cfg.n_layers, {mode: passes})
+    return (*variants, modes, writes)
+
+
+def chaos_phase(torch, counters, params, eng_res, card_line):
+    """The engine phase's run (dynamic int8 scales, 16 requests of 32
+    tokens) under a seeded fault storm with the JAX package's chaos rates
+    (``CHAOS_SPEC``): transient step exceptions, NaN-like corrupted
+    tokens, stragglers and poisoned requests. Every failed decode attempt
+    rolls the decoding slots back and runs again. Gates: every uid
+    retires exactly once with a schema reason; steps were retried; every
+    poisoned uid is "failed"; every survivor's tokens equal the engine
+    phase's; no slot is occupied after the drain; the engine phase's
+    kernel variants and modes, and one write a layer and pass."""
+    import dataclasses
+    from repro_torch.engine import (Engine, FaultInjector, FaultSpec,
+                                    occupied_slots)
+    from repro_torch.launch.serve import smoke_workload
+    from repro_torch.obs.schema import RETIRE_REASONS
+    cfg, ecfg, _, warmup, prompts = smoke_workload()
+    phase = "chaos"
+    spec = FaultSpec(**CHAOS_SPEC)
+    probe = FaultInjector(spec)
+    poisoned = [u for u in range(len(prompts)) if probe.note_submit(u)]
+    if not poisoned:
+        fail(f"{phase}: the seed poisons no request")
+    ecfg = dataclasses.replace(ecfg, fault_spec=spec)
+    warm_up(cfg, params, ecfg, warmup)
+    eng = Engine(cfg, params, ecfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(p)
+    fin = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    m = eng.metrics()
+    uids = sorted(r.uid for r in eng.sched.finished)
+    if uids != list(range(len(prompts))) or \
+            any(r.finish_reason not in RETIRE_REASONS for r in fin):
+        fail(f"{phase}: retired uids {uids}, reasons "
+             f"{[r.finish_reason for r in fin]}")
+    if m["step_retries"] <= 0:
+        fail(f"{phase}: no step was retried")
+    reasons = {r.uid: r.finish_reason for r in fin}
+    if any(reasons[u] != "failed" for u in poisoned):
+        fail(f"{phase}: poisoned uids {poisoned} retired as "
+             f"{[reasons[u] for u in poisoned]}")
+    survivors = [r for r in fin if r.finish_reason == "budget"]
+    want = eng_res["outputs"]
+    bad = [r.uid for r in survivors if r.out != want[r.uid]]
+    if not survivors or bad:
+        fail(f"{phase}: {len(survivors)} survivors, tokens of uids {bad} "
+             f"differ from the engine phase's")
+    leak = occupied_slots(eng.cache)
+    if leak or not eng.sched.idle:
+        fail(f"{phase}: slots {leak} still occupied after the drain")
+    mv, pv, dv, modes, writes = reliability_gates(
+        torch, counters, phase, cfg, launches, "dynamic",
+        eng.n_decode_steps + eng.n_prefill_chunks)
+    n_tok = sum(len(r.out) for r in fin)
+    res = {"arch": cfg.name, "card": card_line, "fault_spec": CHAOS_SPEC,
+           "requests": len(fin), "survivors": len(survivors),
+           "poisoned": poisoned, "retire_reasons": m["retire_reasons"],
+           "step_retries": m["step_retries"],
+           "quarantined": m["quarantined"],
+           "faults_injected": m["faults_injected"], "new_tokens": n_tok,
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "decode_step_p50_s": percentile(eng.decode_step_s, 50),
+           "decode_steps": eng.n_decode_steps,
+           "prefill_chunks": eng.n_prefill_chunks,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "matmul_variants": mv,
+           "prefill_variants": pv, "decode_variants": dv,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes,
+           "registry": m["registry"]}
+    log(f"{phase}: the engine phase's 16 requests under a seeded fault "
+        f"storm {CHAOS_SPEC}: injected {m['faults_injected']}; "
+        f"{m['step_retries']} step retries, {m['quarantined']} quarantined "
+        f"(poisoned uids {poisoned}); retire reasons {m['retire_reasons']}; "
+        f"{len(survivors)} survivors token-identical to the engine phase; "
+        f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
+        f"tok/s (engine phase {eng_res['tokens_per_s']:.1f}); decode step "
+        f"p50 {res['decode_step_p50_s'] * 1e3:.2f} ms (engine phase "
+        f"{eng_res['decode_step_p50_s'] * 1e3:.2f}); {eng.n_decode_steps} "
+        f"decode dispatches (engine phase {eng_res['decode_steps']}); "
+        f"launches {launches}; K/V writes by mode {writes} (one a layer and "
+        f"forward pass, failed attempts included) [card: {card_line}]")
+    return res
+
+
+def recovery_phase(torch, counters, params, scales, sta_res, card_line):
+    """The static phase's run (static int8 scales, 16 requests of 32
+    tokens) with a request journal and a snapshot every
+    ``SNAPSHOT_EVERY`` steps in a temporary directory, crashed at a step
+    boundary by a seeded ``InjectedCrash`` (``CRASH_SPEC``); the crashed
+    engine is freed, and a new one (``journal_resume=True``) recovers
+    from snapshot + journal and drains. Gates: the crash came after a
+    snapshot with slots occupied; a manifest and at least one restored
+    request; the journal's pre-crash retires and the new engine's
+    finishes partition the 16 uids; every token equal to the static
+    phase's; the merged journal valid, with snapshot and restore events;
+    the registry's restore and replay counts; no slot occupied after the
+    drain; the static modes only, one write a layer and pass over both
+    engines."""
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.engine import (Engine, FaultSpec, InjectedCrash,
+                                    occupied_slots)
+    from repro_torch.engine.recovery import load_journal
+    from repro_torch.launch.serve import smoke_workload
+    from repro_torch.obs.schema import validate_events
+    cfg, ecfg, _, warmup, prompts = smoke_workload()
+    phase = "recovery"
+    warm_up(cfg, params, ecfg, warmup, kv_scales=scales)
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        if free < 4 << 30:
+            fail(f"{phase}: {free / 2**30:.1f} GiB free under {tmp}; the "
+                 f"snapshots need ~1 GiB each")
+        jpath = os.path.join(tmp, "journal.jsonl")
+        spath = os.path.join(tmp, "snap")
+        crash_cfg = dataclasses.replace(
+            ecfg, journal_path=jpath, snapshot_path=spath,
+            snapshot_every=SNAPSHOT_EVERY,
+            fault_spec=FaultSpec(**CRASH_SPEC))
+        eng = Engine(cfg, params, crash_cfg, device="cuda", kv_scales=scales)
+        snap_s = []
+        take = eng.snapshot
+
+        def timed_snapshot(path=None):
+            t = time.perf_counter()
+            out = take(path)
+            snap_s.append(time.perf_counter() - t)
+            return out
+
+        eng.snapshot = timed_snapshot
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.submit(p)
+        crashed = False
+        try:
+            eng.drain()
+        except InjectedCrash:
+            crashed = True
+        t_crash = time.perf_counter()
+        if not crashed:
+            fail(f"{phase}: {CRASH_SPEC} did not crash the run")
+        crash_step = len(eng.step_s)
+        occupied = sum(r is not None for r in eng.sched.slots)
+        if not snap_s or not occupied:
+            fail(f"{phase}: crash at step {crash_step} after "
+                 f"{len(snap_s)} snapshots with {occupied} slots occupied")
+        passes = eng.n_decode_steps + eng.n_prefill_chunks
+        pre = {"decode_steps": eng.n_decode_steps,
+               "prefill_chunks": eng.n_prefill_chunks}
+        registry = eng.registry
+        snap_bytes = sum(os.path.getsize(os.path.join(spath, f))
+                         for f in os.listdir(spath))
+        del eng, take, timed_snapshot
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem_freed = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        eng = Engine(cfg, params, dataclasses.replace(
+            ecfg, journal_path=jpath, journal_resume=True,
+            snapshot_path=spath), device="cuda", kv_scales=scales,
+            registry=registry)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        info = eng.recover()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        fin = eng.drain()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        launches = launch_counts(counters)
+        records = load_journal(jpath)
+    if info["manifest"] is None or info["n_restored"] <= 0:
+        fail(f"{phase}: manifest {info['manifest'] is not None}, "
+             f"{info['n_restored']} requests restored")
+    done = {u: rec["out"] for u, rec in info["retired"].items()}
+    twice = [r.uid for r in fin if r.uid in done]
+    done.update({r.uid: r.out for r in fin})
+    if twice or sorted(done) != list(range(len(prompts))):
+        fail(f"{phase}: uids retired twice {twice}; retired "
+             f"{sorted(done)}")
+    want = sta_res["outputs"]
+    bad = [u for u, out in done.items() if out != want[u]]
+    if bad:
+        fail(f"{phase}: tokens of uids {bad} differ from the static "
+             f"phase's")
+    errs = validate_events(records)
+    names = {r.get("name") for r in records if r.get("kind") == "event"}
+    if errs or not {"snapshot", "restore"} <= names:
+        fail(f"{phase}: merged journal errors {errs[:5]}, events {names}")
+    snap = eng.registry.snapshot()
+    if snap["engine_restore"] != 1 or \
+            snap["engine_journal_replayed_requests"] != \
+            info["n_restored"] + info["n_requeued"]:
+        fail(f"{phase}: registry restores {snap['engine_restore']}, "
+             f"replayed {snap['engine_journal_replayed_requests']}")
+    if occupied_slots(eng.cache) or not eng.sched.idle:
+        fail(f"{phase}: slots {occupied_slots(eng.cache)} still occupied")
+    mv, pv, dv, modes, writes = reliability_gates(
+        torch, counters, phase, cfg, launches, "static",
+        passes + eng.n_decode_steps + eng.n_prefill_chunks)
+    n_tok = sum(len(r.out) for r in fin)
+    res = {"arch": cfg.name, "card": card_line, "crash_spec": CRASH_SPEC,
+           "snapshot_every": SNAPSHOT_EVERY, "crash_step": crash_step,
+           "snapshots_before_crash": len(snap_s),
+           "slots_occupied_at_crash": occupied,
+           "snapshot_bytes": snap_bytes, "snapshot_write_s": snap_s,
+           "snapshot_step": info["manifest"]["step"],
+           "n_restored": info["n_restored"],
+           "n_requeued": info["n_requeued"],
+           "n_retired_before_crash": len(info["retired"]),
+           "run_to_crash_s": t_crash - t0,
+           "memory_after_free_bytes": mem_freed,
+           "engine_build_s": t2 - t1, "restore_s": t3 - t2,
+           "recovery_s": t3 - t1, "drain_after_recovery_s": t4 - t3,
+           "restore_histogram": snap["engine_restore_duration_s"],
+           "finished_after_recovery": len(fin), "new_tokens_after": n_tok,
+           "tokens_per_s_after": n_tok / (t4 - t3),
+           "pre_crash": pre, "decode_steps_after": eng.n_decode_steps,
+           "prefill_chunks_after": eng.n_prefill_chunks,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "journal_records": len(records), "launches": launches,
+           "matmul_variants": mv, "prefill_variants": pv,
+           "decode_variants": dv,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes}
+    log(f"{phase}: the static phase's 16 requests with a journal and a "
+        f"snapshot every {SNAPSHOT_EVERY} steps, crashed ({CRASH_SPEC}) at "
+        f"step {crash_step} with {occupied} slots occupied after "
+        f"{len(snap_s)} snapshots of {snap_bytes} B (written in "
+        f"{', '.join(f'{x:.3f}' for x in snap_s)} s); recovery in a new "
+        f"engine: build {t2 - t1:.3f} s, restore + replay {t3 - t2:.3f} s "
+        f"(snapshot of step {info['manifest']['step']}: {info['n_restored']}"
+        f" restored, {info['n_requeued']} re-enqueued, "
+        f"{len(info['retired'])} retired before the crash), then "
+        f"{len(fin)} requests drained in {t4 - t3:.3f} s ({n_tok} tokens); "
+        f"every token equal to the static phase's; merged journal "
+        f"{len(records)} records, valid; launches {launches}; K/V writes by "
+        f"mode {writes} [card: {card_line}]")
     return res
 
 
@@ -2226,6 +2548,8 @@ def main() -> None:
         f"{eng['peak_mem_bytes'] / 2**30:.2f} GiB; KV cache "
         f"{sta['kv_cache_bytes'] / 2**20:.1f} vs "
         f"{eng['kv_cache_bytes'] / 2**20:.1f} MiB")
+    cha = chaos_phase(torch, counters, params, eng, card_line)
+    recv = recovery_phase(torch, counters, params, scales, sta, card_line)
     spec = spec_phase(torch, counters, params, scales, sta)
     dense = dense_wave_phase(torch, counters, params, card_line)
     bf16 = engine_bf16_phase(torch, counters, params, card_line)
@@ -2245,12 +2569,13 @@ def main() -> None:
 
     serving = {"engine": eng, "static": sta, "spec": spec,
                "engine_bf16": bf16, "oneshot": one, "sampling": samp,
-               "recipe": rec}
+               "recipe": rec, "chaos": cha, "recovery": recv}
     runs = {"engine": eng["launches"], "static": sta["launches"],
             "spec": spec["launches"], "dense_wave": dense["launches"],
             "wave": rwkv["launches"], "engine_bf16": bf16["launches"],
             "oneshot": one["launches"], "sampling": samp["launches"],
-            "recipe": rec["launches"]}
+            "recipe": rec["launches"], "chaos": cha["launches"],
+            "recovery": recv["launches"]}
     by_dtype = {"engine_bf16": bf16["cache_dtypes"],
                 "oneshot": one["cache_dtypes"],
                 "sampling": samp["engine"]["cache_dtypes"]}
@@ -2260,18 +2585,24 @@ def main() -> None:
         "wave": rwkv["matmul_variants"],
         "engine_bf16": bf16["matmul_variants"],
         "oneshot": one["matmul_variants"],
-        "recipe": rec["matmul_variants"]},
+        "recipe": rec["matmul_variants"],
+        "chaos": cha["matmul_variants"],
+        "recovery": recv["matmul_variants"]},
         "launches_by_bits": {"recipe": rec["bits_launches"]}},
         "prefill_attention": {"launches_by_variant": {
             "engine": eng["prefill_variants"],
-            "static": sta["prefill_variants"]},
+            "static": sta["prefill_variants"],
+            "chaos": cha["prefill_variants"],
+            "recovery": recv["prefill_variants"]},
             "launches_by_mode": {k: r["prefill_modes"]
                                  for k, r in serving.items()},
             "launches_by_cache_dtype": {k: d["prefill_attention"]
                                         for k, d in by_dtype.items()}},
         "decode_attention": {"launches_by_variant": {
             "engine": eng["decode_variants"],
-            "static": sta["decode_variants"]},
+            "static": sta["decode_variants"],
+            "chaos": cha["decode_variants"],
+            "recovery": recv["decode_variants"]},
             "launches_by_mode": {k: r["decode_modes"]
                                  for k, r in serving.items()},
             "launches_by_cache_dtype": {k: d["decode_attention"]
@@ -2297,7 +2628,7 @@ def main() -> None:
          "dense_wave_cross_check": dxc, "rwkv6": rwkv,
          "rwkv6_cross_check": rxc, "engine_bf16": bf16, "oneshot": one,
          "sampling": samp, "recipe": rec, "percentile_quant": pq,
-         "options_cross_check": oxc,
+         "options_cross_check": oxc, "chaos": cha, "recovery": recv,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

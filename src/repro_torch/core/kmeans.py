@@ -5,7 +5,8 @@ torch cannot reproduce, so this is an independent implementation of the
 same algorithm on a ``torch.Generator``: each new center is the best of
 ``num_candidates`` points drawn ∝ D²(x) (Grunau et al., greedy k-means++),
 then ``iters`` Lloyd iterations (segment means; empty clusters keep their
-centroid). Centroids come back sorted ascending, so for k=3 they are the
+centroid). Every step is deterministic on the card too, so the same seed
+gives the same centroids in every run. Centroids come back sorted ascending, so for k=3 they are the
 paper's lower / middle / upper clusters.
 """
 from __future__ import annotations
@@ -52,7 +53,11 @@ def kmeans_1d(gen: torch.Generator, x: torch.Tensor, k: int = 3,
     for _ in range(iters):
         assign = torch.argmin(_dist2(x, centers), dim=1)
         counts = torch.bincount(assign, minlength=k).float()
-        sums = torch.zeros(k, device=x.device).index_add_(0, assign, x)
+        # a reduction, not index_add_: CUDA's float atomics sum in a
+        # different order each run, and a rebuilt model (a recovering
+        # process) must get the same centroids
+        member = assign[:, None] == torch.arange(k, device=x.device)
+        sums = torch.where(member, x[:, None], 0.0).sum(0)
         centers = torch.where(counts > 0, sums / counts.clamp(min=1), centers)
     centers = torch.sort(centers).values
     return KMeansResult(centers, _dist2(x, centers).min(1).values.sum())

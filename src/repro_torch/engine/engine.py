@@ -40,13 +40,32 @@ PyTorch), the JAX package's oracle. Torch cannot reproduce
 the JAX engine from the same distribution. A speculative engine takes its
 draft as ``draft_params=`` or mints it from a calibration recipe
 (``draft_recipe``, :func:`~repro_torch.engine.spec.load_draft_params`).
-Not ported yet: faults and retry, journal and snapshots, metrics and
-tracing, the flight recorder, deadlines and cancel, overload shedding and
-degradation.
+
+Fault tolerance (DESIGN.md §12, ``engine/faults.py``): ``submit`` takes a
+request class and TTFT / total deadlines, swept at step boundaries;
+``cancel`` retires a request wherever it is; a bounded queue
+(``max_queue``) sheds by ``overload_policy``; the degradation ladder
+(``degrade``) suspends speculation, defers batch-class admissions and
+sheds queued load under sustained backlog; a failed decode step (an
+injected fault of ``fault_spec``, or a sampled token outside the vocab)
+rolls every decoding slot back and runs again, and a slot that keeps
+failing is quarantined as "failed". A CUDA error is not such a failure:
+it propagates. ``drain`` has a watchdog. Crash safety (DESIGN.md §13,
+``engine/recovery.py``): a request journal (``journal_path``) fsync'd at
+every step boundary, periodic snapshots (``snapshot_path``,
+``snapshot_every``), an injected crash at the step boundary, and
+``snapshot`` / ``restore`` / ``recover``. An always-on metrics registry
+(``metrics``, ``registry=``) counts all of it under the JAX package's
+instrument names, and :meth:`Engine.metrics` summarizes a run. Not ported
+yet: the tracer spans, the flight recorder, the anomaly detectors and
+incident bundles, and the sampled KV-quality gauges (``trace*``,
+``flight*``, ``incident_*`` and ``metrics_kv_every`` are no fields of
+:class:`EngineConfig`).
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Optional
 
@@ -56,6 +75,7 @@ import torch
 from ..device import resolve_device
 from ..models import transformer
 from ..models.common import dtype_of
+from .faults import DegradationLadder, FaultInjector, StepFailure
 from .kvcache import (clear_slot, hotswap_static_scales, init_slot_cache,
                       rollback_slot, write_prefill)
 from .scheduler import EngineRequest, Scheduler, SubmitError
@@ -114,6 +134,43 @@ class EngineConfig:
                                         # draft_params are given
     draft_dequantize: bool = True       # expand the draft's packed low-bit
                                         # weights once at engine start
+    metrics: bool = True                # always-on metrics registry
+                                        # (obs.metrics); False leaves the
+                                        # engine without one (registry=
+                                        # still wins)
+    # --- fault tolerance (engine/faults.py, DESIGN.md §12) --------------
+    max_queue: int = 0                  # >0: bounded submit queue; an
+                                        # arrival into a full queue
+                                        # triggers overload_policy
+    overload_policy: str = "reject-new" # "reject-new" | "shed-oldest" |
+                                        # "shed-by-class"
+    degrade: bool = False               # graceful-degradation ladder:
+                                        # spec off (rung 1), defer batch
+                                        # admissions (2), shed queued (3)
+    degrade_thresholds: tuple = ()      # 3 ascending pressure bounds
+                                        # (queue depth + prefill backlog
+                                        # chunks); () → (N, 2N, 4N)
+    degrade_patience: int = 2           # steps a crossing must persist
+                                        # before the rung moves (descent
+                                        # takes 2x)
+    max_retries: int = 2                # per-slot consecutive-failure
+                                        # budget of step retry; one more
+                                        # quarantines the request
+    retry_backoff_s: float = 0.0005     # base of the bounded exponential
+                                        # backoff between attempts
+    fault_spec: Optional[object] = None # faults.FaultSpec: seeded
+                                        # synthetic fault injection; None =
+                                        # none (retry is always on)
+    # --- crash safety (engine/recovery.py, DESIGN.md §13) ---------------
+    journal_path: Optional[str] = None  # append-only JSONL WAL of request
+                                        # transitions, fsync'd each step
+    journal_resume: bool = False        # append to an existing journal
+                                        # (recovery) instead of a new one
+    snapshot_path: Optional[str] = None # directory Engine.snapshot()
+                                        # writes (atomic tmp + rename)
+    snapshot_every: int = 0             # >0: snapshot every N steps at the
+                                        # end-of-step boundary, after the
+                                        # journal's fsync
 
 
 class Engine:
@@ -129,12 +186,14 @@ class Engine:
     ``ecfg.draft_recipe``, and without that the target drafts for itself.
     ``generator``: the ``torch.Generator`` temperature sampling draws
     from, on ``device`` (the counterpart of the JAX engine's ``rng=``);
-    by default one seeded 0.
+    by default one seeded 0. ``registry``: a metrics registry to count
+    into (shared across engines, e.g. carried over a supervised restart);
+    by default, with ``ecfg.metrics``, a private one.
     """
 
     def __init__(self, cfg, params, ecfg: EngineConfig, device=None,
                  clock=time.perf_counter, *, kv_scales=None,
-                 draft_params=None, generator=None):
+                 draft_params=None, generator=None, registry=None):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"the port's engine serves dense decoders, got "
@@ -148,6 +207,14 @@ class Engine:
                 "0): the lossless accept rule compares argmax tokens; "
                 "temperature sampling needs speculative rejection "
                 "sampling, which is not wired up")
+        if ecfg.fault_spec and ecfg.spec_k:
+            raise NotImplementedError(
+                "fault injection targets the plain decode path; the "
+                "speculative path's verify/rollback already exercises "
+                "mid-step recovery and injecting there would need "
+                "draft-cache-aware retry bookkeeping that is not wired "
+                "up — run chaos with spec_k=0 (the ladder's rung-1 "
+                "configuration)")
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
@@ -158,7 +225,106 @@ class Engine:
         self.clock = clock
         self.generator = (generator if generator is not None else
                           torch.Generator(device=self.device).manual_seed(0))
-        self.sched = Scheduler(ecfg.n_slots, clock=clock)
+        # --- always-on metrics registry (obs.metrics) -------------------
+        # instruments resolve ONCE here, so the hot path is attribute
+        # operations behind one `if mx:`
+        self.registry = None
+        self._mx = None
+        if registry is not None or ecfg.metrics:
+            from ..obs.metrics import RESTORE_BUCKETS_S, MetricsRegistry
+            self.registry = r = (registry if registry is not None
+                                 else MetricsRegistry())
+            self._mx = {
+                "steps": r.counter("engine_steps", "Engine.step() calls"),
+                "decode_steps": r.counter(
+                    "engine_decode_steps", "batched plain-decode steps"),
+                "spec_steps": r.counter(
+                    "engine_spec_steps", "speculative decode steps"),
+                "tokens": r.counter(
+                    "engine_tokens_generated", "committed output tokens"),
+                "prefill_tokens": r.counter(
+                    "engine_prefill_tokens", "prompt tokens prefilled"),
+                "prefill_chunks": r.counter(
+                    "engine_prefill_chunks", "fused prefill chunks run"),
+                "step_s": r.histogram(
+                    "engine_step_seconds", "full Engine.step() wall"),
+                "decode_s": r.histogram(
+                    "engine_decode_step_seconds",
+                    "batched decode dispatch + device + sample"),
+                "occupancy": r.gauge(
+                    "engine_slot_occupancy",
+                    "occupied slots (decoding + mid-prefill) / n_slots"),
+                "decoding": r.gauge(
+                    "engine_slots_decoding", "slots in the decode batch"),
+                "backlog": r.gauge(
+                    "engine_prefill_backlog_chunks",
+                    "prompt chunks still to stream for mid-prefill slots"),
+                "in_flight": r.gauge(
+                    "engine_tokens_in_flight",
+                    "unexhausted generation budget across occupied slots"),
+                "deadline": r.counter(
+                    "engine_deadline_exceeded",
+                    "requests retired by the step-boundary deadline "
+                    "sweep (TTFT or total-wall)"),
+                "retries": r.counter(
+                    "engine_step_retries",
+                    "decode step re-executions after rollback (injected "
+                    "or detected failures)"),
+                "rung": r.gauge(
+                    "engine_degradation_rung",
+                    "current degradation-ladder rung (0 normal, 1 spec "
+                    "off, 2 defer batch, 3 shed)"),
+                "degr_transitions": r.counter(
+                    "engine_degradation_transitions",
+                    "degradation-ladder rung changes"),
+                # registered unconditionally: a box that never crashes
+                # still exports the zeros an alert can sit on
+                "snapshots": r.counter(
+                    "engine_snapshots",
+                    "engine state snapshots written (atomic tmp+rename)"),
+                "restores": r.counter(
+                    "engine_restore",
+                    "engine state restores from a snapshot"),
+                "replayed": r.counter(
+                    "engine_journal_replayed_requests",
+                    "un-retired requests resumed or re-enqueued by "
+                    "journal replay after a restore"),
+                "restore_s": r.histogram(
+                    "engine_restore_duration_s",
+                    "snapshot restore + journal replay wall time",
+                    buckets=RESTORE_BUCKETS_S),
+            }
+            # rung 0 is a real state, not "unset"
+            self._mx["rung"].set(0)
+            if ecfg.spec_k:
+                self._mx["accept_ewma"] = r.gauge(
+                    "spec_accept_ewma",
+                    "EWMA of per-verify draft-token acceptance fraction")
+        # --- crash safety: the journal is a WAL, written when configured
+        # and fsync'd once per step boundary ------------------------------
+        self.journal = None
+        if ecfg.journal_path:
+            from .recovery import RequestJournal
+            self.journal = RequestJournal(
+                ecfg.journal_path, clock=clock,
+                meta={"arch": cfg.name, "n_slots": ecfg.n_slots,
+                      "kv_mode": ecfg.kv_mode, "spec_k": ecfg.spec_k},
+                resume=ecfg.journal_resume)
+        self.sched = Scheduler(ecfg.n_slots, clock=clock,
+                               registry=self.registry,
+                               max_queue=ecfg.max_queue,
+                               overload_policy=ecfg.overload_policy,
+                               journal=self.journal)
+        # --- fault tolerance -------------------------------------------
+        self._faults = (FaultInjector(ecfg.fault_spec)
+                        if ecfg.fault_spec else None)
+        self._ladder = None
+        self._rung = 0
+        if ecfg.degrade:
+            N_ = ecfg.n_slots
+            self._ladder = DegradationLadder(
+                ecfg.degrade_thresholds or (N_, 2 * N_, 4 * N_),
+                patience=ecfg.degrade_patience)
         self.cache = init_slot_cache(
             cfg, ecfg.n_slots, ecfg.max_len, mode=ecfg.kv_mode,
             dtype=dtype_of(ecfg.kv_dtype), qchunks=ecfg.kv_qchunks,
@@ -169,13 +335,21 @@ class Engine:
                 draft_params = (load_draft_params(ecfg.draft_recipe, params,
                                                   cfg)
                                 if ecfg.draft_recipe else params)
-            self._spec = SpecDecoder(cfg, ecfg, draft_params, self.device)
+            self._spec = SpecDecoder(cfg, ecfg, draft_params, self.device,
+                                     registry=self.registry)
         N = ecfg.n_slots
         self._last_tok = np.zeros(N, np.int64)
         self._pos = np.zeros(N, np.int64)
         self._prefill_prog = np.zeros(N, np.int64)
+        # consecutive corrupt-output attempts per slot (step retry)
+        self._fail_streak = np.zeros(N, np.int64)
         self._uid = 0
-        self.n_decode_steps = 0
+        self._any_deadlines = False     # skip the sweep until a submit
+                                        # carries a deadline
+        self.n_step_retries = 0
+        self.n_quarantined = 0
+        self.n_decode_steps = 0         # decode dispatches (retried
+                                        # attempts included)
         self.n_prefills = 0             # one-shot admissions
         self.n_prefill_chunks = 0
         self.decode_step_s: list[float] = []
@@ -187,6 +361,12 @@ class Engine:
         self.n_spec_commit_tokens = 0   # tokens appended by spec steps
         self.n_rollbacks = 0            # verify calls that rejected rows
         self.spec_step_s: list[float] = []
+        # full step() wall, prompt tokens prefilled and slots already
+        # decoding at step start, a step each
+        self.step_s: list[float] = []
+        self.step_prefill_tokens: list[int] = []
+        self.step_decode_slots: list[int] = []
+        self._t_start: Optional[float] = None
 
     def load_kv_scales(self, kv_scales: dict) -> None:
         """Hot-swap a recipe's static KV scales into the live dynamic int8
@@ -196,14 +376,23 @@ class Engine:
         self.cache = hotswap_static_scales(self.cache, kv_scales)
 
     # ------------------------------------------------------------ intake --
-    def submit(self, prompt, max_new_tokens: Optional[int] = None) -> int:
-        """Enqueue a request; returns its uid. Work happens in step()."""
+    def submit(self, prompt, max_new_tokens: Optional[int] = None, *,
+               cls: Optional[str] = None,
+               ttft_deadline_s: Optional[float] = None,
+               deadline_s: Optional[float] = None) -> int:
+        """Enqueue a request; returns its uid. Work happens in step().
+
+        A malformed request raises :class:`SubmitError` here, before it
+        takes queue space. ``cls`` is the request class (the overload and
+        ladder key); the deadlines are seconds from submit, enforced at
+        step boundaries. A bounded queue may shed on submit: the uid is
+        still returned and the request finishes as "shed"."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if len(prompt) == 0:
             raise SubmitError("empty_prompt",
                               "empty prompt (no tokens to prefill)")
-        budget = (self.ecfg.max_new_tokens if max_new_tokens is None
-                  else max_new_tokens)
+        budget = int(self.ecfg.max_new_tokens if max_new_tokens is None
+                     else max_new_tokens)
         if budget < 0:
             raise SubmitError("bad_budget",
                               f"max_new_tokens must be >= 0, got {budget}")
@@ -212,10 +401,58 @@ class Engine:
                 "too_long", f"prompt ({len(prompt)}) + max_new_tokens "
                             f"({budget}) exceeds max_len {self.ecfg.max_len}")
         req = EngineRequest(uid=self._uid, prompt=prompt,
-                            max_new_tokens=budget)
+                            max_new_tokens=budget, cls=cls,
+                            ttft_deadline_s=ttft_deadline_s,
+                            deadline_s=deadline_s)
         self._uid += 1
+        if ttft_deadline_s is not None or deadline_s is not None:
+            self._any_deadlines = True
+        if self._faults is not None:
+            self._faults.note_submit(req.uid)
         self.sched.submit(req)
         return req.uid
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a request: a queued one finishes at once ("cancelled",
+        never held a slot); a slotted one — mid-chunked-prefill included —
+        retires through the full slot release, so its cache rows, draft
+        twin and prefill bookkeeping free together. False when the uid is
+        unknown or already finished (cancel is idempotent)."""
+        for req in self.sched.queue:
+            if req.uid == uid:
+                self.sched.drop_queued(req, "cancelled")
+                return True
+        for slot, req in enumerate(self.sched.slots):
+            if req is not None and req.uid == uid:
+                self._retire(slot, "cancelled")
+                return True
+        return False
+
+    def _deadline_expired(self, req: EngineRequest, now: float) -> bool:
+        if req.t_submit is None:
+            return False
+        waited = now - req.t_submit
+        if req.deadline_s is not None and waited > req.deadline_s:
+            return True
+        return (req.ttft_deadline_s is not None
+                and req.t_first_token is None
+                and waited > req.ttft_deadline_s)
+
+    def _enforce_deadlines(self) -> None:
+        """Step-boundary deadline sweep: queued requests past their TTFT
+        or total deadline retire as "deadline_exceeded" without taking a
+        slot, and slotted ones (mid-prefill included) free theirs."""
+        now = self.clock()
+        for req in [r for r in self.sched.queue
+                    if self._deadline_expired(r, now)]:
+            self.sched.drop_queued(req, "deadline_exceeded")
+            if self._mx:
+                self._mx["deadline"].inc()
+        for slot, req in enumerate(self.sched.slots):
+            if req is not None and self._deadline_expired(req, now):
+                self._retire(slot, "deadline_exceeded")
+                if self._mx:
+                    self._mx["deadline"].inc()
 
     # ----------------------------------------------------------- serving --
     def _retire(self, slot: int, reason: str) -> None:
@@ -226,6 +463,22 @@ class Engine:
             self._spec.clear(slot)
         self._pos[slot] = 0
         self._last_tok[slot] = 0
+
+    def _evict_slot(self, slot: int) -> None:
+        """Recovery only: drop a restored slot whose request the journal
+        proves already retired after the snapshot — clear its cache rows
+        and host state WITHOUT a second retire (exactly once across the
+        crash)."""
+        if slot in self.sched._prefilling:
+            self.sched._prefilling.remove(slot)
+        self.sched.slots[slot] = None
+        clear_slot(self.cache, slot)
+        if self._spec is not None:
+            self._spec.clear(slot)
+        self._pos[slot] = 0
+        self._last_tok[slot] = 0
+        self._prefill_prog[slot] = 0
+        self._fail_streak[slot] = 0
 
     def _sample(self, logits) -> torch.Tensor:
         """logits (..., V) → token ids (...) on the device, greedy or
@@ -239,10 +492,15 @@ class Engine:
         (or retire it on eos / exhausted budget)."""
         first = int(self._sample(logits_row))
         req.t_first_token = self.clock()
+        if self.journal:
+            self.journal.event("first_token", uid=int(req.uid),
+                               slot=int(slot))
         if first == self.ecfg.eos_id:
             self._retire(slot, "eos")
             return
         req.out.append(first)
+        if self._mx:
+            self._mx["tokens"].inc()
         self._last_tok[slot] = first
         self._pos[slot] = S
         if len(req.out) >= req.max_new_tokens:
@@ -250,17 +508,17 @@ class Engine:
         elif S >= self.ecfg.max_len:
             self._retire(slot, "max_len")
 
-    def _admit_one(self, slot: int, req: EngineRequest) -> None:
+    def _admit_one(self, slot: int, req: EngineRequest) -> int:
         """One-shot admission (``prefill_chunk=0``): a dense prefill of
         the prompt right-padded to its bucket (the full-precision
         (L, S, Hkv, D) materialization), written into the slot by
         ``write_prefill``, then the first token from the logits row of
-        the prompt's last token."""
+        the prompt's last token. Returns prompt tokens prefilled."""
         global FP_PREFILL_MATERIALIZATIONS
         if req.max_new_tokens <= 0:
             req.t_first_token = req.t_submit
             self.sched.retire(slot, reason="zero_budget")
-            return
+            return 0
         t0 = self.clock()
         S = len(req.prompt)
         Sp = bucket_len(S, self.ecfg.prefill_bucket, self.ecfg.max_len)
@@ -279,6 +537,7 @@ class Engine:
             FP_PREFILL_MATERIALIZATIONS += 1
         self._start_decoding(slot, req, logits[0, S - 1], S)
         self.prefill_s.append(self.clock() - t0)
+        return S
 
     def _admit_chunked(self, slot: int, req: EngineRequest) -> None:
         if req.max_new_tokens <= 0:
@@ -321,6 +580,8 @@ class Engine:
             self._prefill_prog[slot] = done
             self._pos[slot] = done                    # parked position
             self.n_prefill_chunks += 1
+            if self._mx:
+                self._mx["prefill_chunks"].inc()
             if done >= S:                             # prompt complete
                 self.sched.finish_prefill(slot)
                 self._start_decoding(slot, req, logits[0], S)
@@ -329,7 +590,7 @@ class Engine:
             self.prefill_chunk_s.append(self.clock() - t0)
         return spent
 
-    def _decode(self) -> np.ndarray:
+    def _dispatch_decode(self) -> np.ndarray:
         """One batched decode step over all N slots, sampled on the
         device; returns the per-slot tokens on the host (one (N,)
         copy)."""
@@ -341,8 +602,106 @@ class Engine:
             fused=self.ecfg.fused_attn)
         toks = self._sample(logits[:, -1]).cpu().numpy()
         self.n_decode_steps += 1
-        self.decode_step_s.append(self.clock() - t0)
+        dt = self.clock() - t0
+        self.decode_step_s.append(dt)
+        if self._mx:
+            self._mx["decode_steps"].inc()
+            self._mx["decode_s"].observe(dt)
         return toks
+
+    def _decode_with_retry(self, active: list) \
+            -> tuple[Optional[np.ndarray], list]:
+        """Plain decode step with bounded retry on failure (§12).
+
+        Failures: injected faults (``fault_spec``) and the always-on check
+        that every sampled token is in the vocab — the host's detector of
+        corrupted logits, attributable to a slot. A CUDA error is no
+        :class:`StepFailure` and propagates: no path re-runs a step on a
+        plain version or on the CPU.
+
+        A failed attempt may already have written this step's K/V row of
+        every decoding slot, so ALL active slots roll back to their
+        pre-step positions (``rollback_slot``: kv_pos → -1, the primitive
+        speculative decoding rolls rejected windows back with) and the
+        step runs again, from the unchanged committed prefix: greedy
+        decoding and the kernels give the same tokens and the same bytes.
+        A slot whose token stays corrupt for ``max_retries + 1``
+        consecutive attempts is quarantined — retired as "failed" and
+        dropped from the batch — so one poison request never wedges the
+        others. Unattributable failures (raised exceptions) share the
+        attempt budget and fail the WHOLE batch when it runs out.
+
+        Returns (tokens, surviving active slots); tokens is None when
+        every slot was quarantined."""
+        pos0 = self._pos.copy()
+        attempt = 0
+        while active:
+            inj = self._faults
+            kind = inj.draw_step() if inj else None
+            try:
+                if kind == "exception":
+                    raise StepFailure("injected transient step exception")
+                if kind == "slow":
+                    inj.sleep()
+                toks = self._dispatch_decode()
+                if inj is not None:
+                    toks = inj.corrupt_tokens(
+                        toks, active,
+                        {s: self.sched.slots[s].uid for s in active})
+                bad = [s for s in active
+                       if not 0 <= int(toks[s]) < self.cfg.vocab]
+                if bad:
+                    raise StepFailure(
+                        f"out-of-vocab decode token(s): "
+                        f"{[(s, int(toks[s])) for s in bad]}", slots=bad)
+                self._fail_streak[active] = 0
+                return toks, active
+            except StepFailure as e:
+                attempt += 1
+                self.n_step_retries += 1
+                if self._mx:
+                    self._mx["retries"].inc()
+                # undo any K/V the failed dispatch wrote: every active
+                # slot back to its pre-step position
+                for s in active:
+                    rollback_slot(self.cache, s, int(pos0[s]))
+                if e.slots:
+                    for s in e.slots:
+                        self._fail_streak[s] += 1
+                        if self._fail_streak[s] > self.ecfg.max_retries:
+                            print(f"[engine] quarantining slot {s} (uid "
+                                  f"{self.sched.slots[s].uid}): corrupt "
+                                  f"decode output {self._fail_streak[s]} "
+                                  f"attempts running", file=sys.stderr)
+                            self.n_quarantined += 1
+                            self._retire(s, "failed")
+                            self._fail_streak[s] = 0
+                            active = [a for a in active if a != s]
+                elif attempt > self.ecfg.max_retries:
+                    print(f"[engine] decode failed {attempt} attempts "
+                          f"with no attributable slot — failing the "
+                          f"whole batch: {e}", file=sys.stderr)
+                    for s in list(active):
+                        self._fail_streak[s] = 0
+                        self.n_quarantined += 1
+                        self._retire(s, "failed")
+                    active = []
+                if active and self.ecfg.retry_backoff_s > 0:
+                    time.sleep(min(0.05, self.ecfg.retry_backoff_s
+                                   * (2.0 ** (attempt - 1))))
+        return None, []
+
+    def _prefill_backlog(self) -> int:
+        """Prompt chunks still to stream for mid-prefill slots: half of
+        the ladder's pressure and the end-of-step backlog gauge."""
+        if not self.ecfg.prefill_chunk:
+            return 0
+        backlog = 0
+        for s in self.sched.prefill_slots():
+            rem = len(self.sched.slots[s].prompt) \
+                - int(self._prefill_prog[s])
+            backlog += -(-rem // self.ecfg.prefill_chunk)
+        return backlog
 
     def _commit(self, slot: int, t: int) -> bool:
         """Append one decoded token with the eos / budget / max_len rules
@@ -374,6 +733,7 @@ class Engine:
         Sq = self.ecfg.spec_k + 1
         N = self.ecfg.n_slots
         pos0 = self._pos.copy()
+        commit0 = self.n_spec_commit_tokens
         t0 = self.clock()
         w = np.zeros(N, np.int64)       # 0 parks the slot in the draft pass
         for s in active:
@@ -406,36 +766,319 @@ class Engine:
                     break
         self.n_spec_steps += 1
         self.spec_step_s.append(self.clock() - t0)
+        self.sched.note_step(len(active))
+        if self._mx:
+            self._mx["spec_steps"].inc()
+            self._mx["tokens"].inc(self.n_spec_commit_tokens - commit0)
+            if self.sched.accept_ewma is not None:
+                self._mx["accept_ewma"].set(self.sched.accept_ewma)
 
     def step(self) -> list[EngineRequest]:
-        """Admit + chunk-budgeted prefill + one batched decode step.
-        Returns the requests that finished in this step."""
+        """Injected crash, deadline sweep, degradation ladder, admission,
+        chunk-budgeted prefill, one batched decode step (with retry), the
+        end-of-step gauges, the journal's fsync and the periodic
+        snapshot, in that order. Returns the requests that finished in
+        this step."""
+        if self._t_start is None:
+            self._t_start = self.clock()
+        t_step0 = self.clock()
+        # --- injected process death (faults.crash_rate): drawn before
+        # any step work; the journal's durability horizon is the step
+        # boundary, so flush what arrived since the last fsync and die —
+        # recovery then sees exactly the pre-step state
+        if self._faults is not None and self._faults.draw_crash():
+            if self.journal:
+                self.journal.sync()
+            self._faults.crash()
         n_done_before = len(self.sched.finished)
-        for slot, req in self.sched.admit():
+        n_decoding_before = len(self.sched.active_slots())
+        if self._any_deadlines:
+            self._enforce_deadlines()
+        # --- degradation ladder: pressure = queue depth + prefill backlog
+        # chunks, fed before admission
+        defer = ()
+        if self._ladder is not None:
+            pressure = len(self.sched.queue) + self._prefill_backlog()
+            rung = self._ladder.update(pressure)
+            if rung != self._rung:
+                if self._mx:
+                    self._mx["degr_transitions"].inc()
+                self._rung = rung
+            if self._mx:
+                self._mx["rung"].set(rung)
+            if rung >= 3:
+                # shed queued load (batch class first) back down to the
+                # rung-2 threshold
+                self.sched.shed_queued_to(int(self._ladder.thresholds[1]))
+            if rung >= 2:
+                defer = ("batch",)
+        prefill_tokens = 0
+        for slot, req in self.sched.admit(defer=defer):
             if self.ecfg.prefill_chunk:
                 self._admit_chunked(slot, req)
             else:
-                self._admit_one(slot, req)
+                prefill_tokens += self._admit_one(slot, req)
         if self.ecfg.prefill_chunk:
-            self._prefill_work()
+            prefill_tokens = self._prefill_work()
             # nobody is decoding ⇒ nobody can be stalled: keep prefilling
             # until a slot joins the decode batch
             while not self.sched.active_slots() and \
                     self.sched.prefill_slots():
-                self._prefill_work()
+                prefill_tokens += self._prefill_work()
         active = self.sched.active_slots()
-        if active and self._spec is not None:
+        if active and self._spec is not None and self._rung < 1:
             self._spec_step(active)
         elif active:
-            toks = self._decode()
+            if self._spec is not None:
+                # ladder rung >= 1: the spec engine through plain decode,
+                # output-identical by the lossless accept rule
+                self._spec.note_suspended()
+            toks, active = self._decode_with_retry(active)
+            emitted = 0
             for slot in active:
                 self._pos[slot] += 1
-                self._commit(slot, int(toks[slot]))
+                t = int(toks[slot])
+                emitted += t != self.ecfg.eos_id      # eos is not emitted
+                self._commit(slot, t)
+            self.sched.note_step(len(active))
+            if self._mx:
+                self._mx["tokens"].inc(emitted)
+        self.step_s.append(self.clock() - t_step0)
+        self.step_prefill_tokens.append(prefill_tokens)
+        self.step_decode_slots.append(n_decoding_before)
+        mx = self._mx
+        if mx:
+            # end-of-step queueing gauges: O(n_slots) host bookkeeping
+            mx["steps"].inc()
+            mx["step_s"].observe(self.step_s[-1])
+            if prefill_tokens:
+                mx["prefill_tokens"].inc(prefill_tokens)
+            occupied = in_flight = 0
+            for r in self.sched.slots:
+                if r is not None:
+                    occupied += 1
+                    in_flight += max(0, r.max_new_tokens - len(r.out))
+            mx["occupancy"].set(occupied / self.ecfg.n_slots)
+            mx["decoding"].set(len(self.sched.active_slots()))
+            mx["backlog"].set(self._prefill_backlog())
+            mx["in_flight"].set(in_flight)
+        # --- crash safety: the journal's fsync FIRST, then the periodic
+        # snapshot, so a snapshot never holds state the journal has not
+        # seen
+        if self.journal is not None:
+            self.journal.sync()
+        if self.ecfg.snapshot_every and self.ecfg.snapshot_path \
+                and len(self.step_s) % self.ecfg.snapshot_every == 0:
+            self.snapshot()
         return self.sched.finished[n_done_before:]
 
-    def drain(self) -> list[EngineRequest]:
+    # ------------------------------------------------- crash safety ------
+    def snapshot(self, path: Optional[str] = None) -> str:
+        """Write the full serving state (quantized slot cache, draft
+        twin, scheduler queue + slot table, host decode state, sampler
+        state) to ``path`` atomically (engine/recovery.py)."""
+        from .recovery import snapshot_engine
+        path = path if path is not None else self.ecfg.snapshot_path
+        if not path:
+            raise ValueError("snapshot needs a path (argument or "
+                             "EngineConfig.snapshot_path)")
+        out = snapshot_engine(self, path)
+        if self._mx:
+            self._mx["snapshots"].inc()
+        if self.journal:
+            self.journal.event("snapshot", step=len(self.step_s))
+        return out
+
+    def restore(self, path: str) -> dict:
+        """Restore serving state from a snapshot into this (freshly
+        constructed, idle) engine. Integrity-validated — checksums, code
+        ranges, kv_pos invariants, geometry — raising ``IntegrityError``
+        rather than serve a corrupt artifact. Returns the manifest."""
+        from .recovery import restore_engine
+        t0 = self.clock()
+        manifest = restore_engine(self, path)
+        if self._mx:
+            self._mx["restores"].inc()
+            self._mx["restore_s"].observe(self.clock() - t0)
+        return manifest
+
+    def recover(self, snapshot_path: Optional[str] = None,
+                journal_path: Optional[str] = None) -> dict:
+        """Snapshot restore + journal replay (recovery.recover_engine):
+        resume what the snapshot holds, re-enqueue journal submissions
+        past its horizon, evict what the journal proves already retired.
+        Either source may be absent (journal-only recovery re-prefills
+        everything). Returns recover_engine's summary dict."""
+        from .recovery import recover_engine
+        t0 = self.clock()
+        info = recover_engine(
+            self,
+            snapshot_path if snapshot_path is not None
+            else self.ecfg.snapshot_path,
+            journal_path if journal_path is not None
+            else self.ecfg.journal_path)
+        if self._mx:
+            if info["manifest"] is not None:
+                self._mx["restores"].inc()
+            self._mx["replayed"].inc(info["n_restored"]
+                                     + info["n_requeued"])
+            self._mx["restore_s"].observe(self.clock() - t0)
+        return info
+
+    def drain(self, timeout_s: Optional[float] = None,
+              stall_steps: int = 10_000) -> list[EngineRequest]:
         """Run until queue and slots are empty; returns every finished
-        request in uid order."""
+        request in uid order.
+
+        Watchdog (§12): bounded by wall clock (``timeout_s``, None =
+        unbounded) and by ``stall_steps`` consecutive steps in which
+        nothing moved (no finish, no admission, no token, no prefill
+        progress). Tripping either force-fails every outstanding request
+        ("failed") with a loud log instead of hanging the caller."""
+        t0 = self.clock()
+        stalled = 0
+        sig = None
         while not self.sched.idle:
             self.step()
+            cur = (len(self.sched.finished), self.sched.n_admitted,
+                   sum(len(r.out) for r in self.sched.slots
+                       if r is not None),
+                   int(self._prefill_prog.sum()))
+            if cur == sig:
+                stalled += 1
+            else:
+                stalled = 0
+                sig = cur
+            if stalled >= stall_steps:
+                self._force_fail_outstanding(
+                    f"no progress across {stalled} consecutive steps")
+                break
+            if timeout_s is not None and self.clock() - t0 > timeout_s:
+                self._force_fail_outstanding(
+                    f"drain exceeded timeout_s={timeout_s}")
+                break
+        self.sweep_idle_rows()
         return sorted(self.sched.finished, key=lambda r: r.uid)
+
+    def sweep_idle_rows(self) -> None:
+        """Clear the ride-along position marks idle slots accumulate: an
+        idle slot of the fixed-shape decode batch re-marks its own row 0
+        each step, so after a drain's last decode step the slots that
+        retired before it still carry one. Restores the "drained engine ⇒
+        empty slot pool" invariant ``kvcache.occupied_slots`` checks
+        (target and draft caches). Once a drain, not hot path."""
+        for s, r in enumerate(self.sched.slots):
+            if r is None:
+                clear_slot(self.cache, s)
+                if self._spec is not None:
+                    self._spec.clear(s)
+
+    def _force_fail_outstanding(self, why: str) -> None:
+        """Watchdog action: fail every queued and slotted request, so the
+        drain ends with every request retired exactly once."""
+        n_q = len(self.sched.queue)
+        n_s = sum(r is not None for r in self.sched.slots)
+        print(f"[engine] drain watchdog tripped ({why}): force-failing "
+              f"{n_q} queued + {n_s} slotted request(s)", file=sys.stderr)
+        for slot, req in enumerate(self.sched.slots):
+            if req is not None:
+                self._retire(slot, "failed")
+        while self.sched.queue:
+            self.sched.drop_queued(self.sched.queue[0], "failed")
+
+    # ----------------------------------------------------------- metrics --
+    def metrics(self) -> dict:
+        """The run's summary: throughput, latencies, queueing signals, the
+        retire-reason partition and the fault-tolerance counters, the
+        speculative counts, the injected faults, and the registry's
+        snapshot."""
+        from ..obs.summary import mean, pct as p
+        fin = self.sched.finished
+        reasons: dict = {}
+        for r in fin:
+            reasons[r.finish_reason] = reasons.get(r.finish_reason, 0) + 1
+        ttfts = [r.ttft for r in fin if r.ttft is not None]
+        tps = [r.tokens_per_s for r in fin if r.tokens_per_s is not None]
+        total_tokens = sum(len(r.out) for r in fin)
+        wall = (self.clock() - self._t_start) if self._t_start else 0.0
+        steps = np.asarray(self.decode_step_s, np.float64)
+        full = np.asarray(self.step_s, np.float64)
+        pmask = (np.asarray(self.step_prefill_tokens, np.int64) > 0) \
+            & (np.asarray(self.step_decode_slots, np.int64) > 0)
+        withp = full[pmask[:full.size]] if full.size else full
+        spec = {}
+        if self.ecfg.spec_k:
+            hist = np.bincount(np.asarray(self.sched.accept_hist,
+                                          np.int64),
+                               minlength=self.ecfg.spec_k + 1) \
+                if self.sched.accept_hist else np.zeros(0, np.int64)
+            sstep = np.asarray(self.spec_step_s, np.float64)
+            spec = {
+                "spec_k": self.ecfg.spec_k,
+                "spec_steps": self.n_spec_steps,
+                "verify_calls": self.n_verify_calls,
+                "verify_tokens": self.n_verify_tokens,
+                "draft_steps": self._spec.n_draft_steps,
+                "draft_proposed": self.sched.spec_proposed,
+                "draft_accepted": self.sched.spec_accepted,
+                "acceptance_rate": self.sched.acceptance_rate(),
+                "accept_hist": hist.tolist(),
+                "tokens_per_verify_mean": (
+                    self.n_spec_commit_tokens / self.n_verify_calls
+                    if self.n_verify_calls else None),
+                "spec_step_p50_s": p(sstep, 50),
+                "spec_step_p95_s": p(sstep, 95),
+                "spec_by_slot": [list(x) for x in self.sched.spec_by_slot],
+                "acceptance_ewma": self.sched.accept_ewma,
+                "spec_suspended_steps": self._spec.n_suspended_steps,
+            }
+        out = {
+            "n_finished": len(fin),
+            "total_tokens": total_tokens,
+            "wall_s": wall,
+            "tokens_per_s": total_tokens / wall if wall > 0 else None,
+            "decode_steps": self.n_decode_steps,
+            "prefills": self.n_prefills,
+            "prefill_chunks": self.n_prefill_chunks,
+            "prefill_chunk": self.ecfg.prefill_chunk,
+            "slot_utilization": self.sched.utilization(),
+            "queue_depth_max": max(self.sched.queue_depth_hist, default=0),
+            "queue_depth_at_submit_p50": p(self.sched.queue_depth_submit,
+                                           50),
+            "queue_depth_at_submit_p95": p(self.sched.queue_depth_submit,
+                                           95),
+            "admit_latency_mean_s": mean(self.sched.admit_latency_s),
+            "admit_latency_p50_s": p(self.sched.admit_latency_s, 50),
+            "admit_latency_p95_s": p(self.sched.admit_latency_s, 95),
+            "ttft_mean_s": mean(ttfts),
+            "ttft_p50_s": p(ttfts, 50),
+            "ttft_p95_s": p(ttfts, 95),
+            "request_tokens_per_s_mean": mean(tps),
+            "decode_step_p50_s": p(steps, 50),
+            "decode_step_p95_s": p(steps, 95),
+            "decode_step_mean_s": mean(steps),
+            "step_p50_s": p(full, 50),
+            "step_p95_s": p(full, 95),
+            "step_with_prefill_p95_s": p(withp, 95),
+            "steps_with_prefill": int(pmask.sum()),
+            "fused_attn": self.ecfg.fused_attn,
+            "kv_mode": self.cache.mode,
+            "kv_static_scales": self.cache.static,
+            "kv_bytes_per_token": self.cache.bytes_per_token(),
+            # the retire-reason partition (every finished request counted
+            # exactly once) and the fault-tolerance counters
+            "retire_reasons": reasons,
+            "requests_shed": self.sched.n_shed,
+            "requests_cancelled": self.sched.n_cancelled,
+            "step_retries": self.n_step_retries,
+            "quarantined": self.n_quarantined,
+            "degradation_rung": self._rung,
+            "degradation_transitions": (self._ladder.n_transitions
+                                        if self._ladder else 0),
+            **spec,
+        }
+        if self._faults is not None:
+            out["faults_injected"] = self._faults.counts()
+        if self.registry is not None:
+            out["registry"] = self.registry.snapshot()
+        return out

@@ -44,9 +44,15 @@ __all__ = ["SlotKVCache", "init_slot_cache", "check_static_scales",
            "slot_layer_write", "materialize_layer", "slot_layer_update",
            "fused_slot_attention", "slot_chunk_prefill",
            "hotswap_static_scales", "write_prefill", "clear_slot",
-           "rollback_slot"]
+           "rollback_slot", "occupied_slots", "CACHE_DATA_FIELDS"]
 
 SCALE_KEYS = ("k_scale", "k_zero", "v_scale", "v_zero")
+
+#: Data tensors of SlotKVCache in declaration order — what an engine
+#: snapshot (engine/recovery.py) persists, under the JAX package's names;
+#: mode / qchunks / static are manifest metadata.
+CACHE_DATA_FIELDS = ("k", "v", "kv_pos", "k_scale", "k_zero",
+                     "v_scale", "v_zero")
 
 
 @dataclasses.dataclass
@@ -80,9 +86,16 @@ class SlotKVCache:
         return self.k.shape[2]
 
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in (self.k, self.v, self.kv_pos, self.k_scale,
-                             self.k_zero, self.v_scale, self.v_zero))
+        return sum(getattr(self, f).numel() * getattr(self, f).element_size()
+                   for f in CACHE_DATA_FIELDS)
+
+    def bytes_per_token(self) -> float:
+        """Storage bytes per cached token per layer (K and V). Static
+        scales are per-layer constants — amortized to ~0 a token."""
+        Hkv, D = self.k.shape[-2], self.k.shape[-1]
+        per_chunk = (0 if self.static
+                     else 2 * 4 * self.k_scale.shape[-1])   # scale+zero fp32
+        return 2 * (Hkv * D * self.k.element_size() + Hkv * per_chunk)
 
 
 def init_slot_cache(cfg, n_slots: int, max_len: int, *, mode: str = "fp",
@@ -304,3 +317,13 @@ def rollback_slot(cache: SlotKVCache, slot: int, accept_len: int) -> None:
     rollback; the next write at those positions overwrites the bytes."""
     row = cache.kv_pos[:, slot]
     row.masked_fill_(row >= accept_len, -1)
+
+
+def occupied_slots(cache: SlotKVCache) -> list[int]:
+    """Slots with ANY valid (kv_pos >= 0) row — the slot-pool leak check:
+    after a full drain every request has retired and ``clear_slot``
+    marked its rows -1, so a non-empty result means a retire path forgot
+    the cache half of the slot. One copy of the position plane to the
+    host; diagnostics, not hot path."""
+    pos = cache.kv_pos.cpu().numpy()                  # (L, N, T)
+    return np.unique(np.nonzero((pos >= 0).any(axis=(0, 2)))[0]).tolist()

@@ -13,10 +13,13 @@ and the output is token-identical to plain greedy decoding. The rejected
 rows of both caches are undone by ``kvcache.rollback_slot``.
 
 The draft comes in as ``draft_params=`` or from a calibration recipe
-(:func:`load_draft_params`). Not ported: the tracer spans and the metrics
-registry.
+(:func:`load_draft_params`). Its instruments live in the engine's metrics
+registry, under the JAX package's names. Not ported yet: the tracer
+spans.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -88,13 +91,29 @@ class SpecDecoder:
     The draft cache always takes dynamic scales, even when the target
     serves static ones: the recipe was calibrated on the target's
     activations, and a mis-scaled draft cache could only cost acceptance,
-    never correctness (the accept rule guards that)."""
+    never correctness (the accept rule guards that). The twin cache is
+    serving state: an engine snapshot persists it beside the target's.
 
-    def __init__(self, cfg, ecfg, draft_params, device):
+    ``registry``: the engine's metrics registry (None: no instruments)."""
+
+    def __init__(self, cfg, ecfg, draft_params, device, registry=None):
         self.cfg = cfg
         self.ecfg = ecfg
         self.k = ecfg.spec_k
         self.device = device
+        self._mx = None
+        if registry is not None:
+            self._mx = {
+                "steps": registry.counter(
+                    "spec_draft_steps", "batched draft decode dispatches"),
+                "draft_s": registry.histogram(
+                    "spec_draft_pass_seconds",
+                    "whole per-engine-step draft pass (all iterations)"),
+                "suspended": registry.counter(
+                    "spec_suspended_steps",
+                    "decode steps where the degradation ladder routed a "
+                    "spec-enabled engine through plain decode"),
+            }
         if ecfg.draft_dequantize:
             # once, at start: the low-bit weights buy the draft's
             # faithfulness and storage, and a packed draft would unpack
@@ -106,6 +125,19 @@ class SpecDecoder:
                                      dtype=dtype_of(ecfg.kv_dtype),
                                      qchunks=ecfg.kv_qchunks, device=device)
         self.n_draft_steps = 0
+        self.n_suspended_steps = 0
+        self.last_draft_s = 0.0         # wall of the latest draft pass
+
+    def note_suspended(self) -> None:
+        """Record one plain-decode step taken while speculation is
+        suspended (degradation-ladder rung >= 1). Its tokens never reach
+        the draft cache, so the slot's draft rows grow position holes;
+        holes are masked out of draft attention, which can only cost
+        acceptance — the verify pass stays authoritative, so resuming
+        speculation stays token-identical."""
+        self.n_suspended_steps += 1
+        if self._mx is not None:
+            self._mx["suspended"].inc()
 
     # ------------------------------------------------- slot lifecycle ----
     def prefill_oneshot(self, toks, slot: int, length: int) -> None:
@@ -152,7 +184,9 @@ class SpecDecoder:
         cur_pos = np.asarray(pos, np.int64).copy()
         steps = np.asarray(steps)
         drafts = np.zeros((self.k, N), np.int64)
-        for j in range(int(steps.max())):
+        t_pass = time.perf_counter()
+        n_iter = int(steps.max())
+        for j in range(n_iter):
             logits = transformer.decode_step_slots(
                 self.params, self.cfg, self.cache,
                 torch.from_numpy(cur_tok[:, None]).to(self.device),
@@ -165,4 +199,8 @@ class SpecDecoder:
             adv = (j + 1) < steps
             cur_tok = np.where(adv, toks, cur_tok)
             cur_pos = np.where(adv, cur_pos + 1, cur_pos)
+        self.last_draft_s = time.perf_counter() - t_pass
+        if self._mx is not None:
+            self._mx["steps"].inc(n_iter)
+            self._mx["draft_s"].observe(self.last_draft_s)
         return drafts

@@ -31,6 +31,27 @@ of a training checkpoint before quantizing.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --reduced --spec-k 3 --draft-recipe /tmp/rec --device cpu
 
+Reliability (DESIGN.md §12-§13): ``--max-queue N`` bounds the submit
+queue (``--overload-policy`` picks who is shed), ``--degrade`` arms the
+degradation ladder, ``--faults SPEC`` injects a seeded fault storm (and
+checks the chaos invariants after the drain), ``--journal`` writes the
+request journal, ``--snapshot DIR --snapshot-every N`` snapshots the
+engine, ``--supervise N`` restarts a crashed engine in-process and
+recovers it, ``--recover-from DIR`` recovers in a fresh process after a
+real crash (``crash_kill=1``), and ``--drain-timeout`` /
+``--drain-stall-steps`` bound the drain.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --device cpu --faults crash=0.2,seed=1,max=1 \
+        --journal /tmp/j.jsonl --snapshot /tmp/snap --snapshot-every 2 \
+        --supervise 1
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --device cpu --faults crash=0.2,seed=1,max=1,crash_kill=1 \
+        --journal /tmp/j.jsonl --snapshot /tmp/snap --snapshot-every 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --device cpu --journal /tmp/j.jsonl --snapshot /tmp/snap \
+        --recover-from /tmp/snap
+
 ``--spec-k`` serves with self-speculative decoding, the target drafting
 for itself, or the draft minted from ``--draft-recipe``.
 ``--method percentile`` quantizes with the percentile-clipped baseline
@@ -44,6 +65,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
+import json
 import os
 import time
 
@@ -56,7 +79,9 @@ from ..configs import get_arch
 from ..core.apply import QuantPolicy, quantize_tree
 from ..core.quantize import QuantConfig
 from ..device import resolve_device
-from ..engine import Engine, EngineConfig
+from ..engine import (Engine, EngineConfig, FaultSpec, InjectedCrash,
+                      occupied_slots)
+from ..engine.scheduler import OVERLOAD_POLICIES
 from ..models import get_model
 from ..runtime.serve_loop import Request, Server, ServeConfig
 
@@ -208,6 +233,128 @@ def rwkv_smoke_workload():
     return cfg, scfg, quant, warmup, prompts
 
 
+def serve_engine(args, cfg, params, device, kv_scales, kv_qchunks, prompts,
+                 max_queue):
+    """The engine half of :func:`main`: build the engine, submit the
+    prompts (or recover with ``--recover-from``), drain under the
+    supervisor, check the chaos invariants, write the metrics. Returns
+    (finished requests, uid → journal retire record of the requests
+    finished before a crash, a summary of the run, the seconds from the
+    first submit or the recovery to the end of the drain)."""
+    base_faults = FaultSpec.parse(args.faults) if args.faults else None
+
+    def mk_engine(registry=None, resume=False, faults=base_faults):
+        return Engine(cfg, params, EngineConfig(
+            n_slots=args.slots, max_len=256,
+            max_new_tokens=args.max_new_tokens, kv_mode=args.kv_mode,
+            kv_qchunks=kv_qchunks, fused_attn=args.fused_attn,
+            prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
+            draft_recipe=args.draft_recipe, metrics=not args.no_metrics,
+            max_queue=max_queue, overload_policy=args.overload_policy,
+            degrade=args.degrade, fault_spec=faults,
+            journal_path=args.journal, journal_resume=resume,
+            snapshot_path=args.snapshot,
+            snapshot_every=args.snapshot_every),
+            device=device, kv_scales=kv_scales, registry=registry)
+
+    # --recover-from is a fresh-process restart: the journal already holds
+    # this workload's submit records, so it is appended to
+    eng = mk_engine(resume=args.recover_from is not None)
+    recovered = {}              # uid -> journal retire record (pre-crash)
+    t0 = time.perf_counter()
+    if args.recover_from is not None:
+        info = eng.recover(args.recover_from, args.journal)
+        recovered.update(info["retired"])
+        print(f"recover: {info['n_restored']} live requests restored"
+              f"{' from snapshot' if info['manifest'] else ' (no snapshot)'}"
+              f", {info['n_requeued']} re-enqueued from the journal, "
+              f"{len(info['retired'])} already retired before the crash")
+    else:
+        for p in prompts:
+            eng.submit(p)
+    restarts = 0
+    while True:
+        try:
+            fin = eng.drain(timeout_s=args.drain_timeout,
+                            stall_steps=args.drain_stall_steps)
+            break
+        except InjectedCrash as exc:
+            if restarts >= args.supervise:
+                raise
+            why = str(exc)
+        restarts += 1
+        print(f"supervisor: engine crashed ({why}) — restart {restarts}/"
+              f"{args.supervise}, recovering from "
+              f"{'snapshot+journal' if args.snapshot else 'journal'}",
+              flush=True)
+        # free the crashed engine (its cache) before the new one allocates
+        # its own; crash injection off, or the same seed would crash at
+        # the same boundary again
+        registry = eng.registry
+        eng = None
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        calm = dataclasses.replace(base_faults, crash_rate=0.0) \
+            if base_faults else None
+        eng = mk_engine(registry=registry, resume=True, faults=calm)
+        info = eng.recover(args.snapshot, args.journal)
+        recovered.update(info["retired"])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    m = eng.metrics()
+    if args.faults:
+        # chaos invariants: every submitted request retired exactly once
+        # (live finishes and journal-replayed retires partition the
+        # workload) with a schema reason, and the drained engine holds no
+        # state
+        from ..obs.schema import RETIRE_REASONS
+        live = {r.uid for r in eng.sched.finished}
+        reasons = [r.finish_reason for r in eng.sched.finished] + \
+            [rec["reason"] for rec in recovered.values()]
+        problems = []
+        if live & set(recovered):
+            problems.append(f"uids retired twice (live + journal): "
+                            f"{sorted(live & set(recovered))}")
+        if len(live | set(recovered)) != len(prompts):
+            problems.append(f"{len(live | set(recovered))} retired != "
+                            f"{len(prompts)} submitted")
+        if any(x not in RETIRE_REASONS for x in reasons):
+            problems.append(f"non-schema retire reasons {reasons}")
+        if any(eng.sched.slots) or eng.sched.queue:
+            problems.append("scheduler not empty after drain")
+        leak = occupied_slots(eng.cache)
+        if leak:
+            problems.append(f"slot-pool leak: cache rows {leak} still "
+                            f"occupied")
+        print(f"chaos  : injected {m.get('faults_injected')}, "
+              f"{m['step_retries']} step retries, {m['quarantined']} "
+              f"quarantined, retire reasons {m['retire_reasons']}")
+        if problems:
+            raise SystemExit("chaos invariants VIOLATED: "
+                             + "; ".join(problems))
+    if args.metrics_prom:
+        from ..obs.atomic import atomic_write_text
+        atomic_write_text(args.metrics_prom, eng.registry.to_prometheus())
+        print(f"metrics: prometheus text -> {args.metrics_prom}")
+    if args.metrics_json:
+        from ..obs.atomic import atomic_write_text
+        from ..obs.provenance import provenance
+        atomic_write_text(args.metrics_json, json.dumps(
+            {"provenance": provenance(), **m}, indent=2, default=float))
+        print(f"metrics: -> {args.metrics_json}")
+    how = (f"{eng.n_decode_steps} decode steps, "
+           f"{eng.n_prefill_chunks} prefill chunks, "
+           f"{eng.n_prefills} one-shot prefills")
+    if args.spec_k:
+        how += (f", {eng.n_spec_steps} speculative steps, acceptance "
+                f"{eng.sched.acceptance_rate()}")
+    if restarts:
+        how += f", {restarts} supervised restart(s)"
+    return fin, recovered, how, dt
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
@@ -250,7 +397,74 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu' runs the plain PyTorch versions; default "
                          "is the CUDA card")
+    ap.add_argument("--max-queue", default="0", metavar="N",
+                    help="admission control: bound the submit queue at N "
+                         "requests; a submit past the bound triggers "
+                         "--overload-policy. 0 = unbounded. (The JAX "
+                         "package's 'auto' is not ported: it sizes the "
+                         "bound from BENCH_serve.json, which holds TPU "
+                         "measurements)")
+    ap.add_argument("--overload-policy", default="reject-new",
+                    choices=OVERLOAD_POLICIES,
+                    help="who is shed when the bounded queue is full: the "
+                         "incoming request, the oldest queued one, or the "
+                         "oldest queued batch-class one")
+    ap.add_argument("--degrade", action="store_true",
+                    help="graceful-degradation ladder: under sustained "
+                         "backlog suspend speculation, then defer "
+                         "batch-class admissions, then shed queued work")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="seeded fault injection, e.g. "
+                         "'exception=0.05,nan=0.02,seed=3' (keys: "
+                         "exception, nan, slow, slow_s, poison, crash, "
+                         "crash_kill, seed, max); the chaos invariants "
+                         "(each request retired once with a schema reason, "
+                         "no slot leaked) are checked after the drain. "
+                         "Not with --spec-k")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="request journal: append-only JSONL of submit / "
+                         "admit / first_token / retire, fsync'd every "
+                         "engine step — the replay source of recovery")
+    ap.add_argument("--snapshot", default=None, metavar="DIR",
+                    help="engine snapshot directory (atomic tmp + rename; "
+                         "the quantized slot cache, scheduler and host "
+                         "state, checksummed)")
+    ap.add_argument("--snapshot-every", type=int, default=0, metavar="N",
+                    help="with --snapshot: snapshot every N engine steps, "
+                         "after the journal's fsync. 0 = never")
+    ap.add_argument("--recover-from", default=None, metavar="DIR",
+                    help="start by restoring this snapshot dir and "
+                         "replaying --journal against it (recovery in a "
+                         "fresh process after a crash); the dir may be "
+                         "absent if --journal is given")
+    ap.add_argument("--supervise", type=int, default=0, metavar="N",
+                    help="in-process supervisor: on an injected crash, "
+                         "free the engine, build a new one (crash "
+                         "injection off, the metrics registry carried "
+                         "over), recover from --snapshot / --journal and "
+                         "go on serving, up to N restarts")
+    ap.add_argument("--drain-timeout", type=float, default=None,
+                    metavar="S",
+                    help="drain watchdog: force-fail every outstanding "
+                         "request after S wall seconds")
+    ap.add_argument("--drain-stall-steps", type=int, default=10_000,
+                    metavar="N",
+                    help="drain watchdog: force-fail every outstanding "
+                         "request after N steps without progress")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write Engine.metrics() (with the provenance "
+                         "header and the registry's snapshot) as JSON")
+    ap.add_argument("--metrics-prom", default=None, metavar="PATH",
+                    help="write the registry in Prometheus text format "
+                         "at exit")
+    ap.add_argument("--no-metrics", action="store_true",
+                    help="serve without the always-on metrics registry")
     args = ap.parse_args(argv)
+    if args.max_queue == "auto":
+        ap.error("--max-queue auto is not ported: it derives the bound "
+                 "from BENCH_serve.json, which holds TPU measurements; "
+                 "give N")
+    max_queue = int(args.max_queue)
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
@@ -261,6 +475,35 @@ def main(argv=None):
             "--draft-recipe only takes effect with --spec-k > 0 — the "
             "recipe would be silently ignored and serving would proceed "
             "plain-greedy")
+    engine_only = dict(
+        faults=args.faults, degrade=args.degrade, max_queue=max_queue,
+        journal=args.journal, snapshot=args.snapshot,
+        recover_from=args.recover_from, supervise=args.supervise,
+        metrics_json=args.metrics_json, metrics_prom=args.metrics_prom)
+    given = [f"--{k.replace('_', '-')}" for k, v in engine_only.items()
+             if v]
+    if (args.wave or cfg.family not in ENGINE_FAMILIES) and given:
+        raise NotImplementedError(
+            f"{'/'.join(given)}: engine features — the wave loop has no "
+            f"retry, ladder, admission control, journal, snapshot or "
+            f"metrics registry")
+    if args.no_metrics and args.metrics_prom:
+        raise ValueError("--no-metrics disables the registry "
+                         "--metrics-prom writes — drop one")
+    if args.faults and args.spec_k:
+        raise ValueError("--faults targets the plain decode path; drop "
+                         "--spec-k")
+    if args.snapshot_every and not args.snapshot:
+        raise ValueError("--snapshot-every without --snapshot DIR has "
+                         "nowhere to write")
+    if args.supervise and not (args.journal or args.snapshot):
+        raise ValueError("--supervise has nothing to recover from — give "
+                         "--journal and/or --snapshot")
+    if args.recover_from and not os.path.isdir(args.recover_from) \
+            and not args.journal:
+        raise ValueError(f"--recover-from: {args.recover_from!r} does not "
+                         f"exist and no --journal was given — there is no "
+                         f"state to recover")
     t0 = time.perf_counter()
     params = get_model(cfg).init(cfg, seed=0, device=device)
     if args.ckpt_dir:
@@ -289,24 +532,11 @@ def main(argv=None):
     # the JAX package's launch/serve.py draws the same prompts
     prompts = seeded_prompts(cfg.vocab, args.requests, 4, 11)
     if cfg.family in ENGINE_FAMILIES and not args.wave:
-        eng = Engine(cfg, params, EngineConfig(
-            n_slots=args.slots, max_len=256,
-            max_new_tokens=args.max_new_tokens, kv_mode=args.kv_mode,
-            kv_qchunks=kv_qchunks, fused_attn=args.fused_attn,
-            prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
-            draft_recipe=args.draft_recipe),
-            device=device, kv_scales=kv_scales)
-        for p in prompts:
-            eng.submit(p)
-        t0 = time.perf_counter()
-        fin = eng.drain()
-        how = (f"{eng.n_decode_steps} decode steps, "
-               f"{eng.n_prefill_chunks} prefill chunks, "
-               f"{eng.n_prefills} one-shot prefills")
-        if args.spec_k:
-            how += (f", {eng.n_spec_steps} speculative steps, acceptance "
-                    f"{eng.sched.acceptance_rate()}")
+        fin, recovered, how, dt = serve_engine(
+            args, cfg, params, device, kv_scales, kv_qchunks, prompts,
+            max_queue)
     else:
+        recovered = {}
         if cfg.family not in ENGINE_FAMILIES:
             print(f"note: {cfg.family!r} family has no slot-cache layout "
                   f"yet; serving with the wave loop")
@@ -318,12 +548,19 @@ def main(argv=None):
                          for i, p in enumerate(prompts)])
         how = (f"{len(srv.wave_prefill_s)} waves, "
                f"{len(srv.decode_step_s)} decode steps")
-    dt = time.perf_counter() - t0
-    n_tok = sum(len(r.out) for r in fin)
+        dt = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in fin) + \
+        sum(rec["n_out"] for rec in recovered.values())
+    for uid in sorted(recovered):
+        rec = recovered[uid]
+        print(f"req {uid}: {rec['n_out']} tokens ({rec['reason']}) → "
+              f"{rec['out']} (retired before the crash, from the journal)")
     for r in fin:
-        print(f"req {r.uid}: prompt {len(r.prompt)} → {r.out}")
-    print(f"{len(fin)} requests, {n_tok} tokens in {dt:.3f} s on "
-          f"{device.type} ({n_tok / dt:.1f} tok/s), {how}")
+        why = getattr(r, "finish_reason", None)     # engine requests
+        print(f"req {r.uid}: prompt {len(r.prompt)} → {r.out}"
+              + (f" ({why})" if why else ""))
+    print(f"{len(fin) + len(recovered)} requests, {n_tok} tokens in "
+          f"{dt:.3f} s on {device.type} ({n_tok / dt:.1f} tok/s), {how}")
 
 
 if __name__ == "__main__":

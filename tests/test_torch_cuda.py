@@ -1376,3 +1376,200 @@ def test_engine_options_card_match_cpu(dev, kw):
             eng.submit(pr)
         outs[d] = [r.out for r in eng.drain()]
     assert outs["cuda"] == outs["cpu"]
+
+
+# -------------------------------------------------------- reliability ---
+@pytest.fixture(scope="module")
+def wide():
+    """stablelm-1.6b at its published widths, cut to 2 layers, INT4
+    SplitQuant on the card, and 8 prompts of 100-600 tokens: the shapes
+    at which the matmul splits K and the decode kernel splits T."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg = dataclasses.replace(get_arch("stablelm-1.6b"), n_layers=2)
+    params, _ = build_params(cfg, bits=4, method="splitquant",
+                             device="cuda")
+    return cfg, params, seeded_prompts(cfg.vocab, 8, 100, 600, seed=4)
+
+
+def _wide_engine(wide, cache, submit=True):
+    """An engine over ``wide`` on its params' device, with its 8 prompts
+    submitted; cache: "int8", "static" or "bf16"."""
+    from repro_torch.calib import collect_kv_stats, kv_static_scales
+    from repro_torch.engine import Engine, EngineConfig
+    cfg, params, prompts = wide
+    kw = {"int8": dict(kv_mode="int8"), "static": dict(kv_mode="int8"),
+          "bf16": dict(kv_mode="fp", kv_dtype="bfloat16")}[cache]
+    scales = None
+    if cache == "static":
+        toks = np.random.default_rng(7).integers(0, cfg.vocab, (2, 256))
+        scales = kv_static_scales(collect_kv_stats(cfg, params, [toks]))
+    eng = Engine(cfg, params, EngineConfig(
+        n_slots=8, max_len=1024, max_new_tokens=32, prefill_chunk=96, **kw),
+        device=params["embed"].device, kv_scales=scales)
+    for p in prompts if submit else ():
+        eng.submit(p)
+    return eng
+
+
+def _cache_copy(cache):
+    from repro_torch.engine.kvcache import CACHE_DATA_FIELDS
+    return {f: getattr(cache, f).clone() for f in CACHE_DATA_FIELDS}
+
+
+def _assert_same_cache(a, b):
+    for f in a:
+        assert torch.equal(a[f], b[f]), f
+
+
+@pytest.mark.parametrize("cache", ["int8", "static", "bf16"])
+def test_decode_step_reexecutes_bit_identically(dev, wide, cache):
+    """The retry contract on the card: one decode step over 8 slots at
+    their own positions, the slots rolled back to the step's start, the
+    step run again — identical logits and identical cache bytes (codes,
+    scales and kv_pos of the rewritten rows, and everything else)."""
+    from repro_torch.engine.kvcache import rollback_slot
+    from repro_torch.models import transformer
+    eng = _wide_engine(wide, cache)
+    while len(eng.sched.active_slots()) < 8:
+        eng.step()
+    eng.step()
+    cfg, params, _ = wide
+    pos0 = eng._pos.copy()
+    toks = torch.from_numpy(eng._last_tok[:, None]).to(dev)
+    pos = torch.from_numpy(pos0).to(dev)
+    out = []
+    for _ in range(2):
+        logits = transformer.decode_step_slots(params, cfg, eng.cache, toks,
+                                               pos)
+        out.append((logits.clone(), _cache_copy(eng.cache)))
+        for s in range(8):
+            rollback_slot(eng.cache, s, int(pos0[s]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert bool(torch.isfinite(out[0][0]).all())
+    _assert_same_cache(out[0][1], out[1][1])
+
+
+@pytest.mark.parametrize("cache", ["int8", "static", "bf16"])
+def test_prefill_chunk_reexecutes_bit_identically(dev, wide, cache):
+    """A 96-token chunk at position 96 of a slot, rolled back and run
+    again: identical logits and cache bytes."""
+    from repro_torch.engine.kvcache import rollback_slot
+    from repro_torch.models import transformer
+    cfg, params, prompts = wide
+    eng = _wide_engine(wide, cache)
+    toks = torch.as_tensor(prompts[0][:192], device=dev)[None]
+    transformer.prefill_chunk_slots(params, cfg, eng.cache, toks[:, :96], 3,
+                                    0, 96)
+    out = []
+    for _ in range(2):
+        logits = transformer.prefill_chunk_slots(
+            params, cfg, eng.cache, toks[:, 96:], 3, 96, 96)
+        out.append((logits.clone(), _cache_copy(eng.cache)))
+        rollback_slot(eng.cache, 3, 96)
+    assert torch.equal(out[0][0], out[1][0])
+    _assert_same_cache(out[0][1], out[1][1])
+
+
+@pytest.mark.parametrize("cache", ["int8", "static", "bf16"])
+def test_snapshot_round_trip_on_the_card(dev, wide, cache, tmp_path):
+    """A snapshot written from the card and restored onto the card in a
+    new engine: every cache tensor torch.equal, the host state equal, and
+    both engines drain to the same tokens."""
+    eng = _wide_engine(wide, cache)
+    for _ in range(6):
+        eng.step()
+    before = {r.uid for r in eng.sched.finished}
+    eng.snapshot(str(tmp_path / "snap"))
+    other = _wide_engine(wide, cache, submit=False)
+    other.restore(str(tmp_path / "snap"))
+    _assert_same_cache(_cache_copy(eng.cache), _cache_copy(other.cache))
+    for f in ("_last_tok", "_pos", "_prefill_prog"):
+        np.testing.assert_array_equal(getattr(eng, f), getattr(other, f))
+    a = {r.uid: r.out for r in eng.drain() if r.uid not in before}
+    b = {r.uid: r.out for r in other.drain()}
+    assert a == b and len(a) == 8 - len(before)
+
+
+def _reduced_pair(dev):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg = get_arch("stablelm-1.6b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", device="cpu")
+    prompts = seeded_prompts(cfg.vocab, 7, 3, 13, seed=3)
+    return cfg, {"cpu": params, "cuda": tree_to(params, dev)}, prompts
+
+
+@pytest.mark.parametrize("kv_mode", ["fp", "int8"])
+def test_chaos_card_matches_cpu(dev, kv_mode):
+    """Reduced stablelm, INT4 weights, the JAX package's chaos spec: the
+    card's finished list (uid, reason, tokens), retries and quarantines
+    equal the CPU's."""
+    from repro_torch.engine import Engine, EngineConfig, FaultSpec
+    cfg, params, prompts = _reduced_pair(dev)
+    spec = FaultSpec(seed=5, step_exception_rate=0.15, nan_logits_rate=0.10,
+                     slow_step_rate=0.05, slow_step_s=0.0005,
+                     poison_rate=0.25, max_faults=60)
+    got = {}
+    for d in ("cpu", "cuda"):
+        eng = Engine(cfg, params[d], EngineConfig(
+            n_slots=3, max_len=48, prefill_bucket=8, prefill_chunk=8,
+            kv_mode=kv_mode, fault_spec=spec), device=d)
+        for p, b in zip(prompts, [6, 1, 6, 4, 3, 6, 5]):
+            eng.submit(p, max_new_tokens=b)
+        fin = [(r.uid, r.finish_reason, r.out) for r in eng.drain()]
+        m = eng.metrics()
+        got[d] = fin, m["step_retries"], m["quarantined"]
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][1] > 0
+
+
+@pytest.mark.parametrize("kv_mode", ["fp", "int8"])
+def test_crash_recovery_card_matches_cpu(dev, kv_mode, tmp_path):
+    """A seeded crash after a snapshot, recovered in a new engine from
+    snapshot + journal: the card's finished tokens equal the CPU's, and
+    every uid retires once."""
+    from repro_torch.engine import (Engine, EngineConfig, FaultSpec,
+                                    InjectedCrash)
+    cfg, params, prompts = _reduced_pair(dev)
+    done = {}
+    for d in ("cpu", "cuda"):
+        jpath, spath = str(tmp_path / f"{d}.jsonl"), str(tmp_path / d)
+        base = dict(n_slots=3, max_len=48, prefill_bucket=8,
+                    prefill_chunk=8, kv_mode=kv_mode, journal_path=jpath,
+                    snapshot_path=spath)
+        eng = Engine(cfg, params[d], EngineConfig(
+            **base, snapshot_every=3, fault_spec=FaultSpec(
+                seed=2, crash_rate=0.25, max_faults=1)), device=d)
+        for p, b in zip(prompts, [6, 1, 6, 4, 3, 6, 5]):
+            eng.submit(p, max_new_tokens=b)
+        with pytest.raises(InjectedCrash):
+            eng.drain()
+        del eng
+        eng = Engine(cfg, params[d], EngineConfig(**base,
+                                                  journal_resume=True),
+                     device=d)
+        info = eng.recover()
+        assert info["n_restored"] > 0
+        out = {u: rec["out"] for u, rec in info["retired"].items()}
+        for r in eng.drain():
+            assert r.uid not in out
+            out[r.uid] = r.out
+        done[d] = out
+    assert done["cuda"] == done["cpu"] and sorted(done["cpu"]) == \
+        list(range(7))
+
+
+def test_kmeans_is_deterministic_on_the_card(dev):
+    """The same seed gives the same centroids in every run on the card
+    (a recovering process rebuilds its weights): the segment sums are a
+    reduction, not float atomics."""
+    from repro_torch.core.kmeans import kmeans_1d
+    x = torch.randn(1 << 18, generator=torch.Generator(device=dev)
+                    .manual_seed(1), device=dev) * 0.02
+    outs = {tuple(kmeans_1d(torch.Generator(device=dev).manual_seed(0),
+                            x).centroids.tolist()) for _ in range(5)}
+    assert len(outs) == 1

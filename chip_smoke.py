@@ -143,6 +143,21 @@ Phases (any failure exits non-zero):
    replay counts, no slot occupied, static modes only; it prints the
    snapshot's bytes and write seconds, the restore's and the recovery's
    seconds, and the restored and re-enqueued counts;
+3c. observe, right after chaos: the chaos run traced (``trace=True``, a
+   ring that drops nothing), the int8 cache's quality counters sampled
+   every ``OBSERVE_KV_EVERY`` steps into the trace and the registry, the
+   anomaly detectors armed with an incident directory in a temporary
+   directory: every request's reason and tokens, the retries and the
+   quarantines equal to the chaos phase's (tracing changes no token),
+   the trace valid with nothing dropped, one KV sample every
+   ``OBSERVE_KV_EVERY`` steps from step 0 with valid rows, at least one
+   incident bundle, each loading with its trigger in the detector
+   catalog and ``incident_report --validate`` 0, the chaos phase's
+   kernel gates; it prints the phase attribution (each step split into
+   dispatch, device wait and other host time), the traced tokens/s
+   beside the chaos phase's and the KV clip fractions, then serves the
+   unfaulted workload four times with the flight recorder on, off, off,
+   on (tokens equal in all four, tokens/s printed);
 4. cross-checks: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
    tokens; the speculative engine (INT2 draft, spec_k 3) over int8
@@ -170,7 +185,8 @@ Phases (any failure exits non-zero):
 The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
 (``launches_by_path`` splits them: engine, static, spec, dense_wave,
-wave, engine_bf16, oneshot, sampling, recipe, chaos and recovery,
+wave, engine_bf16, oneshot, sampling, recipe, chaos, recovery and
+observe,
 ``launches_by_variant``
 splits those of the matmul and of the two attention kernels by variant,
 ``launches_by_bits`` the matmul's of the recipe run by bit-width,
@@ -228,24 +244,27 @@ SOURCES = {
 #: "sampling" (the bf16-cache engine at temperature 0.7) and "recipe" (a
 #: mixed INT2/INT4/INT8 tree restored from a checkpoint, static scales
 #: from its recipe), "chaos" (the engine phase's run under a seeded fault
-#: storm) and "recovery" (the static phase's run crashed after a snapshot
-#: and recovered in a new engine; both engines' launches). ``kv_write`` is
+#: storm), "recovery" (the static phase's run crashed after a snapshot
+#: and recovered in a new engine; both engines' launches) and "observe"
+#: (the chaos run traced, with KV samples and incident bundles).
+#: ``kv_write`` is
 #: ``write_kv_rows`` in its dynamic and fp modes, ``kv_write_static`` in
 #: its static mode.
 PATHS = {
     "splitquant_matmul": ("engine", "static", "spec", "dense_wave", "wave",
                           "engine_bf16", "oneshot", "sampling", "recipe",
-                          "chaos", "recovery"),
+                          "chaos", "recovery", "observe"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
     "prefill_attention": ("engine", "static", "spec", "engine_bf16",
-                          "sampling", "recipe", "chaos", "recovery"),
+                          "sampling", "recipe", "chaos", "recovery",
+                          "observe"),
     "kv_write": ("engine", "spec", "engine_bf16", "oneshot", "sampling",
-                 "chaos"),
+                 "chaos", "observe"),
     "wkv_chunked": ("wave",),
     "decode_attention": ("engine", "static", "spec", "engine_bf16",
                          "oneshot", "sampling", "recipe", "chaos",
-                         "recovery"),
+                         "recovery", "observe"),
     "kv_write_static": ("static", "spec", "recipe", "recovery"),
 }
 #: the 1 - 1e-6 quantile of chi-square with 64 degrees of freedom (the
@@ -261,6 +280,8 @@ CHAOS_SPEC = dict(seed=0, step_exception_rate=0.15, nan_logits_rate=0.10,
 #: before step 52 of the run's 91, after the snapshots of steps 20 and 40
 CRASH_SPEC = dict(seed=42, crash_rate=0.02, max_faults=1)
 SNAPSHOT_EVERY = 20
+#: the observe phase's KV quality period (trace samples and gauges)
+OBSERVE_KV_EVERY = 4
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -1369,6 +1390,7 @@ def chaos_phase(torch, counters, params, eng_res, card_line):
            "decode_modes": modes["decode_attention"],
            "prefill_modes": modes["prefill_attention"],
            "write_modes": writes,
+           "finished": [(r.uid, r.finish_reason, r.out) for r in fin],
            "registry": m["registry"]}
     log(f"{phase}: the engine phase's 16 requests under a seeded fault "
         f"storm {CHAOS_SPEC}: injected {m['faults_injected']}; "
@@ -1382,6 +1404,163 @@ def chaos_phase(torch, counters, params, eng_res, card_line):
         f"decode dispatches (engine phase {eng_res['decode_steps']}); "
         f"launches {launches}; K/V writes by mode {writes} (one a layer and "
         f"forward pass, failed attempts included) [card: {card_line}]")
+    return res
+
+
+def observe_phase(torch, counters, params, cha_res, card_line):
+    """The chaos phase's run (``CHAOS_SPEC``, its 16 requests, dynamic
+    int8 scales) traced: ``trace=True`` with a ring that drops nothing,
+    KV quality counters sampled every ``OBSERVE_KV_EVERY`` steps into the
+    trace and into the registry's gauges, and the anomaly detectors
+    armed with an incident directory in a temporary directory. Gates:
+    the survivors' tokens, the retries and the quarantines equal the
+    chaos phase's; the trace validates and dropped nothing; one KV sample
+    every ``OBSERVE_KV_EVERY`` steps from step 0, each over valid rows;
+    at least one incident bundle, each loading, its trigger in the
+    detector catalog, and ``incident_report --validate`` 0 on each; the
+    chaos phase's kernel variants and modes, one write a layer and pass.
+    Printed, not gated: the phase attribution (coverage, dispatch and
+    device-wait fractions), the traced tokens/s beside the chaos
+    phase's, the KV clip fractions, and engine runs of the unfaulted,
+    untraced workload with the flight recorder on and off in turns (on,
+    off, off, on; tokens equal in all four)."""
+    import contextlib as ctx
+    import dataclasses
+    import os
+    import tempfile
+    from repro_torch.engine import Engine, FaultSpec
+    from repro_torch.launch.incident_report import main as report_main
+    from repro_torch.launch.serve import smoke_workload
+    from repro_torch.obs import DETECTORS, load_incident_bundle
+    from repro_torch.obs.schema import validate_events
+    cfg, ecfg, _, warmup, prompts = smoke_workload()
+    phase = "observe"
+    warm_up(cfg, params, ecfg, warmup)
+    with tempfile.TemporaryDirectory() as tmp:
+        inc = os.path.join(tmp, "incidents")
+        tcfg = dataclasses.replace(
+            ecfg, fault_spec=FaultSpec(**CHAOS_SPEC), trace=True,
+            trace_capacity=1 << 20, trace_kv_every=OBSERVE_KV_EVERY,
+            metrics_kv_every=OBSERVE_KV_EVERY, incident_dir=inc)
+        eng = Engine(cfg, params, tcfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.submit(p)
+        fin = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        m = eng.metrics()
+        bundles = sorted(os.listdir(inc)) if os.path.isdir(inc) else []
+        triggers, report_rcs = [], []
+        for b in bundles:
+            path = os.path.join(inc, b)
+            try:
+                bundle = load_incident_bundle(path)
+            except ValueError as e:
+                fail(f"{phase}: bundle {b} does not load: {e}")
+            triggers.append(bundle["trigger.json"]["trigger"])
+            with ctx.redirect_stdout(io.StringIO()):
+                report_rcs.append(report_main([path, "--validate"]))
+    out = {r.uid: (r.finish_reason, r.out) for r in fin}
+    want = {u: (r, o) for u, r, o in cha_res["finished"]}
+    if out != want or m["step_retries"] != cha_res["step_retries"] or \
+            m["quarantined"] != cha_res["quarantined"]:
+        fail(f"{phase}: finished / retries / quarantines differ from the "
+             f"chaos phase's: {m['step_retries']} vs "
+             f"{cha_res['step_retries']} retries, {m['quarantined']} vs "
+             f"{cha_res['quarantined']} quarantined, uids "
+             f"{sorted(u for u in out if out[u] != want.get(u))}")
+    records = list(eng.tracer.records())
+    errs = validate_events(records)
+    if errs or eng.tracer.dropped:
+        fail(f"{phase}: trace errors {errs[:5]}, {eng.tracer.dropped} "
+             f"dropped")
+    steps = len(eng.step_s)
+    kv = [r["value"] for r in eng.tracer.events
+          if r["kind"] == "counter" and r["name"] == "kv_quality"]
+    n_want = -(-steps // OBSERVE_KV_EVERY)      # steps 0, 4, 8, ...
+    if len(kv) != n_want or any(v["valid_rows"] <= 0 for v in kv):
+        fail(f"{phase}: {len(kv)} KV samples over {steps} steps (expected "
+             f"{n_want}), valid rows {[v['valid_rows'] for v in kv]}")
+    bad = [t for t in triggers if t["detector"] not in DETECTORS]
+    if not bundles or bad or any(report_rcs):
+        fail(f"{phase}: bundles {bundles}, triggers outside the catalog "
+             f"{bad}, incident_report --validate exits {report_rcs}")
+    mv, pv, dv, modes, writes = reliability_gates(
+        torch, counters, phase, cfg, launches, "dynamic",
+        eng.n_decode_steps + eng.n_prefill_chunks)
+    pa = m["phase_attribution"]
+    n_tok = sum(len(r.out) for r in fin)
+    clips = {side: [v[f"{side}_clip_frac"] for v in kv]
+             for side in ("k", "v")}
+    # the flight recorder on and off in turns over the unfaulted,
+    # untraced workload: tokens unchanged, tokens/s printed
+    flight = []
+    for on in (True, False, False, True):
+        f_eng = Engine(cfg, params, dataclasses.replace(ecfg, flight=on),
+                       device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for p in prompts:
+            f_eng.submit(p)
+        f_fin = f_eng.drain()
+        torch.cuda.synchronize()
+        f_wall = time.perf_counter() - t1
+        f_tok = sum(len(r.out) for r in f_fin)
+        flight.append({"flight": on, "wall_s": f_wall,
+                       "tokens_per_s": f_tok / f_wall,
+                       "flight_recorded": f_eng.metrics()["flight_recorded"],
+                       "outputs": [r.out for r in f_fin]})
+        del f_eng
+    if any(f["outputs"] != flight[0]["outputs"] for f in flight):
+        fail(f"{phase}: the flight recorder changed tokens")
+    res = {"arch": cfg.name, "card": card_line, "fault_spec": CHAOS_SPEC,
+           "kv_every": OBSERVE_KV_EVERY, "requests": len(fin),
+           "step_retries": m["step_retries"],
+           "quarantined": m["quarantined"], "steps": steps,
+           "new_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "chaos_tokens_per_s": cha_res["tokens_per_s"],
+           "trace_records": m["trace_records"],
+           "trace_dropped": m["trace_dropped"],
+           "phase_attribution": pa, "kv_samples": kv,
+           "bundles": bundles, "triggers": triggers,
+           "anomalies_fired": m["anomalies_fired"],
+           "flight_recorded": m["flight_recorded"],
+           "registry_kv": {k: v for k, v in m["registry"].items()
+                           if k.startswith("kv_")},
+           "flight_on_off": [{k: v for k, v in f.items() if k != "outputs"}
+                             for f in flight],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "matmul_variants": mv,
+           "prefill_variants": pv, "decode_variants": dv,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes}
+    flight_tps = " / ".join(f"{f['tokens_per_s']:.1f}" for f in flight)
+    per = "; ".join(f"{n} {d['total_s']:.3f} s ({d['count']}, dispatch "
+                    f"{d['dispatch_s']:.3f}, wait {d['device_wait_s']:.3f})"
+                    for n, d in pa["phases"].items())
+    log(f"{phase}: the chaos run traced, KV sampled every "
+        f"{OBSERVE_KV_EVERY} steps, detectors armed: {n_tok} new tokens in "
+        f"{wall:.3f} s = {res['tokens_per_s']:.1f} tok/s (chaos phase "
+        f"{cha_res['tokens_per_s']:.1f}); {steps} steps, "
+        f"{m['trace_records']} trace records, 0 dropped, valid; phase "
+        f"coverage {pa['coverage']:.3f} of {pa['step_total_s']:.3f} s of "
+        f"step wall, dispatch {pa['dispatch_frac']:.3f} / device wait "
+        f"{pa['device_wait_frac']:.3f} / other host "
+        f"{pa['other_host_s'] / pa['attributed_s']:.3f} of attributed "
+        f"time; by phase: {per}; {len(kv)} KV samples, clip fraction K "
+        f"{min(clips['k']):.4f}-{max(clips['k']):.4f}, V "
+        f"{min(clips['v']):.4f}-{max(clips['v']):.4f}; "
+        f"{m['anomalies_fired']} firings, bundles {bundles} (each loads, "
+        f"incident_report --validate 0); flight recorder on / off / off / "
+        f"on: {flight_tps} tok/s, tokens equal; launches {launches} "
+        f"[card: {card_line}]")
     return res
 
 
@@ -2549,6 +2728,7 @@ def main() -> None:
         f"{sta['kv_cache_bytes'] / 2**20:.1f} vs "
         f"{eng['kv_cache_bytes'] / 2**20:.1f} MiB")
     cha = chaos_phase(torch, counters, params, eng, card_line)
+    obs = observe_phase(torch, counters, params, cha, card_line)
     recv = recovery_phase(torch, counters, params, scales, sta, card_line)
     spec = spec_phase(torch, counters, params, scales, sta)
     dense = dense_wave_phase(torch, counters, params, card_line)
@@ -2569,13 +2749,14 @@ def main() -> None:
 
     serving = {"engine": eng, "static": sta, "spec": spec,
                "engine_bf16": bf16, "oneshot": one, "sampling": samp,
-               "recipe": rec, "chaos": cha, "recovery": recv}
+               "recipe": rec, "chaos": cha, "recovery": recv,
+               "observe": obs}
     runs = {"engine": eng["launches"], "static": sta["launches"],
             "spec": spec["launches"], "dense_wave": dense["launches"],
             "wave": rwkv["launches"], "engine_bf16": bf16["launches"],
             "oneshot": one["launches"], "sampling": samp["launches"],
             "recipe": rec["launches"], "chaos": cha["launches"],
-            "recovery": recv["launches"]}
+            "recovery": recv["launches"], "observe": obs["launches"]}
     by_dtype = {"engine_bf16": bf16["cache_dtypes"],
                 "oneshot": one["cache_dtypes"],
                 "sampling": samp["engine"]["cache_dtypes"]}
@@ -2587,13 +2768,15 @@ def main() -> None:
         "oneshot": one["matmul_variants"],
         "recipe": rec["matmul_variants"],
         "chaos": cha["matmul_variants"],
-        "recovery": recv["matmul_variants"]},
+        "recovery": recv["matmul_variants"],
+        "observe": obs["matmul_variants"]},
         "launches_by_bits": {"recipe": rec["bits_launches"]}},
         "prefill_attention": {"launches_by_variant": {
             "engine": eng["prefill_variants"],
             "static": sta["prefill_variants"],
             "chaos": cha["prefill_variants"],
-            "recovery": recv["prefill_variants"]},
+            "recovery": recv["prefill_variants"],
+            "observe": obs["prefill_variants"]},
             "launches_by_mode": {k: r["prefill_modes"]
                                  for k, r in serving.items()},
             "launches_by_cache_dtype": {k: d["prefill_attention"]
@@ -2602,7 +2785,8 @@ def main() -> None:
             "engine": eng["decode_variants"],
             "static": sta["decode_variants"],
             "chaos": cha["decode_variants"],
-            "recovery": recv["decode_variants"]},
+            "recovery": recv["decode_variants"],
+            "observe": obs["decode_variants"]},
             "launches_by_mode": {k: r["decode_modes"]
                                  for k, r in serving.items()},
             "launches_by_cache_dtype": {k: d["decode_attention"]
@@ -2629,6 +2813,7 @@ def main() -> None:
          "rwkv6_cross_check": rxc, "engine_bf16": bf16, "oneshot": one,
          "sampling": samp, "recipe": rec, "percentile_quant": pq,
          "options_cross_check": oxc, "chaos": cha, "recovery": recv,
+         "observe": obs,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

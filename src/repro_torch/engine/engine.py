@@ -56,15 +56,27 @@ every step boundary, periodic snapshots (``snapshot_path``,
 ``snapshot_every``), an injected crash at the step boundary, and
 ``snapshot`` / ``restore`` / ``recover``. An always-on metrics registry
 (``metrics``, ``registry=``) counts all of it under the JAX package's
-instrument names, and :meth:`Engine.metrics` summarizes a run. Not ported
-yet: the tracer spans, the flight recorder, the anomaly detectors and
-incident bundles, and the sampled KV-quality gauges (``trace*``,
-``flight*``, ``incident_*`` and ``metrics_kv_every`` are no fields of
-:class:`EngineConfig`).
+instrument names, and :meth:`Engine.metrics` summarizes a run.
+
+Observability (DESIGN.md §10, §14), in the JAX package's names and record
+formats: a default-off tracer (``trace``, ``tracer=``) records the
+lifecycle events and a span for every phase of a step, each launch phase
+split into ``dispatch_s`` (host time until its launches returned) and
+``wait_s`` (the device wait: the host copy of the tokens, or in traced
+mode only a ``torch.cuda.synchronize`` after a prefill chunk), and
+``metrics()["phase_attribution"]`` sums them; ``trace_kv_every`` and
+``metrics_kv_every`` sample ``kvcache.kv_quality_counters`` from the
+live int8 cache into the trace and into gauges. An always-on
+flight recorder (``flight``) keeps one coarse record a step, and with
+``incident_dir`` the anomaly detectors (``obs/detect.py``) sweep each
+record and write an incident bundle (``obs/flight.py``) when one fires;
+:meth:`Engine.dump_incident` writes one on demand. An untraced engine
+pays one branch a site.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import time
 from typing import Optional
@@ -77,10 +89,10 @@ from ..models import transformer
 from ..models.common import dtype_of
 from .faults import DegradationLadder, FaultInjector, StepFailure
 from .kvcache import (clear_slot, hotswap_static_scales, init_slot_cache,
-                      rollback_slot, write_prefill)
+                      kv_quality_counters, rollback_slot, write_prefill)
 from .scheduler import EngineRequest, Scheduler, SubmitError
 from .spec import (SpecDecoder, accept_length, load_draft_params,
-                   verify_argmax)
+                   verify_window)
 
 #: One-shot prefills so far in this process: each dispatch materializes a
 #: dense full-precision (L, S, Hkv, D) cache that ``write_prefill`` then
@@ -138,6 +150,21 @@ class EngineConfig:
                                         # (obs.metrics); False leaves the
                                         # engine without one (registry=
                                         # still wins)
+    metrics_kv_every: int = 0           # >0: sample KV clip-fraction /
+                                        # occupancy gauges from live int8
+                                        # cache rows every N steps (a
+                                        # bounded copy to the host, so
+                                        # not free)
+    trace: bool = False                 # default-off tracer (obs.tracer):
+                                        # lifecycle events + per-step
+                                        # phase spans with dispatch vs
+                                        # device-wait attribution; adds a
+                                        # device sync after each prefill
+                                        # chunk — a profiling mode
+    trace_capacity: int = 1 << 16       # tracer ring records; the oldest
+                                        # drop first on overflow
+    trace_kv_every: int = 0             # >0 (traced, int8): a KV quality
+                                        # counter record every N steps
     # --- fault tolerance (engine/faults.py, DESIGN.md §12) --------------
     max_queue: int = 0                  # >0: bounded submit queue; an
                                         # arrival into a full queue
@@ -171,6 +198,17 @@ class EngineConfig:
     snapshot_every: int = 0             # >0: snapshot every N steps at the
                                         # end-of-step boundary, after the
                                         # journal's fsync
+    # --- flight recorder + incident capture (obs/flight.py, §14) --------
+    flight: bool = True                 # always-on bounded ring of coarse
+                                        # per-step records (the black box)
+    flight_capacity: int = 512          # ring size in steps
+    incident_dir: Optional[str] = None  # arm the anomaly-detector sweep
+                                        # and write incident bundles here
+                                        # (atomic tmp + fsync + rename);
+                                        # None = sweep off, recorder on
+    incident_cooldown: int = 50         # steps: per-detector refire
+                                        # cooldown AND the least gap
+                                        # between bundles
 
 
 class Engine:
@@ -188,12 +226,15 @@ class Engine:
     from, on ``device`` (the counterpart of the JAX engine's ``rng=``);
     by default one seeded 0. ``registry``: a metrics registry to count
     into (shared across engines, e.g. carried over a supervised restart);
-    by default, with ``ecfg.metrics``, a private one.
+    by default, with ``ecfg.metrics``, a private one. ``tracer``: an
+    ``obs.Tracer`` to record into; by default, with ``ecfg.trace``, one
+    on the engine's clock.
     """
 
     def __init__(self, cfg, params, ecfg: EngineConfig, device=None,
                  clock=time.perf_counter, *, kv_scales=None,
-                 draft_params=None, generator=None, registry=None):
+                 draft_params=None, generator=None, registry=None,
+                 tracer=None):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"the port's engine serves dense decoders, got "
@@ -225,6 +266,17 @@ class Engine:
         self.clock = clock
         self.generator = (generator if generator is not None else
                           torch.Generator(device=self.device).manual_seed(0))
+        # --- observability: an explicit tracer wins; else ecfg.trace mints
+        # one on the engine's clock. Falsy tracers normalize to None, so
+        # every hot-path site guards with one `if tr:` ---------------------
+        if tracer is None and ecfg.trace:
+            from ..obs.tracer import Tracer
+            tracer = Tracer(capacity=ecfg.trace_capacity, clock=clock,
+                            meta={"arch": cfg.name, "n_slots": ecfg.n_slots,
+                                  "spec_k": ecfg.spec_k,
+                                  "kv_mode": ecfg.kv_mode,
+                                  "prefill_chunk": ecfg.prefill_chunk})
+        self.tracer = tracer if tracer else None
         # --- always-on metrics registry (obs.metrics) -------------------
         # instruments resolve ONCE here, so the hot path is attribute
         # operations behind one `if mx:`
@@ -300,6 +352,16 @@ class Engine:
                 self._mx["accept_ewma"] = r.gauge(
                     "spec_accept_ewma",
                     "EWMA of per-verify draft-token acceptance fraction")
+            if ecfg.metrics_kv_every:
+                for side in ("k", "v"):
+                    self._mx[f"kv_{side}_clip"] = r.gauge(
+                        f"kv_{side}_clip_frac",
+                        f"sampled {side.upper()}-cache code saturation "
+                        f"(static scale drifted narrow when trending up)")
+                    self._mx[f"kv_{side}_occ"] = r.gauge(
+                        f"kv_{side}_occupancy",
+                        f"sampled {side.upper()}-cache code-range use "
+                        f"(scale drifted wide when trending down)")
         # --- crash safety: the journal is a WAL, written when configured
         # and fsync'd once per step boundary ------------------------------
         self.journal = None
@@ -314,7 +376,7 @@ class Engine:
                                registry=self.registry,
                                max_queue=ecfg.max_queue,
                                overload_policy=ecfg.overload_policy,
-                               journal=self.journal)
+                               journal=self.journal, tracer=self.tracer)
         # --- fault tolerance -------------------------------------------
         self._faults = (FaultInjector(ecfg.fault_spec)
                         if ecfg.fault_spec else None)
@@ -325,6 +387,28 @@ class Engine:
             self._ladder = DegradationLadder(
                 ecfg.degrade_thresholds or (N_, 2 * N_, 4 * N_),
                 patience=ecfg.degrade_patience)
+        # --- flight recorder + incident capture (obs/flight.py, §14): the
+        # recorder is always on unless disabled; the detector sweep runs
+        # only with an incident_dir, so a plain run pays one ring append
+        self._flight = None
+        if ecfg.flight:
+            from ..obs.flight import FlightRecorder
+            self._flight = FlightRecorder(
+                capacity=ecfg.flight_capacity, clock=clock,
+                meta={"arch": cfg.name, "n_slots": ecfg.n_slots,
+                      "kv_mode": ecfg.kv_mode, "spec_k": ecfg.spec_k})
+        self._detect = None
+        if ecfg.incident_dir:
+            from ..obs.detect import AnomalyDetector
+            self._detect = AnomalyDetector(
+                cooldown_steps=ecfg.incident_cooldown,
+                queue_set_point=(ecfg.max_queue or None))
+        self.incidents: list = []        # bundle paths written this run
+        self._last_bundle_step = None
+        # the latest KV quality samples (the metrics_kv_every pull); None
+        # until the first
+        self._last_clip_frac = None
+        self._last_span_frac = None
         self.cache = init_slot_cache(
             cfg, ecfg.n_slots, ecfg.max_len, mode=ecfg.kv_mode,
             dtype=dtype_of(ecfg.kv_dtype), qchunks=ecfg.kv_qchunks,
@@ -336,7 +420,8 @@ class Engine:
                                                   cfg)
                                 if ecfg.draft_recipe else params)
             self._spec = SpecDecoder(cfg, ecfg, draft_params, self.device,
-                                     registry=self.registry)
+                                     registry=self.registry,
+                                     tracer=self.tracer)
         N = ecfg.n_slots
         self._last_tok = np.zeros(N, np.int64)
         self._pos = np.zeros(N, np.int64)
@@ -420,10 +505,14 @@ class Engine:
         unknown or already finished (cancel is idempotent)."""
         for req in self.sched.queue:
             if req.uid == uid:
+                if self.tracer:
+                    self.tracer.event("cancel", uid=int(uid), slot=-1)
                 self.sched.drop_queued(req, "cancelled")
                 return True
         for slot, req in enumerate(self.sched.slots):
             if req is not None and req.uid == uid:
+                if self.tracer:
+                    self.tracer.event("cancel", uid=int(uid), slot=slot)
                 self._retire(slot, "cancelled")
                 return True
         return False
@@ -492,6 +581,9 @@ class Engine:
         (or retire it on eos / exhausted budget)."""
         first = int(self._sample(logits_row))
         req.t_first_token = self.clock()
+        if self.tracer:
+            self.tracer.event("first_token", uid=int(req.uid),
+                              slot=int(slot))
         if self.journal:
             self.journal.event("first_token", uid=int(req.uid),
                                slot=int(slot))
@@ -519,14 +611,18 @@ class Engine:
             req.t_first_token = req.t_submit
             self.sched.retire(slot, reason="zero_budget")
             return 0
+        tr = self.tracer
+        t_span = tr.begin() if tr else 0.0
         t0 = self.clock()
         S = len(req.prompt)
         Sp = bucket_len(S, self.ecfg.prefill_bucket, self.ecfg.max_len)
         toks = np.zeros((1, Sp), np.int64)
         toks[0, :S] = req.prompt                      # right-pad
         toks = torch.from_numpy(toks).to(self.device)
+        t_d = tr.now() if tr else 0.0
         logits, pcache = transformer.prefill(self.params, self.cfg,
                                              {"tokens": toks})
+        dispatch_s = (tr.now() - t_d) if tr else 0.0
         self.n_prefills += 1
         FP_PREFILL_MATERIALIZATIONS += 1
         # only [0, S) becomes visible; the bucket's padding stays masked
@@ -535,8 +631,13 @@ class Engine:
         if self._spec is not None:    # the draft's own materialization
             self._spec.prefill_oneshot(toks, slot, S)
             FP_PREFILL_MATERIALIZATIONS += 1
+        # the first token's copy waits for the prefill, so the span's tail
+        # (dur - dispatch_s) is device wait + first-token work
         self._start_decoding(slot, req, logits[0, S - 1], S)
         self.prefill_s.append(self.clock() - t0)
+        if tr:
+            tr.span_end("prefill_oneshot", t_span, slot=slot, uid=int(req.uid),
+                        tokens=S, dispatch_s=dispatch_s)
         return S
 
     def _admit_chunked(self, slot: int, req: EngineRequest) -> None:
@@ -558,6 +659,7 @@ class Engine:
         ecfg = self.ecfg
         budget = ecfg.prefill_chunk
         spent = 0
+        tr = self.tracer
         for slot in self.sched.prefill_slots():
             req = self.sched.slots[slot]
             S = len(req.prompt)
@@ -565,15 +667,28 @@ class Engine:
             n = min(ecfg.prefill_chunk, S - done)
             if n > budget:
                 break
+            t_span = tr.begin() if tr else 0.0
             Sc = bucket_len(n, ecfg.prefill_bucket, ecfg.prefill_chunk)
             toks = np.zeros((1, Sc), np.int64)
             toks[0, :n] = req.prompt[done:done + n]   # right-pad the chunk
             t0 = self.clock()
+            pos_start = done
             toks = torch.from_numpy(toks).to(self.device)
+            t_d = tr.now() if tr else 0.0
             logits = transformer.prefill_chunk_slots(
                 self.params, self.cfg, self.cache, toks, slot, done, n)
+            dispatch_s = (tr.now() - t_d) if tr else 0.0
             if self._spec is not None:        # mirror the chunk to the draft
                 self._spec.prefill_chunk(toks, slot, done, n)
+            wait_s = 0.0
+            if tr:
+                # traced-mode sync: launches are asynchronous, so without
+                # it the chunk's device time would surface as somebody
+                # else's wait. A deliberate profiling cost.
+                t_w = tr.now()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                wait_s = tr.now() - t_w
             budget -= n
             spent += n
             done += n
@@ -588,25 +703,37 @@ class Engine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)   # the chunk's device time
             self.prefill_chunk_s.append(self.clock() - t0)
+            if tr:
+                tr.span_end("prefill_chunk", t_span, slot=slot,
+                            uid=int(req.uid), pos_start=pos_start, n=n,
+                            dispatch_s=dispatch_s, wait_s=wait_s)
         return spent
 
-    def _dispatch_decode(self) -> np.ndarray:
+    def _dispatch_decode(self, n_active: int) -> np.ndarray:
         """One batched decode step over all N slots, sampled on the
-        device; returns the per-slot tokens on the host (one (N,)
-        copy)."""
+        device; returns the per-slot tokens on the host (one (N,) copy,
+        the device wait of the traced ``decode`` span)."""
+        tr = self.tracer
+        t_span = tr.begin() if tr else 0.0
         t0 = self.clock()
         tokens = torch.from_numpy(self._last_tok[:, None]).to(self.device)
         pos = torch.from_numpy(self._pos).to(self.device)
+        t_d = tr.now() if tr else 0.0
         logits = transformer.decode_step_slots(
             self.params, self.cfg, self.cache, tokens, pos,
             fused=self.ecfg.fused_attn)
-        toks = self._sample(logits[:, -1]).cpu().numpy()
+        toks = self._sample(logits[:, -1])
+        t_w = tr.now() if tr else 0.0
+        toks = toks.cpu().numpy()
         self.n_decode_steps += 1
         dt = self.clock() - t0
         self.decode_step_s.append(dt)
         if self._mx:
             self._mx["decode_steps"].inc()
             self._mx["decode_s"].observe(dt)
+        if tr:
+            tr.span_end("decode", t_span, slots=n_active,
+                        dispatch_s=t_w - t_d, wait_s=tr.now() - t_w)
         return toks
 
     def _decode_with_retry(self, active: list) \
@@ -643,7 +770,7 @@ class Engine:
                     raise StepFailure("injected transient step exception")
                 if kind == "slow":
                     inj.sleep()
-                toks = self._dispatch_decode()
+                toks = self._dispatch_decode(len(active))
                 if inj is not None:
                     toks = inj.corrupt_tokens(
                         toks, active,
@@ -661,6 +788,13 @@ class Engine:
                 self.n_step_retries += 1
                 if self._mx:
                     self._mx["retries"].inc()
+                if self._detect is not None:
+                    # attributable failures name their first victim's uid
+                    # in the incident trigger
+                    uid = (self.sched.slots[e.slots[0]].uid
+                           if e.slots and self.sched.slots[e.slots[0]]
+                           is not None else None)
+                    self._detect.note("step_retry", reason=str(e), uid=uid)
                 # undo any K/V the failed dispatch wrote: every active
                 # slot back to its pre-step position
                 for s in active:
@@ -674,6 +808,13 @@ class Engine:
                                   f"decode output {self._fail_streak[s]} "
                                   f"attempts running", file=sys.stderr)
                             self.n_quarantined += 1
+                            if self._detect is not None:
+                                self._detect.note(
+                                    "quarantine",
+                                    uid=self.sched.slots[s].uid,
+                                    reason=f"slot {s}: corrupt output "
+                                           f"{int(self._fail_streak[s])} "
+                                           f"attempts running")
                             self._retire(s, "failed")
                             self._fail_streak[s] = 0
                             active = [a for a in active if a != s]
@@ -684,6 +825,12 @@ class Engine:
                     for s in list(active):
                         self._fail_streak[s] = 0
                         self.n_quarantined += 1
+                        if self._detect is not None:
+                            self._detect.note(
+                                "quarantine",
+                                uid=self.sched.slots[s].uid,
+                                reason=f"slot {s}: whole-batch failure "
+                                       f"after {attempt} attempts")
                         self._retire(s, "failed")
                     active = []
                 if active and self.ecfg.retry_backoff_s > 0:
@@ -720,6 +867,16 @@ class Engine:
             return False
         return True
 
+    def _verify(self, toks, slot: int, pos_start: int, length: int):
+        """One verify pass over a slot's window (tokens (1, Sq) on the
+        device): (the rows' argmax on the host, the tracer's clock when
+        the launches returned — 0.0 untraced). The host copy is the
+        pass's device wait."""
+        garg = verify_window(self.params, self.cfg, self.cache, toks, slot,
+                             pos_start, length)
+        t_w = self.tracer.now() if self.tracer else 0.0
+        return garg.cpu().numpy(), t_w
+
     def _spec_step(self, active: list[int]) -> None:
         """One speculative decode step: the draft proposes up to spec_k
         greedy tokens per active slot in batched decode steps over its own
@@ -741,29 +898,46 @@ class Engine:
             rem = req.max_new_tokens - len(req.out)
             w[s] = max(1, min(Sq, self.ecfg.max_len - int(pos0[s]), rem))
         drafts = self._spec.draft(self._last_tok, pos0, w)      # (k, N)
+        tr = self.tracer
         for s in active:
+            uid = int(self.sched.slots[s].uid)
             ws = int(w[s])
+            t_span = tr.begin() if tr else 0.0
             toks = np.zeros((1, Sq), np.int64)
             toks[0, 0] = self._last_tok[s]
             toks[0, 1:ws] = drafts[:ws - 1, s]
-            garg = verify_argmax(self.params, self.cfg, self.cache,
-                                 torch.from_numpy(toks).to(self.device), s,
-                                 int(pos0[s]), ws)
+            t_d = tr.now() if tr else 0.0
+            garg, t_w = self._verify(torch.from_numpy(toks).to(self.device),
+                                     s, int(pos0[s]), ws)
+            wait_s = (tr.now() - t_w) if tr else 0.0
             self.n_verify_calls += 1
             self.n_verify_tokens += ws
             a = accept_length(drafts[:, s], garg, ws)
             self.sched.note_spec(s, proposed=ws - 1, accepted=a)
+            if tr:
+                tr.span_end("verify", t_span, slot=s, uid=uid, tokens=ws,
+                            accepted=a, dispatch_s=t_w - t_d, wait_s=wait_s)
             new_pos = int(pos0[s]) + a + 1
             if a + 1 < ws:                   # rejected rows to undo
                 self.n_rollbacks += 1
+                t_rb = tr.begin() if tr else 0.0
                 rollback_slot(self.cache, s, new_pos)
                 self._spec.rollback(s, new_pos)
+                if tr:
+                    tr.span_end("rollback", t_rb, slot=s, uid=uid,
+                                accept_len=new_pos)
+                    tr.event("rollback", uid=uid, slot=s,
+                             accept_len=new_pos, rejected=ws - (a + 1))
+            t_c = tr.begin() if tr else 0.0
             for t in garg[:a + 1]:
                 self._pos[s] += 1
                 if t != self.ecfg.eos_id:
                     self.n_spec_commit_tokens += 1
                 if not self._commit(s, int(t)):
                     break
+            if tr:
+                tr.span_end("accept_commit", t_c, slot=s, uid=uid,
+                            committed=a + 1)
         self.n_spec_steps += 1
         self.spec_step_s.append(self.clock() - t0)
         self.sched.note_step(len(active))
@@ -776,12 +950,15 @@ class Engine:
     def step(self) -> list[EngineRequest]:
         """Injected crash, deadline sweep, degradation ladder, admission,
         chunk-budgeted prefill, one batched decode step (with retry), the
-        end-of-step gauges, the journal's fsync and the periodic
-        snapshot, in that order. Returns the requests that finished in
-        this step."""
+        traced KV sample, the end-of-step gauges, the journal's fsync, the
+        periodic snapshot and the flight record with its detector sweep,
+        in that order. Returns the requests that finished in this
+        step."""
         if self._t_start is None:
             self._t_start = self.clock()
         t_step0 = self.clock()
+        tr = self.tracer
+        t_span = tr.begin() if tr else 0.0
         # --- injected process death (faults.crash_rate): drawn before
         # any step work; the journal's durability horizon is the step
         # boundary, so flush what arrived since the last fsync and die —
@@ -792,6 +969,9 @@ class Engine:
             self._faults.crash()
         n_done_before = len(self.sched.finished)
         n_decoding_before = len(self.sched.active_slots())
+        # whichever wall list grows this step holds its decode / verify
+        # pass (the flight record's coarse split)
+        n_dec0, n_spec0 = len(self.decode_step_s), len(self.spec_step_s)
         if self._any_deadlines:
             self._enforce_deadlines()
         # --- degradation ladder: pressure = queue depth + prefill backlog
@@ -803,6 +983,9 @@ class Engine:
             if rung != self._rung:
                 if self._mx:
                     self._mx["degr_transitions"].inc()
+                if tr:
+                    tr.event("degrade", rung=rung, prev=self._rung,
+                             pressure=pressure)
                 self._rung = rung
             if self._mx:
                 self._mx["rung"].set(rung)
@@ -834,6 +1017,7 @@ class Engine:
                 # output-identical by the lossless accept rule
                 self._spec.note_suspended()
             toks, active = self._decode_with_retry(active)
+            t_c = tr.begin() if tr else 0.0
             emitted = 0
             for slot in active:
                 self._pos[slot] += 1
@@ -843,6 +1027,15 @@ class Engine:
             self.sched.note_step(len(active))
             if self._mx:
                 self._mx["tokens"].inc(emitted)
+            if tr:
+                tr.span_end("accept_commit", t_c, slots=len(active))
+        if tr and self.ecfg.trace_kv_every and self.cache.mode == "int8" \
+                and len(self.step_s) % self.ecfg.trace_kv_every == 0:
+            # periodic KV quality sample: a bounded copy of live cache
+            # rows to the host — a traced-mode cost, span-attributed
+            t_q = tr.begin()
+            tr.counter("kv_quality", kv_quality_counters(self.cache))
+            tr.span_end("kv_sample", t_q)
         self.step_s.append(self.clock() - t_step0)
         self.step_prefill_tokens.append(prefill_tokens)
         self.step_decode_slots.append(n_decoding_before)
@@ -862,6 +1055,12 @@ class Engine:
             mx["decoding"].set(len(self.sched.active_slots()))
             mx["backlog"].set(self._prefill_backlog())
             mx["in_flight"].set(in_flight)
+            if self.ecfg.metrics_kv_every and self.cache.mode == "int8" \
+                    and len(self.step_s) % self.ecfg.metrics_kv_every == 0:
+                self._sample_kv_gauges()
+        if tr:
+            tr.span_end("step", t_span, prefill_tokens=prefill_tokens,
+                        decode_slots=n_decoding_before)
         # --- crash safety: the journal's fsync FIRST, then the periodic
         # snapshot, so a snapshot never holds state the journal has not
         # seen
@@ -870,7 +1069,155 @@ class Engine:
         if self.ecfg.snapshot_every and self.ecfg.snapshot_path \
                 and len(self.step_s) % self.ecfg.snapshot_every == 0:
             self.snapshot()
+        # --- flight record + anomaly sweep (§14): after the journal's
+        # fsync, so a bundle's journal tail holds this step
+        if self._flight is not None or self._detect is not None:
+            self._record_step(n_dec0, n_spec0, n_decoding_before)
         return self.sched.finished[n_done_before:]
+
+    def _sample_kv_gauges(self) -> None:
+        """The ``metrics_kv_every`` pull: KV clip / occupancy gauges from
+        live cache rows (a bounded copy to the host), and the worse side's
+        clip fraction and outlier-span share stashed for the flight record
+        and the ``kv_clip_spike`` detector (no second copy)."""
+        mx = self._mx
+        kc = kv_quality_counters(self.cache)
+        clips = []
+        for side in ("k", "v"):
+            if kc.get(f"{side}_clip_frac") is not None:
+                mx[f"kv_{side}_clip"].set(kc[f"{side}_clip_frac"])
+                mx[f"kv_{side}_occ"].set(kc[f"{side}_occupancy"])
+                clips.append(kc[f"{side}_clip_frac"])
+        if clips:
+            self._last_clip_frac = max(clips)
+        spans = []
+        for side in ("k", "v"):
+            hist = kc.get(f"{side}_span_outlier_hist")
+            if hist and sum(hist) > 0:
+                # buckets past 4x the median chunk span — the OCS outlier
+                # tail (quality.OUTLIER_LOG2_EDGES)
+                spans.append(sum(hist[5:]) / sum(hist))
+        if spans:
+            self._last_span_frac = max(spans)
+
+    def _record_step(self, n_dec0: int, n_spec0: int,
+                     n_decoding_before: int) -> None:
+        """One flight record of the step just ended (the JAX package's
+        fields), swept by the detectors when an incident_dir is armed."""
+        uids = self.sched.occupied_uids()
+        spec_on = self._spec is not None and self._rung < 1
+        rec = {
+            "step": len(self.step_s) - 1,
+            "step_s": round(self.step_s[-1], 6),
+            "decode_s": round(
+                self.decode_step_s[-1]
+                if len(self.decode_step_s) > n_dec0 else
+                (self.spec_step_s[-1]
+                 if len(self.spec_step_s) > n_spec0 else 0.0), 6),
+            "draft_s": round(self._spec.last_draft_s, 6) if spec_on else 0.0,
+            "queue": len(self.sched.queue),
+            "backlog": self._prefill_backlog(),
+            "occupied": len(uids),
+            "decoding": n_decoding_before,
+            "rung": self._rung,
+            "retries": self.n_step_retries,
+            "quarantined": self.n_quarantined,
+            "accept": (round(self.sched.accept_ewma, 4)
+                       if self._spec is not None
+                       and self.sched.accept_ewma is not None else None),
+            "spec_off": bool(self._spec is not None and self._rung >= 1),
+            "clip_frac": self._last_clip_frac,
+            "span_frac": self._last_span_frac,
+            "uids": [int(u) for u in uids],
+        }
+        if self._flight is not None:
+            rec = self._flight.record(**rec)
+        if self._detect is not None:
+            firings = self._detect.sweep(rec)
+            if firings:
+                self._capture_incident(firings)
+
+    # -------------------------------------------- incident capture (§14) --
+    def _capture_incident(self, firings, force: bool = False):
+        """Write one incident bundle for a batch of detector firings, the
+        first firing its named trigger. A global cooldown
+        (``incident_cooldown`` steps) gates bundles, so a fault storm
+        yields one incident, not one per step; ``force`` bypasses it
+        (explicit dumps: supervisor restart, IntegrityError). Returns the
+        bundle's path, or None."""
+        if not self.ecfg.incident_dir or not firings:
+            return None
+        step = len(self.step_s)
+        if not force and self._last_bundle_step is not None \
+                and step - self._last_bundle_step \
+                < self.ecfg.incident_cooldown:
+            return None
+        from ..obs.flight import tail_lines, write_incident_bundle
+        from ..obs.provenance import provenance
+        from .recovery import _engine_fingerprint, _req_doc
+        trigger = firings[0]
+        docs: dict = {
+            "trigger.json": {
+                "schema": 1, "step": step,
+                "trigger": trigger.to_dict(),
+                "firings": [f.to_dict() for f in firings],
+                "faults_injected": (self._faults.counts()
+                                    if self._faults is not None else None),
+            },
+            "flight.json": {
+                "header": (self._flight.header()
+                           if self._flight is not None else None),
+                "records": (self._flight.window()
+                            if self._flight is not None else []),
+            },
+            "metrics.json": (self.registry.snapshot()
+                             if self.registry is not None else None),
+            "fingerprint.json": _engine_fingerprint(self),
+            "provenance.json": provenance(),
+            "requests.json": {
+                "active": [dict(_req_doc(r), slot=s)
+                           for s, r in enumerate(self.sched.slots)
+                           if r is not None],
+                "queued": [_req_doc(r) for r in self.sched.queue],
+                "poison_uids": (sorted(int(u) for u in
+                                       self._faults.poison_uids)
+                                if self._faults is not None else []),
+            },
+        }
+        if self.ecfg.journal_path:
+            if self.journal is not None:
+                self.journal.sync()
+            docs["journal_tail.jsonl"] = tail_lines(
+                self.ecfg.journal_path, 200)
+        # the sequence number comes from what is on disk, not from this
+        # object: a supervised restart replaces the engine, the bundles
+        # persist, and an overwritten bundle would eat an incident
+        try:
+            seq = len([d for d in os.listdir(self.ecfg.incident_dir)
+                       if d.startswith("incident-")
+                       and not d.endswith(".tmp")])
+        except OSError:
+            seq = 0
+        name = f"incident-{seq:03d}-{trigger.detector}"
+        path = write_incident_bundle(self.ecfg.incident_dir, name, docs)
+        self.incidents.append(path)
+        self._last_bundle_step = step
+        print(f"[engine] incident bundle: {path} "
+              f"(trigger {trigger.detector}: {trigger.reason})",
+              file=sys.stderr)
+        return path
+
+    def dump_incident(self, detector: str, reason: str = "",
+                      uid: Optional[int] = None):
+        """Capture an incident bundle now (bypasses the cooldown): the
+        serve supervisor after an ``InjectedCrash`` and the restore path
+        on ``IntegrityError`` — anomalies outside the step loop, where no
+        sweep runs. Returns the bundle's path (None without an
+        incident_dir)."""
+        from ..obs.detect import Firing
+        return self._capture_incident(
+            [Firing(detector, len(self.step_s), reason, uid=uid)],
+            force=True)
 
     # ------------------------------------------------- crash safety ------
     def snapshot(self, path: Optional[str] = None) -> str:
@@ -894,9 +1241,14 @@ class Engine:
         constructed, idle) engine. Integrity-validated — checksums, code
         ranges, kv_pos invariants, geometry — raising ``IntegrityError``
         rather than serve a corrupt artifact. Returns the manifest."""
-        from .recovery import restore_engine
+        from .recovery import IntegrityError, restore_engine
         t0 = self.clock()
-        manifest = restore_engine(self, path)
+        try:
+            manifest = restore_engine(self, path)
+        except IntegrityError as e:
+            # capture the refused artifact's context before failing loud
+            self.dump_incident("integrity_error", reason=str(e))
+            raise
         if self._mx:
             self._mx["restores"].inc()
             self._mx["restore_s"].observe(self.clock() - t0)
@@ -909,14 +1261,18 @@ class Engine:
         past its horizon, evict what the journal proves already retired.
         Either source may be absent (journal-only recovery re-prefills
         everything). Returns recover_engine's summary dict."""
-        from .recovery import recover_engine
+        from .recovery import IntegrityError, recover_engine
         t0 = self.clock()
-        info = recover_engine(
-            self,
-            snapshot_path if snapshot_path is not None
-            else self.ecfg.snapshot_path,
-            journal_path if journal_path is not None
-            else self.ecfg.journal_path)
+        try:
+            info = recover_engine(
+                self,
+                snapshot_path if snapshot_path is not None
+                else self.ecfg.snapshot_path,
+                journal_path if journal_path is not None
+                else self.ecfg.journal_path)
+        except IntegrityError as e:
+            self.dump_incident("integrity_error", reason=str(e))
+            raise
         if self._mx:
             if info["manifest"] is not None:
                 self._mx["restores"].inc()
@@ -990,8 +1346,10 @@ class Engine:
     def metrics(self) -> dict:
         """The run's summary: throughput, latencies, queueing signals, the
         retire-reason partition and the fault-tolerance counters, the
-        speculative counts, the injected faults, and the registry's
-        snapshot."""
+        flight recorder's and detectors' counts, the speculative counts,
+        the injected faults, the registry's snapshot and, traced, the
+        phase attribution."""
+        from ..obs.report import phase_breakdown
         from ..obs.summary import mean, pct as p
         fin = self.sched.finished
         reasons: dict = {}
@@ -1075,10 +1433,22 @@ class Engine:
             "degradation_rung": self._rung,
             "degradation_transitions": (self._ladder.n_transitions
                                         if self._ladder else 0),
+            # flight recorder + incident capture (§14)
+            "flight_recorded": (self._flight.n_recorded
+                                if self._flight is not None else 0),
+            "incidents": list(self.incidents),
+            "anomalies_fired": (self._detect.n_fired
+                                if self._detect is not None else 0),
             **spec,
         }
         if self._faults is not None:
             out["faults_injected"] = self._faults.counts()
         if self.registry is not None:
             out["registry"] = self.registry.snapshot()
+        if self.tracer:
+            # a traced engine embeds its step-time breakdown, so a metrics
+            # consumer needs no second pass over the trace
+            out["phase_attribution"] = phase_breakdown(self.tracer.events)
+            out["trace_records"] = len(self.tracer.events)
+            out["trace_dropped"] = self.tracer.dropped
         return out

@@ -44,7 +44,8 @@ __all__ = ["SlotKVCache", "init_slot_cache", "check_static_scales",
            "slot_layer_write", "materialize_layer", "slot_layer_update",
            "fused_slot_attention", "slot_chunk_prefill",
            "hotswap_static_scales", "write_prefill", "clear_slot",
-           "rollback_slot", "occupied_slots", "CACHE_DATA_FIELDS"]
+           "rollback_slot", "occupied_slots", "kv_quality_counters",
+           "CACHE_DATA_FIELDS"]
 
 SCALE_KEYS = ("k_scale", "k_zero", "v_scale", "v_zero")
 
@@ -327,3 +328,66 @@ def occupied_slots(cache: SlotKVCache) -> list[int]:
     host; diagnostics, not hot path."""
     pos = cache.kv_pos.cpu().numpy()                  # (L, N, T)
     return np.unique(np.nonzero((pos >= 0).any(axis=(0, 2)))[0]).tolist()
+
+
+# -------------------------------------------------- quality counters ---
+def kv_quality_counters(cache: SlotKVCache, max_rows: int = 4096,
+                        ref_scales=None) -> dict:
+    """Sample quantization-quality counters from a live int8 slot cache
+    (``obs.quality``, DESIGN.md §10), as the JAX package does.
+
+    Reads only rows kv_pos marks valid (stale retired or rolled-back
+    bytes would poison the statistics), in (L, N, T) row-major order,
+    thinned evenly to ``max_rows`` (layer, slot, token) rows so the copy
+    stays bounded: the rows are gathered on the cache's device and only
+    they (at most ``max_rows`` a field) go to the host, where the
+    statistics are numpy. Returns a flat dict of numbers and lists — the
+    shape the tracer's ``counter`` records and the Chrome exporter
+    expect:
+
+    * ``{k,v}_clip_frac`` / ``{k,v}_occupancy`` — code saturation and
+      code-range use (``quality.code_stats``); the static-scale drift
+      signals (clipping up = recipe too narrow, occupancy down = too
+      wide).
+    * dynamic scales only: ``{k,v}_span_median`` / ``_span_outlier_hist``
+      — per-chunk range spread and the OCS outlier histogram, plus
+      ``_occupancy_vs_ref`` when a recipe's ``ref_scales`` dict
+      ((L, Hkv, C) arrays, the layout of ``init_slot_cache``'s
+      ``kv_scales``) is given to compare live ranges against.
+    """
+    from ..obs.quality import code_stats, scale_to_span, span_stats
+
+    if cache.mode != "int8":
+        raise ValueError("KV quality counters require an int8 cache")
+    idx = torch.nonzero(cache.kv_pos >= 0)          # (n, 3), row-major
+    n_valid = int(idx.shape[0])
+    out: dict = {"valid_rows": n_valid, "static": int(cache.static),
+                 "qchunks": cache.qchunks}
+    if not n_valid:
+        return out
+    if n_valid > max_rows:                      # even, deterministic
+        keep = np.linspace(0, n_valid - 1, max_rows).astype(np.int64)
+        idx = idx[torch.from_numpy(keep).to(idx.device)]
+    lidx, nidx, tidx = idx.unbind(1)
+    lidx_h = lidx.cpu().numpy()
+    out["sampled_rows"] = int(idx.shape[0])
+    for name, codes in (("k", cache.k), ("v", cache.v)):
+        cs = code_stats(codes[lidx, nidx, tidx].cpu().numpy(), bits=8)
+        out[f"{name}_clip_frac"] = cs["clip_frac"]
+        out[f"{name}_occupancy"] = cs["occupancy"]
+    if not cache.static:
+        for name, scale in (("k", cache.k_scale), ("v", cache.v_scale)):
+            spans = scale_to_span(scale[lidx, nidx, tidx].cpu().numpy())
+            ref = None
+            if ref_scales is not None:
+                # recipe scales are per-layer constants (L, Hkv, C):
+                # broadcast to the sampled rows through the layer index
+                r = ref_scales[f"{name}_scale"]
+                r = r.cpu().numpy() if isinstance(r, torch.Tensor) else r
+                ref = scale_to_span(np.asarray(r, np.float64)[lidx_h])
+            st = span_stats(spans, ref)
+            out[f"{name}_span_median"] = st["span_median"]
+            out[f"{name}_span_outlier_hist"] = st["outlier_hist"]
+            if ref is not None:
+                out[f"{name}_occupancy_vs_ref"] = st["occupancy_vs_ref"]
+    return out

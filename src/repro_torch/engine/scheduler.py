@@ -6,8 +6,10 @@ Pure-Python bookkeeping; it never touches device tensors. It owns the
 submit / admit / retire transitions, so it writes their request-journal
 records (``engine/recovery.RequestJournal``) and keeps the queueing
 signals and instruments of the metrics registry, under the JAX package's
-names. It also keeps the speculative decoder's draft-proposed and
-draft-accepted counts and the acceptance EWMA.
+names, and emits their lifecycle events (``submit``, ``admit``,
+``retire``) into the engine's tracer. It also keeps the speculative
+decoder's draft-proposed and draft-accepted counts and the acceptance
+EWMA.
 
 Admission control (DESIGN.md §12): with ``max_queue > 0`` the submit
 queue is bounded and an arrival into a full queue invokes the
@@ -88,17 +90,20 @@ class EngineRequest:
 class Scheduler:
     """FCFS queue + fixed slot pool. ``registry``: the metrics registry
     its instruments live in (None: none); ``journal``: the request
-    journal its transitions are written to (None: none)."""
+    journal its transitions are written to (None: none); ``tracer``: the
+    ``obs.Tracer`` its lifecycle events go to (falsy: none, one branch a
+    site)."""
 
     def __init__(self, n_slots: int, clock=time.perf_counter, registry=None,
                  max_queue: int = 0, overload_policy: str = "reject-new",
-                 journal=None):
+                 journal=None, tracer=None):
         if overload_policy not in OVERLOAD_POLICIES:
             raise ValueError(f"overload_policy {overload_policy!r} not in "
                              f"{OVERLOAD_POLICIES}")
         self.n_slots = n_slots
         self.clock = clock
         self.max_queue = int(max_queue or 0)     # 0 = unbounded
+        self.tracer = tracer if tracer else None
         self.overload_policy = overload_policy
         self.journal = journal if journal else None
         self.queue: collections.deque[EngineRequest] = collections.deque()
@@ -170,6 +175,11 @@ class Scheduler:
             self._mx["submitted"].inc()
             self._mx["depth"].set(len(self.queue))
             self._mx["depth_hist"].observe(len(self.queue))
+        if self.tracer:
+            self.tracer.event("submit", uid=int(req.uid),
+                              prompt_len=int(len(req.prompt)),
+                              budget=int(req.max_new_tokens),
+                              queue_depth=len(self.queue))
         if self.journal:
             # the one place the full prompt is persisted: replay
             # re-enqueues the request from this record
@@ -247,6 +257,9 @@ class Scheduler:
             if self._mx:
                 self._mx["admitted"].inc()
                 self._mx["admit_latency"].observe(queued_s)
+            if self.tracer:
+                self.tracer.event("admit", uid=int(req.uid), slot=int(slot),
+                                  queued_s=queued_s)
             if self.journal:
                 self.journal.event("admit", uid=int(req.uid), slot=int(slot))
         self.queue_depth_hist.append(len(self.queue))
@@ -286,6 +299,10 @@ class Scheduler:
             self._mx["retired"].inc()
             if reason in ("shed", "cancelled"):
                 self._mx[reason].inc()
+        if self.tracer:
+            self.tracer.event("retire", uid=int(req.uid),
+                              slot=-1 if slot is None else int(slot),
+                              reason=reason, n_out=len(req.out))
         if self.journal:
             # the output rides along: after compaction it is the only
             # trace of a finished request, and a recovering supervisor

@@ -14,8 +14,8 @@ rows of both caches are undone by ``kvcache.rollback_slot``.
 
 The draft comes in as ``draft_params=`` or from a calibration recipe
 (:func:`load_draft_params`). Its instruments live in the engine's metrics
-registry, under the JAX package's names. Not ported yet: the tracer
-spans.
+registry, under the JAX package's names, and a traced engine gets one
+``draft`` span a step from it, with its dispatch / device-wait split.
 """
 from __future__ import annotations
 
@@ -71,14 +71,22 @@ def accept_length(drafts, target_toks, window: int) -> int:
     return a
 
 
-def verify_argmax(params, cfg, cache, tokens, slot: int, pos_start: int,
-                  length: int) -> np.ndarray:
+def verify_window(params, cfg, cache, tokens, slot: int, pos_start: int,
+                  length: int) -> torch.Tensor:
     """One verify pass over a slot's window (tokens (1, Sq) on the
     device; the cache updated in place) with the greedy argmax of every
-    row taken on the device: one (Sq,) copy to the host."""
+    row taken on the device: the (Sq,) argmax tensor, still on the
+    device (the launches are asynchronous on the card)."""
     logits = transformer.verify_step_slots(params, cfg, cache, tokens, slot,
                                            pos_start, length)
-    return torch.argmax(logits[0], dim=-1).cpu().numpy()
+    return torch.argmax(logits[0], dim=-1)
+
+
+def verify_argmax(params, cfg, cache, tokens, slot: int, pos_start: int,
+                  length: int) -> np.ndarray:
+    """:func:`verify_window` with its (Sq,) argmax copied to the host."""
+    return verify_window(params, cfg, cache, tokens, slot, pos_start,
+                         length).cpu().numpy()
 
 
 class SpecDecoder:
@@ -94,13 +102,17 @@ class SpecDecoder:
     never correctness (the accept rule guards that). The twin cache is
     serving state: an engine snapshot persists it beside the target's.
 
-    ``registry``: the engine's metrics registry (None: no instruments)."""
+    ``registry``: the engine's metrics registry (None: no instruments);
+    ``tracer``: the engine's ``obs.Tracer`` (falsy: none), which gets one
+    aggregated ``draft`` span per engine step."""
 
-    def __init__(self, cfg, ecfg, draft_params, device, registry=None):
+    def __init__(self, cfg, ecfg, draft_params, device, registry=None,
+                 tracer=None):
         self.cfg = cfg
         self.ecfg = ecfg
         self.k = ecfg.spec_k
         self.device = device
+        self.tracer = tracer if tracer else None
         self._mx = None
         if registry is not None:
             self._mx = {
@@ -184,15 +196,25 @@ class SpecDecoder:
         cur_pos = np.asarray(pos, np.int64).copy()
         steps = np.asarray(steps)
         drafts = np.zeros((self.k, N), np.int64)
+        tr = self.tracer
+        t_span = tr.begin() if tr else 0.0
         t_pass = time.perf_counter()
+        dispatch_s = wait_s = 0.0
         n_iter = int(steps.max())
         for j in range(n_iter):
+            if tr:
+                t_d = tr.now()
             logits = transformer.decode_step_slots(
                 self.params, self.cfg, self.cache,
                 torch.from_numpy(cur_tok[:, None]).to(self.device),
                 torch.from_numpy(cur_pos).to(self.device),
                 fused=self.ecfg.fused_attn)
-            toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            toks = torch.argmax(logits[:, -1], dim=-1)
+            if tr:
+                dispatch_s += (t_w := tr.now()) - t_d
+            toks = toks.cpu().numpy()           # the device wait
+            if tr:
+                wait_s += tr.now() - t_w
             self.n_draft_steps += 1
             if j < self.k:
                 drafts[j] = toks
@@ -203,4 +225,7 @@ class SpecDecoder:
         if self._mx is not None:
             self._mx["steps"].inc(n_iter)
             self._mx["draft_s"].observe(self.last_draft_s)
+        if tr:
+            tr.span_end("draft", t_span, iters=n_iter,
+                        dispatch_s=dispatch_s, wait_s=wait_s)
         return drafts

@@ -222,7 +222,6 @@ def profile_spec(device, scratch: Path) -> dict:
     import numpy as np
 
     from ..calib import collect_kv_stats, kv_static_scales
-    from ..engine import engine as engine_mod
     cfg, ecfg, quant, warmup, prompts = smoke_workload()
     ecfg = dataclasses.replace(ecfg, spec_k=3)
     params, _ = build_params(cfg, device=device, **quant)
@@ -242,7 +241,7 @@ def profile_spec(device, scratch: Path) -> dict:
             not eng.sched.active_slots():
         eng.step()
     # mark each draft pass and each verify pass for the trace
-    draft_fn, verify_fn = eng._spec.draft, engine_mod.verify_argmax
+    draft_fn, verify_fn = eng._spec.draft, eng._verify
 
     def marked(fn, name):
         def run(*a, **k):
@@ -251,17 +250,14 @@ def profile_spec(device, scratch: Path) -> dict:
         return run
 
     eng._spec.draft = marked(draft_fn, SPEC_RANGES[0])
-    engine_mod.verify_argmax = marked(verify_fn, SPEC_RANGES[1])
+    eng._verify = marked(verify_fn, SPEC_RANGES[1])
 
     def spec_window():
         for _ in range(SPEC_STEPS):
             eng.step()
         return SPEC_STEPS
 
-    try:
-        window = profile_window(spec_window, scratch, SPEC_RANGES)
-    finally:
-        engine_mod.verify_argmax = verify_fn
+    window = profile_window(spec_window, scratch, SPEC_RANGES)
     return {"arch": cfg.name, "card": torch.cuda.get_device_name(0),
             "spec_k": ecfg.spec_k, "active_slots": len(eng.sched.active_slots()),
             "spec": window}

@@ -52,6 +52,21 @@ real crash (``crash_kill=1``), and ``--drain-timeout`` /
         --reduced --device cpu --journal /tmp/j.jsonl --snapshot /tmp/snap \
         --recover-from /tmp/snap
 
+Observability (DESIGN.md §10, §14): ``--trace PATH`` records the engine's
+lifecycle events and phase spans (dispatch vs device wait; a profiling
+mode with a device sync after each prefill chunk) and writes them as
+JSONL, ``--trace-chrome PATH`` also as a Chrome / Perfetto trace, and
+``--trace-kv-every N`` samples the int8 cache's quality counters into the
+trace; ``--incident-dir DIR`` arms the anomaly detectors, which write
+incident bundles there (read them with
+``python -m repro_torch.launch.incident_report``), and the supervisor
+dumps one from a crashed engine before it restarts.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --reduced --device cpu --trace /tmp/t.jsonl --trace-chrome \
+        /tmp/t.json --trace-kv-every 2 --incident-dir /tmp/inc \
+        --faults exception=0.2,seed=3,max=2
+
 ``--spec-k`` serves with self-speculative decoding, the target drafting
 for itself, or the draft minted from ``--draft-recipe``.
 ``--method percentile`` quantizes with the percentile-clipped baseline
@@ -254,7 +269,10 @@ def serve_engine(args, cfg, params, device, kv_scales, kv_qchunks, prompts,
             degrade=args.degrade, fault_spec=faults,
             journal_path=args.journal, journal_resume=resume,
             snapshot_path=args.snapshot,
-            snapshot_every=args.snapshot_every),
+            snapshot_every=args.snapshot_every,
+            trace=bool(args.trace), trace_kv_every=args.trace_kv_every,
+            incident_dir=args.incident_dir,
+            incident_cooldown=args.incident_cooldown),
             device=device, kv_scales=kv_scales, registry=registry)
 
     # --recover-from is a fresh-process restart: the journal already holds
@@ -287,6 +305,10 @@ def serve_engine(args, cfg, params, device, kv_scales, kv_qchunks, prompts,
               f"{args.supervise}, recovering from "
               f"{'snapshot+journal' if args.snapshot else 'journal'}",
               flush=True)
+        if args.incident_dir:
+            # from the CRASHED engine, whose flight window and scheduler
+            # state describe the death — the new one starts empty
+            eng.dump_incident("injected_crash", reason=why)
         # free the crashed engine (its cache) before the new one allocates
         # its own; crash injection off, or the same seed would crash at
         # the same boundary again
@@ -334,6 +356,32 @@ def serve_engine(args, cfg, params, device, kv_scales, kv_qchunks, prompts,
         if problems:
             raise SystemExit("chaos invariants VIOLATED: "
                              + "; ".join(problems))
+    if args.trace:
+        n = eng.tracer.to_jsonl(args.trace)
+        print(f"trace  : {n} records -> {args.trace} "
+              f"({eng.tracer.dropped} dropped)")
+        if args.trace_chrome:
+            eng.tracer.to_chrome(args.trace_chrome)
+            print(f"trace  : chrome/perfetto -> {args.trace_chrome}")
+        pa = m["phase_attribution"]
+        if pa["coverage"] is not None:
+            print(f"trace  : phase coverage {pa['coverage']:.0%} of "
+                  f"step wall; dispatch {pa['dispatch_frac']:.0%} / "
+                  f"device wait {pa['device_wait_frac']:.0%} of "
+                  f"attributed time")
+    if args.incident_dir:
+        # counted on disk, not eng.incidents: a supervised restart
+        # replaces the engine, the bundles persist
+        bundles = sorted(
+            d for d in (os.listdir(args.incident_dir)
+                        if os.path.isdir(args.incident_dir) else [])
+            if d.startswith("incident-"))
+        print(f"incidents: {len(bundles)} bundle(s) -> "
+              f"{args.incident_dir}"
+              + (f"; inspect with python -m "
+                 f"repro_torch.launch.incident_report "
+                 f"{os.path.join(args.incident_dir, bundles[0])}"
+                 if bundles else " (no anomalies)"))
     if args.metrics_prom:
         from ..obs.atomic import atomic_write_text
         atomic_write_text(args.metrics_prom, eng.registry.to_prometheus())
@@ -459,6 +507,31 @@ def main(argv=None):
                          "at exit")
     ap.add_argument("--no-metrics", action="store_true",
                     help="serve without the always-on metrics registry")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="trace the engine (obs.Tracer) and write the JSONL "
+                         "event log here: lifecycle events + per-step "
+                         "phase spans with dispatch vs device-wait "
+                         "attribution. Engine only (not --wave); a "
+                         "profiling mode — adds device syncs")
+    ap.add_argument("--trace-chrome", default=None, metavar="PATH",
+                    help="with --trace: also write a Chrome/Perfetto "
+                         "trace.json (one track per slot, one per engine "
+                         "phase)")
+    ap.add_argument("--trace-kv-every", type=int, default=0, metavar="N",
+                    help="with --trace and --kv-mode int8: sample the KV "
+                         "quantization-quality counters (clip fraction, "
+                         "occupancy, outlier-chunk histogram) every N "
+                         "engine steps into the trace. 0 = off")
+    ap.add_argument("--incident-dir", default=None, metavar="DIR",
+                    help="arm the anomaly-detector sweep and write incident "
+                         "bundles (flight window + metrics + journal tail + "
+                         "fingerprint + request docs) under DIR; inspect "
+                         "with repro_torch.launch.incident_report")
+    ap.add_argument("--incident-cooldown", type=int, default=50,
+                    metavar="N",
+                    help="steps between detector refires / bundles "
+                         "(default 50) — a fault storm yields one "
+                         "incident, not one per step")
     args = ap.parse_args(argv)
     if args.max_queue == "auto":
         ap.error("--max-queue auto is not ported: it derives the bound "
@@ -470,6 +543,11 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if (args.trace_chrome or args.trace_kv_every) and not args.trace:
+        raise ValueError(
+            "--trace-chrome / --trace-kv-every require --trace — without "
+            "it no trace is recorded and the flags would be silently "
+            "ignored")
     if args.draft_recipe and not args.spec_k:
         raise ValueError(
             "--draft-recipe only takes effect with --spec-k > 0 — the "
@@ -479,14 +557,15 @@ def main(argv=None):
         faults=args.faults, degrade=args.degrade, max_queue=max_queue,
         journal=args.journal, snapshot=args.snapshot,
         recover_from=args.recover_from, supervise=args.supervise,
-        metrics_json=args.metrics_json, metrics_prom=args.metrics_prom)
+        metrics_json=args.metrics_json, metrics_prom=args.metrics_prom,
+        trace=args.trace, incident_dir=args.incident_dir)
     given = [f"--{k.replace('_', '-')}" for k, v in engine_only.items()
              if v]
     if (args.wave or cfg.family not in ENGINE_FAMILIES) and given:
         raise NotImplementedError(
             f"{'/'.join(given)}: engine features — the wave loop has no "
-            f"retry, ladder, admission control, journal, snapshot or "
-            f"metrics registry")
+            f"retry, ladder, admission control, journal, snapshot, "
+            f"metrics registry, tracer or flight recorder")
     if args.no_metrics and args.metrics_prom:
         raise ValueError("--no-metrics disables the registry "
                          "--metrics-prom writes — drop one")

@@ -14,6 +14,7 @@ WKV state (fp32 in both types) 1e-4 relative; the quantize epilogue's and
 the act-quant kernels' codes, scales and zeros exactly.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1394,9 +1395,10 @@ def wide():
     return cfg, params, seeded_prompts(cfg.vocab, 8, 100, 600, seed=4)
 
 
-def _wide_engine(wide, cache, submit=True):
+def _wide_engine(wide, cache, submit=True, **ecfg_kw):
     """An engine over ``wide`` on its params' device, with its 8 prompts
-    submitted; cache: "int8", "static" or "bf16"."""
+    submitted; cache: "int8", "static" or "bf16"; ``ecfg_kw``: further
+    EngineConfig fields."""
     from repro_torch.calib import collect_kv_stats, kv_static_scales
     from repro_torch.engine import Engine, EngineConfig
     cfg, params, prompts = wide
@@ -1407,8 +1409,8 @@ def _wide_engine(wide, cache, submit=True):
         toks = np.random.default_rng(7).integers(0, cfg.vocab, (2, 256))
         scales = kv_static_scales(collect_kv_stats(cfg, params, [toks]))
     eng = Engine(cfg, params, EngineConfig(
-        n_slots=8, max_len=1024, max_new_tokens=32, prefill_chunk=96, **kw),
-        device=params["embed"].device, kv_scales=scales)
+        n_slots=8, max_len=1024, max_new_tokens=32, prefill_chunk=96, **kw,
+        **ecfg_kw), device=params["embed"].device, kv_scales=scales)
     for p in prompts if submit else ():
         eng.submit(p)
     return eng
@@ -1573,3 +1575,94 @@ def test_kmeans_is_deterministic_on_the_card(dev):
     outs = {tuple(kmeans_1d(torch.Generator(device=dev).manual_seed(0),
                             x).centroids.tolist()) for _ in range(5)}
     assert len(outs) == 1
+
+
+# ------------------------------------------------------ observability ---
+@pytest.mark.parametrize("cache", ["int8", "static", "bf16"])
+def test_traced_tokens_equal_untraced_on_the_card(dev, wide, cache):
+    """Tracing (its device syncs, spans and KV samples) changes no token
+    on the card: the traced engine's tokens equal the untraced one's, the
+    trace validates, nothing is dropped, and the phase attribution covers
+    the step wall."""
+    from repro_torch.obs import validate_events
+    plain = {r.uid: r.out for r in _wide_engine(wide, cache).drain()}
+    eng = _wide_engine(wide, cache, trace=True, trace_kv_every=2,
+                       metrics_kv_every=2)
+    traced = {r.uid: r.out for r in eng.drain()}
+    assert traced == plain and len(plain) == 8
+    assert validate_events(list(eng.tracer.records())) == []
+    assert eng.tracer.dropped == 0
+    pa = eng.metrics()["phase_attribution"]
+    assert pa["coverage"] > 0.5 and pa["device_wait_s"] > 0
+    kv = [r for r in eng.tracer.events if r["kind"] == "counter"]
+    assert len(kv) == ((len(eng.step_s) + 1) // 2
+                       if cache != "bf16" else 0)
+
+
+@pytest.mark.parametrize("cache", ["int8", "static"])
+def test_kv_quality_counters_card_equal_cpu(dev, wide, cache):
+    """kv_quality_counters of the live card cache (rows gathered on the
+    card, only they copied) equal the same function on a CPU copy of the
+    whole cache, with and without thinning to max_rows."""
+    from repro_torch.engine.kvcache import (CACHE_DATA_FIELDS, SlotKVCache,
+                                            kv_quality_counters)
+    eng = _wide_engine(wide, cache)
+    for _ in range(8):
+        eng.step()
+    c = eng.cache
+    host = SlotKVCache(**{f: getattr(c, f).cpu() for f in CACHE_DATA_FIELDS},
+                       mode=c.mode, qchunks=c.qchunks, static=c.static)
+    for max_rows in (4096, 97):
+        got = kv_quality_counters(c, max_rows=max_rows)
+        want = kv_quality_counters(host, max_rows=max_rows)
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            if isinstance(v, float):
+                assert got[k] == pytest.approx(v, rel=1e-6), k
+            else:
+                assert got[k] == v, k
+        assert got["valid_rows"] > 0
+
+
+@pytest.mark.parametrize("kv_mode", ["fp", "int8"])
+def test_storm_firings_and_bundles_card_match_cpu(dev, kv_mode, tmp_path):
+    """Reduced stablelm, INT4 weights, the JAX package's chaos spec with
+    an incident dir: the event detectors' firings (detector, step, uid)
+    and the bundles written (names and triggers) on the card equal the
+    CPU's. The wall-clock detector (step_latency_spike) is switched off
+    on both devices: it reads time, not the schedule."""
+    from repro_torch.engine import Engine, EngineConfig, FaultSpec
+    from repro_torch.obs import load_incident_bundle
+    from repro_torch.obs.detect import EVENT_DETECTORS
+    cfg, params, prompts = _reduced_pair(dev)
+    spec = FaultSpec(seed=5, step_exception_rate=0.15, nan_logits_rate=0.10,
+                     slow_step_rate=0.05, slow_step_s=0.0005,
+                     poison_rate=0.25, max_faults=60)
+    got = {}
+    for d in ("cpu", "cuda"):
+        inc = tmp_path / d
+        eng = Engine(cfg, params[d], EngineConfig(
+            n_slots=3, max_len=48, prefill_bucket=8, prefill_chunk=8,
+            kv_mode=kv_mode, fault_spec=spec, incident_dir=str(inc),
+            incident_cooldown=5), device=d)
+        eng._detect.latency_factor = float("inf")
+        fired = []
+        sweep = eng._detect.sweep
+
+        def spy(rec, sweep=sweep, fired=fired):
+            out = sweep(rec)
+            fired.extend((f.detector, f.step, f.uid) for f in out
+                         if f.detector in EVENT_DETECTORS)
+            return out
+
+        eng._detect.sweep = spy
+        for p, b in zip(prompts, [6, 1, 6, 4, 3, 6, 5]):
+            eng.submit(p, max_new_tokens=b)
+        eng.drain()
+        bundles = sorted(os.listdir(inc))
+        trig = [load_incident_bundle(str(inc / b))["trigger.json"]["trigger"]
+                for b in bundles]
+        got[d] = fired, bundles, [(t["detector"], t["step"], t["uid"],
+                                   t["reason"]) for t in trig]
+    assert got["cuda"] == got["cpu"]
+    assert got["cpu"][0] and got["cpu"][1]

@@ -50,7 +50,15 @@ Phases (any failure exits non-zero):
    heads and tails; the dynamic kernel on 2562 columns in 3 chunks,
    aligned and one element in, and on a view three elements in), codes,
    scales and zeros exact; the ``-Xptxas -v`` lines of the WKV and both
-   act-quant kernels are printed with the others;
+   act-quant kernels are printed with the others. The grouped form of
+   the matmul (a MoE layer's experts, one launch a projection) runs at
+   moonshot-v1-16b-a3b's shapes (64 experts, 2048 -> 1408 and 1408 ->
+   2048, the 48 rows of a decode step and the 576 of a 96-token chunk;
+   bf16, and fp32 at the decode rows) beside ``torch.bmm`` over JAX's
+   (E, C, d) buffer; decode and prefill attention also at its MHA
+   16 x D=128; the first act-quant cases run once more through the
+   ``*_observed`` wrappers with a ``RegistryQuantProbe`` installed, its
+   gauges equal to ``code_stats`` of the plain codes;
 3. engine: stablelm-1.6b at its published widths (seeded random bf16
    weights, SplitQuant INT4 k=3, quantized on the card) served by the
    continuous-batching engine over an int8 slot cache: 8 slots,
@@ -157,7 +165,20 @@ Phases (any failure exits non-zero):
    dispatch, device wait and other host time), the traced tokens/s
    beside the chaos phase's and the KV clip fractions, then serves the
    unfaulted workload four times with the flight recorder on, off, off,
-   on (tokens equal in all four, tokens/s printed);
+   on (tokens equal in all four, tokens/s printed); its trace passes
+   ``launch.trace_report --validate``;
+3d. moe, after percentile_quant: moonshot-v1-16b-a3b as the JAX
+   package's config gives it (48 layers: 1 dense, 47 MoE of 64 experts
+   top-6 with 2 shared; MHA 16 x 128; SplitQuant INT4 k=3 built layer by
+   layer on the card)
+   through the engine over ``smoke_workload``'s cache, chunks and request
+   shapes, with a ``SnapshotWriter`` of its registry read back by
+   ``load_snapshots``: every request its 32 tokens, one K/V write a layer
+   and pass over 48 layers, the grouped matmul 3 x 47 times a decode step
+   and a chunk, no expert stack dequantized; it prints the build's
+   seconds and peak, the deployed bytes, tokens/s, TTFT, the decode-step
+   and chunk p50, peak memory, the cache's bytes, launches by variant and
+   mode and the routing margin of an untimed forward after the run;
 4. cross-checks: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
    tokens; the speculative engine (INT2 draft, spec_k 3) over int8
@@ -169,7 +190,11 @@ Phases (any failure exits non-zero):
    waves of mixed lengths, one request with a budget of 1: identical
    greedy tokens; and the engine over a bf16 fp cache, with one-shot
    prefill over an int8 cache, and through the materialize read path
-   (``fused_attn=False``): identical greedy tokens each;
+   (``fused_attn=False``): identical greedy tokens each; and
+   moonshot-v1-16b-a3b ``.reduced()`` in fp32 through the engine (the
+   fp32 grouped kernel on the card, JAX's literal form on the CPU):
+   identical greedy tokens, or the step that parted and its routing
+   margin;
 5. rwkv6: rwkv6-3b at its published widths (seeded random bf16 weights,
    SplitQuant INT4 k=3 of 257 matrices, quantized on the card) served by
    the wave loop: waves of 8, 16 seeded requests of 64-256 prompt tokens
@@ -185,10 +210,11 @@ Phases (any failure exits non-zero):
 The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
 (``launches_by_path`` splits them: engine, static, spec, dense_wave,
-wave, engine_bf16, oneshot, sampling, recipe, chaos, recovery and
-observe,
+wave, engine_bf16, oneshot, sampling, recipe, chaos, recovery,
+observe and moe,
 ``launches_by_variant``
-splits those of the matmul and of the two attention kernels by variant,
+splits those of the matmul (``grouped``: its MoE form) and of the two
+attention kernels by variant,
 ``launches_by_bits`` the matmul's of the recipe run by bit-width,
 ``launches_by_mode`` those of the attention kernels and of the K/V write
 by mode and ``launches_by_cache_dtype`` theirs by the cache's dtype in
@@ -245,26 +271,28 @@ SOURCES = {
 #: mixed INT2/INT4/INT8 tree restored from a checkpoint, static scales
 #: from its recipe), "chaos" (the engine phase's run under a seeded fault
 #: storm), "recovery" (the static phase's run crashed after a snapshot
-#: and recovered in a new engine; both engines' launches) and "observe"
-#: (the chaos run traced, with KV samples and incident bundles).
+#: and recovered in a new engine; both engines' launches), "observe"
+#: (the chaos run traced, with KV samples and incident bundles) and "moe"
+#: (moonshot-v1-16b-a3b through the engine; the matmul's launches there
+#: are its dense and its grouped form).
 #: ``kv_write`` is
 #: ``write_kv_rows`` in its dynamic and fp modes, ``kv_write_static`` in
 #: its static mode.
 PATHS = {
     "splitquant_matmul": ("engine", "static", "spec", "dense_wave", "wave",
                           "engine_bf16", "oneshot", "sampling", "recipe",
-                          "chaos", "recovery", "observe"),
+                          "chaos", "recovery", "observe", "moe"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
     "prefill_attention": ("engine", "static", "spec", "engine_bf16",
                           "sampling", "recipe", "chaos", "recovery",
-                          "observe"),
+                          "observe", "moe"),
     "kv_write": ("engine", "spec", "engine_bf16", "oneshot", "sampling",
-                 "chaos", "observe"),
+                 "chaos", "observe", "moe"),
     "wkv_chunked": ("wave",),
     "decode_attention": ("engine", "static", "spec", "engine_bf16",
                          "oneshot", "sampling", "recipe", "chaos",
-                         "recovery", "observe"),
+                         "recovery", "observe", "moe"),
     "kv_write_static": ("static", "spec", "recipe", "recovery"),
 }
 #: the 1 - 1e-6 quantile of chi-square with 64 degrees of freedom (the
@@ -471,6 +499,86 @@ def matmul_cases(torch, timer, rep):
         del qp, cp, w
 
 
+def grouped_cases(torch, timer, rep):
+    """The grouped form of the matmul (a MoE layer's experts: one launch a
+    projection) at moonshot-v1-16b-a3b's serving shapes: 64 experts of
+    2048 -> 1408 (gate, up) and 1408 -> 2048 (down), INT4 k=3, over the
+    rows of a decode step of 8 slots (8 x top-6 = 48 rows) and of a
+    96-token chunk (576 rows), routed by a seeded top-6 of random router
+    probabilities; bf16 (the moe phase) at both, fp32 (the reduced
+    cross-check's CUDA-core form) at the decode rows. The bound counts x
+    and y once and the packed codes, ids and constants of the experts
+    that got rows; the library time is ``torch.bmm`` over JAX's (E, C, d)
+    buffer (C = the block's tokens, 8 or 96) with the dequantized stack
+    in x's type."""
+    from repro_torch.kernels.packing import pack_cids
+    from repro_torch.kernels.ref import dequant_weight_ref
+    from repro_torch.kernels.splitquant_matmul import (
+        grouped_splitquant_matmul, grouped_splitquant_matmul_ref)
+    from repro_torch.launch.serve import moe_smoke_workload
+    cfg = moe_smoke_workload()[0]
+    E, top, k, bits = cfg.n_experts, cfg.top_k, 3, 4
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for K, N in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+        qp = torch.randint(0, 256, (E, K * bits // 8, N), generator=gen,
+                           dtype=torch.uint8, device="cuda")
+        cp = pack_cids(torch.randint(0, k, (E, K, N), generator=gen,
+                                     device="cuda").to(torch.uint8))
+        recip = (torch.rand((E, k, N), generator=gen, device="cuda")
+                 + 0.5) / 16
+        shift = torch.randn((E, k, N), generator=gen, device="cuda") * 0.05
+        w = torch.stack([dequant_weight_ref(qp[e], cp[e], recip[e],
+                                            shift[e], bits, torch.bfloat16)
+                         for e in range(E)])
+        for T, dtypes in ((8, (torch.bfloat16, torch.float32)),
+                          (96, (torch.bfloat16,))):
+            probs = torch.rand((T, E), generator=gen, device="cuda")
+            flat = torch.topk(probs, top, dim=-1).indices.reshape(-1)
+            offsets = torch.searchsorted(
+                torch.sort(flat).values,
+                torch.arange(E + 1, device="cuda")).to(torch.int32)
+            used = int((offsets.diff() > 0).sum())
+            R = T * top
+            for dt in dtypes:
+                x = torch.randn((R, K), generator=gen, device="cuda").to(dt)
+                go = lambda: grouped_splitquant_matmul(  # noqa: E731
+                    x, offsets, qp, cp, recip, shift, bits=bits, k=k)
+                got = go()
+                want = grouped_splitquant_matmul_ref(x, offsets, qp, cp,
+                                                     recip, shift, bits)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got).all()):
+                    fail(f"grouped matmul R={R} K={K} N={N}: non-finite")
+                # bf16: one rounding of an fp32 sum taken in another order
+                # (as the dense kernel); fp32: the sum's order alone
+                rel = 2 ** -7 if dt == torch.bfloat16 else 2 ** -14
+                tol = rel * max(1.0, float(want.float().abs().max()))
+                es = x.element_size()
+                nbytes = R * K * es + R * N * es + (E + 1) * 4 + used * (
+                    K * N * bits / 8 + K * N / 4 + 2 * k * N * 4)
+                buf = torch.randn((E, T, K), generator=gen,
+                                  device="cuda").to(dt)
+                wd = w.to(dt)
+                ms = timer(go)
+                name = "bf16" if dt == torch.bfloat16 else "fp32"
+                rep.add(f"moonshot grouped E={E} R={R} K={K} N={N} {name} "
+                        f"int{bits} k=3 ({used} experts routed)",
+                        max_err(got, want), tol, ms,
+                        timer(lambda: grouped_splitquant_matmul_ref(
+                            x, offsets, qp, cp, recip, shift, bits)),
+                        timer(lambda: torch.bmm(buf, wd)),
+                        nbytes, 2 * R * K * N)
+                c = rep.cases[-1]
+                c["grouped"] = True
+                c["bound_share"] = c["bound_ms"] / ms
+                log(f"  {'':18s} {'':44s} {100 * c['bound_share']:.1f}% of "
+                    f"its bound ({c['bound_by']}); "
+                    f"{c['library_ms'] / ms:.2f}x the speed of torch.bmm "
+                    f"over the (E, C, d) buffer")
+                del buf, wd
+        del qp, cp, w
+
+
 def _decode_inputs(torch, gen, N, T, Hq, Hkv, D, C):
     from repro_torch.kernels.prefill_attention import quantize_kv_ref
     q = torch.randn((N, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
@@ -537,7 +645,8 @@ def decode_cases(torch, timer, rep):
             (c, st) for st in (False, True) for c in (
                 ("stablelm-1.6b", 32, 32, 64, 1024),
                 ("chatglm3-6b", 32, 2, 128, 1024),
-                ("stablelm-1.6b", 32, 32, 64, 4096))):
+                ("stablelm-1.6b", 32, 32, 64, 4096),
+                ("moonshot-v1-16b-a3b", 16, 16, 128, 1024))):
         make = _static_decode_inputs if static else _decode_inputs
         q, qk, qv, kv_pos, q_pos, sc = make(torch, gen, N, T, Hq, Hkv, D, C)
         got = decode_attention(q, qk, qv, kv_pos, q_pos, *sc)
@@ -625,7 +734,8 @@ def prefill_cases(torch, timer, rep):
     gen = torch.Generator(device="cuda").manual_seed(2)
     T, C, Sq, pos_start, length = 1024, 4, 96, 384, 96
     for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
-                             ("chatglm3-6b", 32, 2, 128)):
+                             ("chatglm3-6b", 32, 2, 128),
+                             ("moonshot-v1-16b-a3b", 16, 16, 128)):
         f = lambda *s: torch.randn(s, generator=gen, device="cuda").to(
             torch.bfloat16)
         q, kn, vn = f(Sq, Hq, D), f(Sq, Hkv, D), f(Sq, Hkv, D)
@@ -968,12 +1078,34 @@ def act_quant_cases(torch, timer, drep, srep):
     """Both act-quant kernels at rwkv6-3b activation shapes (a wave of
     2048 tokens at widths 2560 and 8960, bf16), exactly equal to their
     plain versions: dynamic with 4 chunks, static with 3 (uneven on both
-    widths); then odd widths and views off a 16-byte boundary."""
+    widths); then odd widths and views off a 16-byte boundary. Each of
+    the first cases runs once more through its ``*_observed`` wrapper
+    with a ``RegistryQuantProbe`` installed: the gauges must equal
+    ``code_stats`` of the plain version's codes."""
+    from repro_torch.kernels import act_quant as aq
     from repro_torch.kernels.act_quant import (
         act_split_quantize, act_split_quantize_ref, act_split_quantize_static,
         act_split_quantize_static_ref)
+    from repro_torch.obs import MetricsRegistry, RegistryQuantProbe, \
+        code_stats
     gen = torch.Generator(device="cuda").manual_seed(4)
     R = 2048
+    observed = []
+
+    def observe(run, want_q, what):
+        reg = MetricsRegistry()
+        aq.set_quality_probe(RegistryQuantProbe(reg))
+        try:
+            run()
+        finally:
+            aq.set_quality_probe(None)
+        snap, cs = reg.snapshot(), code_stats(want_q.cpu().numpy())
+        got = (snap["act_quant_observations_total"],
+               snap["act_quant_clip_frac"], snap["act_quant_occupancy"])
+        if got != (1.0, cs["clip_frac"], cs["occupancy"]):
+            fail(f"{what}: RegistryQuantProbe gauges {got} != code_stats "
+                 f"of the plain version's codes {cs}")
+        observed.append((what, got))
     for N in (2560, 8960):
         x = (torch.randn((R, N), generator=gen, device="cuda") * 2).to(
             torch.bfloat16)
@@ -988,6 +1120,9 @@ def act_quant_cases(torch, timer, drep, srep):
                      timer(lambda: act_split_quantize_ref(x, bits=bits,
                                                           n_chunks=4)),
                      None, R * N * 2 + R * N + 2 * R * 4 * 4, 4 * R * N)
+            observe(lambda: aq.act_split_quantize_observed(
+                x, bits=bits, n_chunks=4), want[0],
+                f"act_split_quantize_observed N={N} bits={bits}")
             scale, zero = static_qparams(torch, x, 3, bits, gen)
             got = act_split_quantize_static(x, scale, zero, bits=bits)
             want = act_split_quantize_static_ref(x, scale, zero, bits=bits)
@@ -1005,6 +1140,9 @@ def act_quant_cases(torch, timer, drep, srep):
                      timer(lambda: act_split_quantize_static_ref(
                          x, scale, zero, bits=bits)),
                      None, R * N * 2 + R * N + 2 * 3 * 4, 4 * R * N)
+            observe(lambda: aq.act_split_quantize_static_observed(
+                x, scale, zero, bits=bits), want,
+                f"act_split_quantize_static_observed N={N} bits={bits}")
     # the scalar heads and tails: an odd width on a view that starts one
     # element into its storage (every row misaligned), and a view three
     # elements in (a head of five columns, vectors, a tail); the dynamic
@@ -1042,6 +1180,12 @@ def act_quant_cases(torch, timer, drep, srep):
                  timer(lambda: act_split_quantize_static_ref(
                      x, scale, zero, bits=8)),
                  None, R * N * 2 + R * N + 2 * 3 * 4, 4 * R * N)
+    log(f"  act-quant observed wrappers with a RegistryQuantProbe: "
+        f"{len(observed)} calls, gauges (calls, clip fraction, occupancy) "
+        f"== code_stats of the plain codes: "
+        + "; ".join(f"{w} {g[1]:.4f} / {g[2]:.4f}" for w, g in observed))
+    return observed
+
 
 def log_ptxas(out: str) -> None:
     """Registers, spills and shared memory of each instantiation of the
@@ -1069,7 +1213,8 @@ def log_ptxas(out: str) -> None:
         f"({b}, {bm}) {lib.splitquant_matmul_smem(b, bm)} B"
         for b in (2, 4, 8) for bm in (64, 128)))
     for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
-                             ("chatglm3-6b", 32, 2, 128)):
+                             ("chatglm3-6b", 32, 2, 128),
+                             ("moonshot-v1-16b-a3b", 16, 16, 128)):
         p = decode_plan(8, 1024, Hkv, Hq // Hkv, build.sm_count(0))
         smem = [lib.decode_attention_smem(D, 4, 1, st, p.group, p.warps)
                 for st in (0, 1)]
@@ -1187,15 +1332,21 @@ def warm_up(cfg, params, ecfg, warmup, **engine_kw) -> None:
 
 
 def serve_run(torch, counters, phase, cfg, params, ecfg, warmup, prompts,
-              **engine_kw):
+              snapshot_path=None, **engine_kw):
     """One engine serving run at full width: a warm-up engine, then the
     run with every launch count set to 0 just before and read just after.
     Returns (engine, finished requests, wall seconds, launches); the
     engine's ``materializations_in_run`` counts the run's one-shot fp
-    prefill materializations."""
+    prefill materializations. Given ``snapshot_path``, the run is stepped
+    by hand with a ``SnapshotWriter`` of the engine's registry (each step
+    ``maybe_write``, once more at drain); ``snapshots_written`` counts
+    them."""
     from repro_torch.engine import Engine
+    from repro_torch.obs import SnapshotWriter
     warm_up(cfg, params, ecfg, warmup, **engine_kw)
     eng = Engine(cfg, params, ecfg, device="cuda", **engine_kw)
+    writer = None if snapshot_path is None else \
+        SnapshotWriter(snapshot_path, eng.registry, interval_s=1.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
@@ -1203,10 +1354,19 @@ def serve_run(torch, counters, phase, cfg, params, ecfg, warmup, prompts,
     t0 = time.perf_counter()
     for p in prompts:
         eng.submit(p)
-    fin = eng.drain()
+    if writer is None:
+        fin = eng.drain()
+    else:
+        while not eng.sched.idle:
+            eng.step()
+            writer.maybe_write()
+        fin = sorted(eng.sched.finished, key=lambda r: r.uid)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(counters)
+    if writer is not None:
+        writer.write()
+        eng.snapshots_written = writer.seq
     eng.materializations_in_run = \
         engine_mod().FP_PREFILL_MATERIALIZATIONS - mat0
     if len(fin) != len(prompts) or \
@@ -1221,12 +1381,24 @@ def serve_run(torch, counters, phase, cfg, params, ecfg, warmup, prompts,
     return eng, fin, wall, launches
 
 
+def finite_logits(torch, phase, cfg, params, eng, fin):
+    """One decode step of the run's first 8 requests at position 700 over
+    the engine's cache: finite logits of shape (8, 1, vocab)."""
+    from repro_torch.models import transformer
+    logits = transformer.decode_step_slots(
+        params, cfg, eng.cache,
+        torch.tensor([[r.out[-1]] for r in fin[:8]], device="cuda"),
+        torch.full((8,), 700, dtype=torch.int32, device="cuda"))
+    if logits.shape != (8, 1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{phase}: non-finite or misshapen logits at full width")
+
+
 def engine_phase(torch, counters, params, kv_scales=None):
     """The engine over the smoke workload, with dynamic int8 scales or,
     given ``kv_scales``, static ones. ``counters``: every kernel wrapper
     by name; all are set to 0 just before the run and read just after."""
     from repro_torch.launch.serve import smoke_workload
-    from repro_torch.models import transformer
 
     cfg, ecfg, _, warmup, prompts = smoke_workload()
     phase = "engine" if kv_scales is None else "static"
@@ -1244,13 +1416,7 @@ def engine_phase(torch, counters, params, kv_scales=None):
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.out) for r in fin)
     # the logits the engine samples from are finite at full width
-    logits = transformer.decode_step_slots(
-        params, cfg, eng.cache,
-        torch.tensor([[r.out[-1]] for r in fin[:8]], device="cuda"),
-        torch.full((8,), 700, dtype=torch.int32, device="cuda"))
-    if logits.shape != (8, 1, cfg.vocab) or \
-            not bool(torch.isfinite(logits).all()):
-        fail(f"{phase}: non-finite or misshapen logits at full width")
+    finite_logits(torch, phase, cfg, params, eng, fin)
     ttft = [r.ttft for r in fin]
     res = {"arch": cfg.name, "kv_scales": mode, "requests": len(fin),
            "new_tokens": n_tok,
@@ -1431,6 +1597,7 @@ def observe_phase(torch, counters, params, cha_res, card_line):
     from repro_torch.engine import Engine, FaultSpec
     from repro_torch.launch.incident_report import main as report_main
     from repro_torch.launch.serve import smoke_workload
+    from repro_torch.launch.trace_report import main as trace_main
     from repro_torch.obs import DETECTORS, load_incident_bundle
     from repro_torch.obs.schema import validate_events
     cfg, ecfg, _, warmup, prompts = smoke_workload()
@@ -1465,6 +1632,15 @@ def observe_phase(torch, counters, params, cha_res, card_line):
             triggers.append(bundle["trigger.json"]["trigger"])
             with ctx.redirect_stdout(io.StringIO()):
                 report_rcs.append(report_main([path, "--validate"]))
+        trace_path = os.path.join(tmp, "trace.jsonl")
+        eng.tracer.to_jsonl(trace_path)
+        trace_out = io.StringIO()
+        with ctx.redirect_stdout(trace_out):
+            trace_rc = trace_main([trace_path, "--validate",
+                                   "--waterfalls", "0"])
+    if trace_rc != 0:
+        fail(f"{phase}: trace_report --validate exits {trace_rc}:\n"
+             f"{trace_out.getvalue()}")
     out = {r.uid: (r.finish_reason, r.out) for r in fin}
     want = {u: (r, o) for u, r, o in cha_res["finished"]}
     if out != want or m["step_retries"] != cha_res["step_retries"] or \
@@ -1529,6 +1705,7 @@ def observe_phase(torch, counters, params, cha_res, card_line):
            "trace_dropped": m["trace_dropped"],
            "phase_attribution": pa, "kv_samples": kv,
            "bundles": bundles, "triggers": triggers,
+           "trace_report": trace_out.getvalue(),
            "anomalies_fired": m["anomalies_fired"],
            "flight_recorded": m["flight_recorded"],
            "registry_kv": {k: v for k, v in m["registry"].items()
@@ -1558,7 +1735,8 @@ def observe_phase(torch, counters, params, cha_res, card_line):
         f"{min(clips['k']):.4f}-{max(clips['k']):.4f}, V "
         f"{min(clips['v']):.4f}-{max(clips['v']):.4f}; "
         f"{m['anomalies_fired']} firings, bundles {bundles} (each loads, "
-        f"incident_report --validate 0); flight recorder on / off / off / "
+        f"incident_report --validate 0); trace_report --validate 0 on the "
+        f"trace; flight recorder on / off / off / "
         f"on: {flight_tps} tok/s, tokens equal; launches {launches} "
         f"[card: {card_line}]")
     return res
@@ -2408,12 +2586,16 @@ def _no_kmeans():
     def boom(*a, **kw):
         raise AssertionError("k-means ran while serving from a recipe")
 
-    saved = kmeans_mod.kmeans_1d, splitquant_mod.kmeans_1d
-    kmeans_mod.kmeans_1d = splitquant_mod.kmeans_1d = boom
+    names = [(m, n) for m in (kmeans_mod, splitquant_mod)
+             for n in ("kmeans_1d", "kmeans_1d_batched")]
+    saved = [getattr(m, n) for m, n in names]
+    for m, n in names:
+        setattr(m, n, boom)
     try:
         yield
     finally:
-        kmeans_mod.kmeans_1d, splitquant_mod.kmeans_1d = saved
+        for (m, n), f in zip(names, saved):
+            setattr(m, n, f)
 
 
 def _same_packed(torch, a, b, path="") -> None:
@@ -2633,6 +2815,203 @@ def options_cross_check(torch):
     return res
 
 
+@contextlib.contextmanager
+def routing_margins(ffn):
+    """Records each routing's ``ffn.routing_margin`` (a 0-d tensor) into
+    the list it yields, by wrapping ``ffn.route`` until the block ends.
+    Untimed runs only: it adds a top-(K+1) to every MoE layer."""
+    rec, route = [], ffn.route
+
+    def recording(p, xt, cfg):
+        out = route(p, xt, cfg)
+        rec.append(ffn.routing_margin(out[0], cfg.top_k))
+        return out
+    ffn.route = recording
+    try:
+        yield rec
+    finally:
+        ffn.route = route
+
+
+def moe_phase(torch, counters, card_line):
+    """moonshot-v1-16b-a3b as the JAX package's config gives it
+    (``moe_smoke_workload``: 48 layers, 1 dense + 47 MoE of 64 experts
+    top-6 with 2 shared, MHA 16 x 128; SplitQuant INT4 k=3 built layer by
+    layer on the card) through the engine over the int8 dynamic slot
+    cache, 16 requests of 32 tokens, with a ``SnapshotWriter`` of the
+    engine's registry in a temporary directory (``serve_run``). Gates: as
+    ``serve_run``; one K/V write a layer and forward pass over the 48
+    layers; the grouped matmul launched 3 x 47 times a decode step and a
+    prefill chunk; the dense matmul and the attention kernels in their
+    bf16 variants and dynamic modes only; no expert stack dequantized
+    (``ffn.EXPERT_DEQUANTIZATIONS`` unchanged); finite logits at full
+    width; the snapshot file read back by ``load_snapshots``, its last
+    snapshot counting the run's tokens. Printed: build seconds and peak,
+    deployed bytes, tokens/s, TTFT, decode-step and prefill-chunk p50,
+    peak memory, KV cache bytes, launches by variant and mode, and the
+    routing margin (the smallest gap between a token's 6th and 7th router
+    probability) of the untimed logits check after the run."""
+    import os
+    import tempfile
+    from repro_torch.launch.serve import build_params, moe_smoke_workload
+    from repro_torch.models import ffn, transformer
+    from repro_torch.obs import load_snapshots
+    cfg, ecfg, quant, warmup, prompts = moe_smoke_workload()
+    phase = "moe"
+    n_dense, n_moe = transformer.stack_depths(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, report = build_params(cfg, device="cuda", **quant)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = torch.cuda.memory_allocated()
+    log(f"{phase}: {cfg.name} full width ({cfg.n_layers} layers: {n_dense} "
+        f"dense of FFN {cfg.dense_d_ff}, {n_moe} MoE of {cfg.n_experts} "
+        f"experts top-{cfg.top_k} + {cfg.n_shared_experts} shared, d_ff "
+        f"{cfg.d_ff}; d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab}): init + SplitQuant INT4 k=3 of "
+        f"{len(report['quantized'])} leaves layer by layer on the card in "
+        f"{t_build:.2f} s, build peak {build_peak / 2**30:.2f} GiB; "
+        f"deployed {report['deployed_bytes'] / 1e9:.3f} GB (the JAX count), "
+        f"{weight_bytes / 2**30:.2f} GiB on the card")
+    deq0 = ffn.EXPERT_DEQUANTIZATIONS
+    with tempfile.TemporaryDirectory() as tmp:
+        snap_path = os.path.join(tmp, "metrics.jsonl")
+        eng, fin, wall, launches = serve_run(
+            torch, counters, phase, cfg, params, ecfg, warmup, prompts,
+            snapshot_path=snap_path)
+        header, snaps = load_snapshots(snap_path)
+    peak = torch.cuda.max_memory_allocated()
+    passes = eng.n_decode_steps + eng.n_prefill_chunks
+    variants = dict(counters["splitquant_matmul"].variant_launches)
+    if variants["grouped"] != 3 * n_moe * passes or \
+            variants["fp32_cuda_core"] or not variants["bf16_wgmma"]:
+        fail(f"{phase}: matmul launches by variant {variants}; expected "
+             f"grouped = 3 x {n_moe} MoE layers x {passes} forward passes, "
+             f"bf16_wgmma > 0, no fp32_cuda_core")
+    deq = ffn.EXPERT_DEQUANTIZATIONS - deq0
+    if deq:
+        fail(f"{phase}: {deq} expert stacks dequantized on the card path")
+    pvariants = only_variant(counters, "prefill_attention", phase)
+    dvariants = only_variant(counters, "decode_attention", phase)
+    modes = only_modes(counters, phase, {"dynamic"}, {"dynamic"})
+    writes = one_write_per_layer(phase, cfg.n_layers, {"dynamic": passes})
+    n_tok = sum(len(r.out) for r in fin)
+    if header.get("kind") != "header" or "provenance" not in header or \
+            [r["seq"] for r in snaps] != \
+            list(range(eng.snapshots_written)) or len(snaps) < 2 or \
+            snaps[-1]["metrics"]["engine_tokens_generated"] != n_tok:
+        fail(f"{phase}: metrics snapshots read back wrong: header "
+             f"{header.get('kind')}, seqs {[r['seq'] for r in snaps]}, last "
+             f"tokens {snaps[-1]['metrics'].get('engine_tokens_generated')}")
+    with routing_margins(ffn) as margins:
+        finite_logits(torch, phase, cfg, params, eng, fin)
+    margin = float(torch.stack(margins).min())
+    ttft = [r.ttft for r in fin]
+    res = {"arch": cfg.name, "card": card_line, "build_s": t_build,
+           "build_peak_bytes": build_peak, "weight_bytes": weight_bytes,
+           "deployed_bytes": report["deployed_bytes"],
+           "quantized_leaves": len(report["quantized"]),
+           "requests": len(fin), "new_tokens": n_tok,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_p50_s": percentile(ttft, 50),
+           "ttft_p90_s": percentile(ttft, 90),
+           "decode_step_p50_s": percentile(eng.decode_step_s, 50),
+           "prefill_chunk_p50_s": percentile(eng.prefill_chunk_s, 50),
+           "decode_steps": eng.n_decode_steps,
+           "prefill_chunks": eng.n_prefill_chunks,
+           "peak_mem_bytes": peak, "kv_cache_bytes": eng.cache.nbytes(),
+           "launches": launches, "matmul_variants": variants,
+           "prefill_variants": pvariants, "decode_variants": dvariants,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes, "routing_margin": margin,
+           "routings": len(margins), "expert_dequantizations": deq,
+           "snapshots": len(snaps), "outputs": [r.out for r in fin]}
+    log(f"{phase}: {len(fin)} requests, {res['prompt_tokens']} prompt + "
+        f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
+        f"tok/s; TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
+        f"{res['decode_step_p50_s'] * 1e3:.2f} ms; prefill chunk p50 "
+        f"{res['prefill_chunk_p50_s'] * 1e3:.2f} ms; {eng.n_decode_steps} "
+        f"decode steps, {eng.n_prefill_chunks} prefill chunks; peak memory "
+        f"{peak / 2**30:.2f} GiB; KV cache "
+        f"{res['kv_cache_bytes'] / 2**20:.1f} MiB; launches {launches}; "
+        f"matmul launches by variant {variants} (grouped = 3 x {n_moe} x "
+        f"{passes} passes); prefill attention by variant {pvariants}, by "
+        f"mode {modes['prefill_attention']}; decode attention by variant "
+        f"{dvariants}, by mode {modes['decode_attention']}; K/V writes by "
+        f"mode {writes} (one a layer and forward pass over "
+        f"{cfg.n_layers} layers); expert stacks dequantized {deq}; routing "
+        f"margin of the logits check after the run {margin:.3e} over "
+        f"{len(margins)} routings; {len(snaps)} metrics snapshots read "
+        f"back [card: {card_line}]")
+    del eng, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _outs(eng) -> dict:
+    """Each request's tokens so far, finished or in a slot."""
+    live = [r for r in eng.sched.slots if r is not None]
+    return {r.uid: list(r.out) for r in eng.sched.finished + live}
+
+
+def moe_cross_check(torch):
+    """moonshot-v1-16b-a3b ``.reduced()`` in fp32 (1 dense + 1 MoE layer
+    of 8 experts top-2, INT4 SplitQuant) through the engine over an int8
+    dynamic cache, 8 requests x 16 tokens, on the card (the fp32 grouped
+    kernel) and on the CPU (JAX's literal form, eq. 4): identical greedy
+    tokens. The two engines step in turns; if they part, the step and
+    each device's routing margin in it are printed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.kernels import splitquant_matmul as sqm
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    from repro_torch.models import ffn
+    cfg = get_arch("moonshot-v1-16b-a3b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")
+    prompts = seeded_prompts(cfg.vocab, 8, 16, 200, seed=1)
+    ecfg = EngineConfig(n_slots=4, max_len=256, max_new_tokens=16,
+                        kv_mode="int8", prefill_chunk=96)
+    engs = {dev: Engine(cfg, p, ecfg, device=dev) for dev, p in
+            (("cpu", params), ("cuda", tree_to(params, "cuda")))}
+    for e in engs.values():
+        for pr in prompts:
+            e.submit(pr)
+    g0 = sqm.splitquant_matmul.variant_launches["grouped"]
+    parted, margins, step = None, {}, 0
+    while not all(e.sched.idle for e in engs.values()):
+        for dev, e in engs.items():
+            with routing_margins(ffn) as rec:
+                if not e.sched.idle:
+                    e.step()
+            margins[dev] = float(torch.stack(rec).min()) if rec else None
+        if parted is None and _outs(engs["cpu"]) != _outs(engs["cuda"]):
+            parted = {"step": step, "routing_margin": dict(margins)}
+        step += 1
+    grouped = sqm.splitquant_matmul.variant_launches["grouped"] - g0
+    outs = {dev: [r.out for r in sorted(e.sched.finished,
+                                        key=lambda r: r.uid)]
+            for dev, e in engs.items()}
+    same = outs["cpu"] == outs["cuda"]
+    log(f"moe cross-check: {cfg.name} reduced fp32, int8 KV, 8 requests x "
+        f"16 tokens, {step} steps, {grouped} grouped fp32 launches on the "
+        f"card: card tokens {'==' if same else '!='} CPU tokens"
+        + ("" if parted is None else
+           f"; parted at step {parted['step']}, routing margin of that "
+           f"step {parted['routing_margin']}"))
+    if not same or not grouped:
+        fail(f"moe cross-check: card {outs['cuda']} != cpu {outs['cpu']} "
+             f"or no grouped launch ({grouped}); parted {parted}")
+    return {"requests": len(prompts), "identical": same, "steps": step,
+            "grouped_launches": grouped, "parted": parted}
+
+
 def main() -> None:
     try:
         import torch
@@ -2682,6 +3061,7 @@ def main() -> None:
     reps = {n: KernelReport(n) for n in TPU_KERNELS}
     log("kernels vs plain versions (bf16, main-path shapes):")
     matmul_cases(torch, timer, reps["splitquant_matmul"])
+    grouped_cases(torch, timer, reps["splitquant_matmul"])
     decode_cases(torch, timer, reps["decode_attention"])
     decode_bf16_cases(torch, timer, reps["decode_attention"])
     prefill_cases(torch, timer, reps["prefill_attention"])
@@ -2696,8 +3076,8 @@ def main() -> None:
                 "decode_attention": decode_attention,
                 "kv_write_static": write_kv_rows}
     reset_counts(counters)
-    act_quant_cases(torch, timer, reps["act_split_quantize"],
-                    reps["act_split_quantize_static"])
+    aq_observed = act_quant_cases(torch, timer, reps["act_split_quantize"],
+                                  reps["act_split_quantize_static"])
     aq_launches = {n: counters[n].launches for n, p in PATHS.items()
                    if not p}
     del timer       # its 512 MiB flush buffer is not the servers' memory
@@ -2740,23 +3120,26 @@ def main() -> None:
     rec = recipe_phase(torch, counters, card_line)
     torch.cuda.empty_cache()
     pq = percentile_phase(torch, card_line)
+    moe = moe_phase(torch, counters, card_line)
     xc = cross_check(torch)
     sxc = spec_cross_check(torch)
     dxc = dense_wave_cross_check(torch)
     oxc = options_cross_check(torch)
+    mxc = moe_cross_check(torch)
     rwkv = rwkv_phase(torch, counters)
     rxc = rwkv_cross_check(torch)
 
     serving = {"engine": eng, "static": sta, "spec": spec,
                "engine_bf16": bf16, "oneshot": one, "sampling": samp,
                "recipe": rec, "chaos": cha, "recovery": recv,
-               "observe": obs}
+               "observe": obs, "moe": moe}
     runs = {"engine": eng["launches"], "static": sta["launches"],
             "spec": spec["launches"], "dense_wave": dense["launches"],
             "wave": rwkv["launches"], "engine_bf16": bf16["launches"],
             "oneshot": one["launches"], "sampling": samp["launches"],
             "recipe": rec["launches"], "chaos": cha["launches"],
-            "recovery": recv["launches"], "observe": obs["launches"]}
+            "recovery": recv["launches"], "observe": obs["launches"],
+            "moe": moe["launches"]}
     by_dtype = {"engine_bf16": bf16["cache_dtypes"],
                 "oneshot": one["cache_dtypes"],
                 "sampling": samp["engine"]["cache_dtypes"]}
@@ -2769,14 +3152,16 @@ def main() -> None:
         "recipe": rec["matmul_variants"],
         "chaos": cha["matmul_variants"],
         "recovery": recv["matmul_variants"],
-        "observe": obs["matmul_variants"]},
+        "observe": obs["matmul_variants"],
+        "moe": moe["matmul_variants"]},
         "launches_by_bits": {"recipe": rec["bits_launches"]}},
         "prefill_attention": {"launches_by_variant": {
             "engine": eng["prefill_variants"],
             "static": sta["prefill_variants"],
             "chaos": cha["prefill_variants"],
             "recovery": recv["prefill_variants"],
-            "observe": obs["prefill_variants"]},
+            "observe": obs["prefill_variants"],
+            "moe": moe["prefill_variants"]},
             "launches_by_mode": {k: r["prefill_modes"]
                                  for k, r in serving.items()},
             "launches_by_cache_dtype": {k: d["prefill_attention"]
@@ -2786,7 +3171,8 @@ def main() -> None:
             "static": sta["decode_variants"],
             "chaos": cha["decode_variants"],
             "recovery": recv["decode_variants"],
-            "observe": obs["decode_variants"]},
+            "observe": obs["decode_variants"],
+            "moe": moe["decode_variants"]},
             "launches_by_mode": {k: r["decode_modes"]
                                  for k, r in serving.items()},
             "launches_by_cache_dtype": {k: d["decode_attention"]
@@ -2813,7 +3199,8 @@ def main() -> None:
          "rwkv6_cross_check": rxc, "engine_bf16": bf16, "oneshot": one,
          "sampling": samp, "recipe": rec, "percentile_quant": pq,
          "options_cross_check": oxc, "chaos": cha, "recovery": recv,
-         "observe": obs,
+         "observe": obs, "moe": moe, "moe_cross_check": mxc,
+         "act_quant_observed": aq_observed,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

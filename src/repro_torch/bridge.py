@@ -3,10 +3,13 @@
 Input: the JAX parameter tree as nested dicts of numpy arrays, with each
 ``SplitQuantTensor`` given as a dict ``{q, cid, scale, zero, bits, k,
 orig_shape}`` (scales per tensor (k,) or per output column (k, out)) and
-the layer stack as ``(L, …)`` leaves under ``"layers"``. Output: the port's tree — the same names, the stack as a
-list of per-layer dicts, and every quantized matrix packed for the
-kernel. The caller flattens JAX arrays to numpy; this module imports
-neither ``jax`` nor the JAX package.
+the layer stacks as ``(L, …)`` leaves under ``"layers"`` and, for the MoE
+family, ``"moe_layers"``. Output: the port's tree — the same names, each
+stack as a list of per-layer dicts, and every quantized matrix packed for
+the kernel. A MoE layer's expert leaf (L, E, d, f), with scales
+(L, E, k[, f]), becomes one stacked packed weight (E, d, f) a layer. The
+caller flattens JAX arrays to numpy; this module imports neither ``jax``
+nor the JAX package.
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ def _is_sqt(node) -> bool:
 
 def _leaf(node, dtype):
     if _is_sqt(node):
-        if tuple(node["q"].shape) != tuple(node["orig_shape"]):
+        sd = len(node["q"].shape) - len(node["orig_shape"])
+        if sd > 1 or tuple(node["q"].shape[sd:]) != \
+                tuple(node["orig_shape"]):
             raise ValueError(f"stacked leaf {node['q'].shape} reached a "
                              f"per-layer slot")
         sqt = SplitQuantTensor(
@@ -35,7 +40,8 @@ def _leaf(node, dtype):
             cid=torch.from_numpy(np.array(node["cid"], np.uint8)),
             scale=torch.from_numpy(np.array(node["scale"], np.float32)),
             zero=torch.from_numpy(np.array(node["zero"], np.float32)),
-            bits=int(node["bits"]), k=int(node["k"]), orig_dtype=dtype)
+            bits=int(node["bits"]), k=int(node["k"]), orig_dtype=dtype,
+            stack_dims=sd)
         return pack_for_kernel(sqt)
     return torch.from_numpy(np.array(node))
 
@@ -71,7 +77,7 @@ def from_jax_tree(tree: dict, dtype=torch.float32, device=None) -> dict:
     dequantization returns."""
     out = {}
     for key, node in tree.items():
-        if key == "layers":
+        if key in ("layers", "moe_layers"):
             out[key] = [_convert(_unstack(node, i), dtype)
                         for i in range(_n_layers(node))]
         else:

@@ -8,12 +8,16 @@ a description of the tree, keys, shapes, dtypes, ``quant_meta`` and CRC32
 ['wq'].q``, ``['lm_head'].scale``, ``['layers']['ln1']['norm_scale']``;
 a tuple index is ``[i]``. The port holds the layer stack as a list of
 per-layer dicts; on disk, as in JAX, every leaf under ``layers`` (any
-list under a stack fragment) is stacked along a leading L axis.
+list under a stack fragment) is stacked along a leading L axis, the MoE
+family's two stacks (``layers`` and ``moe_layers``) each on its own.
 
 A quantized leaf (:class:`~repro_torch.kernels.ops.PackedWeight`) is
 saved unpacked: ``.q`` int8 and ``.cid`` uint8 codes of the original
 shape, ``.scale``/``.zero`` of shape (k,) or (k, N), with ``quant_meta``
-{bits, k, orig_shape, orig_dtype}. bf16 arrays are widened to fp32 in the
+{bits, k, orig_shape, orig_dtype}. A MoE layer's stacked experts keep E
+in front: ``['moe_layers']['moe']['w_gate'].q`` is (L, E, d, f), its
+scales (L, E, k[, f]), and ``orig_shape`` is one matrix's (d, f), as
+the JAX package writes them. bf16 arrays are widened to fp32 in the
 npz and ``dtypes`` records ``"bfloat16"``. Writes go to ``<step>.tmp``,
 are fsynced and renamed; ``retain`` old steps are kept.
 
@@ -119,7 +123,7 @@ def _treedef_str(tree) -> str:
             dt = _dtype_name(node.orig_dtype)
             dt = f"dtype('{dt}')" if dt != "bfloat16" else "dtype(bfloat16)"
             return (f"CustomNode(SplitQuantTensor[({node.bits}, {node.k}, "
-                    f"{tuple(node.shape)}, {dt})], [*, *, *, *])")
+                    f"{tuple(node.shape[-2:])}, {dt})], [*, *, *, *])")
         return "*"
     return f"PyTreeDef({render(tree)})"
 
@@ -146,7 +150,7 @@ def save(ckpt_dir: str, step: int, tree: Any, *, retain: int = 3,
                 host_arrays[f"{key}.{f}"] = _host(a)
                 dtypes[f"{key}.{f}"] = _dtype_name(a.dtype)
             quant_meta[key] = {"bits": int(p0.bits), "k": int(p0.k),
-                               "orig_shape": list(p0.shape),
+                               "orig_shape": list(p0.shape[-2:]),
                                "orig_dtype": _dtype_name(p0.orig_dtype)}
         else:
             a = _stack(parts, sd)
@@ -216,7 +220,7 @@ def _packed(data: dict, key: str, meta: Optional[dict], like,
         orig_dtype = DTYPES[meta["orig_dtype"]]
     elif isinstance(like, PackedWeight):
         bits, k = like.bits, like.k
-        orig_shape, orig_dtype = tuple(like.shape), like.orig_dtype
+        orig_shape, orig_dtype = tuple(like.shape[-2:]), like.orig_dtype
     else:
         raise ValueError(
             f"checkpoint has quantized arrays for {key!r} but no "
@@ -229,11 +233,13 @@ def _packed(data: dict, key: str, meta: Optional[dict], like,
             a = a[layer]
         arrs[f] = torch.from_numpy(np.ascontiguousarray(a)).to(
             device=device, dtype=dt)
-    if tuple(arrs["q"].shape) != orig_shape:
+    sd = arrs["q"].dim() - len(orig_shape)     # 1: a layer's experts
+    if sd not in (0, 1) or tuple(arrs["q"].shape[sd:]) != orig_shape:
         raise ValueError(f"{key}: codes {tuple(arrs['q'].shape)} do not "
                          f"match orig_shape {orig_shape}")
     return pack_for_kernel(SplitQuantTensor(bits=bits, k=k,
-                                            orig_dtype=orig_dtype, **arrs))
+                                            orig_dtype=orig_dtype,
+                                            stack_dims=sd, **arrs))
 
 
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None

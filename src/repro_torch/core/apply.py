@@ -9,7 +9,11 @@ tables are never quantized, and tiny parameters (fewer than
 ported yet and raise. The JAX package stacks the layers on a leading
 axis and quantizes each layer's slice on its own; the port's layer stack
 is a Python list, so each leaf already is one layer's matrix, and
-``MIN_SIZE`` is applied to the size of the whole stack as in JAX.
+``MIN_SIZE`` is applied to the size of the whole stack as in JAX. A MoE
+layer's expert leaf (E, d, f) is E matrices, each clustered and quantized
+on its own (the JAX package's ``infer_stack_dims`` = 2 over its
+(L, E, d, f) leaf), into one stacked packed weight; the k-means of the E
+matrices runs as one batched pass. The router stays fp32.
 
 Each quantized leaf is packed ONCE, here, into the kernel layout
 (:class:`~repro_torch.kernels.ops.PackedWeight`). Methods: ``splitquant``
@@ -17,7 +21,14 @@ Each quantized leaf is packed ONCE, here, into the kernel layout
 clipped range, the outlier treatment the paper argues against) and, as a
 per-path override, ``none``. Per-path overrides and ``report["per_path"]``
 use the JAX package's paths, where the layer stack is one leaf
-(``layers/attn/wq``): an override applies to that leaf of every layer.
+(``layers/attn/wq``, ``moe_layers/moe/w_gate``): an override applies to
+that leaf of every layer.
+
+:class:`LeafQuantizer` is the per-leaf step with its running leaf index
+(the k-means seed); ``launch.serve.build_params`` feeds it one layer at a
+time while ``transformer.init`` builds the tree, so a model whose bf16
+tree and packed tree would not fit on the card together is built with
+the same packed bytes as ``quantize_tree(init(...))``.
 """
 from __future__ import annotations
 
@@ -125,43 +136,63 @@ def _walk(tree, path, stack, jpath=()):
                    stack)
 
 
-def quantize_tree(params, policy: QuantPolicy, seed: int = 0,
-                  overrides: Optional[dict] = None):
-    """Return a copy of ``params`` with quantizable leaves replaced by
-    packed SplitQuant weights, plus a report dict. The k-means seeding of
-    each leaf draws from a ``torch.Generator`` seeded with ``seed`` plus
-    the leaf's index, on the leaf's device.
+class LeafQuantizer:
+    """Quantize the leaves of a tree in place, in :func:`quantize_tree`'s
+    walk order: the i-th leaf walked (quantizable or not) draws its
+    k-means seeding from a ``torch.Generator`` seeded ``seed + i`` on the
+    leaf's device. ``report`` is :func:`quantize_tree`'s report."""
 
-    ``overrides``: ``{path: {bits|k|method|percentile: ...}}`` on top of
-    ``policy``, keyed by the JAX package's lowercase paths (module doc);
-    a path that matches no quantizable leaf raises. ``report["per_path"]``
-    gives each such path's bits, k, method and deployed bytes (summed
-    over the layers); bytes are counted as the JAX package counts them
-    (:meth:`SplitQuantTensor.nbytes_deployed`)."""
-    out = _copy_tree(params)
-    report = {"quantized": [], "skipped": [], "deployed_bytes": 0,
-              "orig_bytes": 0, "per_path": {}}
-    overrides = dict(overrides or {})
-    unused = set(overrides)
-    for i, (path_s, jpath, box, key, leaf, stack) in enumerate(
-            _walk(out, (), 1)):
+    def __init__(self, policy: QuantPolicy, seed: int = 0,
+                 overrides: Optional[dict] = None):
+        self.policy, self.seed = policy, seed
+        self.overrides = dict(overrides or {})
+        self.i = 0
+        self.report = {"quantized": [], "skipped": [], "deployed_bytes": 0,
+                       "orig_bytes": 0, "per_path": {}}
+
+    def walk(self, tree, path=(), stack: int = 1, jpath=()) -> None:
+        """Quantize every quantizable leaf of ``tree`` (a dict or list) in
+        place; ``path``/``jpath`` prefix its paths and ``stack`` is the
+        depth of the layer stack it lies in."""
+        for path_s, jp, box, key, leaf, st in _walk(tree, path, stack,
+                                                     jpath):
+            self._leaf(path_s, jp, box, key, leaf, st)
+            self.i += 1
+
+    def part(self, path: tuple, part, stack: int):
+        """The hook of ``transformer.init(on_part=)``: quantize one part of
+        a tree being built, in the tree's order: a top-level entry (path
+        ``(key,)``) or one layer of a stack (path ``(key, index)``,
+        ``stack`` the stack's depth). Returns the part quantized."""
+        if len(path) == 1:
+            box = {path[0]: part}
+            self.walk(box)
+            return box[path[0]]
+        self.walk(part, tuple(map(str, path)), stack, (path[0],))
+        return part
+
+    def _leaf(self, path_s, jpath, box, key, leaf, stack) -> None:
+        report = self.report
         if not _quantizable(path_s, leaf, stack):
             report["skipped"].append(path_s)
-            continue
-        eff = resolve_policy(policy, overrides.get(jpath))
-        unused.discard(jpath)
+            return
+        eff = resolve_policy(self.policy, self.overrides.get(jpath))
         if eff.method == "none":
             report["skipped"].append(path_s)
-            continue
-        if leaf.ndim != 2:
-            raise NotImplementedError(f"{path_s}: only 2-D weights are "
-                                      f"packed for the kernel (quantized "
-                                      f"biases are not ported)")
+            return
+        if leaf.ndim not in (2, 3):
+            raise NotImplementedError(f"{path_s}: only 2-D weights and "
+                                      f"stacks of them (a MoE layer's "
+                                      f"experts) are packed for the kernel "
+                                      f"(quantized biases are not ported)")
+        sd = leaf.ndim - 2
         if eff.method == "splitquant":
-            gen = torch.Generator(device=leaf.device).manual_seed(seed + i)
-            sq = splitquant_tensor(gen, leaf, eff.cfg, k=eff.k)
+            gen = torch.Generator(device=leaf.device).manual_seed(
+                self.seed + self.i)
+            sq = splitquant_tensor(gen, leaf, eff.cfg, k=eff.k,
+                                   stack_dims=sd)
         elif eff.method in ("baseline", "percentile"):
-            sq = baseline_quant_tensor(leaf, eff.cfg)
+            sq = baseline_quant_tensor(leaf, eff.cfg, stack_dims=sd)
         else:
             raise ValueError(f"unknown method {eff.method!r}")
         box[key] = pack_for_kernel(sq)
@@ -174,10 +205,32 @@ def quantize_tree(params, policy: QuantPolicy, seed: int = 0,
         entry["bytes"] += sq.nbytes_deployed()
         report["deployed_bytes"] += sq.nbytes_deployed()
         report["orig_bytes"] += leaf.numel() * 4
+
+
+def quantize_tree(params, policy: QuantPolicy, seed: int = 0,
+                  overrides: Optional[dict] = None):
+    """Return a copy of ``params`` with quantizable leaves replaced by
+    packed SplitQuant weights, plus a report dict. The k-means seeding of
+    each leaf draws from a ``torch.Generator`` seeded with ``seed`` plus
+    the leaf's index, on the leaf's device.
+
+    ``overrides``: ``{path: {bits|k|method|percentile: ...}}`` on top of
+    ``policy``, keyed by the JAX package's lowercase paths (module doc);
+    a path that matches no quantizable leaf raises before anything is
+    quantized. ``report["per_path"]`` gives each such path's bits, k,
+    method and deployed bytes (summed over the layers); bytes are counted
+    as the JAX package counts them
+    (:meth:`SplitQuantTensor.nbytes_deployed`)."""
+    out = _copy_tree(params)
+    found = {jp for path_s, jp, _, _, leaf, stack in _walk(out, (), 1)
+             if _quantizable(path_s, leaf, stack)}
+    unused = set(overrides or {}) - found
     if unused:
         raise ValueError(f"overrides matched no quantizable leaf: "
                          f"{sorted(unused)}")
-    return out, report
+    q = LeafQuantizer(policy, seed, overrides)
+    q.walk(out)
+    return out, q.report
 
 
 def dequantize_tree(params):

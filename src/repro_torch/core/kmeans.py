@@ -8,6 +8,11 @@ then ``iters`` Lloyd iterations (segment means; empty clusters keep their
 centroid). Every step is deterministic on the card too, so the same seed
 gives the same centroids in every run. Centroids come back sorted ascending, so for k=3 they are the
 paper's lower / middle / upper clusters.
+
+:func:`kmeans_1d_batched` runs it on B samples at once (one row each,
+one generator for all): the experts of a MoE layer, E matrices clustered
+on their own, in one pass of launches instead of E; :func:`kmeans_1d` is
+its one-row case.
 """
 from __future__ import annotations
 
@@ -21,43 +26,53 @@ class KMeansResult(NamedTuple):
     cost: torch.Tensor         # scalar: sum of squared distances
 
 
-def _dist2(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
-    return (x[:, None] - centers[None, :]) ** 2
-
-
-def _greedy_kmeanspp_init(gen: torch.Generator, x: torch.Tensor, k: int,
-                          num_candidates: int) -> torch.Tensor:
-    n = x.shape[0]
-    first = x[torch.randint(0, n, (1,), generator=gen, device=x.device)]
-    centers = first.repeat(k)
-    d2 = (x - first) ** 2
-    for i in range(1, k):
-        total = d2.sum()
-        # all points equal ⇒ every distance is 0: draw uniformly instead
-        w = torch.where(total > 0, d2, torch.ones_like(d2))
-        idx = torch.multinomial(w, num_candidates, replacement=True,
-                                generator=gen)
-        cand = x[idx]                                           # (ℓ,)
-        new_cost = torch.minimum(d2[:, None], _dist2(x, cand)).sum(0)
-        chosen = cand[torch.argmin(new_cost)]
-        centers[i] = chosen
-        d2 = torch.minimum(d2, (x - chosen) ** 2)
-    return centers
-
-
 def kmeans_1d(gen: torch.Generator, x: torch.Tensor, k: int = 3,
               iters: int = 25, num_candidates: int = 4) -> KMeansResult:
     """Lloyd's algorithm on 1-D data with greedy k-means++ seeding."""
-    x = x.reshape(-1).float()
-    centers = _greedy_kmeanspp_init(gen, x, k, num_candidates)
+    x = x.reshape(1, -1).float()
+    centers = kmeans_1d_batched(gen, x, k, iters, num_candidates)[0]
+    return KMeansResult(centers,
+                        ((x[0, :, None] - centers) ** 2).min(1).values.sum())
+
+
+def kmeans_1d_batched(gen: torch.Generator, x: torch.Tensor, k: int = 3,
+                      iters: int = 25, num_candidates: int = 4
+                      ) -> torch.Tensor:
+    """:func:`kmeans_1d` of each row of ``x`` (B, n): greedy k-means++
+    seeding and Lloyd's iterations, every row on its own, the draws of
+    all rows from ``gen`` together. Returns the (B, k) centroids, each
+    row sorted ascending."""
+    x = x.float()
+    B, n = x.shape
+    rows = torch.arange(B, device=x.device)
+    first = x[rows, torch.randint(0, n, (B,), generator=gen,
+                                  device=x.device)]                 # (B,)
+    centers = first[:, None].repeat(1, k)
+    d2 = (x - first[:, None]) ** 2
+    for i in range(1, k):
+        total = d2.sum(1, keepdim=True)
+        # all points equal ⇒ every distance is 0: draw uniformly instead
+        w = torch.where(total > 0, d2, torch.ones_like(d2))
+        idx = torch.multinomial(w, num_candidates, replacement=True,
+                                generator=gen)                      # (B, ℓ)
+        cand = torch.gather(x, 1, idx)
+        new_cost = torch.minimum(d2[:, :, None],
+                                 (x[:, :, None] - cand[:, None, :]) ** 2
+                                 ).sum(1)                           # (B, ℓ)
+        chosen = torch.gather(cand, 1, torch.argmin(new_cost, 1,
+                                                    keepdim=True))  # (B, 1)
+        centers[:, i] = chosen[:, 0]
+        d2 = torch.minimum(d2, (x - chosen) ** 2)
+    ks = torch.arange(k, device=x.device)
     for _ in range(iters):
-        assign = torch.argmin(_dist2(x, centers), dim=1)
-        counts = torch.bincount(assign, minlength=k).float()
+        assign = torch.argmin((x[:, :, None] - centers[:, None, :]) ** 2,
+                              dim=2)                                # (B, n)
         # a reduction, not index_add_: CUDA's float atomics sum in a
         # different order each run, and a rebuilt model (a recovering
         # process) must get the same centroids
-        member = assign[:, None] == torch.arange(k, device=x.device)
-        sums = torch.where(member, x[:, None], 0.0).sum(0)
-        centers = torch.where(counts > 0, sums / counts.clamp(min=1), centers)
-    centers = torch.sort(centers).values
-    return KMeansResult(centers, _dist2(x, centers).min(1).values.sum())
+        member = assign[:, :, None] == ks
+        counts = member.sum(1).float()                              # (B, k)
+        sums = torch.where(member, x[:, :, None], 0.0).sum(1)
+        centers = torch.where(counts > 0, sums / counts.clamp(min=1),
+                              centers)
+    return torch.sort(centers, dim=1).values

@@ -19,6 +19,12 @@ With ``cfg.per_channel`` the ranges are per (cluster, output column):
 value in its column. ``k=1`` with ``cfg.percentile`` is the percentile
 clipping baseline the paper argues against: one range from the clipped
 distribution (per tensor, or per column).
+
+``stack_dims=1`` quantizes a stack of matrices (E, K, N), the experts of
+a MoE layer, each on its own, as the JAX package's ``stack_dims`` (a
+``vmap``) does: codes and ids (E, K, N), scales (E, k) or (E, k, N); the
+k-means of the E matrices runs as one batched pass
+(:func:`~repro_torch.core.kmeans.kmeans_1d_batched`).
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import dataclasses
 
 import torch
 
-from .kmeans import kmeans_1d
+from .kmeans import kmeans_1d, kmeans_1d_batched
 from .quantize import (QuantConfig, dequantize, linear_percentile, qparams,
                        quantize)
 
@@ -45,6 +51,7 @@ class SplitQuantTensor:
     bits: int
     k: int
     orig_dtype: torch.dtype
+    stack_dims: int = 0    # leading axes of matrices quantized on their own
 
     @property
     def shape(self):
@@ -52,12 +59,12 @@ class SplitQuantTensor:
 
     @property
     def per_channel(self) -> bool:
-        return self.scale.dim() == 2
+        return self.scale.dim() - self.stack_dims == 2
 
     def _select(self, vals: torch.Tensor) -> torch.Tensor:
-        """(k,) or (k, out) → each element's value of its cluster (and
-        column)."""
-        return select_per_element(vals, self.cid)
+        """(*stack, k) or (*stack, k, out) → each element's value of its
+        cluster (and column)."""
+        return select_per_element(vals, self.cid, self.stack_dims)
 
     def dequantize(self) -> torch.Tensor:
         return dequantize(self.q, self._select(self.scale),
@@ -78,78 +85,90 @@ class SplitQuantTensor:
             4 * (self.scale.numel() + self.zero.numel())
 
 
-def select_per_element(vals: torch.Tensor, cid: torch.Tensor) -> torch.Tensor:
-    """Per-cluster values (k,), or per (cluster, last-axis column)
-    (k, out), taken per element by its cluster id."""
+def select_per_element(vals: torch.Tensor, cid: torch.Tensor,
+                       stack: int = 0) -> torch.Tensor:
+    """Per-cluster values (*stack, k), or per (cluster, last-axis column)
+    (*stack, k, out), taken per element by its cluster id; ``cid`` is
+    (*stack, *matrix)."""
     c = cid.long()
-    if vals.dim() == 1:
-        return vals[c]
-    return torch.gather(vals.t().expand(*cid.shape[:-1], -1, -1), -1,
-                        c[..., None])[..., 0]
+    lead = cid.shape[:stack]
+    if vals.dim() - stack == 1:
+        return torch.gather(vals, -1, c.reshape(*lead, -1)).reshape(
+            cid.shape)
+    return torch.gather(vals, -2, c.reshape(*lead, -1, cid.shape[-1])
+                        ).reshape(cid.shape)
 
 
 def strided_sample(flat: torch.Tensor, sample_size: int) -> torch.Tensor:
-    """The ≤ ``sample_size`` strided sample the centroids are fit on."""
-    n = flat.shape[0]
+    """The ≤ ``sample_size`` strided sample the centroids are fit on (of
+    each row of a 2-D ``flat``)."""
+    n = flat.shape[-1]
     if n <= sample_size:
         return flat
-    return flat[::n // sample_size][:sample_size]
+    return flat[..., ::n // sample_size][..., :sample_size]
 
 
 def fit_centroids(gen: torch.Generator, w: torch.Tensor, k: int = 3,
-                  sample_size: int = 1 << 18, kmeans_iters: int = 25
-                  ) -> torch.Tensor:
-    """Sorted (k,) centroids of ``w``'s values (k-means on a sample)."""
-    sample = strided_sample(w.float().reshape(-1), sample_size)
-    return kmeans_1d(gen, sample, k=k, iters=kmeans_iters).centroids
+                  sample_size: int = 1 << 18, kmeans_iters: int = 25,
+                  stack_dims: int = 0) -> torch.Tensor:
+    """Sorted (k,) centroids of ``w``'s values (k-means on a sample), or
+    with ``stack_dims=1`` the (E, k) centroids of each of its E matrices,
+    fit together."""
+    flat = w.float().reshape(*w.shape[:stack_dims], -1)
+    sample = strided_sample(flat, sample_size)
+    if not stack_dims:
+        return kmeans_1d(gen, sample, k=k, iters=kmeans_iters).centroids
+    return kmeans_1d_batched(gen, sample, k=k, iters=kmeans_iters)
 
 
 def assign_and_quantize(w: torch.Tensor, centroids: torch.Tensor,
-                        cfg: QuantConfig) -> SplitQuantTensor:
+                        cfg: QuantConfig, stack_dims: int = 0
+                        ) -> SplitQuantTensor:
     """Assign every element to its nearest centroid (first index on ties,
-    as ``argmin``) and quantize each cluster with its own min/max range."""
+    as ``argmin``) and quantize each cluster with its own min/max range.
+    ``centroids``: (*stack, k)."""
     wf = w.float()
-    k = centroids.shape[0]
+    k = centroids.shape[-1]
+    cents = centroids.reshape(*w.shape[:stack_dims],
+                              *(1,) * (w.dim() - stack_dims), k)
     # running argmin over the k centroids: no (…, k) distance tensor, and
     # the strict ``<`` keeps the first index on ties
-    best = (wf - centroids[0]) ** 2
+    best = (wf - cents[..., 0]) ** 2
     cid = torch.zeros(w.shape, dtype=torch.uint8, device=w.device)
     for c in range(1, k):
-        d = (wf - centroids[c]) ** 2
+        d = (wf - cents[..., c]) ** 2
         closer = d < best
         best = torch.where(closer, d, best)
         cid[closer] = c
-    return quantize_clusters(wf, cid, k, cfg, w.dtype)
+    return quantize_clusters(wf, cid, k, cfg, w.dtype, stack_dims)
 
 
-def _masked_range(x: torch.Tensor, mask: torch.Tensor, dim=None):
-    """min/max of x where mask (over ``dim``, None = all), a degenerate
-    [0, 0] range where mask holds nothing."""
-    if dim is None:
-        lo = torch.where(mask, x, _BIG).min()
-        hi = torch.where(mask, x, -_BIG).max()
-        empty = ~mask.any()
-    else:
-        lo = torch.where(mask, x, _BIG).amin(dim=dim)
-        hi = torch.where(mask, x, -_BIG).amax(dim=dim)
-        empty = ~mask.any(dim=dim)
+def _masked_range(x: torch.Tensor, mask: torch.Tensor, dim):
+    """min/max of x where mask over ``dim``, a degenerate [0, 0] range
+    where mask holds nothing."""
+    lo = torch.where(mask, x, _BIG).amin(dim=dim)
+    hi = torch.where(mask, x, -_BIG).amax(dim=dim)
+    empty = ~mask.any(dim=dim)
     return torch.where(empty, 0.0, lo), torch.where(empty, 0.0, hi)
 
 
 def quantize_clusters(wf: torch.Tensor, cid: torch.Tensor, k: int,
-                      cfg: QuantConfig, orig_dtype) -> SplitQuantTensor:
-    """Per-cluster min/max ranges (per output column with
-    ``cfg.per_channel``: over the rows of each (cluster, column)) →
-    (scale, zero) → codes."""
-    red = (tuple(range(wf.dim() - 1))
-           if cfg.per_channel and wf.dim() >= 2 else None)
+                      cfg: QuantConfig, orig_dtype, stack_dims: int = 0
+                      ) -> SplitQuantTensor:
+    """Per-cluster min/max ranges of each matrix of the stack (per output
+    column with ``cfg.per_channel``: over the rows of each (cluster,
+    column)) → (scale, zero) → codes."""
+    per_col = cfg.per_channel and wf.dim() - stack_dims >= 2
+    red = tuple(range(stack_dims, wf.dim() - (1 if per_col else 0)))
     ranges = [_masked_range(wf, cid == c, red) for c in range(k)]
-    scale, zero = qparams(torch.stack([r[0] for r in ranges]),
-                          torch.stack([r[1] for r in ranges]), cfg)
-    q = quantize(wf, select_per_element(scale, cid),
-                 select_per_element(zero, cid), cfg)
+    scale, zero = qparams(torch.stack([r[0] for r in ranges], stack_dims),
+                          torch.stack([r[1] for r in ranges], stack_dims),
+                          cfg)
+    q = quantize(wf, select_per_element(scale, cid, stack_dims),
+                 select_per_element(zero, cid, stack_dims), cfg)
     return SplitQuantTensor(q=q, cid=cid, scale=scale, zero=zero,
-                            bits=cfg.bits, k=k, orig_dtype=orig_dtype)
+                            bits=cfg.bits, k=k, orig_dtype=orig_dtype,
+                            stack_dims=stack_dims)
 
 
 def percentile_quant(w: torch.Tensor, cfg: QuantConfig) -> SplitQuantTensor:
@@ -176,24 +195,33 @@ def percentile_quant(w: torch.Tensor, cfg: QuantConfig) -> SplitQuantTensor:
 def splitquant_tensor(gen: torch.Generator, w: torch.Tensor,
                       cfg: QuantConfig, k: int = 3,
                       sample_size: int = 1 << 18,
-                      kmeans_iters: int = 25) -> SplitQuantTensor:
+                      kmeans_iters: int = 25,
+                      stack_dims: int = 0) -> SplitQuantTensor:
     """Cluster ``w``'s values into k groups and quantize each with its own
     scale (paper §4.1). ``k=1`` degenerates to baseline per-tensor PTQ
-    (percentile-clipped with ``cfg.percentile``)."""
+    (percentile-clipped with ``cfg.percentile``). ``stack_dims=1``: each
+    matrix of a (E, K, N) stack on its own."""
     if k == 1 and cfg.percentile is not None:
+        if stack_dims:
+            parts = [percentile_quant(m, cfg) for m in w]
+            return dataclasses.replace(
+                parts[0], stack_dims=1, **{
+                    f: torch.stack([getattr(p, f) for p in parts])
+                    for f in ("q", "cid", "scale", "zero")})
         return percentile_quant(w, cfg)
     if k == 1:
         cid = torch.zeros(w.shape, dtype=torch.uint8, device=w.device)
-        return quantize_clusters(w.float(), cid, 1, cfg, w.dtype)
-    cents = fit_centroids(gen, w, k, sample_size, kmeans_iters)
-    return assign_and_quantize(w, cents, cfg)
+        return quantize_clusters(w.float(), cid, 1, cfg, w.dtype,
+                                 stack_dims)
+    cents = fit_centroids(gen, w, k, sample_size, kmeans_iters, stack_dims)
+    return assign_and_quantize(w, cents, cfg, stack_dims)
 
 
-def baseline_quant_tensor(w: torch.Tensor, cfg: QuantConfig
-                          ) -> SplitQuantTensor:
+def baseline_quant_tensor(w: torch.Tensor, cfg: QuantConfig,
+                          stack_dims: int = 0) -> SplitQuantTensor:
     """Plain PTQ (one scale set; the percentile clip with
     ``cfg.percentile``) as k=1."""
-    return splitquant_tensor(None, w, cfg, k=1)
+    return splitquant_tensor(None, w, cfg, k=1, stack_dims=stack_dims)
 
 
 def activation_chunk_bounds(n: int, n_chunks: int) -> list[int]:

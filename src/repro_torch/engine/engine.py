@@ -94,6 +94,9 @@ from .scheduler import EngineRequest, Scheduler, SubmitError
 from .spec import (SpecDecoder, accept_length, load_draft_params,
                    verify_window)
 
+#: families the engine serves (the JAX engine also serves vlm)
+ENGINE_FAMILIES = ("dense", "moe")
+
 #: One-shot prefills so far in this process: each dispatch materializes a
 #: dense full-precision (L, S, Hkv, D) cache that ``write_prefill`` then
 #: writes into the slot (a speculative engine's draft mirror counts
@@ -235,13 +238,20 @@ class Engine:
                  clock=time.perf_counter, *, kv_scales=None,
                  draft_params=None, generator=None, registry=None,
                  tracer=None):
-        if cfg.family != "dense":
+        if cfg.family not in ENGINE_FAMILIES:
             raise NotImplementedError(
-                f"the port's engine serves dense decoders, got "
-                f"{cfg.family!r}"
+                f"the port's engine serves {' and '.join(ENGINE_FAMILIES)} "
+                f"decoders, got {cfg.family!r}"
+                + (" (the VLM patch prefix is ROADMAP queue 1 item 4)"
+                   if cfg.family == "vlm" else "")
                 + (" — and spec_k > 0 additionally needs positional KV "
                    "rollback, which recurrent state cannot provide"
                    if ecfg.spec_k else ""))
+        if cfg.family == "moe" and ecfg.spec_k:
+            raise NotImplementedError(
+                "spec_k > 0 over the MoE family is not ported (ROADMAP "
+                "queue 1 item 4, speculation over MoE): serve it with "
+                "spec_k=0")
         if ecfg.spec_k and ecfg.temperature > 0:
             raise NotImplementedError(
                 "spec_k > 0 requires greedy decoding (temperature <= "

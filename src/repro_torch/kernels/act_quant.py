@@ -22,6 +22,13 @@ they launch the kernels or raise. ``act_split_quantize.launches`` and
 ``act_split_quantize_static.launches`` count kernel launches. No serving
 path runs them yet; they are the port's counterparts of the JAX
 package's public act-quant entry points.
+
+Quality observation: :func:`set_quality_probe` installs a module-level
+probe (``obs.ActQuantProbe``, ``obs.RegistryQuantProbe``) that
+:func:`act_split_quantize_observed` and
+:func:`act_split_quantize_static_observed` feed with the codes (and the
+dynamic scales) copied to the host after the launch, as the JAX package's
+wrappers do; with no probe installed they add nothing to the launch.
 """
 from __future__ import annotations
 
@@ -191,6 +198,42 @@ def act_split_quantize_static(x: torch.Tensor, scale: torch.Tensor,
 
 
 act_split_quantize_static.launches = 0
+
+
+#: the probe the ``*_observed`` wrappers feed; None = observation off
+_QUALITY_PROBE = None
+
+
+def set_quality_probe(probe) -> None:
+    """Install the module-level quality probe (None or a falsy probe
+    clears it). It sees every :func:`act_split_quantize_observed` and
+    :func:`act_split_quantize_static_observed` call's codes and dynamic
+    scales."""
+    global _QUALITY_PROBE
+    _QUALITY_PROBE = probe if probe else None
+
+
+def act_split_quantize_observed(x: torch.Tensor, *, layer=None, **kw):
+    """:func:`act_split_quantize` and, with a probe installed, its codes
+    and scales copied to the host for the probe. Same returns."""
+    q, scale, zero = act_split_quantize(x, **kw)
+    probe = _QUALITY_PROBE
+    if probe is not None:
+        probe.observe(q.cpu().numpy(), scale.cpu().numpy(), layer=layer)
+    return q, scale, zero
+
+
+def act_split_quantize_static_observed(x: torch.Tensor, scale: torch.Tensor,
+                                       zero: torch.Tensor, *, layer=None,
+                                       **kw):
+    """:func:`act_split_quantize_static` and, with a probe installed, its
+    codes copied to the host for the probe (static scales carry no range
+    of the call: clip fraction and code occupancy only)."""
+    q = act_split_quantize_static(x, scale, zero, **kw)
+    probe = _QUALITY_PROBE
+    if probe is not None:
+        probe.observe(q.cpu().numpy(), layer=layer)
+    return q
 
 
 def dequantize_act(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,

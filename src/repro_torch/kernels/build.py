@@ -120,6 +120,9 @@ SIGNATURES = {
     "kv_write": [_P] * 10 + [_I] * 11 + [_P],
     # r, k, v, w, u, s0, y, s_out, BH, T, K, V, VS, x_is_bf16, stream
     "wkv_chunked": [_P] * 8 + [_I] * 6 + [_P],
+    # x, qp, cp, recip, shift, offsets, y, R, K, N, E, m_tiles, bits, k,
+    # x_is_bf16, stream
+    "grouped_splitquant_matmul": [_P] * 7 + [_I] * 8 + [_P],
     # x, q, scale, zero, R, N, n_chunks, bits, x_is_bf16, warps, vecs,
     # stream
     "act_quant_dynamic": [_P] * 4 + [_I] * 7 + [_P],

@@ -44,6 +44,19 @@
 // packed weight. At M ~ 2048 also the L2 traffic of re-reading the x
 // tile for every 128 columns.
 //
+// Grouped form (the experts of a MoE layer, grouped_splitquant_matmul):
+// y[r] = x[r] . W_e for every row r in [offsets[e], offsets[e+1]), with
+// x's rows sorted by expert and W a stack of E packed weights. The same
+// two kernels take it: a block is (expert, M tile, N tile), reads its
+// expert's row range from `offsets` on the card (no host copy), moves
+// its pointers to that expert's rows and packed weight, and exits at
+// once when its M tile lies past the expert's rows. The grid holds
+// E x ceil(R / BM) M tiles (R = all rows, the most one expert can get),
+// so at a decode step of 8 tokens x top-6 most blocks exit at once. No
+// K split; the tensor-core form uses BM = 64. The weight of an expert
+// with no rows is never read: the work is bound by the packed bytes of
+// the experts that got tokens.
+//
 // fp32 x: sq_matmul_fp32_kernel, on the CUDA cores (fp32 on the tensor
 // cores would be TF32 and change the numbers). Each warp lane owns 4
 // neighbouring columns; a block covers 8 rows x 128 columns; its 8 warps
@@ -218,9 +231,24 @@ sq_matmul_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
                        const float* __restrict__ shift,
                        __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
                        int M, int K, int N, int kcl, int k_per_split,
-                       int vec_x, int vec_w) {
+                       int vec_x, int vec_w,
+                       const int* __restrict__ offsets, int m_tiles) {
   using C = TcCfg<BITS, BM>;
   constexpr int NT = C::NT;
+  int mt = blockIdx.x;
+  if (offsets != nullptr) {          // grouped: this block's expert
+    const int e = blockIdx.x / m_tiles;
+    mt = blockIdx.x % m_tiles;
+    const int r0 = offsets[e];
+    M = offsets[e + 1] - r0;
+    if (mt * BM >= M) return;
+    x += (size_t)r0 * K;
+    y += (size_t)r0 * N;
+    qp += (size_t)e * (K * BITS / 8) * N;
+    cp += (size_t)e * (K / 4) * N;
+    recip += (size_t)e * kcl * N;
+    shift += (size_t)e * kcl * N;
+  }
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_s = sm90::smem_addr(smem_raw);
   const uint32_t pad = ((raw_s + 1023u) & ~1023u) - raw_s;
@@ -230,7 +258,7 @@ sq_matmul_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
   const uint32_t ring_s = bs_s + 2 * C::B_TILE;
 
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * C::BN;
+  const int m0 = mt * BM, n0 = blockIdx.y * C::BN;
   const int k_lo = blockIdx.z * k_per_split;
   const int k_hi = min(K, k_lo + k_per_split);
   const int tiles = (k_hi - k_lo + TC_BK - 1) / TC_BK;
@@ -354,7 +382,22 @@ sq_matmul_fp32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q
                       const uint8_t* __restrict__ cp, const float* __restrict__ recip,
                       const float* __restrict__ shift, float* __restrict__ y,
                       float* __restrict__ ws, int M, int K, int N, int kc,
-                      int k_per_split) {
+                      int k_per_split, const int* __restrict__ offsets,
+                      int m_tiles) {
+  int mt = blockIdx.x;
+  if (offsets != nullptr) {          // grouped: this block's expert
+    const int e = blockIdx.x / m_tiles;
+    mt = blockIdx.x % m_tiles;
+    const int r0 = offsets[e];
+    M = offsets[e + 1] - r0;
+    if (mt * BM >= M) return;
+    x += (size_t)r0 * K;
+    y += (size_t)r0 * N;
+    qp += (size_t)e * (K * BITS / 8) * N;
+    cp += (size_t)e * (K / 4) * N;
+    recip += (size_t)e * kc * N;
+    shift += (size_t)e * kc * N;
+  }
   constexpr int PER = 8 / BITS;
   constexpr int MASK = (1 << BITS) - 1;
   constexpr int QMIN = -(1 << (BITS - 1));
@@ -362,7 +405,7 @@ sq_matmul_fp32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q
   __shared__ float part[WARPS][BM][BN];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = blockIdx.x * BM;
+  const int m0 = mt * BM;
   const int nb = blockIdx.y * BN;
   const int n0 = nb + lane * 4;
   const int k_lo = blockIdx.z * k_per_split;
@@ -473,11 +516,14 @@ cudaError_t reduce_splits(float* ws, void* y, int M, int N, int splits,
   return cudaGetLastError();
 }
 
+// Grouped launches (offsets != nullptr): M is all rows, the grid holds
+// E x m_tiles M tiles and splits is 1.
 template <int BITS, int BM_, bool KC4>
 cudaError_t launch_wgmma(const void* x, const uint8_t* qp, const uint8_t* cp,
                          const float* recip, const float* shift, void* y,
                          float* ws, int M, int K, int N, int kc, int splits,
-                         int k_per_split, cudaStream_t st) {
+                         int k_per_split, const int* offsets, int m_tiles,
+                         int E, cudaStream_t st) {
   using C = TcCfg<BITS, BM_>;
   auto kern = sq_matmul_wgmma_kernel<BITS, BM_, KC4>;
   // the dynamic shared-memory limit is raised once per device
@@ -493,10 +539,11 @@ cudaError_t launch_wgmma(const void* x, const uint8_t* qp, const uint8_t* cp,
   }
   const bool vec_x = K % 8 == 0 && (uintptr_t)x % 16 == 0;
   const bool vec_w = N % 16 == 0 && ((uintptr_t)qp | (uintptr_t)cp) % 16 == 0;
-  dim3 grid((M + BM_ - 1) / BM_, (N + C::BN - 1) / C::BN, splits);
+  const int mx = offsets ? E * m_tiles : (M + BM_ - 1) / BM_;
+  dim3 grid(mx, (N + C::BN - 1) / C::BN, splits);
   kern<<<grid, C::THREADS, C::SMEM, st>>>(
       (const __nv_bfloat16*)x, qp, cp, recip, shift, (__nv_bfloat16*)y, ws, M, K,
-      N, kc, k_per_split, vec_x, vec_w);
+      N, kc, k_per_split, vec_x, vec_w, offsets, m_tiles);
   return reduce_splits<__nv_bfloat16>(ws, y, M, N, splits, st);
 }
 
@@ -504,11 +551,13 @@ template <int BITS>
 cudaError_t launch_bits(const void* x, const uint8_t* qp, const uint8_t* cp,
                         const float* recip, const float* shift, void* y,
                         float* ws, int M, int K, int N, int kc, int x_is_bf16,
-                        int bm, int splits, int k_per_split, cudaStream_t st) {
+                        int bm, int splits, int k_per_split, const int* offsets,
+                        int m_tiles, int E, cudaStream_t st) {
   if (x_is_bf16) {
     auto go = [&](auto bm_, auto kc4_) {
       return launch_wgmma<BITS, decltype(bm_)::value, decltype(kc4_)::value>(
-          x, qp, cp, recip, shift, y, ws, M, K, N, kc, splits, k_per_split, st);
+          x, qp, cp, recip, shift, y, ws, M, K, N, kc, splits, k_per_split,
+          offsets, m_tiles, E, st);
     };
     using I64 = std::integral_constant<int, 64>;
     using I128 = std::integral_constant<int, 128>;
@@ -517,11 +566,35 @@ cudaError_t launch_bits(const void* x, const uint8_t* qp, const uint8_t* cp,
     if (bm == 64) return kc == 4 ? go(I64{}, K4{}) : go(I64{}, K3{});
     return kc == 4 ? go(I128{}, K4{}) : go(I128{}, K3{});
   }
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  const int mx = offsets ? E * m_tiles : (M + BM - 1) / BM;
+  dim3 grid(mx, (N + BN - 1) / BN, splits);
   sq_matmul_fp32_kernel<BITS><<<grid, WARPS * 32, 0, st>>>(
       (const float*)x, qp, cp, recip, shift, (float*)y, ws, M, K, N, kc,
-      k_per_split);
+      k_per_split, offsets, m_tiles);
   return reduce_splits<float>(ws, y, M, N, splits, st);
+}
+
+cudaError_t launch_any(const void* x, const void* qp, const void* cp,
+                       const void* recip, const void* shift, void* y, void* ws,
+                       int M, int K, int N, int bits, int kc, int x_is_bf16,
+                       int bm, int splits, int k_per_split, const int* offsets,
+                       int m_tiles, int E, cudaStream_t st) {
+  const auto* q8 = (const uint8_t*)qp;
+  const auto* c8 = (const uint8_t*)cp;
+  const auto* r = (const float*)recip;
+  const auto* s = (const float*)shift;
+  switch (bits) {
+    case 2: return launch_bits<2>(x, q8, c8, r, s, y, (float*)ws, M, K, N, kc,
+                                  x_is_bf16, bm, splits, k_per_split, offsets,
+                                  m_tiles, E, st);
+    case 4: return launch_bits<4>(x, q8, c8, r, s, y, (float*)ws, M, K, N, kc,
+                                  x_is_bf16, bm, splits, k_per_split, offsets,
+                                  m_tiles, E, st);
+    case 8: return launch_bits<8>(x, q8, c8, r, s, y, (float*)ws, M, K, N, kc,
+                                  x_is_bf16, bm, splits, k_per_split, offsets,
+                                  m_tiles, E, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -559,20 +632,31 @@ int splitquant_matmul(const void* x, const void* qp, const void* cp,
       (long long)(splits - 1) * k_per_split >= K ||
       (long long)M * N > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const auto* q8 = (const uint8_t*)qp;
-  const auto* c8 = (const uint8_t*)cp;
-  const auto* r = (const float*)recip;
-  const auto* s = (const float*)shift;
-  switch (bits) {
-    case 2: return (int)launch_bits<2>(x, q8, c8, r, s, y, (float*)ws, M, K, N, kc,
-                                       x_is_bf16, bm, splits, k_per_split, st);
-    case 4: return (int)launch_bits<4>(x, q8, c8, r, s, y, (float*)ws, M, K, N, kc,
-                                       x_is_bf16, bm, splits, k_per_split, st);
-    case 8: return (int)launch_bits<8>(x, q8, c8, r, s, y, (float*)ws, M, K, N, kc,
-                                       x_is_bf16, bm, splits, k_per_split, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_any(x, qp, cp, recip, shift, y, ws, M, K, N, bits, kc,
+                         x_is_bf16, bm, splits, k_per_split, nullptr, 0, 1,
+                         (cudaStream_t)stream);
+}
+
+// Grouped: y (R, N) with y[r] = x[r] . W_e for r in [offsets[e],
+// offsets[e+1]); x (R, K) sorted by expert, bf16 (tensor-core kernel,
+// BM 64) or fp32 (CUDA-core kernel, BM 8), as y; qp (E, K*bits/8, N),
+// cp (E, K/4, N), recip/shift (E, kc, N); offsets (E+1) int32 on the
+// card, non-decreasing from 0 to R. m_tiles: M tiles per expert in the
+// grid, at least ceil(R / BM).
+int grouped_splitquant_matmul(const void* x, const void* qp, const void* cp,
+                              const void* recip, const void* shift,
+                              const void* offsets, void* y, int R, int K,
+                              int N, int E, int m_tiles, int bits, int kc,
+                              int x_is_bf16, void* stream) {
+  const int bm = x_is_bf16 ? 64 : BM;
+  if (R <= 0 || N <= 0 || K <= 0 || K % 4 || E <= 0 || kc < 1 || kc > 4 ||
+      offsets == nullptr || m_tiles < (R + bm - 1) / bm ||
+      (long long)E * m_tiles > 0x7fffffffLL || (long long)R * N > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int k_per_split = (K + TC_BK - 1) / TC_BK * TC_BK;
+  return (int)launch_any(x, qp, cp, recip, shift, y, nullptr, R, K, N, bits,
+                         kc, x_is_bf16, bm, 1, k_per_split,
+                         (const int*)offsets, m_tiles, E, (cudaStream_t)stream);
 }
 
 }  // extern "C"

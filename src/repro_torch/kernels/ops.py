@@ -6,7 +6,9 @@ re-packs inside every call (``ops.py:98``), which per decode step would
 move more bytes than the matmul itself. :func:`linear` dispatches on the
 leaf type; :func:`~repro_torch.kernels.splitquant_matmul.splitquant_matmul`
 then dispatches on the tensor's device (plain version on the CPU, the
-CUDA kernel on the card).
+CUDA kernel on the card). A MoE layer's experts are one stacked
+``PackedWeight`` of E matrices, and :func:`grouped_linear` multiplies
+each expert's rows by its matrix in one launch.
 """
 from __future__ import annotations
 
@@ -18,19 +20,21 @@ import torch
 from ..core.quantize import dequantize
 from ..core.splitquant import SplitQuantTensor, select_per_element
 from .packing import pack_cids, pack_codes, unpack_cids, unpack_codes
-from .splitquant_matmul import splitquant_matmul
+from .splitquant_matmul import grouped_splitquant_matmul, splitquant_matmul
 
 
 @dataclasses.dataclass
 class PackedWeight:
-    """A (K, N) SplitQuant weight in the kernel's layout.
+    """A (K, N) SplitQuant weight in the kernel's layout, or a stack of E
+    of them (E, K, N), quantized one by one (a MoE layer's experts).
 
     ``qp`` (K·bits/8, N) uint8 codes packed along K, ``cp`` (K/4, N) uint8
     cluster ids, ``recip``/``shift`` (k, N) fp32 with ŵ = q·recip + shift.
     ``scale``/``zero`` (k,), or (k, N) per output column, are kept for
     the exact eq. (4) dequantization
     (:meth:`dequantize`), which is what the JAX package's
-    ``dequantize_tree`` returns."""
+    ``dequantize_tree`` returns. A stack puts E in front of each field;
+    ``shape`` is then (E, K, N)."""
 
     qp: torch.Tensor
     cp: torch.Tensor
@@ -48,20 +52,28 @@ class PackedWeight:
               for f in ("qp", "cp", "recip", "shift", "scale", "zero")}
         return dataclasses.replace(self, **mv)
 
+    @property
+    def stack_dims(self) -> int:
+        """1 for a stack of E matrices, else 0."""
+        return len(self.shape) - 2
+
     def dequantize(self) -> torch.Tensor:
         q = unpack_codes(self.qp, self.bits)
         c = unpack_cids(self.cp)
-        return dequantize(q, select_per_element(self.scale, c),
-                          select_per_element(self.zero, c), self.orig_dtype)
+        sd = self.stack_dims
+        return dequantize(q, select_per_element(self.scale, c, sd),
+                          select_per_element(self.zero, c, sd),
+                          self.orig_dtype)
 
     def unpack(self) -> SplitQuantTensor:
         """The SplitQuantTensor this weight was packed from: int8 codes and
-        uint8 cluster ids of the original (K, N) shape, with its scales
-        and zeros (what a checkpoint stores)."""
+        uint8 cluster ids of the original (K, N) (or (E, K, N)) shape, with
+        its scales and zeros (what a checkpoint stores)."""
         return SplitQuantTensor(q=unpack_codes(self.qp, self.bits),
                                 cid=unpack_cids(self.cp), scale=self.scale,
                                 zero=self.zero, bits=self.bits, k=self.k,
-                                orig_dtype=self.orig_dtype)
+                                orig_dtype=self.orig_dtype,
+                                stack_dims=self.stack_dims)
 
     def nbytes_packed(self) -> int:
         """Bytes the kernel layout holds on the device: packed codes, K/4
@@ -73,24 +85,28 @@ class PackedWeight:
                    for t in (self.qp, self.cp, self.recip, self.shift))
 
 
-def dequant_constants(scale: torch.Tensor, zero: torch.Tensor, N: int
+def dequant_constants(scale: torch.Tensor, zero: torch.Tensor, N: int,
+                      stack_dims: int = 0
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-cluster (k,) scale/zero, broadcast over the N columns, or
-    per (cluster, column) (k, N) → (k, N) recip = 1/scale and
-    shift = -zero/scale, so ŵ = q·recip + shift (the kernel reads (k, N)
-    either way)."""
-    if scale.dim() == 1:
-        scale = scale.float()[:, None].expand(-1, N)
-        zero = zero.float()[:, None].expand(-1, N)
+    """Per-cluster (*stack, k) scale/zero, broadcast over the N columns,
+    or per (cluster, column) (*stack, k, N) → (*stack, k, N)
+    recip = 1/scale and shift = -zero/scale, so ŵ = q·recip + shift (the
+    kernel reads (k, N) either way)."""
+    if scale.dim() - stack_dims == 1:
+        scale = scale.float()[..., None].expand(*scale.shape, N)
+        zero = zero.float()[..., None].expand(*zero.shape, N)
     scale, zero = scale.float(), zero.float()
     return (1.0 / scale).contiguous(), (-zero / scale).contiguous()
 
 
 def pack_for_kernel(sqt: SplitQuantTensor) -> PackedWeight:
-    """Pack a 2-D SplitQuantTensor into the kernel layout (once)."""
-    if sqt.q.ndim != 2:
-        raise ValueError(f"kernel weights are 2-D (K, N), got {sqt.shape}")
-    recip, shift = dequant_constants(sqt.scale, sqt.zero, sqt.q.shape[1])
+    """Pack a 2-D SplitQuantTensor, or a stack of them (E, K, N), into the
+    kernel layout (once)."""
+    if sqt.q.ndim != 2 + sqt.stack_dims or sqt.stack_dims > 1:
+        raise ValueError(f"kernel weights are (K, N) or a stack (E, K, N), "
+                         f"got {sqt.shape} with {sqt.stack_dims} stack dims")
+    recip, shift = dequant_constants(sqt.scale, sqt.zero, sqt.q.shape[-1],
+                                     sqt.stack_dims)
     return PackedWeight(qp=pack_codes(sqt.q, sqt.bits).contiguous(),
                         cp=pack_cids(sqt.cid).contiguous(),
                         recip=recip, shift=shift,
@@ -111,3 +127,17 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight], b=None):
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def grouped_linear(x_sorted: torch.Tensor, offsets: torch.Tensor,
+                   w: PackedWeight) -> torch.Tensor:
+    """Each expert's rows times its matrix: ``y[r] = x_sorted[r] · Ŵ_e``
+    for r in ``[offsets[e], offsets[e+1])``. x_sorted (R, K) with the rows
+    grouped by expert; offsets (E+1,) int32 on x's device (no host copy);
+    ``w`` a stack (E, K, N). Returns (R, N) in x's dtype: the grouped
+    kernel on the card, its plain version on the CPU."""
+    if w.stack_dims != 1:
+        raise ValueError(f"grouped_linear takes a stack of expert weights "
+                         f"(E, K, N), got {w.shape}")
+    return grouped_splitquant_matmul(x_sorted, offsets, w.qp, w.cp, w.recip,
+                                     w.shift, bits=w.bits, k=w.k)

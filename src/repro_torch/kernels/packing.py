@@ -7,13 +7,28 @@ weight), ``8 // bits`` codes per byte:
     byte[i, n] = Σ_p  u[i*per + p, n] << (bits * p),   u = q - qmin
 
 so byte i holds rows i·per + p, and a warp that reads one packed row
-reads neighbouring n from neighbouring bytes.
+reads neighbouring n from neighbouring bytes. A stack of E such weights
+(E, K, N), the experts of a MoE layer, is packed along its K axis
+(axis -2), expert by expert: (E, K·bits/8, N) and (E, K/4, N).
 """
 from __future__ import annotations
 
 import torch
 
 
+def _k_first(fn):
+    """Apply a packer written for K on axis 0 along axis -2 of a stacked
+    (…, K, N) tensor (axis 0 of a (K, N) or (K,) one)."""
+    def wrapped(t, *args):
+        ax = t.dim() - 2 if t.dim() > 2 else 0
+        if ax == 0:
+            return fn(t, *args)
+        return fn(t.movedim(ax, 0), *args).movedim(0, ax).contiguous()
+    wrapped.__doc__, wrapped.__name__ = fn.__doc__, fn.__name__
+    return wrapped
+
+
+@_k_first
 def pack_codes(q: torch.Tensor, bits: int) -> torch.Tensor:
     """(K, N) int8 signed codes → (K*bits/8, N) uint8 packed."""
     if bits == 8:
@@ -30,6 +45,7 @@ def pack_codes(q: torch.Tensor, bits: int) -> torch.Tensor:
     return byte.to(torch.uint8)
 
 
+@_k_first
 def unpack_codes(packed: torch.Tensor, bits: int) -> torch.Tensor:
     """(K*bits/8, N) uint8 → (K, N) int8 signed codes."""
     if bits == 8:
@@ -42,6 +58,7 @@ def unpack_codes(packed: torch.Tensor, bits: int) -> torch.Tensor:
     return (u - 2 ** (bits - 1)).to(torch.int8)
 
 
+@_k_first
 def pack_cids(cid: torch.Tensor) -> torch.Tensor:
     """(K, N) uint8 cluster ids (< 4) → (K/4, N) uint8, 2 bits each."""
     K = cid.shape[0]
@@ -54,6 +71,7 @@ def pack_cids(cid: torch.Tensor) -> torch.Tensor:
     return byte.to(torch.uint8)
 
 
+@_k_first
 def unpack_cids(packed: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`pack_cids`."""
     b = packed.to(torch.int32)

@@ -8,8 +8,11 @@ tensor it launches a kernel or raises. The variant follows x's dtype:
 bf16 goes to the tensor-core kernel (``"bf16_wgmma"``), fp32 to the
 CUDA-core kernel (``"fp32_cuda_core"``), which keeps the fp32 numbers
 (the tensor cores would round them to TF32). :func:`plan` picks the
-tiles and the K splits. ``splitquant_matmul.launches`` counts kernel
-launches in all, ``splitquant_matmul.variant_launches`` by variant and
+tiles and the K splits. :func:`grouped_splitquant_matmul` is the grouped
+form of both kernels (a MoE layer's experts: each expert's rows times its
+matrix, one launch for all experts), counted as the variant
+``"grouped"``. ``splitquant_matmul.launches`` counts kernel launches in
+all, ``splitquant_matmul.variant_launches`` by variant and
 ``splitquant_matmul.bits_launches`` by the weight's bit-width.
 """
 from __future__ import annotations
@@ -24,6 +27,7 @@ from .ref import splitquant_matmul_ref
 
 TENSOR_CORE = "bf16_wgmma"
 CUDA_CORE = "fp32_cuda_core"
+GROUPED = "grouped"
 _BK = 64
 
 
@@ -116,6 +120,74 @@ def splitquant_matmul(x: torch.Tensor, q_packed: torch.Tensor,
     return y
 
 
+def grouped_splitquant_matmul_ref(x, offsets, q_packed, cid_packed, recip,
+                                  shift, bits: int) -> torch.Tensor:
+    """Plain version of the grouped product: :func:`splitquant_matmul_ref`
+    of each expert's rows ``x[offsets[e]:offsets[e+1]]`` with its packed
+    matrix (the offsets are read on the host)."""
+    off = offsets.tolist()
+    y = x.new_zeros((x.shape[0], q_packed.shape[-1]))
+    for e in range(q_packed.shape[0]):
+        if off[e + 1] > off[e]:
+            y[off[e]:off[e + 1]] = splitquant_matmul_ref(
+                x[off[e]:off[e + 1]], q_packed[e], cid_packed[e], recip[e],
+                shift[e], bits)
+    return y
+
+
+def grouped_splitquant_matmul(x: torch.Tensor, offsets: torch.Tensor,
+                              q_packed: torch.Tensor,
+                              cid_packed: torch.Tensor, recip: torch.Tensor,
+                              shift: torch.Tensor, *, bits: int, k: int = 3
+                              ) -> torch.Tensor:
+    """y[r] = x[r] · Ŵ_e for r in [offsets[e], offsets[e+1]). x: (R, K)
+    bf16/fp32, rows grouped by expert; offsets (E+1,) int32 on x's device,
+    from 0 to R; q_packed (E, K·bits/8, N), cid_packed (E, K/4, N) uint8;
+    recip/shift (E, k, N) fp32. Returns (R, N) in x.dtype: one launch of
+    the grouped kernel (bf16 on the tensor cores, fp32 on the CUDA cores)
+    whose blocks read their expert's rows from ``offsets`` on the card, so
+    the host never waits for the routing."""
+    if x.device.type == "cpu":
+        return grouped_splitquant_matmul_ref(x, offsets, q_packed,
+                                             cid_packed, recip, shift, bits)
+    R, K = x.shape
+    E, _, N = q_packed.shape
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if K % 4 or q_packed.shape[1] * (8 // bits) != K or \
+            cid_packed.shape != (E, K // 4, N):
+        raise ValueError(f"packed stack {tuple(q_packed.shape)}/"
+                         f"{tuple(cid_packed.shape)} does not match K={K}")
+    if recip.shape != (E, k, N) or shift.shape != (E, k, N) or \
+            not 1 <= k <= 4:
+        raise ValueError(f"recip/shift must be (E, k<=4, N), got "
+                         f"{tuple(recip.shape)}")
+    if offsets.shape != (E + 1,) or offsets.dtype != torch.int32:
+        raise ValueError(f"offsets must be ({E + 1},) int32, got "
+                         f"{tuple(offsets.shape)} {offsets.dtype}")
+    build.check_cuda_operands(x, offsets, q_packed, cid_packed, recip, shift)
+    if q_packed.dtype != torch.uint8 or cid_packed.dtype != torch.uint8 \
+            or recip.dtype != torch.float32 or shift.dtype != torch.float32:
+        raise TypeError("packed codes/cids must be uint8, recip/shift fp32")
+    y = torch.empty((R, N), dtype=x.dtype, device=x.device)
+    if R == 0:
+        return y
+    x = x.contiguous()
+    tensors = [t.contiguous() for t in (q_packed, cid_packed, recip, shift)]
+    bm = 64 if x.dtype == torch.bfloat16 else 8
+    lib = build.library()
+    err = lib.grouped_splitquant_matmul(
+        x.data_ptr(), *(t.data_ptr() for t in tensors),
+        offsets.contiguous().data_ptr(), y.data_ptr(), R, K, N, E,
+        -(-R // bm), bits, k, int(x.dtype == torch.bfloat16),
+        build.stream_of(x))
+    build.check(lib, err, "grouped_splitquant_matmul")
+    splitquant_matmul.launches += 1
+    splitquant_matmul.variant_launches[GROUPED] += 1
+    splitquant_matmul.bits_launches[bits] += 1
+    return y
+
+
 def reset_counts() -> None:
     """Set the total, the per-variant and the per-bit-width launch counts
     to 0."""
@@ -127,5 +199,6 @@ def reset_counts() -> None:
 
 
 splitquant_matmul.launches = 0
-splitquant_matmul.variant_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
+splitquant_matmul.variant_launches = {TENSOR_CORE: 0, CUDA_CORE: 0,
+                                      GROUPED: 0}
 splitquant_matmul.bits_launches = {2: 0, 4: 0, 8: 0}

@@ -73,6 +73,21 @@ for itself, or the draft minted from ``--draft-recipe``.
 (99%), ``--no-fused-attn`` decodes through the materialize read path and
 ``--prefill-chunk 0`` prefills each prompt in one shot at admission.
 
+Metrics snapshots: ``--metrics-snapshot PATH`` streams the metrics
+registry as JSONL while serving (a provenance header, then one snapshot
+at most every ``--metrics-interval`` seconds and one at drain; read it
+with ``obs.load_snapshots``), and installs ``obs.RegistryQuantProbe`` on
+the act-quant kernels' observed wrappers.
+
+The MoE family (moonshot-v1-16b-a3b, kimi-k2-1t-a32b reduced) serves
+through the engine; its experts run through the grouped SplitQuant
+matmul on the card. At full width the weights are built layer by layer
+(:func:`build_params`): moonshot-v1-16b-a3b's bf16 tree alone is 56.8 GB.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch moonshot-v1-16b-a3b --reduced --device cpu \
+        --metrics-snapshot /tmp/m.jsonl --metrics-interval 0
+
 Without ``--device`` it runs on the CUDA card, and fails if there is
 none.
 """
@@ -91,18 +106,15 @@ import torch
 from ..calib import QuantRecipe, collect_kv_stats, kv_static_scales
 from ..checkpoint import ckpt
 from ..configs import get_arch
-from ..core.apply import QuantPolicy, quantize_tree
+from ..core.apply import LeafQuantizer, QuantPolicy, quantize_tree
 from ..core.quantize import QuantConfig
 from ..device import resolve_device
 from ..engine import (Engine, EngineConfig, FaultSpec, InjectedCrash,
                       occupied_slots)
+from ..engine.engine import ENGINE_FAMILIES   # the others: the wave loop
 from ..engine.scheduler import OVERLOAD_POLICIES
-from ..models import get_model
+from ..models import get_model, transformer
 from ..runtime.serve_loop import Request, Server, ServeConfig
-
-#: families the continuous-batching engine serves; the others use the
-#: wave loop
-ENGINE_FAMILIES = ("dense",)
 
 
 def seeded_prompts(vocab: int, n: int, lo: int, hi: int, seed: int = 0):
@@ -116,12 +128,24 @@ def build_params(cfg, *, bits: int, method: str, seed: int = 0,
                  device=None):
     """Seeded init of ``cfg``'s family + quantization (SplitQuant k=3, the
     k=1 baseline, or the k=1 percentile-clipped baseline; ``none`` leaves
-    the weights in floating point), packed once, on ``device``."""
-    params = get_model(cfg).init(cfg, seed=seed, device=device)
+    the weights in floating point), packed once, on ``device``. Returns
+    (params, the quantization report or None).
+
+    A decoder is built layer by layer: each part of the tree is quantized
+    as soon as ``transformer.init`` has drawn it and its floating-point
+    copy dropped, so the card never holds the whole bf16 tree; the packed
+    bytes are those of ``quantize_tree(init(...))`` (the same draws, the
+    same leaf order and k-means seeds)."""
+    model = get_model(cfg)
     if method == "none":
-        return params, None
+        return model.init(cfg, seed=seed, device=device), None
     policy = QuantPolicy(cfg=QuantConfig(bits=bits), method=method)
-    return quantize_tree(params, policy, seed=seed)
+    if model is transformer:
+        q = LeafQuantizer(policy, seed)
+        return model.init(cfg, seed=seed, device=device,
+                          on_part=q.part), q.report
+    return quantize_tree(model.init(cfg, seed=seed, device=device), policy,
+                         seed=seed)
 
 
 def load_recipe_params(recipe_dir, params, arch=None, reduced=None):
@@ -204,6 +228,26 @@ def smoke_workload():
     return cfg, ecfg, quant, warmup, prompts
 
 
+def moe_smoke_workload():
+    """The full-width MoE serving workload that ``chip_smoke.py`` drives:
+    moonshot-v1-16b-a3b as the JAX package's config gives it, uncut (48
+    layers, MHA 16 x 128; not checked against the published config: 1
+    dense of FFN width 11264, then 47 MoE of 64 experts, top-6, 2 shared,
+    d_ff 1408; d_model 2048, 16 heads of 128, vocab 163840, bf16),
+    SplitQuant INT4 k=3 weights (seed 0), and :func:`smoke_workload`'s
+    engine settings and request shapes: an int8 slot cache of 8 slots x
+    1024 rows, 96-token prefill chunks, one 100-token warm-up prompt, 16
+    seeded requests of 16-512 prompt tokens and 32 new tokens each.
+
+    Returns (cfg, ecfg, quant, warmup_prompt, prompts), where ``quant``
+    holds the keyword arguments of :func:`build_params`."""
+    _, ecfg, quant, _, _ = smoke_workload()
+    cfg = get_arch("moonshot-v1-16b-a3b")
+    warmup = seeded_prompts(cfg.vocab, 1, 100, 100, seed=99)[0]
+    prompts = seeded_prompts(cfg.vocab, 16, 16, 512, seed=0)
+    return cfg, ecfg, quant, warmup, prompts
+
+
 def bf16_cache_workload():
     """:func:`smoke_workload` over an fp slot cache in bf16 (the JAX
     engine's ``kv_dtype="bfloat16"``): the same stablelm-1.6b weights,
@@ -278,6 +322,28 @@ def serve_engine(args, cfg, params, device, kv_scales, kv_qchunks, prompts,
     # --recover-from is a fresh-process restart: the journal already holds
     # this workload's submit records, so it is appended to
     eng = mk_engine(resume=args.recover_from is not None)
+    writer = None
+    if args.metrics_snapshot:
+        from ..kernels import act_quant
+        from ..obs import RegistryQuantProbe, SnapshotWriter
+        writer = SnapshotWriter(args.metrics_snapshot, eng.registry,
+                                interval_s=args.metrics_interval)
+        # live act-quant clip-fraction gauges: the observed kernel
+        # wrappers feed the registry through the probe hook
+        act_quant.set_quality_probe(RegistryQuantProbe(eng.registry))
+
+    def run_to_drain(eng):
+        if writer is None:
+            return eng.drain(timeout_s=args.drain_timeout,
+                             stall_steps=args.drain_stall_steps)
+        # step by hand so that snapshots land during the run, not only at
+        # the drain
+        while not eng.sched.idle:
+            eng.step()
+            writer.maybe_write()
+        writer.write()                            # the final flush
+        return sorted(eng.sched.finished, key=lambda r: r.uid)
+
     recovered = {}              # uid -> journal retire record (pre-crash)
     t0 = time.perf_counter()
     if args.recover_from is not None:
@@ -293,8 +359,7 @@ def serve_engine(args, cfg, params, device, kv_scales, kv_qchunks, prompts,
     restarts = 0
     while True:
         try:
-            fin = eng.drain(timeout_s=args.drain_timeout,
-                            stall_steps=args.drain_stall_steps)
+            fin = run_to_drain(eng)
             break
         except InjectedCrash as exc:
             if restarts >= args.supervise:
@@ -382,6 +447,8 @@ def serve_engine(args, cfg, params, device, kv_scales, kv_qchunks, prompts,
                  f"repro_torch.launch.incident_report "
                  f"{os.path.join(args.incident_dir, bundles[0])}"
                  if bundles else " (no anomalies)"))
+    if writer is not None:
+        print(f"metrics: {writer.seq} snapshots -> {args.metrics_snapshot}")
     if args.metrics_prom:
         from ..obs.atomic import atomic_write_text
         atomic_write_text(args.metrics_prom, eng.registry.to_prometheus())
@@ -505,6 +572,18 @@ def main(argv=None):
     ap.add_argument("--metrics-prom", default=None, metavar="PATH",
                     help="write the registry in Prometheus text format "
                          "at exit")
+    ap.add_argument("--metrics-snapshot", default=None, metavar="PATH",
+                    help="stream periodic JSONL snapshots of the metrics "
+                         "registry to this path while serving (line 1: "
+                         "the provenance header; read with "
+                         "obs.load_snapshots) and watch the act-quant "
+                         "kernels' clip fraction through "
+                         "obs.RegistryQuantProbe. Engine only (not --wave)")
+    ap.add_argument("--metrics-interval", type=float, default=1.0,
+                    metavar="S",
+                    help="with --metrics-snapshot: the least seconds "
+                         "between snapshots (a final one is always "
+                         "written at the drain)")
     ap.add_argument("--no-metrics", action="store_true",
                     help="serve without the always-on metrics registry")
     ap.add_argument("--trace", default=None, metavar="PATH",
@@ -558,7 +637,8 @@ def main(argv=None):
         journal=args.journal, snapshot=args.snapshot,
         recover_from=args.recover_from, supervise=args.supervise,
         metrics_json=args.metrics_json, metrics_prom=args.metrics_prom,
-        trace=args.trace, incident_dir=args.incident_dir)
+        metrics_snapshot=args.metrics_snapshot, trace=args.trace,
+        incident_dir=args.incident_dir)
     given = [f"--{k.replace('_', '-')}" for k, v in engine_only.items()
              if v]
     if (args.wave or cfg.family not in ENGINE_FAMILIES) and given:
@@ -566,9 +646,10 @@ def main(argv=None):
             f"{'/'.join(given)}: engine features — the wave loop has no "
             f"retry, ladder, admission control, journal, snapshot, "
             f"metrics registry, tracer or flight recorder")
-    if args.no_metrics and args.metrics_prom:
-        raise ValueError("--no-metrics disables the registry "
-                         "--metrics-prom writes — drop one")
+    if args.no_metrics and (args.metrics_snapshot or args.metrics_prom):
+        raise ValueError("--no-metrics disables the registry the "
+                         "--metrics-snapshot/--metrics-prom exporters read "
+                         "— drop one side")
     if args.faults and args.spec_k:
         raise ValueError("--faults targets the plain decode path; drop "
                          "--spec-k")
@@ -584,7 +665,20 @@ def main(argv=None):
                          f"exist and no --journal was given — there is no "
                          f"state to recover")
     t0 = time.perf_counter()
-    params = get_model(cfg).init(cfg, seed=0, device=device)
+    if not (args.ckpt_dir or args.save_recipe or args.recipe) and \
+            args.method != "none":
+        # layer by layer: a tree too large for bf16 + packed on the card
+        params, report = build_params(cfg, bits=args.bits,
+                                      method=args.method, seed=0,
+                                      device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        print(f"quantized {len(report['quantized'])} tensors to "
+              f"INT{args.bits} ({args.method}) in "
+              f"{time.perf_counter() - t0:.2f} s; deployed "
+              f"{report['deployed_bytes'] / 2**20:.1f} MiB")
+    else:
+        params = get_model(cfg).init(cfg, seed=0, device=device)
     if args.ckpt_dir:
         (params, _), step = ckpt.restore(args.ckpt_dir, (params, None))
         print(f"restored step {step}")
@@ -599,15 +693,11 @@ def main(argv=None):
         kv_qchunks = rec.kv_qchunks        # scales are (L, Hkv, kv_qchunks)
         if args.kv_mode != "int8":
             kv_scales = None               # static scales only apply to int8
-    elif args.method != "none":
+    elif args.ckpt_dir and args.method != "none":
         params, report = quantize_tree(params, QuantPolicy(
             cfg=QuantConfig(bits=args.bits), method=args.method), seed=0)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
         print(f"quantized {len(report['quantized'])} tensors to "
-              f"INT{args.bits} ({args.method}) in "
-              f"{time.perf_counter() - t0:.2f} s; deployed "
-              f"{report['deployed_bytes'] / 2**20:.1f} MiB")
+              f"INT{args.bits} ({args.method})")
     # the JAX package's launch/serve.py draws the same prompts
     prompts = seeded_prompts(cfg.vocab, args.requests, 4, 11)
     if cfg.family in ENGINE_FAMILIES and not args.wave:

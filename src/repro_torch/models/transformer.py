@@ -1,14 +1,20 @@
-"""Dense decoder-only LM (port of ``repro.models.transformer`` for the
-dense family): the forward over no cache, a plain ``KVCache`` (the wave
-loop's prefill and decode step) or the engine's slot cache (its decode
-step, chunked prefill and speculative verify).
+"""Decoder-only LM (port of ``repro.models.transformer`` for the dense
+and MoE families): the forward over no cache, a plain ``KVCache`` (the
+wave loop's prefill and decode step) or the engine's slot cache (its
+decode step, chunked prefill and speculative verify).
 
-Parameters are plain nested dicts with the JAX package's names; the layer
-stack is a Python list of per-layer dicts (the JAX ``(L, …)`` stack and
-its ``lax.scan`` become a loop shared by every entry point). The
-initializer is the port's own, seeded by a ``torch.Generator``, at the
-same shapes. The JAX forward's third output, the MoE auxiliary loss, is
-left out: the MoE family is not ported.
+Parameters are plain nested dicts with the JAX package's names; each
+layer stack is a Python list of per-layer dicts (the JAX ``(L, …)`` stack
+and its ``lax.scan`` become a loop shared by every entry point). A MoE
+model has two stacks, as in JAX: ``layers`` holds the ``first_k_dense``
+dense layers (FFN width ``dense_d_ff``, or ``d_ff · top_k``) and
+``moe_layers`` the rest, each with ``moe`` in place of ``ffn``; one cache
+layer index runs across both (0 … n_layers - 1). The initializer is the
+port's own, seeded by a ``torch.Generator``, at the same shapes; with
+``on_part`` it hands each part of the tree to a hook as it is built (the
+layer-by-layer quantized build of ``launch.serve.build_params``). The
+JAX forward's third output, the MoE auxiliary loss, is left out: it
+feeds training, which is not ported.
 """
 from __future__ import annotations
 
@@ -21,12 +27,12 @@ from ..device import resolve_device
 from .attention import KVCache, attention_block
 from .common import (apply_norm, dense, dtype_of, embed_init, embed_lookup,
                      he_init, init_norm)
-from .ffn import apply_ffn, init_ffn
+from .ffn import apply_ffn, apply_moe, init_ffn, init_moe
 
 
-def _init_layer(gen, cfg, dtype, device):
+def _init_layer(gen, cfg, dtype, device, moe: bool = False):
     d, Hq, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "attn": {
             "wq": he_init(gen, (d, Hq * D), dtype, device),
             "wk": he_init(gen, (d, Hkv * D), dtype, device),
@@ -35,41 +41,71 @@ def _init_layer(gen, cfg, dtype, device):
         },
         "ln1": init_norm(d, cfg.norm_type, dtype, device),
         "ln2": init_norm(d, cfg.norm_type, dtype, device),
-        "ffn": init_ffn(gen, d, cfg.d_ff, cfg.ffn_type, dtype, device,
-                        bias=cfg.bias),
     }
+    if moe:
+        p["moe"] = init_moe(gen, cfg, dtype, device)
+        return p
+    ff = cfg.dense_d_ff or cfg.d_ff
+    if cfg.n_experts and not cfg.dense_d_ff:
+        ff = cfg.d_ff * max(cfg.top_k, 1)   # the dense prelude's width
+    p["ffn"] = init_ffn(gen, d, ff, cfg.ffn_type, dtype, device,
+                        bias=cfg.bias)
+    return p
 
 
-def init(cfg, seed: int = 0, device=None):
+def stack_depths(cfg) -> tuple[int, int]:
+    """(dense layers, MoE layers) of ``cfg``."""
+    n_moe = cfg.n_layers - cfg.first_k_dense if cfg.n_experts else 0
+    return cfg.n_layers - n_moe, n_moe
+
+
+def init(cfg, seed: int = 0, device=None, on_part=None):
     """Seeded random parameters at the config's shapes, on ``device``
-    (the card unless ``device="cpu"``)."""
-    if cfg.family != "dense" or cfg.tie_embeddings:
-        raise NotImplementedError(f"the port serves dense decoders with an "
-                                  f"untied head, got {cfg.name!r}")
+    (the card unless ``device="cpu"``). ``on_part(path, part, stack)``,
+    when given, is called on each part of the tree as soon as it is
+    built, in the tree's order: each top-level entry (path ``(key,)``,
+    stack 1) and each layer of a stack (path ``(key, index)``, stack the
+    stack's depth); its return value takes the part's place."""
+    if cfg.family not in ("dense", "moe") or cfg.tie_embeddings:
+        raise NotImplementedError(f"the port serves dense and MoE decoders "
+                                  f"with an untied head, got {cfg.name!r}")
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = {"embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype,
-                                  device),
-              "final_norm": init_norm(cfg.d_model, cfg.norm_type, dtype,
-                                      device),
-              "layers": [_init_layer(gen, cfg, dtype, device)
-                         for _ in range(cfg.n_layers)]}
-    params["lm_head"] = he_init(gen, (cfg.d_model, cfg.vocab), dtype, device)
+    keep = on_part or (lambda path, part, stack: part)
+    params = {"embed": keep(("embed",), embed_init(
+                  gen, (cfg.vocab, cfg.d_model), dtype, device), 1),
+              "final_norm": keep(("final_norm",), init_norm(
+                  cfg.d_model, cfg.norm_type, dtype, device), 1)}
+    for key, n, moe in zip(("layers", "moe_layers"), stack_depths(cfg),
+                           (False, True)):
+        if n:
+            params[key] = [keep((key, i), _init_layer(gen, cfg, dtype,
+                                                      device, moe), n)
+                           for i in range(n)]
+    params["lm_head"] = keep(("lm_head",), he_init(
+        gen, (cfg.d_model, cfg.vocab), dtype, device), 1)
     return params
 
 
-def _layers(params, cfg, x, positions, cache=None, **attn_kw):
-    """The layer stack: norm, attention, residual, norm, FFN, residual.
+def _layers(params, cfg, x, positions, cache=None, moe_blocks: int = 1,
+            **attn_kw):
+    """The layer stacks (dense, then MoE): norm, attention, residual,
+    norm, FFN or MoE, residual; cache layer ``layer`` runs across both.
     Returns (x, the layers' (k, v) with ``want_kv``, else Nones)."""
     kvs = []
-    for layer, lp in enumerate(params["layers"]):
+    stack = [(lp, False) for lp in params.get("layers", ())] + \
+        [(lp, True) for lp in params.get("moe_layers", ())]
+    for layer, (lp, moe) in enumerate(stack):
         h = apply_norm(x, lp["ln1"], cfg.norm_type)
         a, kv = attention_block(lp["attn"], h, cfg, positions, cache, layer,
                                 window=cfg.window, **attn_kw)
         x = x + a
         h = apply_norm(x, lp["ln2"], cfg.norm_type)
-        x = x + apply_ffn(lp["ffn"], h, cfg.ffn_type)
+        if moe:
+            x = x + apply_moe(lp["moe"], h, cfg, n_blocks=moe_blocks)[0]
+        else:
+            x = x + apply_ffn(lp["ffn"], h, cfg.ffn_type)
         kvs.append(kv)
     return x, kvs
 
@@ -93,13 +129,15 @@ def embed_inputs(params, cfg, batch):
 
 def forward(params, cfg, batch, cache: Optional[KVCache] = None,
             positions=None, *, want_cache=False,
-            cache_len: Optional[int] = None, pad_mask=None):
+            cache_len: Optional[int] = None, pad_mask=None,
+            moe_blocks: int = 1):
     """Returns (logits (B, S, V) fp32, new_cache). ``cache`` ⇒ a decode
     step at ``positions`` (1,), the cache updated in place and returned;
     ``want_cache`` ⇒ prefill, assembling a fresh cache of ``cache_len``
     rows from the computed K/V. ``pad_mask`` (B, S) marks True = padding
     tokens whose K/V are never attended to (left- or right-padded
-    batched prefill)."""
+    batched prefill). ``moe_blocks``: the MoE layers' dispatch blocks
+    (:func:`~repro_torch.models.ffn.apply_moe`)."""
     if positions is None and cache is None:
         x, positions = embed_inputs(params, cfg, batch)
     else:
@@ -109,6 +147,7 @@ def forward(params, cfg, batch, cache: Optional[KVCache] = None,
         kv_pos_override = torch.where(pad_mask, -1,
                                       positions[None, :].to(torch.int32))
     x, kvs = _layers(params, cfg, x, positions, cache,
+                     moe_blocks=moe_blocks,
                      want_kv=want_cache and cache is None,
                      kv_pos_override=kv_pos_override)
     logits = _head(params, cfg, x)
@@ -173,11 +212,11 @@ def decode_step(params, cfg, cache: KVCache, tokens, pos):
 
 
 def prefill(params, cfg, batch, max_len: Optional[int] = None, *,
-            pad_mask=None):
+            pad_mask=None, moe_blocks: int = 1):
     """Prefill = one forward assembling a cache of ``max_len`` rows.
     Returns (logits (B, S, V) fp32, cache)."""
     return forward(params, cfg, batch, want_cache=True, cache_len=max_len,
-                   pad_mask=pad_mask)
+                   pad_mask=pad_mask, moe_blocks=moe_blocks)
 
 
 def _forward_slots(params, cfg, cache, tokens, positions, slot_chunk=None,

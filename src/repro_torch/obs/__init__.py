@@ -5,7 +5,9 @@ tracer and its record format (``tracer``; the request journal is written
 in it too) with the validator (``schema``) and the phase-breakdown /
 waterfall aggregation (``report``), the empty-guarded summary math
 (``summary``), the quantization-quality counters (``quality``), the
-always-on metrics registry (``metrics``), and the always-on flight
+always-on metrics registry (``metrics``) with its act-quant probe
+(``RegistryQuantProbe``) and JSONL snapshots (``SnapshotWriter``,
+``load_snapshots``), and the always-on flight
 recorder and incident bundles (``flight``) with the anomaly detectors
 that trigger them (``detect``).
 """
@@ -15,7 +17,8 @@ from .flight import (FlightRecorder, load_incident_bundle, tail_lines,
                      write_incident_bundle)
 from .metrics import (DEPTH_BUCKETS, LATENCY_BUCKETS_S, RESTORE_BUCKETS_S,
                       Counter, Gauge, Histogram, MetricsRegistry,
-                      default_registry)
+                      RegistryQuantProbe, SnapshotWriter, default_registry,
+                      load_snapshots)
 from .provenance import git_revision, provenance
 from .quality import ActQuantProbe, code_stats, span_stats
 from .report import lifecycle_summary, phase_breakdown, request_waterfalls
@@ -31,6 +34,7 @@ __all__ = [
     "pct", "mean", "summarize", "token_agreement",
     "ActQuantProbe", "code_stats", "span_stats",
     "MetricsRegistry", "Counter", "Gauge", "Histogram", "default_registry",
+    "RegistryQuantProbe", "SnapshotWriter", "load_snapshots",
     "LATENCY_BUCKETS_S", "DEPTH_BUCKETS", "RESTORE_BUCKETS_S",
     "provenance", "git_revision",
     "atomic_write_text", "atomic_dir",

@@ -15,13 +15,20 @@ names, so both packages export the same series.
   ``Engine.metrics()`` embeds.
 
 Instruments are get-or-create by name — asking twice returns the same
-object. ``RegistryQuantProbe`` and ``SnapshotWriter`` are not ported yet.
+object. :class:`RegistryQuantProbe` mirrors the act-quant kernels'
+observed calls into gauges, and :class:`SnapshotWriter` streams the
+registry as JSONL (:func:`load_snapshots` reads it back), in the JAX
+package's record format: each package reads the other's files.
 """
 from __future__ import annotations
 
 import bisect
+import json
 import math
+import time
 from typing import Optional, Sequence
+
+from .atomic import atomic_write_text
 
 #: Default histogram buckets for latency-in-seconds instruments:
 #: log-spaced from 100 µs to 10 s (an engine step takes milliseconds to
@@ -244,3 +251,100 @@ def default_registry() -> MetricsRegistry:
     if _DEFAULT is None:
         _DEFAULT = MetricsRegistry()
     return _DEFAULT
+
+
+class RegistryQuantProbe:
+    """The ``kernels.act_quant.set_quality_probe`` adapter that mirrors
+    each observed activation-quantizer call's saturation and occupancy
+    into registry instruments, so the clip fraction is a live gauge and
+    not only a trace counter. Duck-types ``quality.ActQuantProbe``'s
+    ``observe``."""
+
+    def __init__(self, registry: MetricsRegistry, prefix: str = "act"):
+        from .quality import code_stats
+        self._code_stats = code_stats
+        self.calls = registry.counter(
+            f"{prefix}_quant_observations_total",
+            "observed activation-quantizer kernel calls")
+        self.clip = registry.gauge(
+            f"{prefix}_quant_clip_frac",
+            "fraction of codes pinned at qmin/qmax in the last "
+            "observed call (upper bound on true clipping)")
+        self.occ = registry.gauge(
+            f"{prefix}_quant_occupancy",
+            "code-range occupancy of the last observed call")
+
+    def __bool__(self) -> bool:        # set_quality_probe keeps truthy
+        return True
+
+    def observe(self, q, scale=None, *, layer=None) -> dict:
+        cs = self._code_stats(q)
+        self.calls.inc()
+        if cs["clip_frac"] is not None:
+            self.clip.set(cs["clip_frac"])
+            self.occ.set(cs["occupancy"])
+        return cs
+
+
+class SnapshotWriter:
+    """Periodic JSONL metrics snapshots.
+
+    Line 1 is a header record with the provenance dict
+    (``obs.provenance.provenance``); each further line is
+    ``{"kind": "snapshot", "seq", "ts", "metrics": ...}``.
+    ``maybe_write`` is rate-limited by ``interval_s`` so the serve loop
+    can call it every step; ``write`` forces one (the final flush). The
+    lines are buffered and the whole file is rewritten through the atomic
+    tmp + fsync + rename helper on every write, so a crash mid-write
+    leaves the previous complete log, never a torn tail."""
+
+    def __init__(self, path: str, registry: MetricsRegistry,
+                 interval_s: float = 1.0, clock=time.perf_counter,
+                 provenance: Optional[dict] = None):
+        self.path = path
+        self.registry = registry
+        self.interval_s = interval_s
+        self.clock = clock
+        self.t0 = clock()
+        self._last: Optional[float] = None
+        self.seq = 0
+        if provenance is None:
+            from .provenance import provenance as _prov
+            provenance = _prov()
+        self._lines = [json.dumps({"kind": "header", "schema": 1,
+                                   "provenance": provenance})]
+        self._flush()
+
+    def _flush(self) -> None:
+        atomic_write_text(self.path, "\n".join(self._lines) + "\n")
+
+    def write(self) -> int:
+        """Append one snapshot now; returns its seq number."""
+        rec = {"kind": "snapshot", "seq": self.seq,
+               "ts": self.clock() - self.t0,
+               "metrics": self.registry.snapshot()}
+        self._lines.append(json.dumps(rec, default=float))
+        self._flush()
+        self._last = self.clock()
+        self.seq += 1
+        return rec["seq"]
+
+    def maybe_write(self) -> bool:
+        """Snapshot if ``interval_s`` has passed since the last one (the
+        first call always writes). Returns whether it wrote."""
+        now = self.clock()
+        if self._last is not None and now - self._last < self.interval_s:
+            return False
+        self.write()
+        return True
+
+
+def load_snapshots(path: str) -> tuple[dict, list[dict]]:
+    """Read a :class:`SnapshotWriter` file (either package's): (header,
+    the snapshot records in write order)."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    if not recs or recs[0].get("kind") != "header":
+        raise ValueError(f"{path}: not a metrics snapshot log "
+                         f"(missing header record)")
+    return recs[0], [r for r in recs[1:] if r.get("kind") == "snapshot"]

@@ -59,6 +59,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as tt
 
 from test_torch_quant import _to_numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["stablelm-1.6b", "chatglm3-6b"]
 FAST_COMPILE = {"xla_backend_optimization_level": 0}

@@ -1666,3 +1666,126 @@ def test_storm_firings_and_bundles_card_match_cpu(dev, kv_mode, tmp_path):
                                    t["reason"]) for t in trig]
     assert got["cuda"] == got["cpu"]
     assert got["cpu"][0] and got["cpu"][1]
+
+
+# ------------------------------------------------------------------ MoE ---
+def _stack(gen, E, K, N, bits, k, dev):
+    parts = [_packed(gen, K, N, bits, k, dev) for _ in range(E)]
+    return tuple(torch.stack(t) for t in zip(*parts))
+
+
+def _offsets(counts, dev):
+    return torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device=dev)
+
+
+#: rows per expert of the grouped kernel tests: empty experts, an expert
+#: with more rows than one M tile (64 bf16 rows, 8 fp32) and more than two
+#: (> 128), one row each, all rows on the last expert
+GROUPED_COUNTS = [[0, 300, 0, 5, 0, 0, 1, 129], [1] * 8, [0] * 7 + [64],
+                  [7, 0, 0, 0, 0, 0, 0, 0]]
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("counts", GROUPED_COUNTS)
+@pytest.mark.parametrize("K,N", [(256, 384), (200, 130)])
+def test_grouped_matmul_vs_plain(dev, bits, dtype, counts, K, N):
+    """The grouped kernel (each expert's rows times its packed matrix,
+    one launch) against its plain version, bf16 and fp32, ragged K and N,
+    empty experts and an expert of more than 128 rows; counted once under
+    its variant and its bit-width."""
+    gen = torch.Generator(device=dev).manual_seed(sum(counts) + K + bits)
+    qp, cp, recip, shift = _stack(gen, len(counts), K, N, bits, 3, dev)
+    offsets = _offsets(counts, dev)
+    x = torch.randn((sum(counts), K), generator=gen, device=dev).to(dtype)
+    before = dict(splitquant_matmul.variant_launches)
+    by_bits = dict(splitquant_matmul.bits_launches)
+    got = sqm.grouped_splitquant_matmul(x, offsets, qp, cp, recip, shift,
+                                        bits=bits, k=3)
+    torch.cuda.synchronize()
+    want = sqm.grouped_splitquant_matmul_ref(x, offsets, qp, cp, recip,
+                                             shift, bits)
+    assert got.dtype == dtype and got.shape == (sum(counts), N)
+    _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+    after = splitquant_matmul.variant_launches
+    assert after[sqm.GROUPED] == before[sqm.GROUPED] + 1
+    assert all(after[v] == before[v] for v in after if v != sqm.GROUPED)
+    assert splitquant_matmul.bits_launches[bits] == by_bits[bits] + 1
+
+
+def test_grouped_matmul_refuses_what_it_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    qp, cp, recip, shift = _stack(gen, 4, 64, 32, 4, 3, dev)
+    x = torch.randn((6, 64), generator=gen, device=dev)
+    off = _offsets([1, 2, 3, 0], dev)
+    for bad in (dict(offsets=off.long()), dict(offsets=off[:4]),
+                dict(x=x.half()), dict(recip=recip[:, :2])):
+        kw = {**dict(x=x, offsets=off, q_packed=qp, cid_packed=cp,
+                     recip=recip, shift=shift), **bad}
+        with pytest.raises((ValueError, TypeError)):
+            sqm.grouped_splitquant_matmul(**kw, bits=4, k=3)
+
+
+def test_moe_layer_card_matches_cpu(dev):
+    """apply_moe of reduced moonshot-v1-16b-a3b (fp32, INT4 experts): the
+    card's grouped form (three grouped launches, no expert stack
+    dequantized) equals the CPU's literal form, with and without drops."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import ffn
+    cfg = get_arch("moonshot-v1-16b-a3b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", device="cpu")
+    mp = params["moe_layers"][0]["moe"]
+    mp_dev = tree_to(mp, dev)
+    rng = np.random.default_rng(0)
+    for T, cf in ((24, None), (600, 0.5)):
+        x = torch.from_numpy(rng.standard_normal(
+            (1, T, cfg.d_model)).astype(np.float32))
+        want, aux = ffn.apply_moe(mp, x, cfg, capacity_factor=cf)
+        g0 = splitquant_matmul.variant_launches[sqm.GROUPED]
+        d0 = ffn.EXPERT_DEQUANTIZATIONS
+        got, aux_dev = ffn.apply_moe(mp_dev, x.to(dev), cfg,
+                                     capacity_factor=cf)
+        torch.cuda.synchronize()
+        assert splitquant_matmul.variant_launches[sqm.GROUPED] == g0 + 3
+        assert ffn.EXPERT_DEQUANTIZATIONS == d0
+        _close(got.cpu(), want, 1e-4)
+        assert float(aux_dev) == pytest.approx(float(aux), rel=1e-5)
+
+
+def test_moe_engine_card_matches_cpu(dev):
+    """Reduced moonshot-v1-16b-a3b in fp32 (INT4 weights) through the
+    engine over int8 dynamic and bf16 caches: card tokens equal the
+    CPU's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg = get_arch("moonshot-v1-16b-a3b").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", device="cpu")
+    prompts = seeded_prompts(cfg.vocab, 6, 3, 60, seed=2)
+    for kw in (dict(kv_mode="int8"), dict(kv_mode="fp", kv_dtype="bfloat16"),
+               dict(kv_mode="int8", prefill_chunk=8)):
+        outs = {}
+        for d, p in (("cpu", params), ("cuda", tree_to(params, dev))):
+            eng = Engine(cfg, p, EngineConfig(n_slots=3, max_len=96,
+                                              max_new_tokens=6, **kw),
+                         device=d)
+            for pr in prompts:
+                eng.submit(pr)
+            outs[d] = [r.out for r in eng.drain()]
+        assert outs["cuda"] == outs["cpu"], kw
+
+
+def test_stacked_kmeans_is_deterministic_on_the_card(dev):
+    """The batched k-means over a stack of expert matrices gives the same
+    centroids in every run on the card."""
+    from repro_torch.core.kmeans import kmeans_1d_batched
+    x = torch.randn((16, 1 << 14), generator=torch.Generator(device=dev)
+                    .manual_seed(1), device=dev) * 0.02
+    outs = {tuple(kmeans_1d_batched(torch.Generator(device=dev)
+                                    .manual_seed(0), x).flatten().tolist())
+            for _ in range(4)}
+    assert len(outs) == 1

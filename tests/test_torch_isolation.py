@@ -41,7 +41,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "repro_torch.engine.engine" in mods
+    for m in ("repro_torch.engine.engine", "repro_torch.models.ffn",
+              "repro_torch.launch.trace_report", "repro_torch.obs.metrics",
+              "repro_torch.configs.moonshot_v1_16b_a3b",
+              "repro_torch.configs.kimi_k2_1t_a32b"):
+        assert m in mods, m
 
 
 def test_no_source_imports_jax_or_repro():

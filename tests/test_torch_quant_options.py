@@ -49,6 +49,7 @@ from repro_torch.core.splitquant import (assign_and_quantize,
 from repro_torch.kernels.ref import splitquant_matmul_ref
 
 from test_torch_quant import _to_numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 FAST_COMPILE = {"xla_backend_optimization_level": 0}
 jq = importlib.import_module("repro.core.quantize")

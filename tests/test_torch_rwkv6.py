@@ -249,8 +249,9 @@ def test_get_model_and_unported_paths_raise(pair):
         assert [len(r.out) for r in reqs] == [3, 3, 3]
         assert all(0 <= t < c.vocab for r in reqs for t in r.out)
     toks = {"tokens": torch.zeros((1, 16), dtype=torch.long)}
+    # the MoE family is served by the transformer module
+    assert get_model(dataclasses.replace(cfg, family="moe")) is transformer
     calls = [
-        lambda: get_model(dataclasses.replace(cfg, family="moe")),
         lambda: tr.prefill(port, cfg, toks, pad_mask=torch.ones(1, 16)),
         lambda: tr.prefill(port, cfg, toks, moe_blocks=2),
         lambda: tr.verify_step_slots(),

@@ -55,10 +55,14 @@ Phases (any failure exits non-zero):
    moonshot-v1-16b-a3b's shapes (64 experts, 2048 -> 1408 and 1408 ->
    2048, the 48 rows of a decode step and the 576 of a 96-token chunk;
    bf16, and fp32 at the decode rows) beside ``torch.bmm`` over JAX's
-   (E, C, d) buffer; decode and prefill attention also at its MHA
-   16 x D=128; the first act-quant cases run once more through the
-   ``*_observed`` wrappers with a ``RegistryQuantProbe`` installed, its
-   gauges equal to ``code_stats`` of the plain codes;
+   (E, C, d) buffer, the same at INT2 (moe_spec's draft), and at
+   kimi-k2-1t-a32b's 384 experts of 7168 -> 2048 and 2048 -> 7168 (INT4,
+   a decode step's 64 rows and a chunk's 768); decode and prefill
+   attention also at its MHA 16 x D=128; every attention case and the
+   K/V write also at kimi-k2-1t-a32b's GQA 64/8, head_dim 112,
+   sub-channel chunks of 28; the first act-quant cases run once more
+   through the ``*_observed`` wrappers with a ``RegistryQuantProbe``
+   installed, its gauges equal to ``code_stats`` of the plain codes;
 3. engine: stablelm-1.6b at its published widths (seeded random bf16
    weights, SplitQuant INT4 k=3, quantized on the card) served by the
    continuous-batching engine over an int8 slot cache: 8 slots,
@@ -179,6 +183,28 @@ Phases (any failure exits non-zero):
    seconds and peak, the deployed bytes, tokens/s, TTFT, the decode-step
    and chunk p50, peak memory, the cache's bytes, launches by variant and
    mode and the routing margin of an untimed forward after the run;
+3e. moe_spec, moe_wave and kimi, after moe: moe_spec serves the first 8
+   of moe's requests from moe's tree through the speculative engine
+   (spec_k 3, an INT2 SplitQuant draft built on the card and kept packed,
+   its experts through the grouped kernel at bits 2): every budget,
+   grouped launches 3 x 47 a forward pass of target and draft, at bits 2
+   at least 3 x 47 a draft pass, one K/V write a layer and pass, no
+   expert stack dequantized; it prints the share of tokens equal to
+   moe's greedy output (not gated) and, where a request first parts, the
+   target's top-2 logit margin, and request 0's second token through a
+   decode step and as a verify row (the MoE layers whose experts part,
+   untimed). moe_wave serves moe's 16 requests from
+   the same tree through the wave ``Server`` (waves of 8, a bf16
+   ``KVCache`` of 1024 rows): every budget, the matmul alone (bf16 and
+   grouped), no expert stack dequantized, and pairs dropped in a wave
+   prefill (> 512 tokens a block); it prints the dropped pairs. Then
+   moonshot's trees are freed and kimi builds kimi-k2-1t-a32b at full
+   width, 5 of its 61 layers (``kimi_smoke_workload``), part by part on
+   the card and serves the engine workload, gated as moe is (one K/V
+   write a layer and pass over 5 layers, grouped launches 3 x 4 a pass,
+   bf16 variants and dynamic modes only, no expert stack dequantized,
+   finite logits); it prints build seconds and peak, deployed bytes,
+   tokens/s, TTFT, decode-step and chunk p50, peak memory and launches;
 4. cross-checks: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
    tokens; the speculative engine (INT2 draft, spec_k 3) over int8
@@ -194,7 +220,12 @@ Phases (any failure exits non-zero):
    moonshot-v1-16b-a3b ``.reduced()`` in fp32 through the engine (the
    fp32 grouped kernel on the card, JAX's literal form on the CPU):
    identical greedy tokens, or the step that parted and its routing
-   margin;
+   margin; reduced moonshot through the speculative engine (INT8 draft
+   kept packed): card spec tokens == CPU spec tokens == card greedy
+   tokens; reduced moonshot through the wave ``Server`` with an
+   800-token wave (pairs dropped): card tokens == CPU tokens; reduced
+   kimi-k2-1t-a32b at head_dim 112, GQA 8/1, in fp32 through the
+   engine: card tokens == CPU tokens;
 5. rwkv6: rwkv6-3b at its published widths (seeded random bf16 weights,
    SplitQuant INT4 k=3 of 257 matrices, quantized on the card) served by
    the wave loop: waves of 8, 16 seeded requests of 64-256 prompt tokens
@@ -211,7 +242,7 @@ The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
 (``launches_by_path`` splits them: engine, static, spec, dense_wave,
 wave, engine_bf16, oneshot, sampling, recipe, chaos, recovery,
-observe and moe,
+observe, moe, moe_spec, moe_wave and kimi,
 ``launches_by_variant``
 splits those of the matmul (``grouped``: its MoE form) and of the two
 attention kernels by variant,
@@ -222,7 +253,9 @@ the runs of this slice; the write, the counterpart of both branches of the TPU p
 kernel's epilogue, is two entries: ``kv_write`` (its dynamic and fp
 modes) and ``kv_write_static``; the act-quant kernels, on no serving
 path, report their kernel-phase launches); the last is ``{"ok": true,
-"device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
+"device": {...}}``. Each phase's seconds are printed as it ends
+(``phase_s`` in the details). Details go to
+``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -272,27 +305,31 @@ SOURCES = {
 #: from its recipe), "chaos" (the engine phase's run under a seeded fault
 #: storm), "recovery" (the static phase's run crashed after a snapshot
 #: and recovered in a new engine; both engines' launches), "observe"
-#: (the chaos run traced, with KV samples and incident bundles) and "moe"
+#: (the chaos run traced, with KV samples and incident bundles), "moe"
 #: (moonshot-v1-16b-a3b through the engine; the matmul's launches there
-#: are its dense and its grouped form).
+#: are its dense and its grouped form), "moe_spec" (moonshot through the
+#: speculative engine, its INT2 draft packed), "moe_wave" (moonshot
+#: through the wave loop: the matmul alone) and "kimi"
+#: (kimi-k2-1t-a32b, 5 layers at full width, through the engine).
 #: ``kv_write`` is
 #: ``write_kv_rows`` in its dynamic and fp modes, ``kv_write_static`` in
 #: its static mode.
 PATHS = {
     "splitquant_matmul": ("engine", "static", "spec", "dense_wave", "wave",
                           "engine_bf16", "oneshot", "sampling", "recipe",
-                          "chaos", "recovery", "observe", "moe"),
+                          "chaos", "recovery", "observe", "moe", "moe_spec",
+                          "moe_wave", "kimi"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
     "prefill_attention": ("engine", "static", "spec", "engine_bf16",
                           "sampling", "recipe", "chaos", "recovery",
-                          "observe", "moe"),
+                          "observe", "moe", "moe_spec", "kimi"),
     "kv_write": ("engine", "spec", "engine_bf16", "oneshot", "sampling",
-                 "chaos", "observe", "moe"),
+                 "chaos", "observe", "moe", "moe_spec", "kimi"),
     "wkv_chunked": ("wave",),
     "decode_attention": ("engine", "static", "spec", "engine_bf16",
                          "oneshot", "sampling", "recipe", "chaos",
-                         "recovery", "observe", "moe"),
+                         "recovery", "observe", "moe", "moe_spec", "kimi"),
     "kv_write_static": ("static", "spec", "recipe", "recovery"),
 }
 #: the 1 - 1e-6 quantile of chi-square with 64 degrees of freedom (the
@@ -311,6 +348,10 @@ SNAPSHOT_EVERY = 20
 #: the observe phase's KV quality period (trace samples and gauges)
 OBSERVE_KV_EVERY = 4
 
+#: seconds of each phase of the run (``timed``)
+PHASE_S = {}
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -318,6 +359,15 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds kept in ``PHASE_S`` and printed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_S[name] = time.perf_counter() - t0
+    log(f"phase {name}: {PHASE_S[name]:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------- timing ---
@@ -499,84 +549,106 @@ def matmul_cases(torch, timer, rep):
         del qp, cp, w
 
 
+def random_packed_cids(torch, gen, shape, k=3):
+    """Packed cluster ids (..., K/4, N) drawn as bytes, each 2-bit id
+    below k (an id at or past k moved to k - 1): no (..., K, N) id tensor
+    (5.6 G elements for a kimi-k2 stack)."""
+    cp = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
+                       device="cuda")
+    for p in range(4):
+        f = ((cp >> (2 * p)) & 3).to(torch.int16)
+        cp -= (torch.clamp(f - (k - 1), min=0) << (2 * p)).to(torch.uint8)
+    return cp
+
+
 def grouped_cases(torch, timer, rep):
     """The grouped form of the matmul (a MoE layer's experts: one launch a
-    projection) at moonshot-v1-16b-a3b's serving shapes: 64 experts of
-    2048 -> 1408 (gate, up) and 1408 -> 2048 (down), INT4 k=3, over the
-    rows of a decode step of 8 slots (8 x top-6 = 48 rows) and of a
-    96-token chunk (576 rows), routed by a seeded top-6 of random router
-    probabilities; bf16 (the moe phase) at both, fp32 (the reduced
-    cross-check's CUDA-core form) at the decode rows. The bound counts x
-    and y once and the packed codes, ids and constants of the experts
-    that got rows; the library time is ``torch.bmm`` over JAX's (E, C, d)
-    buffer (C = the block's tokens, 8 or 96) with the dequantized stack
-    in x's type."""
-    from repro_torch.kernels.packing import pack_cids
+    projection) at the MoE serving shapes, k=3, routed by a seeded top-k
+    of random router probabilities: moonshot-v1-16b-a3b's 64 experts of
+    2048 -> 1408 (gate, up) and 1408 -> 2048 (down) at INT4 over the rows
+    of a decode step of 8 slots (8 x top-6 = 48 rows) and of a 96-token
+    chunk (576 rows), bf16 (the moe phase) at both, fp32 (the reduced
+    cross-check's CUDA-core form) at the decode rows; the same at INT2
+    (the moe_spec phase's draft), bf16; kimi-k2-1t-a32b's 384 experts of
+    7168 -> 2048 and 2048 -> 7168 at INT4 over a decode step's 64 rows and
+    a chunk's 768, bf16. The bound counts x and y once and the packed
+    codes, ids and constants of the experts that got rows; the library
+    time is ``torch.bmm`` over JAX's (E, C, d) buffer (C = the block's
+    tokens, 8 or 96) with the dequantized stack in x's type."""
     from repro_torch.kernels.ref import dequant_weight_ref
     from repro_torch.kernels.splitquant_matmul import (
         grouped_splitquant_matmul, grouped_splitquant_matmul_ref)
-    from repro_torch.launch.serve import moe_smoke_workload
-    cfg = moe_smoke_workload()[0]
-    E, top, k, bits = cfg.n_experts, cfg.top_k, 3, 4
+    from repro_torch.launch.serve import (kimi_smoke_workload,
+                                          moe_smoke_workload)
+    moon, kimi = moe_smoke_workload()[0], kimi_smoke_workload()[0]
+    bf, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device="cuda").manual_seed(8)
-    for K, N in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
-        qp = torch.randint(0, 256, (E, K * bits // 8, N), generator=gen,
-                           dtype=torch.uint8, device="cuda")
-        cp = pack_cids(torch.randint(0, k, (E, K, N), generator=gen,
-                                     device="cuda").to(torch.uint8))
-        recip = (torch.rand((E, k, N), generator=gen, device="cuda")
-                 + 0.5) / 16
-        shift = torch.randn((E, k, N), generator=gen, device="cuda") * 0.05
-        w = torch.stack([dequant_weight_ref(qp[e], cp[e], recip[e],
-                                            shift[e], bits, torch.bfloat16)
-                         for e in range(E)])
-        for T, dtypes in ((8, (torch.bfloat16, torch.float32)),
-                          (96, (torch.bfloat16,))):
-            probs = torch.rand((T, E), generator=gen, device="cuda")
-            flat = torch.topk(probs, top, dim=-1).indices.reshape(-1)
-            offsets = torch.searchsorted(
-                torch.sort(flat).values,
-                torch.arange(E + 1, device="cuda")).to(torch.int32)
-            used = int((offsets.diff() > 0).sum())
-            R = T * top
-            for dt in dtypes:
-                x = torch.randn((R, K), generator=gen, device="cuda").to(dt)
-                go = lambda: grouped_splitquant_matmul(  # noqa: E731
-                    x, offsets, qp, cp, recip, shift, bits=bits, k=k)
-                got = go()
-                want = grouped_splitquant_matmul_ref(x, offsets, qp, cp,
-                                                     recip, shift, bits)
-                torch.cuda.synchronize()
-                if not bool(torch.isfinite(got).all()):
-                    fail(f"grouped matmul R={R} K={K} N={N}: non-finite")
-                # bf16: one rounding of an fp32 sum taken in another order
-                # (as the dense kernel); fp32: the sum's order alone
-                rel = 2 ** -7 if dt == torch.bfloat16 else 2 ** -14
-                tol = rel * max(1.0, float(want.float().abs().max()))
-                es = x.element_size()
-                nbytes = R * K * es + R * N * es + (E + 1) * 4 + used * (
-                    K * N * bits / 8 + K * N / 4 + 2 * k * N * 4)
-                buf = torch.randn((E, T, K), generator=gen,
-                                  device="cuda").to(dt)
-                wd = w.to(dt)
-                ms = timer(go)
-                name = "bf16" if dt == torch.bfloat16 else "fp32"
-                rep.add(f"moonshot grouped E={E} R={R} K={K} N={N} {name} "
-                        f"int{bits} k=3 ({used} experts routed)",
-                        max_err(got, want), tol, ms,
-                        timer(lambda: grouped_splitquant_matmul_ref(
-                            x, offsets, qp, cp, recip, shift, bits)),
-                        timer(lambda: torch.bmm(buf, wd)),
-                        nbytes, 2 * R * K * N)
-                c = rep.cases[-1]
-                c["grouped"] = True
-                c["bound_share"] = c["bound_ms"] / ms
-                log(f"  {'':18s} {'':44s} {100 * c['bound_share']:.1f}% of "
-                    f"its bound ({c['bound_by']}); "
-                    f"{c['library_ms'] / ms:.2f}x the speed of torch.bmm "
-                    f"over the (E, C, d) buffer")
-                del buf, wd
-        del qp, cp, w
+    for arch, cfg, bits, rows in (
+            ("moonshot", moon, 4, ((8, (bf, f32)), (96, (bf,)))),
+            ("moonshot draft", moon, 2, ((8, (bf,)), (96, (bf,)))),
+            ("kimi", kimi, 4, ((8, (bf,)), (96, (bf,))))):
+        E, top, k = cfg.n_experts, cfg.top_k, 3
+        for K, N in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+            qp = torch.randint(0, 256, (E, K * bits // 8, N), generator=gen,
+                               dtype=torch.uint8, device="cuda")
+            cp = random_packed_cids(torch, gen, (E, K // 4, N), k)
+            recip = (torch.rand((E, k, N), generator=gen, device="cuda")
+                     + 0.5) / 16
+            shift = torch.randn((E, k, N), generator=gen,
+                                device="cuda") * 0.05
+            w = torch.empty((E, K, N), dtype=bf, device="cuda")
+            for e in range(E):
+                w[e] = dequant_weight_ref(qp[e], cp[e], recip[e], shift[e],
+                                          bits, bf)
+            for T, dtypes in rows:
+                probs = torch.rand((T, E), generator=gen, device="cuda")
+                flat = torch.topk(probs, top, dim=-1).indices.reshape(-1)
+                offsets = torch.searchsorted(
+                    torch.sort(flat).values,
+                    torch.arange(E + 1, device="cuda")).to(torch.int32)
+                used = int((offsets.diff() > 0).sum())
+                R = T * top
+                for dt in dtypes:
+                    x = torch.randn((R, K), generator=gen,
+                                    device="cuda").to(dt)
+                    go = lambda: grouped_splitquant_matmul(  # noqa: E731
+                        x, offsets, qp, cp, recip, shift, bits=bits, k=k)
+                    got = go()
+                    want = grouped_splitquant_matmul_ref(
+                        x, offsets, qp, cp, recip, shift, bits)
+                    torch.cuda.synchronize()
+                    if not bool(torch.isfinite(got).all()):
+                        fail(f"grouped matmul {arch} R={R} K={K} N={N}: "
+                             f"non-finite")
+                    # bf16: one rounding of an fp32 sum taken in another
+                    # order (as the dense kernel); fp32: the sum's order
+                    rel = 2 ** -7 if dt == bf else 2 ** -14
+                    tol = rel * max(1.0, float(want.float().abs().max()))
+                    es = x.element_size()
+                    nbytes = R * K * es + R * N * es + (E + 1) * 4 + used * (
+                        K * N * bits / 8 + K * N / 4 + 2 * k * N * 4)
+                    buf = torch.randn((E, T, K), generator=gen,
+                                      device="cuda").to(dt)
+                    wd = w.to(dt)
+                    ms = timer(go)
+                    name = "bf16" if dt == bf else "fp32"
+                    rep.add(f"{arch} grouped E={E} R={R} K={K} N={N} {name} "
+                            f"int{bits} k=3 ({used} experts routed)",
+                            max_err(got, want), tol, ms,
+                            timer(lambda: grouped_splitquant_matmul_ref(
+                                x, offsets, qp, cp, recip, shift, bits)),
+                            timer(lambda: torch.bmm(buf, wd)),
+                            nbytes, 2 * R * K * N)
+                    c = rep.cases[-1]
+                    c["grouped"] = True
+                    c["bound_share"] = c["bound_ms"] / ms
+                    log(f"  {'':18s} {'':44s} {100 * c['bound_share']:.1f}% "
+                        f"of its bound ({c['bound_by']}); "
+                        f"{c['library_ms'] / ms:.2f}x the speed of torch.bmm "
+                        f"over the (E, C, d) buffer")
+                    del buf, wd
+            del qp, cp, w
+            torch.cuda.empty_cache()
 
 
 def _decode_inputs(torch, gen, N, T, Hq, Hkv, D, C):
@@ -646,7 +718,8 @@ def decode_cases(torch, timer, rep):
                 ("stablelm-1.6b", 32, 32, 64, 1024),
                 ("chatglm3-6b", 32, 2, 128, 1024),
                 ("stablelm-1.6b", 32, 32, 64, 4096),
-                ("moonshot-v1-16b-a3b", 16, 16, 128, 1024))):
+                ("moonshot-v1-16b-a3b", 16, 16, 128, 1024),
+                ("kimi-k2-1t-a32b", 64, 8, 112, 1024))):
         make = _static_decode_inputs if static else _decode_inputs
         q, qk, qv, kv_pos, q_pos, sc = make(torch, gen, N, T, Hq, Hkv, D, C)
         got = decode_attention(q, qk, qv, kv_pos, q_pos, *sc)
@@ -695,7 +768,8 @@ def decode_bf16_cases(torch, timer, rep):
     gen = torch.Generator(device="cuda").manual_seed(11)
     N = 8
     for arch, Hq, Hkv, D, T in (("stablelm-1.6b", 32, 32, 64, 1024),
-                                ("chatglm3-6b", 32, 2, 128, 1024)):
+                                ("chatglm3-6b", 32, 2, 128, 1024),
+                                ("kimi-k2-1t-a32b", 64, 8, 112, 1024)):
         q, _, _, kv_pos, q_pos, _ = _decode_inputs(torch, gen, N, T, Hq, Hkv,
                                                    D, 4)
         k, v = (torch.randn((N, T, Hkv, D), generator=gen, device="cuda")
@@ -735,7 +809,8 @@ def prefill_cases(torch, timer, rep):
     T, C, Sq, pos_start, length = 1024, 4, 96, 384, 96
     for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
                              ("chatglm3-6b", 32, 2, 128),
-                             ("moonshot-v1-16b-a3b", 16, 16, 128)):
+                             ("moonshot-v1-16b-a3b", 16, 16, 128),
+                             ("kimi-k2-1t-a32b", 64, 8, 112)):
         f = lambda *s: torch.randn(s, generator=gen, device="cuda").to(
             torch.bfloat16)
         q, kn, vn = f(Sq, Hq, D), f(Sq, Hkv, D), f(Sq, Hkv, D)
@@ -817,7 +892,8 @@ def prefill_mode_cases(torch, timer, rep):
              ("static", 4, True), ("fp32", 4, True), ("bf16", 96, False),
              ("bf16", 4, True)]
     for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
-                             ("chatglm3-6b", 32, 2, 128)):
+                             ("chatglm3-6b", 32, 2, 128),
+                             ("kimi-k2-1t-a32b", 64, 8, 112)):
         for mode, Sq, verify in cases:
             length = Sq
             f = lambda *s: torch.randn(s, generator=gen, device="cuda").to(
@@ -910,7 +986,8 @@ def kv_write_cases(torch, timer, rep, srep):
     f = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
     depths = torch.tensor([1000, 513, 0, 17, 256, 777, 64, 1023],
                           dtype=torch.int32, device="cuda")
-    for arch, Hkv, D in (("stablelm-1.6b", 32, 64), ("chatglm3-6b", 2, 128)):
+    for arch, Hkv, D in (("stablelm-1.6b", 32, 64), ("chatglm3-6b", 2, 128),
+                         ("kimi-k2-1t-a32b", 8, 112)):
         for what, R, kw, kept in (
                 ("chunk", 96, dict(slot=3, pos_start=384, length=90), 96),
                 ("decode", N, dict(positions=depths), N),
@@ -1214,7 +1291,8 @@ def log_ptxas(out: str) -> None:
         for b in (2, 4, 8) for bm in (64, 128)))
     for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
                              ("chatglm3-6b", 32, 2, 128),
-                             ("moonshot-v1-16b-a3b", 16, 16, 128)):
+                             ("moonshot-v1-16b-a3b", 16, 16, 128),
+                             ("kimi-k2-1t-a32b", 64, 8, 112)):
         p = decode_plan(8, 1024, Hkv, Hq // Hkv, build.sm_count(0))
         smem = [lib.decode_attention_smem(D, 4, 1, st, p.group, p.warps)
                 for st in (0, 1)]
@@ -2948,9 +3026,8 @@ def moe_phase(torch, counters, card_line):
         f"margin of the logits check after the run {margin:.3e} over "
         f"{len(margins)} routings; {len(snaps)} metrics snapshots read "
         f"back [card: {card_line}]")
-    del eng, params
-    torch.cuda.empty_cache()
-    return res
+    del eng
+    return res, params
 
 
 def _outs(eng) -> dict:
@@ -3012,6 +3089,482 @@ def moe_cross_check(torch):
             "grouped_launches": grouped, "parted": parted}
 
 
+def moe_spec_phase(torch, counters, params, moe_res, card_line):
+    """moonshot-v1-16b-a3b at full width (the moe phase's INT4 target
+    tree, no second target) through the speculative engine: spec_k 3, an
+    INT2 SplitQuant k=3 draft of the same seeded weights built part by
+    part on the card and kept packed (``draft_dequantize=False``: its
+    experts run through the grouped kernel at bits 2; dequantized, its
+    stacks would be 56 GB of bf16), the moe phase's cache and chunks, the
+    first 8 of its requests. Gates: as ``serve_run`` (every request its
+    32 tokens, each kernel of the path launched); the grouped matmul 3 x
+    47 times each forward pass of the target (chunks, verify passes,
+    decode steps) and of the draft (its mirrored chunks and draft steps),
+    at bits 2 at least 3 x 47 times each draft pass; one K/V write a layer
+    and pass over the 48 layers (dynamic for both caches); no expert stack
+    dequantized. Printed, not gated: the share of tokens equal to the moe
+    phase's greedy output, acceptance, tokens/s, spec-step p50."""
+    import dataclasses
+    from repro_torch.launch.serve import build_params, moe_smoke_workload
+    from repro_torch.models import ffn, transformer
+    cfg, ecfg, quant, warmup, prompts = moe_smoke_workload()
+    prompts = prompts[:8]
+    n_moe = transformer.stack_depths(cfg)[1]
+    ecfg = dataclasses.replace(ecfg, spec_k=3, draft_dequantize=False)
+    t0 = time.perf_counter()
+    draft, _ = build_params(cfg, device="cuda", **dict(quant, bits=2))
+    torch.cuda.synchronize()
+    t_draft = time.perf_counter() - t0
+    deq0 = ffn.EXPERT_DEQUANTIZATIONS
+    eng, fin, wall, launches = serve_run(
+        torch, counters, "moe_spec", cfg, params, ecfg, warmup, prompts,
+        draft_params=draft)
+    deq = ffn.EXPERT_DEQUANTIZATIONS - deq0
+    del draft
+    sqm = counters["splitquant_matmul"]
+    variants, by_bits = dict(sqm.variant_launches), dict(sqm.bits_launches)
+    target = eng.n_prefill_chunks + eng.n_verify_calls + eng.n_decode_steps
+    drafted = eng.n_prefill_chunks + eng._spec.n_draft_steps
+    if variants["grouped"] != 3 * n_moe * (target + drafted) or \
+            by_bits[2] < 3 * n_moe * drafted or variants["fp32_cuda_core"]:
+        fail(f"moe_spec: matmul launches by variant {variants}, by bits "
+             f"{by_bits}; expected grouped = 3 x {n_moe} x ({target} target "
+             f"+ {drafted} draft passes), >= 3 x {n_moe} x {drafted} at bits "
+             f"2, no fp32_cuda_core")
+    if deq:
+        fail(f"moe_spec: {deq} expert stacks dequantized")
+    modes = only_modes(counters, "moe_spec", {"dynamic"},
+                       {"dynamic", "verify_dynamic"})
+    writes = one_write_per_layer("moe_spec", cfg.n_layers,
+                                 {"dynamic": target + drafted})
+    n_tok = sum(len(r.out) for r in fin)
+    greedy = moe_res["outputs"][:8]
+    same = sum(a == b for r, g in zip(fin, greedy)
+               for a, b in zip(r.out, g))
+    res = {"arch": cfg.name, "card": card_line, "spec_k": ecfg.spec_k,
+           "requests": len(fin), "new_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "draft_build_s": t_draft,
+           "acceptance_rate": eng.sched.acceptance_rate(),
+           "draft_proposed": eng.sched.spec_proposed,
+           "draft_accepted": eng.sched.spec_accepted,
+           "spec_steps": eng.n_spec_steps, "verify_calls": eng.n_verify_calls,
+           "rollbacks": eng.n_rollbacks,
+           "draft_steps": eng._spec.n_draft_steps,
+           "spec_step_p50_s": percentile(eng.spec_step_s, 50),
+           "ttft_p50_s": percentile([r.ttft for r in fin], 50),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "matmul_variants": variants,
+           "bits_launches": by_bits, "expert_dequantizations": deq,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes,
+           "identical_to_moe_greedy_share": same / n_tok}
+    # where each request first parts from greedy, and the target's top-2
+    # logit margin there (a near-tie that bf16 verify and decode break
+    # apart, or not)
+    firsts = [next((j for j, (a, b) in enumerate(zip(r.out, g)) if a != b),
+                   None) for r, g in zip(fin, greedy)]
+    res["first_difference"] = firsts
+    res["top2_margin_there"] = [
+        None if j is None else top2_margin(
+            torch, cfg, params, None, list(prompts[i]) + list(fin[i].out[:j]))
+        for i, j in enumerate(firsts)]
+    # the first request's second token (its first decode step) through
+    # both paths
+    res["verify_vs_decode"] = drift = verify_drift(torch, cfg, params,
+                                                   list(prompts[0]))
+    log(f"moe_spec: {cfg.name} full width, spec_k {ecfg.spec_k}, INT2 draft "
+        f"built in {t_draft:.1f} s and kept packed; {len(fin)} requests, "
+        f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.2f} "
+        f"tok/s; acceptance {res['acceptance_rate']:.3f} "
+        f"({res['draft_accepted']}/{res['draft_proposed']}); "
+        f"{eng.n_spec_steps} spec steps ({eng.n_verify_calls} verify calls, "
+        f"{eng.n_rollbacks} rollbacks, {res['draft_steps']} draft steps); "
+        f"spec step p50 {res['spec_step_p50_s'] * 1e3:.1f} ms; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; matmul by variant "
+        f"{variants}, by bits {by_bits}; prefill attention by mode "
+        f"{modes['prefill_attention']}; K/V writes by mode {writes}; expert "
+        f"stacks dequantized {deq}; {100 * same / n_tok:.1f}% of tokens "
+        f"identical to the moe phase's greedy output (first difference by "
+        f"request {firsts}; the target's top-2 logit margin there "
+        f"{[None if m is None else round(m, 4) for m in res['top2_margin_there']]}"
+        f"; request 0's second token through a decode step and as a verify "
+        f"row: argmax {drift['decode_argmax']} vs {drift['verify_argmax']}, "
+        f"largest logit difference {drift['max_abs_logit_diff']:.4f}, experts "
+        f"apart in {len(drift['moe_layers_routed_apart'])} of "
+        f"{drift['moe_layers']} MoE layers, the first "
+        f"{(drift['moe_layers_routed_apart'] or [None])[0]}) "
+        f"[card: {card_line}]")
+    return res
+
+
+def verify_drift(torch, cfg, params, prompt, window=(5, 7, 11)) -> dict:
+    """Where a verify row and the decode step it replaces part: ``prompt``
+    prefilled into two fresh one-slot int8 caches, then the token after
+    it through a decode step on one and as row 0 of a verify window on
+    the other. Returns both argmaxes, their largest logit difference and
+    the MoE layers whose experts for that token differ (untimed: it wraps
+    ``ffn.route``)."""
+    from repro_torch.engine.kvcache import init_slot_cache
+    from repro_torch.models import ffn, transformer
+
+    def fresh():
+        cache = init_slot_cache(cfg, 1, len(prompt) + len(window) + 1,
+                                mode="int8", device="cuda")
+        t = torch.as_tensor(prompt, device="cuda")[None]
+        for done in range(0, len(prompt), 96):
+            n = min(96, len(prompt) - done)
+            logits = transformer.prefill_chunk_slots(
+                params, cfg, cache, t[:, done:done + n], 0, done, n)
+        return cache, int(logits[0].argmax())
+    experts, route = [], ffn.route
+
+    def recording(p, xt, c):
+        out = route(p, xt, c)
+        experts.append(out[2][0].sort().values.tolist())
+        return out
+    (ca, tok), (cb, _) = fresh(), fresh()
+    P = len(prompt)
+    ffn.route = recording
+    try:
+        dec = transformer.decode_step_slots(
+            params, cfg, ca, torch.tensor([[tok]], device="cuda"),
+            torch.tensor([P], device="cuda"))[0, 0].float()
+        by_decode, experts[:] = list(experts), []
+        ver = transformer.verify_step_slots(
+            params, cfg, cb, torch.tensor([[tok, *window]], device="cuda"),
+            0, P, len(window) + 1)[0, 0].float()
+        by_verify = list(experts)
+    finally:
+        ffn.route = route
+    return {"decode_argmax": int(dec.argmax()),
+            "verify_argmax": int(ver.argmax()),
+            "max_abs_logit_diff": float((dec - ver).abs().max()),
+            "moe_layers_routed_apart": [
+                i for i, (a, b) in enumerate(zip(by_decode, by_verify))
+                if a != b],
+            "moe_layers": len(by_decode)}
+
+
+@contextlib.contextmanager
+def dropped_pairs(ffn):
+    """Records, by wrapping ``ffn.dispatch`` until the block ends, each
+    MoE dispatch of more than 512 tokens a block (the drop regime): the
+    list it yields gets its (n_blocks, Tb·K) mask of dropped pairs, a
+    device tensor (no synchronization)."""
+    rec, dispatch = [], ffn.dispatch
+
+    def recording(eidx, n_blocks, E, C):
+        out = dispatch(eidx, n_blocks, E, C)
+        if eidx.shape[0] // n_blocks > 512:
+            rec.append(~out[2])
+        return out
+    ffn.dispatch = recording
+    try:
+        yield rec
+    finally:
+        ffn.dispatch = dispatch
+
+
+def moe_wave_phase(torch, counters, params, card_line):
+    """moonshot-v1-16b-a3b at full width (the moe phase's tree) through
+    the wave ``Server``: the moe phase's 16 requests in waves of 8,
+    left-padded, a bf16 ``KVCache`` of 1024 rows a wave, attention in
+    plain PyTorch. A wave prefill routes its 8 x S tokens (pads included)
+    as one block: above 512 a block each expert takes int(Tb·6·1.25) //
+    64 pairs and the rest drop. The counts are set to 0 just before the
+    run and read just after. Gates: every request its 32 tokens; the
+    matmul launched in its bf16 tensor-core and grouped forms only; no
+    attention kernel, K/V write or quantizer; no expert stack dequantized;
+    dropped pairs > 0 in some wave prefill. Printed: the dropped pairs,
+    tokens/s, wave-prefill and decode-step p50, peak memory."""
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.launch.serve import moe_smoke_workload
+    from repro_torch.models import ffn
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+    cfg, _, _, warmup, prompts = moe_smoke_workload()
+    scfg = ServeConfig(max_batch=8, max_new_tokens=32, max_len=1024)
+    Server(cfg, params, ServeConfig(max_batch=8, max_new_tokens=2,
+                                    max_len=1024),
+           device="cuda").serve([Request(0, warmup)])
+    srv = Server(cfg, params, scfg, device="cuda")
+    deq0 = ffn.EXPERT_DEQUANTIZATIONS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    with dropped_pairs(ffn) as drops:
+        t0 = time.perf_counter()
+        fin = srv.serve([Request(i, p) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    variants = dict(counters["splitquant_matmul"].variant_launches)
+    deq = ffn.EXPERT_DEQUANTIZATIONS - deq0
+    peak = torch.cuda.max_memory_allocated()
+    dropped = [int(d.sum()) for d in drops]
+    pairs = [d.numel() for d in drops]
+    n_tok = sum(len(r.out) for r in fin)
+    if len(fin) != len(prompts) or \
+            any(len(r.out) != scfg.max_new_tokens for r in fin) or \
+            any(not 0 <= t < cfg.vocab for r in fin for t in r.out):
+        fail(f"moe_wave: expected {len(prompts)} requests x "
+             f"{scfg.max_new_tokens} in-vocab tokens, got "
+             f"{[len(r.out) for r in fin]}")
+    others = {n: c for n, c in launches.items() if n != "splitquant_matmul"}
+    if any(others.values()) or pa.quantize_kv.launches or \
+            pa.quantize_kv_static.launches or not variants["grouped"] or \
+            not variants["bf16_wgmma"] or variants["fp32_cuda_core"]:
+        fail(f"moe_wave: launches {launches}, matmul by variant {variants}; "
+             f"expected the bf16 and grouped matmul only")
+    if deq:
+        fail(f"moe_wave: {deq} expert stacks dequantized")
+    if not any(dropped):
+        fail(f"moe_wave: no pair dropped in the wave prefills ({pairs} "
+             f"pairs routed in the drop regime)")
+    res = {"arch": cfg.name, "card": card_line, "requests": len(fin),
+           "new_tokens": n_tok,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "waves": len(srv.wave_prefill_s), "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "wave_prefill_p50_s": percentile(srv.wave_prefill_s, 50),
+           "wave_prefill_s": srv.wave_prefill_s,
+           "decode_step_p50_s": percentile(srv.decode_step_s, 50),
+           "decode_steps": len(srv.decode_step_s), "peak_mem_bytes": peak,
+           "dropped_pairs": dropped, "routed_pairs": pairs,
+           "launches": launches, "matmul_variants": variants,
+           "expert_dequantizations": deq}
+    log(f"moe_wave: {cfg.name} full width through the wave Server, waves "
+        f"of 8, bf16 KV cache of 1024 rows; {len(fin)} requests in "
+        f"{res['waves']} waves, {res['prompt_tokens']} prompt + {n_tok} new "
+        f"tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} tok/s; wave "
+        f"prefill p50 {res['wave_prefill_p50_s'] * 1e3:.1f} ms; decode step "
+        f"p50 {res['decode_step_p50_s'] * 1e3:.2f} ms; dropped pairs "
+        f"{sum(dropped)} of {sum(pairs)} routed in the drop regime "
+        f"({len(drops)} MoE dispatches above 512 tokens: {dropped}); peak "
+        f"memory {peak / 2**30:.2f} GiB; matmul by variant {variants} "
+        f"[card: {card_line}]")
+    return res
+
+
+def kimi_phase(torch, counters, card_line):
+    """kimi-k2-1t-a32b at full width, 5 of its 61 layers
+    (``kimi_smoke_workload``: the dense prelude and 4 MoE layers of 384
+    experts top-8 + 1 shared; d_model 7168, GQA 64/8 at head_dim 112;
+    SplitQuant INT4 k=3 built part by part on the card, each expert stack
+    quantized before the next is drawn) through the engine over the int8
+    dynamic slot cache (sub-channel chunks of 28), 16 requests of 32
+    tokens. Gates, as the moe phase's: ``serve_run``'s; one K/V write a
+    layer and forward pass over the 5 layers; the grouped matmul launched
+    3 x 4 times a decode step and a prefill chunk; the dense matmul and
+    the attention kernels in their bf16 variants and dynamic modes only;
+    no expert stack dequantized; finite logits at full width. Printed:
+    build seconds and peak, deployed bytes, tokens/s, TTFT, decode-step
+    and chunk p50, peak memory, launches by variant and mode."""
+    from repro_torch.launch.serve import build_params, kimi_smoke_workload
+    from repro_torch.models import ffn, transformer
+    cfg, ecfg, quant, warmup, prompts = kimi_smoke_workload()
+    phase = "kimi"
+    n_dense, n_moe = transformer.stack_depths(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, report = build_params(cfg, device="cuda", **quant)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = torch.cuda.memory_allocated()
+    log(f"{phase}: {cfg.name} full width, {cfg.n_layers} of its 61 layers "
+        f"({n_dense} dense of FFN {cfg.dense_d_ff}, {n_moe} MoE of "
+        f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} "
+        f"shared, d_ff {cfg.d_ff}; d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads / {cfg.n_kv_heads} kv-heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab}): init + SplitQuant INT4 k=3 of "
+        f"{len(report['quantized'])} leaves part by part on the card in "
+        f"{t_build:.2f} s, build peak {build_peak / 2**30:.2f} GiB; deployed "
+        f"{report['deployed_bytes'] / 1e9:.3f} GB (the JAX count), "
+        f"{weight_bytes / 2**30:.2f} GiB on the card [card: {card_line}]")
+    deq0 = ffn.EXPERT_DEQUANTIZATIONS
+    eng, fin, wall, launches = serve_run(torch, counters, phase, cfg, params,
+                                         ecfg, warmup, prompts)
+    peak = torch.cuda.max_memory_allocated()
+    passes = eng.n_decode_steps + eng.n_prefill_chunks
+    variants = dict(counters["splitquant_matmul"].variant_launches)
+    if variants["grouped"] != 3 * n_moe * passes or \
+            variants["fp32_cuda_core"] or not variants["bf16_wgmma"]:
+        fail(f"{phase}: matmul launches by variant {variants}; expected "
+             f"grouped = 3 x {n_moe} MoE layers x {passes} forward passes, "
+             f"bf16_wgmma > 0, no fp32_cuda_core")
+    deq = ffn.EXPERT_DEQUANTIZATIONS - deq0
+    if deq:
+        fail(f"{phase}: {deq} expert stacks dequantized on the card path")
+    pvariants = only_variant(counters, "prefill_attention", phase)
+    dvariants = only_variant(counters, "decode_attention", phase)
+    modes = only_modes(counters, phase, {"dynamic"}, {"dynamic"})
+    writes = one_write_per_layer(phase, cfg.n_layers, {"dynamic": passes})
+    finite_logits(torch, phase, cfg, params, eng, fin)
+    n_tok = sum(len(r.out) for r in fin)
+    ttft = [r.ttft for r in fin]
+    res = {"arch": cfg.name, "card": card_line, "n_layers": cfg.n_layers,
+           "build_s": t_build, "build_peak_bytes": build_peak,
+           "weight_bytes": weight_bytes,
+           "deployed_bytes": report["deployed_bytes"],
+           "quantized_leaves": len(report["quantized"]),
+           "requests": len(fin), "new_tokens": n_tok,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_p50_s": percentile(ttft, 50),
+           "decode_step_p50_s": percentile(eng.decode_step_s, 50),
+           "prefill_chunk_p50_s": percentile(eng.prefill_chunk_s, 50),
+           "decode_steps": eng.n_decode_steps,
+           "prefill_chunks": eng.n_prefill_chunks,
+           "peak_mem_bytes": peak, "kv_cache_bytes": eng.cache.nbytes(),
+           "launches": launches, "matmul_variants": variants,
+           "prefill_variants": pvariants, "decode_variants": dvariants,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes, "expert_dequantizations": deq,
+           "outputs": [r.out for r in fin]}
+    log(f"{phase}: {len(fin)} requests, {res['prompt_tokens']} prompt + "
+        f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
+        f"tok/s; TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
+        f"{res['decode_step_p50_s'] * 1e3:.2f} ms; prefill chunk p50 "
+        f"{res['prefill_chunk_p50_s'] * 1e3:.2f} ms; {eng.n_decode_steps} "
+        f"decode steps, {eng.n_prefill_chunks} prefill chunks; peak memory "
+        f"{peak / 2**30:.2f} GiB; KV cache "
+        f"{res['kv_cache_bytes'] / 2**20:.1f} MiB; launches {launches}; "
+        f"matmul launches by variant {variants} (grouped = 3 x {n_moe} x "
+        f"{passes} passes); prefill attention by variant {pvariants}, by "
+        f"mode {modes['prefill_attention']}; decode attention by variant "
+        f"{dvariants}, by mode {modes['decode_attention']}; K/V writes by "
+        f"mode {writes} (one a layer and forward pass over "
+        f"{cfg.n_layers} layers); expert stacks dequantized {deq} "
+        f"[card: {card_line}]")
+    del eng, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _reduced_moon():
+    """Reduced moonshot-v1-16b-a3b in fp32, INT4 SplitQuant (seed 0), on
+    the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_params
+    cfg = get_arch("moonshot-v1-16b-a3b").reduced()
+    return cfg, build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")[0]
+
+
+def moe_spec_cross_check(torch):
+    """Reduced moonshot-v1-16b-a3b in fp32 (INT4 target, INT8 draft kept
+    packed: the fp32 grouped kernel on the card, JAX's literal form on
+    the CPU), spec_k 3 over an int8 dynamic cache, 8 requests x 16
+    tokens: the card's speculative tokens equal the CPU's speculative
+    tokens and the card's greedy tokens."""
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg, params = _reduced_moon()
+    draft, _ = build_params(cfg, bits=8, method="splitquant", seed=0,
+                            device="cpu")
+    prompts = seeded_prompts(cfg.vocab, 8, 16, 200, seed=2)
+    outs, counts = {}, {}
+    for dev, spec_k in (("cpu", 3), ("cuda", 3), ("cuda", 0)):
+        p, d = (params, draft) if dev == "cpu" else \
+            (tree_to(params, "cuda"), tree_to(draft, "cuda"))
+        eng = Engine(cfg, p, EngineConfig(
+            n_slots=4, max_len=256, max_new_tokens=16, kv_mode="int8",
+            prefill_chunk=96, spec_k=spec_k, draft_dequantize=False),
+            device=dev, draft_params=d if spec_k else None)
+        for pr in prompts:
+            eng.submit(pr)
+        outs[(dev, spec_k)] = [r.out for r in eng.drain()]
+        counts[(dev, spec_k)] = (eng.sched.spec_proposed,
+                                 eng.sched.spec_accepted)
+    same = outs[("cuda", 3)] == outs[("cpu", 3)] == outs[("cuda", 0)]
+    log(f"moe_spec cross-check: {cfg.name} reduced fp32, int8 KV, spec_k 3 "
+        f"with a packed INT8 draft, 8 requests x 16 tokens: card spec tokens "
+        f"{'==' if same else '!='} CPU spec tokens == card greedy tokens; "
+        f"proposed / accepted card {counts[('cuda', 3)]}, CPU "
+        f"{counts[('cpu', 3)]}")
+    if not same:
+        fail(f"moe_spec cross-check: card spec {outs[('cuda', 3)]}, cpu spec "
+             f"{outs[('cpu', 3)]}, card greedy {outs[('cuda', 0)]}")
+    return {"requests": len(prompts), "identical": same,
+            "proposed_accepted": {f"{d}_{k}": list(c)
+                                  for (d, k), c in counts.items()}}
+
+
+def moe_wave_cross_check(torch):
+    """Reduced moonshot-v1-16b-a3b in fp32 (INT4) through the wave
+    ``Server`` on the card and on the CPU: a first wave of four prompts
+    left-padded to 200 tokens (800 routed as one block, capacity 250 an
+    expert: pairs dropped) and a second of two: identical greedy tokens
+    and some pairs dropped (whether the dropped pairs are the CPU's is
+    printed: a near-tie in the fp32 router can move one)."""
+    import numpy as np
+    from repro_torch.core.apply import tree_to
+    from repro_torch.models import ffn
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+    cfg, params = _reduced_moon()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, size=n)
+               for n in (200, 17, 60, 3, 9, 31)]
+    outs, drops = {}, {}
+    for dev, p in (("cpu", params), ("cuda", tree_to(params, "cuda"))):
+        srv = Server(cfg, p, ServeConfig(max_batch=4, max_new_tokens=8,
+                                         max_len=208), device=dev)
+        with dropped_pairs(ffn) as rec:
+            outs[dev] = [r.out for r in srv.serve(
+                [Request(i, pr) for i, pr in enumerate(prompts)])]
+        drops[dev] = [d.cpu() for d in rec]
+    same = outs["cpu"] == outs["cuda"]
+    same_drops = len(drops["cpu"]) == len(drops["cuda"]) and all(
+        torch.equal(a, b) for a, b in zip(drops["cpu"], drops["cuda"]))
+    n_drop = [int(d.sum()) for d in drops["cuda"]]
+    log(f"moe_wave cross-check: {cfg.name} reduced fp32, waves of 4 and 2 "
+        f"(the first 800 tokens, one block), 6 requests x 8 tokens: card "
+        f"tokens {'==' if same else '!='} CPU tokens; dropped pairs "
+        f"{n_drop} on the card, {'==' if same_drops else '!='} the CPU's")
+    if not same or not any(n_drop):
+        fail(f"moe_wave cross-check: card {outs['cuda']} vs cpu "
+             f"{outs['cpu']}; dropped pairs {n_drop}")
+    return {"requests": len(prompts), "identical": same,
+            "dropped_pairs": n_drop, "drops_identical": same_drops}
+
+
+def kimi_cross_check(torch):
+    """Reduced kimi-k2-1t-a32b at head_dim 112 (sub-channel chunks of
+    28), GQA 8/1, fp32, INT4 SplitQuant, through the engine over an int8
+    dynamic cache, 8 requests x 16 tokens, on the card (the fp32 decode
+    and prefill kernels at D=112) and on the CPU: identical greedy
+    tokens."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg = dataclasses.replace(get_arch("kimi-k2-1t-a32b").reduced(),
+                              head_dim_override=112, n_heads=8, n_kv_heads=1)
+    params, _ = build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")
+    prompts = seeded_prompts(cfg.vocab, 8, 16, 200, seed=1)
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", tree_to(params, "cuda"))):
+        eng = Engine(cfg, p, EngineConfig(n_slots=4, max_len=256,
+                                          max_new_tokens=16, kv_mode="int8",
+                                          prefill_chunk=96), device=dev)
+        for pr in prompts:
+            eng.submit(pr)
+        outs[dev] = [r.out for r in eng.drain()]
+    same = outs["cpu"] == outs["cuda"]
+    log(f"kimi cross-check: {cfg.name} reduced at head_dim 112, GQA 8/1, "
+        f"fp32, int8 KV (chunks of 28), 8 requests x 16 tokens: card tokens "
+        f"{'==' if same else '!='} CPU tokens")
+    if not same:
+        fail(f"kimi cross-check: card {outs['cuda']} != cpu {outs['cpu']}")
+    return {"requests": len(prompts), "identical": same}
+
+
 def main() -> None:
     try:
         import torch
@@ -3060,6 +3613,7 @@ def main() -> None:
     log(f"timer floor: one launch that fills 4 bytes {floor_ms:.4f} ms")
     reps = {n: KernelReport(n) for n in TPU_KERNELS}
     log("kernels vs plain versions (bf16, main-path shapes):")
+    t_kernels = time.perf_counter()
     matmul_cases(torch, timer, reps["splitquant_matmul"])
     grouped_cases(torch, timer, reps["splitquant_matmul"])
     decode_cases(torch, timer, reps["decode_attention"])
@@ -3080,6 +3634,8 @@ def main() -> None:
                                   reps["act_split_quantize_static"])
     aq_launches = {n: counters[n].launches for n, p in PATHS.items()
                    if not p}
+    PHASE_S["kernels"] = time.perf_counter() - t_kernels
+    log(f"phase kernels: {PHASE_S['kernels']:.1f} s")
     del timer       # its 512 MiB flush buffer is not the servers' memory
 
     from repro_torch.launch.serve import build_params, smoke_workload
@@ -3093,11 +3649,12 @@ def main() -> None:
         f"{len(report['quantized'])} matrices on the card in "
         f"{time.perf_counter() - t0:.2f} s "
         f"({report['deployed_bytes'] / 2**20:.1f} MiB deployed)")
-    eng = engine_phase(torch, counters, params)
+    eng = timed("engine", engine_phase, torch, counters, params)
     scales, t_cal = calibrate(torch, cfg, params, "cuda")
     log(f"static KV scales: collect_kv_stats over 4 seeded prompts of 256 "
         f"tokens on the card in {t_cal:.2f} s")
-    sta = engine_phase(torch, counters, params, kv_scales=scales)
+    sta = timed("static", engine_phase, torch, counters, params,
+                kv_scales=scales)
     log(f"static vs dynamic scales: tokens/s {sta['tokens_per_s']:.1f} vs "
         f"{eng['tokens_per_s']:.1f}; TTFT p50 {sta['ttft_p50_s'] * 1e3:.1f} vs "
         f"{eng['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
@@ -3107,39 +3664,56 @@ def main() -> None:
         f"{eng['peak_mem_bytes'] / 2**30:.2f} GiB; KV cache "
         f"{sta['kv_cache_bytes'] / 2**20:.1f} vs "
         f"{eng['kv_cache_bytes'] / 2**20:.1f} MiB")
-    cha = chaos_phase(torch, counters, params, eng, card_line)
-    obs = observe_phase(torch, counters, params, cha, card_line)
-    recv = recovery_phase(torch, counters, params, scales, sta, card_line)
-    spec = spec_phase(torch, counters, params, scales, sta)
-    dense = dense_wave_phase(torch, counters, params, card_line)
-    bf16 = engine_bf16_phase(torch, counters, params, card_line)
-    one = oneshot_phase(torch, counters, params, card_line)
-    samp = sampling_phase(torch, counters, params, card_line)
+    cha = timed("chaos", chaos_phase, torch, counters, params, eng,
+                card_line)
+    obs = timed("observe", observe_phase, torch, counters, params, cha,
+                card_line)
+    recv = timed("recovery", recovery_phase, torch, counters, params,
+                 scales, sta, card_line)
+    spec = timed("spec", spec_phase, torch, counters, params, scales, sta)
+    dense = timed("dense_wave", dense_wave_phase, torch, counters, params,
+                  card_line)
+    bf16 = timed("engine_bf16", engine_bf16_phase, torch, counters, params,
+                 card_line)
+    one = timed("oneshot", oneshot_phase, torch, counters, params, card_line)
+    samp = timed("sampling", sampling_phase, torch, counters, params,
+                 card_line)
     del params
     torch.cuda.empty_cache()
-    rec = recipe_phase(torch, counters, card_line)
+    rec = timed("recipe", recipe_phase, torch, counters, card_line)
     torch.cuda.empty_cache()
-    pq = percentile_phase(torch, card_line)
-    moe = moe_phase(torch, counters, card_line)
-    xc = cross_check(torch)
-    sxc = spec_cross_check(torch)
-    dxc = dense_wave_cross_check(torch)
-    oxc = options_cross_check(torch)
-    mxc = moe_cross_check(torch)
-    rwkv = rwkv_phase(torch, counters)
-    rxc = rwkv_cross_check(torch)
+    pq = timed("percentile_quant", percentile_phase, torch, card_line)
+    moe, moe_params = timed("moe", moe_phase, torch, counters, card_line)
+    mspec = timed("moe_spec", moe_spec_phase, torch, counters, moe_params,
+                  moe, card_line)
+    mwave = timed("moe_wave", moe_wave_phase, torch, counters, moe_params,
+                  card_line)
+    del moe_params             # moonshot's trees before kimi's build
+    torch.cuda.empty_cache()
+    kimi = timed("kimi", kimi_phase, torch, counters, card_line)
+    xc = timed("cross_check", cross_check, torch)
+    sxc = timed("spec_cross_check", spec_cross_check, torch)
+    dxc = timed("dense_wave_cross_check", dense_wave_cross_check, torch)
+    oxc = timed("options_cross_check", options_cross_check, torch)
+    mxc = timed("moe_cross_check", moe_cross_check, torch)
+    msxc = timed("moe_spec_cross_check", moe_spec_cross_check, torch)
+    mwxc = timed("moe_wave_cross_check", moe_wave_cross_check, torch)
+    kxc = timed("kimi_cross_check", kimi_cross_check, torch)
+    rwkv = timed("rwkv", rwkv_phase, torch, counters)
+    rxc = timed("rwkv_cross_check", rwkv_cross_check, torch)
 
     serving = {"engine": eng, "static": sta, "spec": spec,
                "engine_bf16": bf16, "oneshot": one, "sampling": samp,
                "recipe": rec, "chaos": cha, "recovery": recv,
-               "observe": obs, "moe": moe}
+               "observe": obs, "moe": moe, "moe_spec": mspec, "kimi": kimi}
     runs = {"engine": eng["launches"], "static": sta["launches"],
             "spec": spec["launches"], "dense_wave": dense["launches"],
             "wave": rwkv["launches"], "engine_bf16": bf16["launches"],
             "oneshot": one["launches"], "sampling": samp["launches"],
             "recipe": rec["launches"], "chaos": cha["launches"],
             "recovery": recv["launches"], "observe": obs["launches"],
-            "moe": moe["launches"]}
+            "moe": moe["launches"], "moe_spec": mspec["launches"],
+            "moe_wave": mwave["launches"], "kimi": kimi["launches"]}
     by_dtype = {"engine_bf16": bf16["cache_dtypes"],
                 "oneshot": one["cache_dtypes"],
                 "sampling": samp["engine"]["cache_dtypes"]}
@@ -3153,15 +3727,19 @@ def main() -> None:
         "chaos": cha["matmul_variants"],
         "recovery": recv["matmul_variants"],
         "observe": obs["matmul_variants"],
-        "moe": moe["matmul_variants"]},
-        "launches_by_bits": {"recipe": rec["bits_launches"]}},
+        "moe": moe["matmul_variants"], "moe_spec": mspec["matmul_variants"],
+        "moe_wave": mwave["matmul_variants"],
+        "kimi": kimi["matmul_variants"]},
+        "launches_by_bits": {"recipe": rec["bits_launches"],
+                             "moe_spec": mspec["bits_launches"]}},
         "prefill_attention": {"launches_by_variant": {
             "engine": eng["prefill_variants"],
             "static": sta["prefill_variants"],
             "chaos": cha["prefill_variants"],
             "recovery": recv["prefill_variants"],
             "observe": obs["prefill_variants"],
-            "moe": moe["prefill_variants"]},
+            "moe": moe["prefill_variants"],
+            "kimi": kimi["prefill_variants"]},
             "launches_by_mode": {k: r["prefill_modes"]
                                  for k, r in serving.items()},
             "launches_by_cache_dtype": {k: d["prefill_attention"]
@@ -3172,7 +3750,8 @@ def main() -> None:
             "chaos": cha["decode_variants"],
             "recovery": recv["decode_variants"],
             "observe": obs["decode_variants"],
-            "moe": moe["decode_variants"]},
+            "moe": moe["decode_variants"],
+            "kimi": kimi["decode_variants"]},
             "launches_by_mode": {k: r["decode_modes"]
                                  for k, r in serving.items()},
             "launches_by_cache_dtype": {k: d["decode_attention"]
@@ -3200,6 +3779,9 @@ def main() -> None:
          "sampling": samp, "recipe": rec, "percentile_quant": pq,
          "options_cross_check": oxc, "chaos": cha, "recovery": recv,
          "observe": obs, "moe": moe, "moe_cross_check": mxc,
+         "moe_spec": mspec, "moe_spec_cross_check": msxc,
+         "moe_wave": mwave, "moe_wave_cross_check": mwxc, "kimi": kimi,
+         "kimi_cross_check": kxc, "phase_s": PHASE_S,
          "act_quant_observed": aq_observed,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))

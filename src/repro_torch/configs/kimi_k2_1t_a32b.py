@@ -1,6 +1,8 @@
 """kimi-k2-1t-a32b — trillion-param MoE, 384e top-8 [arXiv:2501.kimi2;
-unverified]. head_dim 7168/64 = 112, which the port's attention kernels
-do not take yet: served at its reduced shapes only."""
+unverified]. head_dim 7168/64 = 112 (GQA 64/8: the JAX config's
+approximation of the attention, not checked against the published
+model); on one card the port serves it at full width and 5 of its 61
+layers (``launch.serve.kimi_smoke_workload``)."""
 from .base import ArchConfig
 from .registry import register
 

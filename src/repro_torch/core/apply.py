@@ -12,10 +12,14 @@ is a Python list, so each leaf already is one layer's matrix, and
 ``MIN_SIZE`` is applied to the size of the whole stack as in JAX. A MoE
 layer's expert leaf (E, d, f) is E matrices, each clustered and quantized
 on its own (the JAX package's ``infer_stack_dims`` = 2 over its
-(L, E, d, f) leaf), into one stacked packed weight; the k-means of the E
-matrices runs as one batched pass. The router stays fp32.
+(L, E, d, f) leaf), into one stacked packed weight; the k-means of a
+slab of the E matrices runs as one batched pass. The router stays fp32.
 
-Each quantized leaf is packed ONCE, here, into the kernel layout
+A large leaf is quantized in slabs (:data:`SLAB_ELEMS`): an expert
+stack by whole matrices, each on a k-means generator of its own, a
+matrix by rows with its ranges combined; the bytes are those of the
+unslabbed quantization. Each quantized leaf is packed ONCE, here, into
+the kernel layout
 (:class:`~repro_torch.kernels.ops.PackedWeight`). Methods: ``splitquant``
 (the paper), ``baseline`` (one min/max range), ``percentile`` (one
 clipped range, the outlier treatment the paper argues against) and, as a
@@ -25,7 +29,7 @@ use the JAX package's paths, where the layer stack is one leaf
 that leaf of every layer.
 
 :class:`LeafQuantizer` is the per-leaf step with its running leaf index
-(the k-means seed); ``launch.serve.build_params`` feeds it one layer at a
+(the k-means seed); ``launch.serve.build_params`` feeds it one part at a
 time while ``transformer.init`` builds the tree, so a model whose bf16
 tree and packed tree would not fit on the card together is built with
 the same packed bytes as ``quantize_tree(init(...))``.
@@ -37,9 +41,14 @@ from typing import Optional
 
 import torch
 
-from ..kernels.ops import PackedWeight, pack_for_kernel
-from .quantize import QuantConfig
-from .splitquant import baseline_quant_tensor, splitquant_tensor
+from ..kernels.ops import PackedWeight, dequant_constants, pack_for_kernel
+from ..kernels.packing import pack_cids, pack_codes
+from .kmeans import row_generators
+from .quantize import QuantConfig, qparams, quantize
+from .splitquant import (assign_clusters, baseline_quant_tensor,
+                         deployed_bytes, empty_to_zero, fit_centroids,
+                         masked_min_max, select_per_element,
+                         splitquant_tensor)
 
 #: parameter-path fragments that are never quantized
 DEFAULT_EXCLUDE = (
@@ -57,6 +66,14 @@ MIN_SIZE = 64
 
 #: embedding tables are never quantized
 TABLE_FRAGMENTS = ("embed", "pos_table", "enc_pos", "dec_pos")
+
+#: elements a slab of a large leaf holds at most: an expert stack is
+#: quantized and packed in slabs of whole matrices, and a matrix of more
+#: elements (splitquant or the min/max baseline) in slabs of rows, so
+#: the working set stays near 25 bytes a slab element (kimi-k2's 384
+#: experts of 7168 x 2048, its 7168 x 163840 lm_head). The slab follows
+#: from the shapes alone, and the bytes do not depend on it.
+SLAB_ELEMS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,14 +179,18 @@ class LeafQuantizer:
     def part(self, path: tuple, part, stack: int):
         """The hook of ``transformer.init(on_part=)``: quantize one part of
         a tree being built, in the tree's order: a top-level entry (path
-        ``(key,)``) or one layer of a stack (path ``(key, index)``,
-        ``stack`` the stack's depth). Returns the part quantized."""
-        if len(path) == 1:
-            box = {path[0]: part}
-            self.walk(box)
-            return box[path[0]]
-        self.walk(part, tuple(map(str, path)), stack, (path[0],))
-        return part
+        ``(key,)``), one layer of a stack (path ``(key, index)``) or a
+        part of one (path ``(key, index, *names)``: a sub-tree or a single
+        leaf such as one expert stack), ``stack`` the stack's depth.
+        Returns the part quantized."""
+        path = tuple(map(str, path))
+        jpath = path[:1] + path[2:]      # the JAX path has no layer index
+        if len(path) > 1 and isinstance(part, (dict, list)):
+            self.walk(part, path, stack, jpath)
+            return part
+        box = {path[-1]: part}
+        self.walk(box, path[:-1], stack, jpath[:-1])
+        return box[path[-1]]
 
     def _leaf(self, path_s, jpath, box, key, leaf, stack) -> None:
         report = self.report
@@ -185,26 +206,119 @@ class LeafQuantizer:
                                       f"stacks of them (a MoE layer's "
                                       f"experts) are packed for the kernel "
                                       f"(quantized biases are not ported)")
-        sd = leaf.ndim - 2
-        if eff.method == "splitquant":
-            gen = torch.Generator(device=leaf.device).manual_seed(
-                self.seed + self.i)
-            sq = splitquant_tensor(gen, leaf, eff.cfg, k=eff.k,
-                                   stack_dims=sd)
-        elif eff.method in ("baseline", "percentile"):
-            sq = baseline_quant_tensor(leaf, eff.cfg, stack_dims=sd)
-        else:
+        if eff.method not in ("splitquant", "baseline", "percentile"):
             raise ValueError(f"unknown method {eff.method!r}")
-        box[key] = pack_for_kernel(sq)
+        gen = torch.Generator(device=leaf.device).manual_seed(
+            self.seed + self.i) if eff.method == "splitquant" else None
+        if leaf.ndim == 3:
+            packed, nbytes = quantize_stack(gen, leaf, eff, SLAB_ELEMS)
+        elif leaf.numel() > SLAB_ELEMS and _row_slabs_take(eff):
+            packed, nbytes = quantize_rows(gen, leaf, eff, SLAB_ELEMS)
+        else:
+            sq = _quantize(gen, leaf, eff, 0)
+            packed, nbytes = pack_for_kernel(sq), sq.nbytes_deployed()
+        box[key] = packed
         report["quantized"].append(path_s)
         entry = report["per_path"].setdefault(
-            jpath, {"bits": eff.cfg.bits, "k": sq.k, "method": eff.method,
-                    "bytes": 0})
+            jpath, {"bits": eff.cfg.bits, "k": packed.k,
+                    "method": eff.method, "bytes": 0})
         # the JAX package's count (codes, 2-bit cids when k > 1, scales),
         # not the kernel layout's (PackedWeight.nbytes_packed)
-        entry["bytes"] += sq.nbytes_deployed()
-        report["deployed_bytes"] += sq.nbytes_deployed()
+        entry["bytes"] += nbytes
+        report["deployed_bytes"] += nbytes
         report["orig_bytes"] += leaf.numel() * 4
+
+
+def _quantize(gen, w, eff: QuantPolicy, stack_dims: int):
+    """The SplitQuantTensor of ``w`` (or of each matrix of a stack) under
+    the effective policy; ``gen`` (or one generator a matrix) seeds
+    splitquant's k-means."""
+    if eff.method == "splitquant":
+        return splitquant_tensor(gen, w, eff.cfg, k=eff.k,
+                                 stack_dims=stack_dims)
+    return baseline_quant_tensor(w, eff.cfg, stack_dims=stack_dims)
+
+
+def quantize_stack(gen, w, eff: QuantPolicy, slab_elems: int):
+    """An expert stack (E, K, N), each matrix quantized on its own and
+    packed, in slabs of as many whole matrices as ``slab_elems`` holds
+    (at least one). Each matrix's k-means draws from a generator of its
+    own (:func:`~repro_torch.core.kmeans.row_generators` of ``gen``), so
+    the bytes do not depend on the slab. Returns (the stacked
+    PackedWeight, the deployed bytes as the JAX package counts them)."""
+    E, K, N = w.shape
+    step = max(1, min(E, slab_elems // (K * N)))
+    gens = row_generators(gen, E) if gen is not None else [None] * E
+    out, nbytes = None, 0
+    for e0 in range(0, E, step):
+        sl = slice(e0, min(E, e0 + step))
+        sq = _quantize(gens[sl] if gen is not None else None, w[sl], eff, 1)
+        part = pack_for_kernel(sq)
+        nbytes += sq.nbytes_deployed()
+        del sq
+        if out is None:          # the whole stack's fields, filled in turn
+            out = {f: torch.empty((E, *getattr(part, f).shape[1:]),
+                                  dtype=getattr(part, f).dtype,
+                                  device=w.device)
+                   for f in ("qp", "cp", "recip", "shift", "scale", "zero")}
+            proto = part
+        for f, t in out.items():
+            t[sl] = getattr(part, f)
+    return dataclasses.replace(proto, shape=(E, K, N), **out), nbytes
+
+
+def _row_slabs_take(eff: QuantPolicy) -> bool:
+    """Min/max ranges combine across slabs of rows; a percentile does
+    not."""
+    k = eff.k if eff.method == "splitquant" else 1
+    return eff.method != "percentile" and (k > 1 or
+                                           eff.cfg.percentile is None)
+
+
+def quantize_rows(gen, w, eff: QuantPolicy, slab_elems: int):
+    """A (K, N) matrix quantized and packed in slabs of rows (a multiple
+    of 8, as many as ``slab_elems`` holds): the centroids from the whole
+    matrix's sample, then each slab's cluster ids and per-cluster ranges
+    (min, max: exact across slabs), the scales once, then each slab's
+    codes packed in place. The same bytes as ``pack_for_kernel`` of the
+    whole matrix's quantization. Returns (PackedWeight, deployed
+    bytes)."""
+    K, N = w.shape
+    k = eff.k if eff.method == "splitquant" else 1
+    cfg = eff.cfg
+    rows = max(8, slab_elems // N // 8 * 8)
+    cents = fit_centroids(gen, w, k) if k > 1 else None
+    red = 0 if cfg.per_channel else (0, 1)
+    cid = torch.empty((K, N), dtype=torch.uint8, device=w.device)
+    ranges = None
+    for r0 in range(0, K, rows):
+        wf = w[r0:r0 + rows].float()
+        c = cid[r0:r0 + rows]
+        c.copy_(assign_clusters(wf, cents) if k > 1 else torch.zeros_like(c))
+        part = [masked_min_max(wf, c == j, red) for j in range(k)]
+        ranges = part if ranges is None else [
+            (torch.minimum(a[0], b[0]), torch.maximum(a[1], b[1]),
+             a[2] | b[2]) for a, b in zip(ranges, part)]
+        del wf
+    ranges = [empty_to_zero(*r) for r in ranges]
+    scale, zero = qparams(torch.stack([r[0] for r in ranges]),
+                          torch.stack([r[1] for r in ranges]), cfg)
+    per = 8 // cfg.bits
+    qp = torch.empty((K // per, N), dtype=torch.uint8, device=w.device)
+    cp = torch.empty((K // 4, N), dtype=torch.uint8, device=w.device)
+    for r0 in range(0, K, rows):
+        c = cid[r0:r0 + rows]
+        q = quantize(w[r0:r0 + rows].float(), select_per_element(scale, c),
+                     select_per_element(zero, c), cfg)
+        qp[r0 // per:(r0 + rows) // per] = pack_codes(q, cfg.bits)
+        cp[r0 // 4:(r0 + rows) // 4] = pack_cids(c)
+    recip, shift = dequant_constants(scale, zero, N)
+    return (PackedWeight(qp=qp, cp=cp, recip=recip, shift=shift,
+                         scale=scale.float(), zero=zero.float(),
+                         bits=cfg.bits, k=k, shape=(K, N),
+                         orig_dtype=w.dtype),
+            deployed_bytes(K * N, cfg.bits, k,
+                           scale.numel() + zero.numel()))
 
 
 def quantize_tree(params, policy: QuantPolicy, seed: int = 0,

@@ -9,10 +9,12 @@ centroid). Every step is deterministic on the card too, so the same seed
 gives the same centroids in every run. Centroids come back sorted ascending, so for k=3 they are the
 paper's lower / middle / upper clusters.
 
-:func:`kmeans_1d_batched` runs it on B samples at once (one row each,
-one generator for all): the experts of a MoE layer, E matrices clustered
-on their own, in one pass of launches instead of E; :func:`kmeans_1d` is
-its one-row case.
+:func:`kmeans_1d_batched` runs it on B samples at once: the experts of
+a MoE layer, E matrices clustered on their own, in one pass of launches
+instead of E. Each row draws from a generator of its own
+(:func:`row_generators`), so a stack quantized in slabs of rows gets the
+same centroids whatever the slab; :func:`kmeans_1d` is the one-row case
+on the generator it is given.
 """
 from __future__ import annotations
 
@@ -30,31 +32,60 @@ def kmeans_1d(gen: torch.Generator, x: torch.Tensor, k: int = 3,
               iters: int = 25, num_candidates: int = 4) -> KMeansResult:
     """Lloyd's algorithm on 1-D data with greedy k-means++ seeding."""
     x = x.reshape(1, -1).float()
-    centers = kmeans_1d_batched(gen, x, k, iters, num_candidates)[0]
+    centers = _kmeans([gen], x, k, iters, num_candidates)[0]
     return KMeansResult(centers,
                         ((x[0, :, None] - centers) ** 2).min(1).values.sum())
 
 
-def kmeans_1d_batched(gen: torch.Generator, x: torch.Tensor, k: int = 3,
-                      iters: int = 25, num_candidates: int = 4
-                      ) -> torch.Tensor:
+def row_generators(gen: torch.Generator, B: int) -> list:
+    """B generators on ``gen``'s device, each seeded from one draw of
+    ``gen``: a stack's rows each draw from their own, so a row's
+    centroids do not depend on the rows it is computed beside."""
+    seeds = torch.randint(0, 1 << 62, (B,), generator=gen,
+                          device=gen.device).tolist()
+    return [torch.Generator(device=gen.device).manual_seed(s)
+            for s in seeds]
+
+
+def kmeans_1d_batched(gen, x: torch.Tensor, k: int = 3, iters: int = 25,
+                      num_candidates: int = 4) -> torch.Tensor:
     """:func:`kmeans_1d` of each row of ``x`` (B, n): greedy k-means++
-    seeding and Lloyd's iterations, every row on its own, the draws of
-    all rows from ``gen`` together. Returns the (B, k) centroids, each
-    row sorted ascending."""
+    seeding and Lloyd's iterations, every row on its own. ``gen``: one
+    generator per row (a list, as :func:`row_generators` gives), or a
+    generator that seeds them, so the draws of a row are the same in any
+    batch of rows. Returns the (B, k) centroids, each row sorted
+    ascending."""
+    if isinstance(gen, torch.Generator):
+        gen = row_generators(gen, x.shape[0])
+    return _kmeans(gen, x, k, iters, num_candidates)
+
+
+def _kmeans(gens, x: torch.Tensor, k: int, iters: int,
+            num_candidates: int) -> torch.Tensor:
+    """The batched k-means of :func:`kmeans_1d_batched`, row b drawing
+    from ``gens[b]``."""
     x = x.float()
     B, n = x.shape
+    if n > 1 << 24:
+        raise ValueError(f"k-means++ draws from torch.multinomial, which "
+                         f"takes at most 2^24 categories; got {n} points a "
+                         f"row (fit on a smaller sample)")
+
+    def draw(fn, t):
+        """fn(generator, row of t), each row from its own generator."""
+        return torch.cat([fn(g, t[b:b + 1]) for b, g in enumerate(gens)])
+
     rows = torch.arange(B, device=x.device)
-    first = x[rows, torch.randint(0, n, (B,), generator=gen,
-                                  device=x.device)]                 # (B,)
+    first = x[rows, draw(lambda g, t: torch.randint(
+        0, n, (t.shape[0],), generator=g, device=x.device), x)]     # (B,)
     centers = first[:, None].repeat(1, k)
     d2 = (x - first[:, None]) ** 2
     for i in range(1, k):
         total = d2.sum(1, keepdim=True)
         # all points equal ⇒ every distance is 0: draw uniformly instead
         w = torch.where(total > 0, d2, torch.ones_like(d2))
-        idx = torch.multinomial(w, num_candidates, replacement=True,
-                                generator=gen)                      # (B, ℓ)
+        idx = draw(lambda g, t: torch.multinomial(
+            t, num_candidates, replacement=True, generator=g), w)   # (B, ℓ)
         cand = torch.gather(x, 1, idx)
         new_cost = torch.minimum(d2[:, :, None],
                                  (x[:, :, None] - cand[:, None, :]) ** 2

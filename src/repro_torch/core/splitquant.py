@@ -79,10 +79,15 @@ class SplitQuantTensor:
     def nbytes_deployed(self) -> int:
         """Deployed footprint, as the JAX package counts it: packed codes
         + 2-bit cids + scales."""
-        n = self.q.numel()
-        cid_bits = 2 * n if self.k > 1 else 0
-        return (self.bits * n + cid_bits) // 8 + \
-            4 * (self.scale.numel() + self.zero.numel())
+        return deployed_bytes(self.q.numel(), self.bits, self.k,
+                              self.scale.numel() + self.zero.numel())
+
+
+def deployed_bytes(n: int, bits: int, k: int, n_constants: int) -> int:
+    """The JAX package's deployed count of n codes at ``bits`` with k
+    clusters (2-bit ids when k > 1) and ``n_constants`` fp32 scales and
+    zeros."""
+    return (bits * n + (2 * n if k > 1 else 0)) // 8 + 4 * n_constants
 
 
 def select_per_element(vals: torch.Tensor, cid: torch.Tensor,
@@ -114,8 +119,9 @@ def fit_centroids(gen: torch.Generator, w: torch.Tensor, k: int = 3,
     """Sorted (k,) centroids of ``w``'s values (k-means on a sample), or
     with ``stack_dims=1`` the (E, k) centroids of each of its E matrices,
     fit together."""
-    flat = w.float().reshape(*w.shape[:stack_dims], -1)
-    sample = strided_sample(flat, sample_size)
+    # the sample first: only its values are widened to fp32
+    sample = strided_sample(w.reshape(*w.shape[:stack_dims], -1),
+                            sample_size).float()
     if not stack_dims:
         return kmeans_1d(gen, sample, k=k, iters=kmeans_iters).centroids
     return kmeans_1d_batched(gen, sample, k=k, iters=kmeans_iters)
@@ -128,28 +134,46 @@ def assign_and_quantize(w: torch.Tensor, centroids: torch.Tensor,
     as ``argmin``) and quantize each cluster with its own min/max range.
     ``centroids``: (*stack, k)."""
     wf = w.float()
+    cid = assign_clusters(wf, centroids, stack_dims)
+    return quantize_clusters(wf, cid, centroids.shape[-1], cfg, w.dtype,
+                             stack_dims)
+
+
+def assign_clusters(wf: torch.Tensor, centroids: torch.Tensor,
+                    stack_dims: int = 0) -> torch.Tensor:
+    """uint8 id of each element's nearest centroid (first index on ties,
+    as ``argmin``); ``centroids`` (*stack, k)."""
     k = centroids.shape[-1]
-    cents = centroids.reshape(*w.shape[:stack_dims],
-                              *(1,) * (w.dim() - stack_dims), k)
+    cents = centroids.reshape(*wf.shape[:stack_dims],
+                              *(1,) * (wf.dim() - stack_dims), k)
     # running argmin over the k centroids: no (…, k) distance tensor, and
     # the strict ``<`` keeps the first index on ties
     best = (wf - cents[..., 0]) ** 2
-    cid = torch.zeros(w.shape, dtype=torch.uint8, device=w.device)
+    cid = torch.zeros(wf.shape, dtype=torch.uint8, device=wf.device)
     for c in range(1, k):
         d = (wf - cents[..., c]) ** 2
         closer = d < best
         best = torch.where(closer, d, best)
         cid[closer] = c
-    return quantize_clusters(wf, cid, k, cfg, w.dtype, stack_dims)
+    return cid
+
+
+def masked_min_max(x: torch.Tensor, mask: torch.Tensor, dim):
+    """(min, max, any) of x where mask over ``dim``; ±``_BIG`` where mask
+    holds nothing. Slabs of x combine exactly (min, max, or)."""
+    return (torch.where(mask, x, _BIG).amin(dim=dim),
+            torch.where(mask, x, -_BIG).amax(dim=dim), mask.any(dim=dim))
+
+
+def empty_to_zero(lo, hi, any_):
+    """A degenerate [0, 0] range where the mask held nothing."""
+    return torch.where(any_, lo, 0.0), torch.where(any_, hi, 0.0)
 
 
 def _masked_range(x: torch.Tensor, mask: torch.Tensor, dim):
     """min/max of x where mask over ``dim``, a degenerate [0, 0] range
     where mask holds nothing."""
-    lo = torch.where(mask, x, _BIG).amin(dim=dim)
-    hi = torch.where(mask, x, -_BIG).amax(dim=dim)
-    empty = ~mask.any(dim=dim)
-    return torch.where(empty, 0.0, lo), torch.where(empty, 0.0, hi)
+    return empty_to_zero(*masked_min_max(x, mask, dim))
 
 
 def quantize_clusters(wf: torch.Tensor, cid: torch.Tensor, k: int,

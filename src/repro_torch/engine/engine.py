@@ -247,11 +247,6 @@ class Engine:
                 + (" — and spec_k > 0 additionally needs positional KV "
                    "rollback, which recurrent state cannot provide"
                    if ecfg.spec_k else ""))
-        if cfg.family == "moe" and ecfg.spec_k:
-            raise NotImplementedError(
-                "spec_k > 0 over the MoE family is not ported (ROADMAP "
-                "queue 1 item 4, speculation over MoE): serve it with "
-                "spec_k=0")
         if ecfg.spec_k and ecfg.temperature > 0:
             raise NotImplementedError(
                 "spec_k > 0 requires greedy decoding (temperature <= "

@@ -30,7 +30,7 @@
 //    double buffer of the warp's own shared memory, so the next tile's
 //    bytes are in flight while this one is computed; a code row's 16-byte
 //    chunks are XOR-swizzled by row, so a lane per row reads them without
-//    bank conflicts and without padding;
+//    bank conflicts and without padding (but at D = 112, below);
 //  - a code becomes a float by one byte permute and one exact subtraction
 //    (rt::code_f), not by a conversion instruction;
 //  - Q.K: lane = row; the lane forms its row's scores for the block's
@@ -84,6 +84,15 @@
 // Heads: a block takes GB = 16, 4 or 1 query heads of a group (the
 // largest that divides G); the group's kv-head is read once per block.
 //
+// head_dim 112 (kimi-k2-1t-a32b, G = 8: GB = 4, the column path) with
+// sub-channel chunks of 28 (C = 4): a row is 7, 14 or 28 pieces of 16
+// bytes (int8, bf16, fp32), so the stage pads its rows to 8, 16 or 32
+// pieces, where the XOR swizzle stays inside the row; a lane copies the
+// tile's pieces in turn where their count a row does not divide 32; P.V
+// gives a lane ceil(D / 32) = 4 columns, masking those at or past D; the
+// chunk of column d is (d * cl_mul) >> 16, exact for d < 256, so a chunk
+// length needs no power of two, only a whole number of 4-column groups.
+//
 // Shared memory is dynamic: GB*D*4 bytes of q (and C chunk sums on the
 // row path, and the static table of 6 * C floats) plus, per warp, two stages of 32 rows of K and V codes (row
 // pitch D*sizeof(KV): 1, 2 or 4 bytes a value) and the scale arrays (S and Z of K and V, and 1/S of
@@ -99,7 +108,7 @@ namespace {
 
 constexpr int TR = 32;          // rows per warp tile
 constexpr int MAX_WARPS = 4;
-constexpr int MAX_DL = 4;       // columns per lane in P.V: D / 32 <= 4
+constexpr int MAX_DL = 4;       // columns per lane in P.V: ceil(D / 32) <= 4
 constexpr int MAX_SPLITS = 64;  // the merge's weights fit any block's shared memory
 constexpr int SMEM_MAX = 232448;
 
@@ -111,7 +120,7 @@ struct Args {
   float* part_o;   // (splits, N, Hq, D) fp32
   float* part_ml;  // (splits, N, Hq, 2): running max, sum
   int* counter;    // (N, Hkv * G / GB), 0 between calls
-  int N, T, Hq, Hkv, D, C, cl_shift, rows, splits;
+  int N, T, Hq, Hkv, D, C, cl_mul, rows, splits;  // chunk of column d: (d * cl_mul) >> 16
   int stat;        // ks..vz are per-layer (Hkv, C) constants
   float qscale;
 };
@@ -121,7 +130,8 @@ struct Args {
 // scale arrays (S, Z of K, then of V) instead of six (with 1/S); with
 // static scales (`stat`) it holds none.
 struct Geo {
-  int kp;     // pitch of a K or V code row: D * sizeof(KV), no padding
+  int kp;     // pitch of a K or V code row: D * sizeof(KV) up to a power of
+              // two of 16-byte pieces (D = 112: 128, 256 or 512 bytes)
   int sp;     // pitch of a scale row, in floats (odd: no bank conflicts)
   int na;     // scale arrays a stage holds
   int stage;  // one stage: K rows, V rows, then the scale arrays
@@ -135,7 +145,8 @@ constexpr int MAX_TW = 64;
 __host__ __device__ inline Geo geo(int D, int C, int kv_bytes, int GB, bool by_row,
                                    bool stat) {
   Geo g;
-  g.kp = D * kv_bytes;
+  g.kp = 16;
+  while (g.kp < D * kv_bytes) g.kp *= 2;
   g.sp = C + 1;
   g.na = C && !stat ? (by_row ? 4 : 6) : 0;
   g.stage = (2 * TR * g.kp + g.na * TR * g.sp * 4 + 15) / 16 * 16;
@@ -154,7 +165,9 @@ __host__ __device__ inline int head_bytes(int GB, int D, int C, bool by_row, boo
 // chunk c of row r lies at r * kp + 16 * (c ^ x(r)), x(r) the row's index
 // among the rows that share a 128-byte bank window (modulo the chunks a
 // row has, at most 8), so 8 lanes reading chunk c of 8 consecutive rows
-// (lane = row) hit 8 different bank groups.
+// (lane = row) hit 8 different bank groups. kp is a power of two (Geo
+// pads a row of 7, 14 or 28 pieces, D = 112, to 8, 16 or 32), so c ^ x(r)
+// stays inside the row; the padding piece is never read.
 struct Swizzle {
   int kp, shift, mask;
   __device__ Swizzle(int kp_) : kp(kp_) {
@@ -265,7 +278,7 @@ decode_split_kernel(Args a) {
   constexpr int KS = 0, KZ = 1, KR = 2, VS = BY_ROW ? 2 : 3, VZ = VS + 1, VR = 5;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_block;
-  const int D = a.D, C = a.C, DL = D / 32;
+  const int D = a.D, C = a.C, DL = (D + 31) / 32;  // P.V columns a lane, the last masked
   const int G = a.Hq / a.Hkv, groups = G / GB;
   const int h = blockIdx.x / groups;
   const int hq0 = h * G + (blockIdx.x % groups) * GB;  // first query head
@@ -334,8 +347,12 @@ decode_split_kernel(Args a) {
   const int* pos = a.kv_pos + (size_t)n * a.T;
   const int rb = D * (int)sizeof(KV), nck = rb / 16;
   // the lane's (row, 16-byte chunk) and (row, scale) in a tile, and the
-  // rows a pass covers: nck and C divide 32 (the launcher checks)
-  const int kr0 = lane / nck, kc0 = lane % nck, kstep = 32 / nck;
+  // rows a pass covers where nck divides 32; C divides 32 (the launcher
+  // checks). A row of 7, 14 or 28 chunks (D = 112) takes the chunks of
+  // the tile in turn instead, TR * nck of them.
+  const bool even = 32 % nck == 0;
+  const int kr0 = even ? lane / nck : 0, kc0 = even ? lane % nck : 0,
+            kstep = even ? 32 / nck : 0;
   const int sr0 = C ? lane / C : 0, sc0 = C ? lane % C : 0, sstep = C ? 32 / C : TR;
 
   // accr / bz4 (row path, int8): sum_r w_r code_{r,d} and sum_r w_r Z_r
@@ -364,19 +381,23 @@ decode_split_kernel(Args a) {
   auto issue = [&](int tile, int st) {
     const int t0 = lo + tile * TR;
     unsigned char* buf = wbase + st * gm.stage;
-    for (int r = kr0, c = kc0; r < TR; r += kstep) {
+    auto piece = [&](int r, int c) {
       const int at = sw.at(r, c);
       unsigned char* dk = buf + at;
       unsigned char* dv = buf + TR * gm.kp + at;
       if (t0 + r >= hi) {
         *(uint4*)dk = make_uint4(0u, 0u, 0u, 0u);
         *(uint4*)dv = make_uint4(0u, 0u, 0u, 0u);
-        continue;
+        return;
       }
       const size_t off = (((size_t)n * a.T + t0 + r) * a.Hkv + h) * rb + c * 16;
       sm90::cp_async16(sm90::smem_addr(dk), (const char*)a.k + off);
       sm90::cp_async16(sm90::smem_addr(dv), (const char*)a.v + off);
-    }
+    };
+    if (even)
+      for (int r = kr0, c = kc0; r < TR; r += kstep) piece(r, c);
+    else
+      for (int i = lane; i < TR * nck; i += 32) piece(i / nck, i % nck);
     if (INT8 && !stat) {
       float* sb = (float*)(buf + 2 * TR * gm.kp);
       for (int r = sr0, c = sc0; r < TR; r += sstep) {
@@ -434,7 +455,7 @@ decode_split_kernel(Args a) {
                                    raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
 #pragma unroll
         for (int sub = 0; sub < 4; ++sub) {
-          const int d = d0 + 4 * sub, c = d >> a.cl_shift;
+          const int d = d0 + 4 * sub, c = (d * a.cl_mul) >> 16;
           if (c != c_cur) {  // the same chunk on every lane
             fold(c_cur);
             c_cur = c;
@@ -457,7 +478,8 @@ decode_split_kernel(Args a) {
                                    raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
 #pragma unroll
         for (int sub = 0; sub < 4; ++sub) {
-          const int d = d0 + 4 * sub, c = d >> a.cl_shift;
+          // a chunk is a whole number of 4-column groups (cl % 4 == 0)
+          const int d = d0 + 4 * sub, c = (d * a.cl_mul) >> 16;
           if (c != c_cur) {  // the same chunk on every lane
             c_cur = c;
             S = srow[KS * saq + c];
@@ -538,7 +560,7 @@ decode_split_kernel(Args a) {
                                      raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
 #pragma unroll
           for (int sub = 0; sub < 4; ++sub) {
-            const int d = d0 + 4 * sub, c = d >> a.cl_shift;
+            const int d = d0 + 4 * sub, c = (d * a.cl_mul) >> 16;
             if (c != c_cur) {
               c_cur = c;
               w = p_row * __frcp_rn(srow[VS * saq + c]);
@@ -564,12 +586,13 @@ decode_split_kernel(Args a) {
       return;
     }
 
-    // P.V: lane = columns lane + 32 i; rows with p = 0 add 0
+    // P.V: lane = columns lane + 32 i < D; rows with p = 0 add 0
     const unsigned char* vb = buf + TR * gm.kp;
 #pragma unroll
     for (int i = 0; i < MAX_DL; ++i) {
       if (i >= DL) break;
-      const int d = lane + 32 * i, c = INT8 ? d >> a.cl_shift : 0;
+      const int d = lane + 32 * i, c = INT8 ? (d * a.cl_mul) >> 16 : 0;
+      if (d >= D) break;   // D = 112: lanes 16-31 have three columns
       // the column's 16-byte chunk (XORed by row, as the copy placed it)
       // and its 4-byte word within the chunk; its byte in that word
       const int db = d * (int)sizeof(KV), wo = (db & 15) & ~3, bj = db & 3;
@@ -658,7 +681,7 @@ decode_split_kernel(Args a) {
   for (int g = 0; g < GB; ++g) {
 #pragma unroll
     for (int i = 0; i < MAX_DL; ++i)
-      if (DM == 0 && i < DL) aw[(warp * GB + g) * D + lane + 32 * i] = acc[g][i];
+      if (DM == 0 && i < DL && lane + 32 * i < D) aw[(warp * GB + g) * D + lane + 32 * i] = acc[g][i];
     if (lane == 0) {
       mw[warp * GB + g] = m[g];
       lw[warp * GB + g] = l[g];
@@ -779,23 +802,26 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   const bool int8 = kv_bytes == 1;
   if (N <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       (kv_bytes != 1 && kv_bytes != 2 && kv_bytes != 4) ||
-      (D != 32 && D != 64 && D != 128) || rows <= 0 || rows % TR != 0 || splits <= 0 || splits > MAX_SPLITS ||
+      (D != 32 && D != 64 && D != 112 && D != 128) || rows <= 0 || rows % TR != 0 || splits <= 0 || splits > MAX_SPLITS ||
       (long long)(splits - 1) * rows >= T || (long long)splits * rows < T ||
       warps < 1 || warps > MAX_WARPS || rows / TR > warps * MAX_TW ||
       (Hq / Hkv) % group != 0 ||
       (splits > 1 && (!part_o || !part_ml || !counter)))
     return (int)cudaErrorInvalidValue;
-  int cl_shift = 0;
+  // sub-channel chunks: cl = D / C columns, a whole number of 4-column
+  // groups (D = 112, C = 4: 28), C dividing 32; the row path (D <= 64)
+  // meets only powers of two
+  int cl_mul = 0;
   if (int8) {
-    if (C <= 0 || D % C != 0) return (int)cudaErrorInvalidValue;
+    if (C <= 0 || D % C != 0 || 32 % C != 0) return (int)cudaErrorInvalidValue;
     const int cl = D / C;
-    if (cl < 4 || (cl & (cl - 1))) return (int)cudaErrorInvalidValue;
-    while ((1 << cl_shift) < cl) ++cl_shift;
+    if (cl < 4 || cl % 4) return (int)cudaErrorInvalidValue;
+    cl_mul = (65536 + cl - 1) / cl;   // (d * cl_mul) >> 16 == d / cl for d < 256
   }
   Args a{q, k, v, (const int*)kv_pos, (const int*)q_pos, (const float*)ks,
          (const float*)kz, (const float*)vs, (const float*)vz, o,
          (float*)part_o, (float*)part_ml, (int*)counter,
-         N, T, Hq, Hkv, D, int8 ? C : 0, cl_shift, rows, splits,
+         N, T, Hq, Hkv, D, int8 ? C : 0, cl_mul, rows, splits,
          int8 && stat ? 1 : 0, qscale};
   cudaStream_t st = (cudaStream_t)stream;
   using BF = __nv_bfloat16;

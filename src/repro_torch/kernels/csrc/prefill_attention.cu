@@ -112,6 +112,15 @@
 // are padded to D + 8 bf16 rather than swizzled: ldmatrix reads 8 rows of
 // 16 bytes at a 16-byte offset each, the same conflict-free pattern.
 //
+// head_dim 112 (kimi-k2-1t-a32b, G = 8: 8 queries x 8 heads a block):
+// TcGeo<112> gives KD = 7 k16 steps of Q.K and ND = 14 n8 tiles of P.V;
+// the padded row pitch of 120 bf16 (240 bytes) still puts ldmatrix's 8
+// rows on distinct banks; a raw row of 7, 14 or 28 pieces of 16 bytes
+// (int8, bf16, fp32) is copied piece by piece in turn; a sub-channel
+// chunk of 28 columns straddles k16 fragments, so the dequantization
+// takes each 4-column group's own chunk scale ((d * cl_mul) >> 16).
+// The fp32-q kernel takes any D already.
+//
 // Registers, spills and the bytes a block takes at the serving shapes are
 // printed by chip_smoke.py (PERF.md): two blocks an SM at both serving
 // head layouts.
@@ -319,8 +328,8 @@ struct PArgs {
   float* part_o;   // (splits, Sq, Hq, D)
   float* part_ml;  // (splits, Sq, Hq, 2): running max, sum
   int* counter;    // (query blocks, Hkv), 0 between calls
-  int Sq, T, Hq, Hkv, C, cl_shift, pos_start, length, bq, cache_rows,
-      cache_splits;
+  int Sq, T, Hq, Hkv, C, cl_mul, pos_start, length, bq, cache_rows,
+      cache_splits;   // chunk of column d: (d * cl_mul) >> 16
   float qscale;
 };
 
@@ -452,9 +461,13 @@ prefill_tc_kernel(PArgs a) {
   __syncthreads();
   auto live = [&](int i) { return i < ntiles && tl[i] != 0; };  // block-uniform
   // the thread's (row, 16-byte chunk) and (row, scale) in a tile, and the
-  // rows a pass covers: nck and C divide 128
+  // rows a pass covers where nck divides 128; C divides 32 (the launcher
+  // checks). A row of 7, 14 or 28 chunks (D = 112) takes the tile's
+  // chunks in turn instead, KT * nck of them.
   const int bytes = raw16 ? D * 2 : rbc, nck = bytes / 16;
-  const int kr0 = tid / nck, kc0 = tid % nck, kstep = TC_THREADS / nck;
+  const bool even = TC_THREADS % nck == 0;
+  const int kr0 = even ? tid / nck : 0, kc0 = even ? tid % nck : 0,
+            kstep = even ? TC_THREADS / nck : 0;
   const int sr0 = C ? tid / C : 0, sc0 = C ? tid % C : 0, sstep = C ? TC_THREADS / C : KT;
   auto issue = [&](int i, int st) {
     unsigned char* raw = smem + G_::RING + st * STAGE;
@@ -463,12 +476,16 @@ prefill_tc_kernel(PArgs a) {
                      : chunk ? (const char*)a.kn : (const char*)a.ck;
     const char* vp = chunk8 ? (const char*)a.s8.wv
                      : chunk ? (const char*)a.vn : (const char*)a.cv;
-    for (int r = kr0, c = kc0; r < KT; r += kstep) {
-      if (t0 + r >= hi) continue;
+    auto piece = [&](int r, int c) {
+      if (t0 + r >= hi) return;
       const size_t off = ((size_t)(t0 + r) * a.Hkv + h) * bytes + c * 16;
       sm90::cp_async16(sm90::smem_addr(raw + r * RB + c * 16), kp + off);
       sm90::cp_async16(sm90::smem_addr(raw + (KT + r) * RB + c * 16), vp + off);
-    }
+    };
+    if (even)
+      for (int r = kr0, c = kc0; r < KT; r += kstep) piece(r, c);
+    else
+      for (int i = tid; i < KT * nck; i += TC_THREADS) piece(i / nck, i % nck);
     if (INT8 && !raw16 && !STAT) {  // per-entry scales of the cache or the window
       float* sb = (float*)(raw + 2 * KT * RB);
       const float* ks = chunk ? a.s8.wks : a.s8.ks;
@@ -502,7 +519,10 @@ prefill_tc_kernel(PArgs a) {
           out = *(const uint2*)(src + d * 2);
         } else if (INT8) {
           const uint32_t w = *(const uint32_t*)(src + d) ^ 0x80808080u;
-          const int c = d >> a.cl_shift;
+          // four columns of one chunk: a chunk is a whole number of
+          // 4-column groups (28 at D = 112, where a k16 fragment of K
+          // holds columns of two chunks, each with its own scale)
+          const int c = (d * a.cl_mul) >> 16;
           const float S = STAT ? stab[(2 * kv) * C + c] : sb[(2 * kv) * KT * C + r * C + c];
           const float Z = STAT ? stab[(2 * kv + 1) * C + c]
                                : sb[(2 * kv + 1) * KT * C + r * C + c];
@@ -749,6 +769,7 @@ cudaError_t dispatch_tc(const PArgs& a, int D, cudaStream_t st) {
   switch (D) {
     case 32: return launch_tc<32, KV, STAT>(a, st);
     case 64: return launch_tc<64, KV, STAT>(a, st);
+    case 112: return launch_tc<112, KV, STAT>(a, st);
     case 128: return launch_tc<128, KV, STAT>(a, st);
     default: return cudaErrorInvalidValue;
   }
@@ -786,6 +807,7 @@ int prefill_attention_smem(int D, int C, int kv_bytes, int T) {
   switch (D) {
     case 32: return TcGeo<32>::bytes(kv, c, T);
     case 64: return TcGeo<64>::bytes(kv, c, T);
+    case 112: return TcGeo<112>::bytes(kv, c, T);
     case 128: return TcGeo<128>::bytes(kv, c, T);
     default: return 0;
   }
@@ -830,11 +852,12 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
                      : launch_fp32<float>(q, kn, vn, ck, cv, kp, s8, o, Sq, T, Hq,
                                           Hkv, D, C, pos_start, length, qscale, st));
   const int G = Hq / Hkv;
-  int cl_shift = 0;
+  // sub-channel chunks of a whole number of 4-column groups, C dividing 32
+  int cl_mul = 0;
   if (int8) {
     const int cl = D / C;
-    if (cl < 4 || (cl & (cl - 1))) return (int)cudaErrorInvalidValue;
-    while ((1 << cl_shift) < cl) ++cl_shift;
+    if (cl < 4 || cl % 4 || 32 % C) return (int)cudaErrorInvalidValue;
+    cl_mul = (65536 + cl - 1) / cl;   // (d * cl_mul) >> 16 == d / cl for d < 256
   }
   if (G > QROWS || cache_rows <= 0 || cache_rows % KT != 0 || cache_splits <= 0 ||
       cache_splits + 1 > MAX_SPLITS ||
@@ -844,7 +867,7 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
   PArgs p{(const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
           (const __nv_bfloat16*)vn, ck, cv, kp, s8, (__nv_bfloat16*)o,
           (float*)part_o, (float*)part_ml, (int*)counter,
-          Sq, T, Hq, Hkv, int8 ? C : 0, cl_shift, pos_start, length,
+          Sq, T, Hq, Hkv, int8 ? C : 0, cl_mul, pos_start, length,
           QROWS / G, cache_rows, cache_splits, qscale};
   if (kv_bytes == 2) return (int)dispatch_tc<__nv_bfloat16, false>(p, D, st);
   if (!int8) return (int)dispatch_tc<float, false>(p, D, st);

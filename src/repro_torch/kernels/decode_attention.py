@@ -27,7 +27,8 @@ call), ``decode_attention.variant_launches`` splits them by plan:
 (one block per (slot, head group) walks all of T), and
 ``decode_attention.mode_launches`` by mode: ``"fp"``, ``"dynamic"`` and
 ``"static"``, and ``decode_attention.dtype_launches`` by the cache's dtype
-(:data:`CACHE_DTYPES`). A float16 cache is refused.
+(:data:`CACHE_DTYPES`). A float16 cache and head_dims outside
+:data:`HEAD_DIMS` are refused (ROADMAP queue 2 A).
 """
 from __future__ import annotations
 
@@ -64,6 +65,8 @@ MODES = ("fp", "dynamic", "static")
 #: counts (shared with the prefill attention and the K/V write)
 CACHE_DTYPES = {torch.int8: "int8", torch.float32: "float32",
                 torch.bfloat16: "bfloat16"}
+#: the head_dims the attention kernels take (112: kimi-k2-1t-a32b)
+HEAD_DIMS = (32, 64, 112, 128)
 
 
 def is_static(scale, N: int, T: int) -> bool:
@@ -271,7 +274,8 @@ def _check_cuda(q, k, v, kv_pos, q_pos, scales):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype not in CACHE_DTYPES or v.dtype != k.dtype:
         raise TypeError(f"the cache must be int8, float32 or bfloat16, got "
-                        f"{k.dtype}, {v.dtype}")
+                        f"{k.dtype}, {v.dtype} (a float16 cache is ROADMAP "
+                        f"queue 2 A)")
     if k.dtype == torch.int8:
         if any(s is None for s in scales):
             raise ValueError("int8 mode requires all four scale arrays")
@@ -282,11 +286,27 @@ def _check_cuda(q, k, v, kv_pos, q_pos, scales):
             if tuple(s.shape) not in ok or s.dtype != torch.float32:
                 raise ValueError("scales must be fp32 (N, T, Hkv, C) per "
                                  "entry, or (1, 1, Hkv, C) or (Hkv, C) static")
-        if D % C or (D // C) < 4 or (D // C) & (D // C - 1):
-            raise ValueError(f"the kernel takes sub-channel chunks of a "
-                             f"power-of-two length >= 4, got D={D}, C={C}")
-    if D not in (32, 64, 128):
-        raise ValueError(f"the kernel takes head_dim 32, 64 or 128, got {D}")
+        check_chunks(D, C)
+    check_head_dim(D)
+
+
+def check_head_dim(D: int) -> None:
+    """The head_dims the attention kernels take (D = 256 is ROADMAP
+    queue 2 A)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the attention kernels take head_dim "
+                         f"{', '.join(map(str, HEAD_DIMS))}, got {D} "
+                         f"(ROADMAP queue 2 A)")
+
+
+def check_chunks(D: int, C: int) -> None:
+    """The sub-channel chunks the attention kernels take: C dividing D
+    and 32, chunks of a whole number of 4-column groups (D = 112, C = 4:
+    28)."""
+    if D % C or 32 % C or (D // C) < 4 or (D // C) % 4:
+        raise ValueError(f"the attention kernels take C dividing 32 and "
+                         f"sub-channel chunks of a multiple of 4 columns, "
+                         f"got D={D}, C={C}")
 
 
 def decode_attention(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,

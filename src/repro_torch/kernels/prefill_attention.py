@@ -52,7 +52,8 @@ variant, ``prefill_attention.mode_launches`` by mode (:data:`MODES`) and
 ``write_kv_rows.mode_launches`` the write's (:data:`WRITE_MODES`), and
 ``prefill_attention.dtype_launches`` and ``write_kv_rows.dtype_launches``
 each by the cache's dtype (:data:`CACHE_DTYPES`: int8, float32,
-bfloat16; a float16 cache is refused).
+bfloat16; a float16 cache is refused, ROADMAP queue 2 A). The tensor-core
+kernel takes head_dim 32, 64, 112 and 128.
 """
 from __future__ import annotations
 
@@ -64,8 +65,9 @@ import torch
 
 from ..core.quantize import QuantConfig, qparams, quantize, value_range
 from . import build
-from .decode_attention import (CACHE_DTYPES, NEG_INF, dequant_chunk,
-                               merge_partials, pick_kv_chunk)
+from .decode_attention import (CACHE_DTYPES, NEG_INF, check_chunks,
+                               check_head_dim, dequant_chunk, merge_partials,
+                               pick_kv_chunk)
 
 KV_QCFG = QuantConfig(bits=8, symmetric=False)
 
@@ -318,7 +320,8 @@ def write_kv_rows(k, v, dst_k, dst_v, kv_pos, k_scale=None, k_zero=None,
             dst_k.dtype not in CACHE_DTYPES:
         raise ValueError(f"the destination must be int8, fp32 or bf16 (N, "
                          f"T, {Hkv}, {D}), got {tuple(dst_k.shape)} "
-                         f"{dst_k.dtype}")
+                         f"{dst_k.dtype} (a float16 cache is ROADMAP queue "
+                         f"2 A)")
     N, T = dst_k.shape[:2]
     if kv_pos.shape != (N, T) or kv_pos.dtype != torch.int32:
         raise ValueError(f"kv_pos must be int32 ({N}, {T})")
@@ -564,7 +567,8 @@ def _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales):
         raise TypeError("q/k_new/v_new must share one of float32, bfloat16")
     if cache_k.dtype not in CACHE_DTYPES or cache_v.dtype != cache_k.dtype:
         raise TypeError(f"the cache must be int8, float32 or bfloat16, got "
-                        f"{cache_k.dtype}, {cache_v.dtype}")
+                        f"{cache_k.dtype}, {cache_v.dtype} (a float16 cache "
+                        f"is ROADMAP queue 2 A)")
     if cache_k.dtype == torch.int8:
         if any(s is None for s in scales):
             raise ValueError("int8 mode requires all four scale arrays")
@@ -577,14 +581,10 @@ def _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales):
                                  "or (Hkv, C) static")
         if D % C:
             raise ValueError(f"head_dim {D} not divisible by qchunks {C}")
-        if q.dtype == torch.bfloat16 and \
-                ((D // C) < 4 or (D // C) & (D // C - 1)):
-            raise ValueError(f"the tensor-core kernel takes sub-channel "
-                             f"chunks of a power-of-two length >= 4, got "
-                             f"D={D}, C={C}")
-    if q.dtype == torch.bfloat16 and D not in (32, 64, 128):
-        raise ValueError(f"the tensor-core kernel takes head_dim 32, 64 or "
-                         f"128, got {D}")
+        if q.dtype == torch.bfloat16:
+            check_chunks(D, C)
+    if q.dtype == torch.bfloat16:
+        check_head_dim(D)
 
 
 def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,

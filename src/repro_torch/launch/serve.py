@@ -79,10 +79,15 @@ at most every ``--metrics-interval`` seconds and one at drain; read it
 with ``obs.load_snapshots``), and installs ``obs.RegistryQuantProbe`` on
 the act-quant kernels' observed wrappers.
 
-The MoE family (moonshot-v1-16b-a3b, kimi-k2-1t-a32b reduced) serves
-through the engine; its experts run through the grouped SplitQuant
-matmul on the card. At full width the weights are built layer by layer
-(:func:`build_params`): moonshot-v1-16b-a3b's bf16 tree alone is 56.8 GB.
+The MoE family (moonshot-v1-16b-a3b, kimi-k2-1t-a32b) serves through
+the engine, speculatively (``--spec-k``; on the card the draft stays
+packed) and through the wave loop (``--wave``; a wave prefill of more
+than 512 tokens drops the pairs past each expert's capacity, as in JAX);
+its experts run through the grouped SplitQuant matmul on the card. At
+full width the weights are built part by part (:func:`build_params`):
+moonshot-v1-16b-a3b's bf16 tree alone is 56.8 GB. kimi-k2-1t-a32b at
+full width serves its first :data:`KIMI_CARD_LAYERS` layers (every width
+kept; the 61 would not fit one card).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch moonshot-v1-16b-a3b --reduced --device cpu \
@@ -248,6 +253,36 @@ def moe_smoke_workload():
     return cfg, ecfg, quant, warmup, prompts
 
 
+#: kimi-k2-1t-a32b's depth on one 80 GB card: the dense prelude and 4 of
+#: its 60 MoE layers (:func:`kimi_smoke_workload`)
+KIMI_CARD_LAYERS = 5
+
+
+def kimi_smoke_workload():
+    """The full-width kimi-k2-1t-a32b workload that ``chip_smoke.py``
+    drives: the JAX package's config (d_model 7168, GQA 64/8 at head_dim
+    112, 384 experts top-8 of d_ff 2048 with 1 shared, a dense prelude of
+    FFN 18432, vocab 163840, bf16; its attention is the JAX config's
+    approximation, not checked against the published model) cut to
+    :data:`KIMI_CARD_LAYERS` layers, every width kept: at ~0.75 B a
+    parameter a MoE layer packs to ~12.8 GB, so the prelude, 4 MoE layers,
+    the bf16 embedding and the lm_head deploy ~55 GB and leave the build
+    its working set (one expert stack in bf16, 11.3 GB) on an 80 GB
+    card; a fifth MoE layer would not. SplitQuant INT4 k=3 weights (seed
+    0), and :func:`smoke_workload`'s engine settings and request shapes:
+    an int8 slot cache of 8 slots x 1024 rows (sub-channel chunks of 28),
+    96-token prefill chunks, one 100-token warm-up prompt, 16 seeded
+    requests of 16-512 prompt tokens and 32 new tokens each.
+
+    Returns (cfg, ecfg, quant, warmup_prompt, prompts)."""
+    _, ecfg, quant, _, _ = smoke_workload()
+    cfg = dataclasses.replace(get_arch("kimi-k2-1t-a32b"),
+                              n_layers=KIMI_CARD_LAYERS)
+    warmup = seeded_prompts(cfg.vocab, 1, 100, 100, seed=99)[0]
+    prompts = seeded_prompts(cfg.vocab, 16, 16, 512, seed=0)
+    return cfg, ecfg, quant, warmup, prompts
+
+
 def bf16_cache_workload():
     """:func:`smoke_workload` over an fp slot cache in bf16 (the JAX
     engine's ``kv_dtype="bfloat16"``): the same stablelm-1.6b weights,
@@ -308,7 +343,13 @@ def serve_engine(args, cfg, params, device, kv_scales, kv_qchunks, prompts,
             max_new_tokens=args.max_new_tokens, kv_mode=args.kv_mode,
             kv_qchunks=kv_qchunks, fused_attn=args.fused_attn,
             prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
-            draft_recipe=args.draft_recipe, metrics=not args.no_metrics,
+            draft_recipe=args.draft_recipe,
+            # a MoE draft stays packed on the card: its experts run
+            # through the grouped kernel (dequantized, moonshot's INT4
+            # stacks alone are 56 GB in bf16)
+            draft_dequantize=not (cfg.family == "moe" and
+                                  device.type == "cuda"),
+            metrics=not args.no_metrics,
             max_queue=max_queue, overload_policy=args.overload_policy,
             degrade=args.degrade, fault_spec=faults,
             journal_path=args.journal, journal_resume=resume,
@@ -622,6 +663,11 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    elif cfg.name == "kimi-k2-1t-a32b":
+        cfg = kimi_smoke_workload()[0]
+        print(f"note: {cfg.name} at full width, its first "
+              f"{KIMI_CARD_LAYERS} layers (the dense prelude and "
+              f"{KIMI_CARD_LAYERS - 1} MoE): the 61 do not fit one card")
     if (args.trace_chrome or args.trace_kv_every) and not args.trace:
         raise ValueError(
             "--trace-chrome / --trace-kv-every require --trace — without "

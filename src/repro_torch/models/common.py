@@ -84,7 +84,9 @@ def apply_rope(x, positions, theta: float, variant: str = "full"):
 
 def he_init(gen: torch.Generator, shape, dtype, device, fan_in=None):
     fan = fan_in if fan_in is not None else shape[0]
-    w = torch.randn(shape, generator=gen, device=device) * (2.0 / fan) ** 0.5
+    # scaled in place: one fp32 copy of the draw at a time
+    w = torch.randn(shape, generator=gen, device=device).mul_(
+        (2.0 / fan) ** 0.5)
     return w.to(dtype)
 
 

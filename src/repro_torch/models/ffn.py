@@ -58,19 +58,38 @@ def apply_ffn(p, x, ffn_type: str):
 
 
 # -------------------------------------------------------------------- MoE --
-def init_moe(gen, cfg, dtype, device):
+def init_moe(gen, cfg, dtype, device, put=None):
     """A MoE layer at the JAX package's shapes and scales: an fp32 router
     (d, E), expert stacks (E, d, f) / (E, f, d), and the shared experts as
-    one swiglu FFN of width ``f · n_shared_experts``."""
+    one swiglu FFN of width ``f · n_shared_experts``. ``put(name, part)``,
+    when given, takes each entry as soon as it is drawn and returns what
+    stands in its place (the part-by-part quantized build hands each
+    expert stack to the quantizer before the next is drawn)."""
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
-    p = {"router": he_init(gen, (d, E), torch.float32, device),
-         "w_gate": he_init(gen, (E, d, f), dtype, device),
-         "w_up": he_init(gen, (E, d, f), dtype, device),
-         "w_down": he_init(gen, (E, f, d), dtype, device, fan_in=f)}
+    put = put or (lambda name, part: part)
+    p = {"router": put("router", he_init(gen, (d, E), torch.float32,
+                                         device))}
+    for name, shape, fan in (("w_gate", (E, d, f), None),
+                             ("w_up", (E, d, f), None),
+                             ("w_down", (E, f, d), f)):
+        p[name] = put(name, expert_stack(gen, shape, dtype, device, fan))
     if cfg.n_shared_experts:
-        p["shared"] = init_ffn(gen, d, f * cfg.n_shared_experts, "swiglu",
-                               dtype, device)
+        p["shared"] = put("shared", init_ffn(
+            gen, d, f * cfg.n_shared_experts, "swiglu", dtype, device))
     return p
+
+
+def expert_stack(gen, shape, dtype, device, fan_in=None):
+    """He-init of an (E, ·, ·) expert stack, fan E unless given (as the
+    JAX package's ``init_moe``), drawn one matrix at a time into the
+    stack's dtype: the fp32 draw of a whole stack (22.5 GB for one of
+    kimi-k2-1t-a32b's) never exists."""
+    std = (2.0 / (fan_in if fan_in is not None else shape[0])) ** 0.5
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for e in range(shape[0]):
+        out[e] = torch.randn(shape[1:], generator=gen,
+                             device=device).mul_(std)
+    return out
 
 
 def route(p, xt, cfg):
@@ -104,6 +123,16 @@ def positions_in_expert(flat_e: torch.Tensor, E: int) -> torch.Tensor:
     pos_sorted = torch.arange(flat_e.shape[1], device=flat_e.device) - \
         torch.gather(seg_start, 1, sorted_e)
     return torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+
+
+def dispatch(eidx: torch.Tensor, n_blocks: int, E: int, C: int):
+    """The token→expert pairs of ``eidx`` (T, K) in ``n_blocks`` blocks:
+    (flat_e (n_blocks, Tb·K) each pair's expert, pos its position among
+    its block's pairs routed there, keep whether pos < C; the pairs past
+    the capacity C drop)."""
+    flat_e = eidx.reshape(n_blocks, -1)
+    pos = positions_in_expert(flat_e, E)
+    return flat_e, pos, pos < C
 
 
 def _materialize(w, dtype):
@@ -177,13 +206,11 @@ def apply_moe(p, x, cfg, capacity_factor: float | None = None,
     me = F.one_hot(eidx[:, 0], E).float().mean(0)
     aux = E * torch.sum(me * probs.mean(0))
 
-    flat_e = eidx.reshape(n_blocks, Tb * K)
-    pos = positions_in_expert(flat_e, E)
+    flat_e, pos, keep = dispatch(eidx, n_blocks, E, C)
     if x.device.type == "cuda" and isinstance(p["w_gate"], PackedWeight):
         y = _experts_grouped(p, xt, flat_e, E, K)
     else:
         y = _experts_literal(p, xt, flat_e, pos, C, n_blocks, E, K)
-    keep = pos < C
     w = torch.where(keep.reshape(-1), gate.reshape(-1), 0).to(x.dtype)
     out = (y * w[:, None]).reshape(T, K, d).sum(1)
     if "shared" in p:

@@ -30,26 +30,31 @@ from .common import (apply_norm, dense, dtype_of, embed_init, embed_lookup,
 from .ffn import apply_ffn, apply_moe, init_ffn, init_moe
 
 
-def _init_layer(gen, cfg, dtype, device, moe: bool = False):
+def _init_layer(gen, cfg, dtype, device, moe: bool = False, put=None):
+    """One layer; ``put(names, part)`` takes each part as it is drawn (the
+    attention, the two norms, the FFN, or each entry of the MoE) and
+    returns what stands in its place."""
     d, Hq, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    put = put or (lambda names, part: part)
     p = {
-        "attn": {
+        "attn": put(("attn",), {
             "wq": he_init(gen, (d, Hq * D), dtype, device),
             "wk": he_init(gen, (d, Hkv * D), dtype, device),
             "wv": he_init(gen, (d, Hkv * D), dtype, device),
             "wo": he_init(gen, (Hq * D, d), dtype, device, fan_in=Hq * D),
-        },
-        "ln1": init_norm(d, cfg.norm_type, dtype, device),
-        "ln2": init_norm(d, cfg.norm_type, dtype, device),
+        }),
+        "ln1": put(("ln1",), init_norm(d, cfg.norm_type, dtype, device)),
+        "ln2": put(("ln2",), init_norm(d, cfg.norm_type, dtype, device)),
     }
     if moe:
-        p["moe"] = init_moe(gen, cfg, dtype, device)
+        p["moe"] = init_moe(gen, cfg, dtype, device,
+                            put=lambda name, part: put(("moe", name), part))
         return p
     ff = cfg.dense_d_ff or cfg.d_ff
     if cfg.n_experts and not cfg.dense_d_ff:
         ff = cfg.d_ff * max(cfg.top_k, 1)   # the dense prelude's width
-    p["ffn"] = init_ffn(gen, d, ff, cfg.ffn_type, dtype, device,
-                        bias=cfg.bias)
+    p["ffn"] = put(("ffn",), init_ffn(gen, d, ff, cfg.ffn_type, dtype,
+                                      device, bias=cfg.bias))
     return p
 
 
@@ -64,8 +69,10 @@ def init(cfg, seed: int = 0, device=None, on_part=None):
     (the card unless ``device="cpu"``). ``on_part(path, part, stack)``,
     when given, is called on each part of the tree as soon as it is
     built, in the tree's order: each top-level entry (path ``(key,)``,
-    stack 1) and each layer of a stack (path ``(key, index)``, stack the
-    stack's depth); its return value takes the part's place."""
+    stack 1) and each part of a layer of a stack as it is drawn (path
+    ``(key, index, *names)``: the attention, the norms, the FFN, or each
+    entry of the MoE — each expert stack on its own; stack the stack's
+    depth); its return value takes the part's place."""
     if cfg.family not in ("dense", "moe") or cfg.tie_embeddings:
         raise NotImplementedError(f"the port serves dense and MoE decoders "
                                   f"with an untied head, got {cfg.name!r}")
@@ -80,9 +87,10 @@ def init(cfg, seed: int = 0, device=None, on_part=None):
     for key, n, moe in zip(("layers", "moe_layers"), stack_depths(cfg),
                            (False, True)):
         if n:
-            params[key] = [keep((key, i), _init_layer(gen, cfg, dtype,
-                                                      device, moe), n)
-                           for i in range(n)]
+            params[key] = [_init_layer(
+                gen, cfg, dtype, device, moe,
+                put=lambda names, part, key=key, i=i, n=n: keep(
+                    (key, i, *names), part, n)) for i in range(n)]
     params["lm_head"] = keep(("lm_head",), he_init(
         gen, (cfg.d_model, cfg.vocab), dtype, device), 1)
     return params

@@ -10,11 +10,15 @@ generation completes. Sampling runs on the device (greedy argmax, or with
 ``torch.Generator``), with one (B,) copy of the tokens to the host per
 step for the eos/limit bookkeeping.
 
-Dense models prefill into a ``KVCache`` of ``max_len`` rows with a pad
-mask, so the pads' K/V are never attended to (their entries hold
+Dense and MoE models prefill into a ``KVCache`` of ``max_len`` rows with
+a pad mask, so the pads' K/V are never attended to (their entries hold
 position -1), and decode at the wave's shared position, as the JAX
-``Server`` does; the engine (:class:`repro_torch.engine.Engine`) is their
-default path, this loop the baseline. RWKV6 folds the pads into its
+``Server`` does. A MoE wave prefill routes the wave's B·S tokens, pads
+included, as one block: above 512 tokens each expert's capacity is
+``Tb·K·cf // E`` and the pairs past it drop, the same pairs as in JAX
+(``models.ffn.apply_moe``); a decode step (B tokens) drops none. The
+engine (:class:`repro_torch.engine.Engine`) is their default path, this
+loop the baseline. RWKV6 folds the pads into its
 recurrent state (``rwkv6.prefill`` takes no pad mask), as in the JAX
 package. Torch's generator cannot reproduce ``jax.random.categorical``:
 at a temperature the tokens are other draws from the same distribution.
@@ -34,9 +38,8 @@ from ..models import get_model
 
 #: families whose prefill takes ``max_len`` and a pad mask (per-request KV
 #: validity) and whose decode step takes the wave's position (the JAX
-#: package's list also holds moe and vlm, which the wave loop does not
-#: serve yet)
-PAD_MASK_FAMILIES = ("dense",)
+#: package's list also holds vlm, whose patch prefix is not ported)
+PAD_MASK_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -68,12 +71,6 @@ class Server:
 
     def __init__(self, cfg, params, serve_cfg: ServeConfig, device=None,
                  generator=None):
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                "the wave loop over the MoE family is not ported (ROADMAP "
-                "queue 1 item 4: its wave prefill drops pairs over "
-                "capacity, a regime not yet held to JAX); serve MoE with "
-                "the engine")
         self.cfg = cfg
         self.model = get_model(cfg)
         self.params = params

@@ -5,8 +5,9 @@ at import) when no card is present. Run them on a machine with an H100:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The attention kernels are run at the serving head layouts of
-stablelm-1.6b and chatglm3-6b, at depths and chunk positions that probe
-their split plans, for both kernel variants of the prefill.
+stablelm-1.6b and chatglm3-6b, and kimi-k2-1t-a32b's GQA 64/8 at head_dim
+112 with sub-channel chunks of 28, at depths and chunk positions that
+probe their split plans, for both kernel variants of the prefill.
 
 Tolerances: fp32 outputs atol 1e-4 relative to the output's scale
 (summation order differs); bf16 outputs 2 ulp-ish (2e-2 relative); the
@@ -232,7 +233,8 @@ def _decode_inputs(gen, dev, N, T, Hq, Hkv, D, int8, dtype):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("Hq,Hkv,D", [(8, 8, 64), (32, 2, 128), (4, 4, 32)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(8, 8, 64), (32, 2, 128), (4, 4, 32),
+                                      (64, 8, 112), (4, 4, 112)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_vs_plain(dev, int8, Hq, Hkv, D, dtype):
     gen = torch.Generator(device=dev).manual_seed(Hq + Hkv + D)
@@ -246,7 +248,7 @@ def test_decode_kernel_vs_plain(dev, int8, Hq, Hkv, D, dtype):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("Hq,Hkv,D", [(8, 8, 64), (32, 2, 128)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(8, 8, 64), (32, 2, 128), (64, 8, 112)])
 @pytest.mark.parametrize("pos_start,length,Sq", [(37, 96, 96), (0, 20, 32),
                                                  (250, 7, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -320,7 +322,8 @@ def _split_depths(T, rows):
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32),
+                                      (64, 8, 112), (4, 4, 112)])
 @pytest.mark.parametrize("T", [100, 1024, 4096])
 def test_decode_split_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype, int8):
     """The split-T kernel at the depths that probe its plan, plus a slot
@@ -406,7 +409,8 @@ def _chunk_inputs(gen, dev, Sq, T, Hq, Hkv, D, int8, dtype, pos_start):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128),
+                                      (64, 8, 112)])
 @pytest.mark.parametrize("pos_start", [0, 37, 900])
 @pytest.mark.parametrize("Sq", [1, 16, 32, 96])
 def test_prefill_tensor_core_kernel_vs_plain(dev, Sq, pos_start, Hq, Hkv, D,
@@ -807,7 +811,8 @@ def _static_cache(k, v):
 
 @pytest.mark.parametrize("layout", ["(Hkv, C)", "(1, 1, Hkv, C)"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32),
+                                      (64, 8, 112)])
 @pytest.mark.parametrize("T", [100, 1024, 4096])
 def test_decode_static_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype, layout):
     """Static per-layer scales through both the row path (one head a
@@ -831,7 +836,8 @@ def test_decode_static_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype, layout):
 @pytest.mark.parametrize("mode", ["static", "verify_dynamic",
                                   "verify_static", "verify_fp"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128),
+                                      (64, 8, 112)])
 @pytest.mark.parametrize("pos_start,Sq,length", [(37, 96, 90), (0, 4, 4),
                                                  (384, 4, 3), (900, 16, 16)])
 def test_prefill_static_and_verify_kernel_vs_plain(dev, mode, dtype, Hq, Hkv,
@@ -1026,7 +1032,7 @@ def _write_map(where, N, T, dev):
 
 
 @pytest.mark.parametrize("where", ["decode", "chunk", "past_T"])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 112, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", pa.WRITE_MODES)
 def test_kv_write_kernel_bit_identical(dev, mode, dtype, D, where):
@@ -1221,7 +1227,8 @@ def _bf16(gen, dev, *shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32),
+                                      (64, 8, 112)])
 @pytest.mark.parametrize("T", [100, 1000, 4096])
 def test_decode_bf16_cache_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype):
     """The split-T kernel over a bf16 cache (T = 1000: off the 32-row
@@ -1254,7 +1261,8 @@ def test_decode_bf16_cache_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype):
 
 @pytest.mark.parametrize("verify", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32),
+                                      (64, 8, 112)])
 @pytest.mark.parametrize("pos_start,Sq", [(0, 16), (37, 96), (384, 96),
                                           (900, 4)])
 def test_prefill_bf16_cache_kernel_vs_plain(dev, pos_start, Sq, Hq, Hkv, D,
@@ -1284,7 +1292,7 @@ def test_prefill_bf16_cache_kernel_vs_plain(dev, pos_start, Sq, Hq, Hkv, D,
 
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("where", ["decode", "chunk", "past_T"])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 112, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kv_write_bf16_destination_bit_identical(dev, dtype, D, where,
                                                  offset):
@@ -1789,3 +1797,156 @@ def test_stacked_kmeans_is_deterministic_on_the_card(dev):
                                     .manual_seed(0), x).flatten().tolist())
             for _ in range(4)}
     assert len(outs) == 1
+
+
+# ------------------------------------------------- kimi-k2's shapes ---
+@pytest.mark.parametrize("E,K,N,bits,rows", [
+    (384, 7168, 2048, 4, 64), (384, 7168, 2048, 4, 768),
+    (384, 2048, 7168, 4, 64), (384, 2048, 7168, 4, 768),
+    (64, 2048, 1408, 2, 48), (64, 1408, 2048, 2, 576)])
+def test_grouped_matmul_at_moe_serving_shapes(dev, E, K, N, bits, rows):
+    """The grouped kernel at kimi-k2-1t-a32b's expert shapes (384 experts,
+    INT4, a decode step's 64 pairs and a 96-token chunk's 768) and at
+    moonshot-v1-16b-a3b's INT2 draft's (a decode step's 48 pairs and a
+    chunk's 576), bf16, routed by a seeded top-k: against its plain
+    version; 384 x 7168 x 2048 codes need no 64-bit index within an
+    expert."""
+    gen = torch.Generator(device=dev).manual_seed(E + K + bits + rows)
+    top = 8 if E == 384 else 6
+    qp = torch.randint(0, 256, (E, K * bits // 8, N), generator=gen,
+                       dtype=torch.uint8, device=dev)
+    # packed ids drawn as bytes, each 2-bit id moved from 3 to 2 (k = 3):
+    # no (E, K, N) id tensor of 5.6 G elements
+    cp = torch.randint(0, 256, (E, K // 4, N), generator=gen,
+                       dtype=torch.uint8, device=dev)
+    for p in range(4):
+        cp -= ((cp >> (2 * p)) & 3 == 3).to(torch.uint8) << (2 * p)
+    recip = (torch.rand((E, 3, N), generator=gen, device=dev) + 0.5) / 16
+    shift = torch.randn((E, 3, N), generator=gen, device=dev) * 0.05
+    probs = torch.rand((rows // top, E), generator=gen, device=dev)
+    flat = torch.topk(probs, top, dim=-1).indices.reshape(-1)
+    offsets = torch.searchsorted(torch.sort(flat).values, torch.arange(
+        E + 1, device=dev)).to(torch.int32)
+    x = torch.randn((rows, K), generator=gen, device=dev).to(torch.bfloat16)
+    got = sqm.grouped_splitquant_matmul(x, offsets, qp, cp, recip, shift,
+                                        bits=bits, k=3)
+    torch.cuda.synchronize()
+    want = sqm.grouped_splitquant_matmul_ref(x, offsets, qp, cp, recip,
+                                             shift, bits)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, 2e-2)
+
+
+def _kimi_small(dev):
+    """Reduced kimi-k2-1t-a32b at head_dim 112 with GQA 8/1 in bf16 (the
+    card's tensor-core attention and head-group decode), INT4 SplitQuant
+    on the card, and 6 prompts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg = dataclasses.replace(get_arch("kimi-k2-1t-a32b").reduced(),
+                              head_dim_override=112, n_heads=8,
+                              n_kv_heads=1, param_dtype="bfloat16")
+    params, _ = build_params(cfg, bits=4, method="splitquant", device=dev)
+    return cfg, params, seeded_prompts(cfg.vocab, 6, 100, 200, seed=3)
+
+
+@pytest.mark.parametrize("cache", ["int8", "static", "bf16"])
+def test_kimi_step_and_chunk_reexecute_after_rollback(dev, cache):
+    """Reduced kimi at head_dim 112 (chunks of 28): a decode step over the
+    slots and a 96-token prefill chunk, each rolled back and run again,
+    give identical logits and cache bytes."""
+    from repro_torch.calib import collect_kv_stats, kv_static_scales
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.engine.kvcache import rollback_slot
+    from repro_torch.models import transformer
+    cfg, params, prompts = _kimi_small(dev)
+    kw = dict(kv_mode="fp", kv_dtype="bfloat16") if cache == "bf16" else \
+        dict(kv_mode="int8")
+    scales = None
+    if cache == "static":
+        rng = np.random.default_rng(0)
+        scales = kv_static_scales(collect_kv_stats(
+            cfg, params, [rng.integers(0, cfg.vocab, (2, 64))]))
+    eng = Engine(cfg, params, EngineConfig(n_slots=4, max_len=256,
+                                           max_new_tokens=48,
+                                           prefill_chunk=96, **kw),
+                 device=dev, kv_scales=scales)
+    for p in prompts[:4]:
+        eng.submit(p)
+    for _ in range(40):               # every slot decoding
+        if len(eng.sched.active_slots()) == 4:
+            break
+        eng.step()
+    assert len(eng.sched.active_slots()) == 4
+    eng.step()
+    pos0 = eng._pos.copy()
+    toks = torch.from_numpy(eng._last_tok[:, None]).to(dev)
+    out = []
+    for _ in range(2):
+        logits = transformer.decode_step_slots(
+            params, cfg, eng.cache, toks, torch.from_numpy(pos0).to(dev))
+        out.append((logits.clone(), _cache_copy(eng.cache)))
+        for s in range(4):
+            rollback_slot(eng.cache, s, int(pos0[s]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert bool(torch.isfinite(out[0][0]).all())
+    _assert_same_cache(out[0][1], out[1][1])
+    slot = 0
+    eng.cache.kv_pos[:, slot] = -1
+    chunk = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, 192), device=dev)[None]
+    transformer.prefill_chunk_slots(params, cfg, eng.cache, chunk[:, :96],
+                                    slot, 0, 96)
+    out = []
+    for _ in range(2):
+        logits = transformer.prefill_chunk_slots(
+            params, cfg, eng.cache, chunk[:, 96:], slot, 96, 96)
+        out.append((logits.clone(), _cache_copy(eng.cache)))
+        rollback_slot(eng.cache, slot, 96)
+    assert torch.equal(out[0][0], out[1][0])
+    _assert_same_cache(out[0][1], out[1][1])
+
+
+@pytest.mark.parametrize("kv", ["int8", "static", "bf16"])
+def test_kimi_engine_card_matches_cpu(dev, kv):
+    """Reduced kimi at head_dim 112 in fp32 (INT4 weights; the fp32
+    kernels) through the engine over int8 dynamic, int8 static and bf16
+    caches: card tokens equal the CPU's."""
+    from repro_torch.calib import collect_kv_stats, kv_static_scales
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.launch.serve import build_params, seeded_prompts
+    cfg = dataclasses.replace(get_arch("kimi-k2-1t-a32b").reduced(),
+                              head_dim_override=112, n_heads=8, n_kv_heads=1)
+    params, _ = build_params(cfg, bits=4, method="splitquant", device="cpu")
+    prompts = seeded_prompts(cfg.vocab, 6, 3, 60, seed=2)
+    kw = dict(kv_mode="fp", kv_dtype="bfloat16") if kv == "bf16" else \
+        dict(kv_mode="int8")
+    scales = None
+    if kv == "static":
+        rng = np.random.default_rng(0)
+        scales = kv_static_scales(collect_kv_stats(
+            cfg, params, [rng.integers(0, cfg.vocab, (2, 40))]))
+    outs = {}
+    for d, p in (("cpu", params), ("cuda", tree_to(params, dev))):
+        eng = Engine(cfg, p, EngineConfig(n_slots=3, max_len=96,
+                                          max_new_tokens=6, **kw),
+                     device=d, kv_scales=scales)
+        for pr in prompts:
+            eng.submit(pr)
+        outs[d] = [r.out for r in eng.drain()]
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_attention_kernels_refuse_head_dim_256(dev):
+    """D = 256 (paligemma-3b, recurrentgemma-9b) is still refused, naming
+    ROADMAP queue 2 A."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, kv_pos, q_pos, sc = _decode_inputs(gen, dev, 4, 64, 4, 4, 256,
+                                                True, torch.bfloat16)
+    with pytest.raises(ValueError, match="queue 2 A"):
+        decode_attention(q, k, v, kv_pos, q_pos, *sc)
+    with pytest.raises(ValueError, match="queue 2 A"):
+        prefill_attention(q, q[:, :4], q[:, :4], k[0], v[0], kv_pos[0], 10,
+                          4, *(s[0] for s in sc))

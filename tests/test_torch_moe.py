@@ -50,7 +50,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import ffn as tffn
 from repro_torch.models import get_model as t_get_model
 from repro_torch.models import transformer as tt
-from repro_torch.runtime.serve_loop import Server, ServeConfig
+from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
 
 from test_torch_quant import _to_numpy_tree
 from torch_threads import one_torch_thread  # noqa: F401
@@ -430,12 +430,116 @@ def test_engine_greedy_tokens_match_jax(static):
 
 
 def test_moe_paths_not_ported_raise():
-    """Speculation over MoE and the wave loop over MoE raise, naming the
-    ROADMAP item; ``get_model`` maps the family to the transformer."""
+    """Speculation over MoE and the wave loop over MoE serve (they raised
+    until both were ported); ``get_model`` maps the family to the
+    transformer."""
     s = _moon()
     assert t_get_model(s.tcfg) is tt
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        Engine(s.tcfg, s.packed, EngineConfig(n_slots=1, max_len=16,
-                                              spec_k=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        Server(s.tcfg, s.packed, ServeConfig(), device="cpu")
+    eng = Engine(s.tcfg, s.packed, EngineConfig(
+        n_slots=1, max_len=64, max_new_tokens=3, kv_mode="int8", spec_k=2),
+        device="cpu")
+    eng.submit(_prompts(s.cfg, 1)[0])
+    assert [len(r.out) for r in eng.drain()] == [3] and eng.n_spec_steps
+    reqs = [Request(uid=0, prompt=_prompts(s.cfg, 1)[0])]
+    Server(s.tcfg, s.packed, ServeConfig(max_new_tokens=3),
+           device="cpu").serve(reqs)
+    assert len(reqs[0].out) == 3
+
+
+# ------------------------------------------------- speculation over MoE ---
+SPEC_KW = dict(n_slots=3, max_len=64, max_new_tokens=6, kv_mode="int8",
+               prefill_chunk=16, spec_k=3)
+
+
+@functools.cache
+def _draft():
+    """The port's INT8 SplitQuant of reduced moonshot's weights (it
+    accepts some of its proposals and rejects others; an INT2 draft
+    rejects them all here), and the same codes as a JAX tree."""
+    packed, _ = tapply.quantize_tree(
+        _moon().dense, tapply.QuantPolicy(cfg=TQuantConfig(bits=8)), seed=0)
+    return packed, _to_jax(packed)
+
+
+def test_spec_over_moe_matches_jax_and_greedy():
+    """The speculative engine over reduced moonshot (spec_k 3, an INT8
+    draft, an int8 cache): the JAX speculative engine's tokens and its
+    proposed / accepted counts (some accepted, some not), and the greedy
+    engine's tokens."""
+    s = _moon()
+    draft, jdraft = _draft()
+    prompts = _prompts(s.cfg)
+    jeng = JEngine(s.cfg, s.jq, JEngineConfig(**SPEC_KW, flight=False,
+                                              metrics=False),
+                   draft_params=jdraft)
+    eng = Engine(s.tcfg, s.packed, EngineConfig(**SPEC_KW), device="cpu",
+                 draft_params=draft)
+    for e in (jeng, eng):
+        for p in prompts:
+            e.submit(p)
+    jout = [r.out for r in jeng.drain()]
+    out = [r.out for r in eng.drain()]
+    greedy = Engine(s.tcfg, s.packed, EngineConfig(
+        **dict(SPEC_KW, spec_k=0)), device="cpu")
+    for p in prompts:
+        greedy.submit(p)
+    assert out == jout
+    assert out == [r.out for r in greedy.drain()]
+    counts = (eng.sched.spec_proposed, eng.sched.spec_accepted)
+    assert counts == (jeng.sched.spec_proposed, jeng.sched.spec_accepted)
+    assert 0 < counts[1] < counts[0] and eng.n_spec_steps
+
+
+# ----------------------------------------------------- the wave loop ---
+def _record_drops(monkeypatch):
+    """Each MoE dispatch of more than 512 tokens, as the list of its
+    dropped (block, pair) masks, in both packages: the port's from
+    ``ffn.dispatch``, JAX's from ``_dispatch_block`` (a pair is dropped
+    where its source weight is 0) through a debug callback."""
+    rec = {"port": [], "jax": []}
+    dispatch, block = tffn.dispatch, jffn._dispatch_block
+
+    def port(eidx, n_blocks, E, C):
+        out = dispatch(eidx, n_blocks, E, C)
+        if eidx.shape[0] // n_blocks > 512:
+            rec["port"].append((~out[2]).numpy())
+        return out
+
+    def jax_block(xt, gate, eidx, E, K, C, dtype):
+        out = block(xt, gate, eidx, E, K, C, dtype)
+        if xt.shape[0] > 512:
+            jax.debug.callback(lambda w: rec["jax"].append(
+                np.asarray(w)[None, :, 0] == 0), out[3])
+        return out
+    monkeypatch.setattr(tffn, "dispatch", port)
+    monkeypatch.setattr(jffn, "_dispatch_block", jax_block)
+    return rec
+
+
+def test_moe_wave_drops_the_pairs_jax_drops(monkeypatch):
+    """The wave ``Server`` over reduced moonshot, a first wave of four
+    prompts left-padded to 200 tokens (800 routed as one block, capacity
+    int(800·2·1.25) // 8 = 250 a block and expert; the pads route alike and
+    overflow theirs) and a second of two: the dropped pairs equal JAX's in
+    count and position, and the tokens equal the JAX ``Server``'s."""
+    from repro.runtime import serve_loop as jsl
+    s = _moon()
+    rng = np.random.default_rng(11)
+    lens = [200, 17, 60, 3, 9, 31]
+    prompts = [rng.integers(0, s.cfg.vocab, size=n) for n in lens]
+    scfg = dict(max_batch=4, max_new_tokens=4, max_len=208)
+    rec = _record_drops(monkeypatch)
+    jreqs = [jsl.Request(uid=i, prompt=p.astype(np.int32))
+             for i, p in enumerate(prompts)]
+    jsl.Server(s.cfg, s.jq, jsl.ServeConfig(**scfg)).serve(jreqs)
+    jax.effects_barrier()
+    reqs = [Request(uid=i, prompt=p) for i, p in enumerate(prompts)]
+    srv = Server(s.tcfg, s.packed, ServeConfig(**scfg), device="cpu")
+    srv.serve(reqs)
+    assert len(rec["port"]) == len(rec["jax"]) == 1     # one MoE layer
+    for got, want in zip(rec["port"], rec["jax"]):
+        assert got.shape == want.shape == (1, 800 * 2)
+        assert got.sum() > 0
+        np.testing.assert_array_equal(got, want)
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+    assert all(len(r.out) == 4 for r in reqs)

@@ -18,7 +18,9 @@ Phases (any failure exits non-zero):
    time the card could take (the larger of bytes over 3.35 TB/s and
    operations over the bf16 tensor-core rate, 989 TFLOP/s); the matmul
    cases (INT4 at every shape, INT2 and INT8 at stablelm-1.6b's decode
-   and chunk M) also print their achieved TFLOP/s and share of the bound, and
+   and chunk M; paligemma-3b's wk / wv and geglu at those M and its
+   patch projection, K = 1152, at 8 x 256 rows) also print their
+   achieved TFLOP/s and share of the bound, and
    the build's ``-Xptxas -v`` lines of the tensor-core matmul kernel and
    of the two attention kernels (registers, spills, shared memory) are
    printed first. The decode cases (stablelm-1.6b and chatglm3-6b at 8
@@ -63,6 +65,12 @@ Phases (any failure exits non-zero):
    sub-channel chunks of 28; the first act-quant cases run once more
    through the ``*_observed`` wrappers with a ``RegistryQuantProbe``
    installed, its gauges equal to ``code_stats`` of the plain codes;
+   decode attention (8 slots of 1024 rows), prefill attention (a
+   96-token chunk and a 4-row verify window at 384) and the K/V write
+   (a 96-row chunk, an 8-slot decode write, a 4-row window) at
+   paligemma-3b's MQA 8/1 and head_dim 256 (chunks of 64) in every cache
+   mode (int8 dynamic and static, fp32, bf16, float16), and over a
+   float16 cache at stablelm-1.6b's and chatglm3-6b's layouts;
 3. engine: stablelm-1.6b at its published widths (seeded random bf16
    weights, SplitQuant INT4 k=3, quantized on the card) served by the
    continuous-batching engine over an int8 slot cache: 8 slots,
@@ -205,6 +213,21 @@ Phases (any failure exits non-zero):
    bf16 variants and dynamic modes only, no expert stack dequantized,
    finite logits); it prints build seconds and peak, deployed bytes,
    tokens/s, TTFT, decode-step and chunk p50, peak memory and launches;
+3f. engine_f16 (after engine_bf16): the engine phase's weights and
+   requests over a float16 fp cache, gated as engine_bf16 (every
+   attention and write launch over float16 in mode fp, one write a layer
+   and pass); vlm, vlm_prefix and vlm_wave (before moe): paligemma-3b at
+   full width and depth (``vlm_smoke_workload``: 18 layers, MQA 8/1 at
+   head_dim 256, a tied head, a 1152 -> 2048 patch projection) built
+   layer by layer on the card and served by the engine over the int8
+   dynamic cache (every budget, one K/V write a layer and pass, bf16
+   variants and the dynamic mode only, no plain version called, finite
+   logits; build seconds and peak, deployed bytes, tokens/s, TTFT,
+   decode-step and chunk p50, peak memory); one ``transformer.prefill``
+   of 8 prompts of 32 tokens after 256 seeded bf16 patch embeds each
+   (logits (8, 288, vocab) finite; ``patch_proj`` one matmul launch,
+   the prefill 1 + 7 x 18); and the wave ``Server`` with its pad mask
+   (every budget, the matmul alone);
 4. cross-checks: stablelm-1.6b ``.reduced()`` in fp32 through the engine
    on the card and on the CPU with the same weights: identical greedy
    tokens; the speculative engine (INT2 draft, spec_k 3) over int8
@@ -225,7 +248,12 @@ Phases (any failure exits non-zero):
    tokens; reduced moonshot through the wave ``Server`` with an
    800-token wave (pairs dropped): card tokens == CPU tokens; reduced
    kimi-k2-1t-a32b at head_dim 112, GQA 8/1, in fp32 through the
-   engine: card tokens == CPU tokens;
+   engine: card tokens == CPU tokens; the engine over a float16 fp
+   cache: identical tokens; reduced paligemma-3b and its head_dim-256
+   variant (MQA 2/1, d_model 512) in fp32 through the engine: identical
+   tokens; their prefill with 8 patch embeds: logits within 1e-4 of
+   their scale; reduced paligemma through the wave ``Server``: identical
+   tokens;
 5. rwkv6: rwkv6-3b at its published widths (seeded random bf16 weights,
    SplitQuant INT4 k=3 of 257 matrices, quantized on the card) served by
    the wave loop: waves of 8, 16 seeded requests of 64-256 prompt tokens
@@ -242,7 +270,8 @@ The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
 (``launches_by_path`` splits them: engine, static, spec, dense_wave,
 wave, engine_bf16, oneshot, sampling, recipe, chaos, recovery,
-observe, moe, moe_spec, moe_wave and kimi,
+observe, moe, moe_spec, moe_wave, kimi, engine_f16, vlm, vlm_prefix
+and vlm_wave,
 ``launches_by_variant``
 splits those of the matmul (``grouped``: its MoE form) and of the two
 attention kernels by variant,
@@ -318,18 +347,22 @@ PATHS = {
     "splitquant_matmul": ("engine", "static", "spec", "dense_wave", "wave",
                           "engine_bf16", "oneshot", "sampling", "recipe",
                           "chaos", "recovery", "observe", "moe", "moe_spec",
-                          "moe_wave", "kimi"),
+                          "moe_wave", "kimi", "engine_f16", "vlm",
+                          "vlm_prefix", "vlm_wave"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
     "prefill_attention": ("engine", "static", "spec", "engine_bf16",
                           "sampling", "recipe", "chaos", "recovery",
-                          "observe", "moe", "moe_spec", "kimi"),
+                          "observe", "moe", "moe_spec", "kimi", "engine_f16",
+                          "vlm"),
     "kv_write": ("engine", "spec", "engine_bf16", "oneshot", "sampling",
-                 "chaos", "observe", "moe", "moe_spec", "kimi"),
+                 "chaos", "observe", "moe", "moe_spec", "kimi", "engine_f16",
+                 "vlm"),
     "wkv_chunked": ("wave",),
     "decode_attention": ("engine", "static", "spec", "engine_bf16",
                          "oneshot", "sampling", "recipe", "chaos",
-                         "recovery", "observe", "moe", "moe_spec", "kimi"),
+                         "recovery", "observe", "moe", "moe_spec", "kimi",
+                         "engine_f16", "vlm"),
     "kv_write_static": ("static", "spec", "recipe", "recovery"),
 }
 #: the 1 - 1e-6 quantile of chi-square with 64 degrees of freedom (the
@@ -501,12 +534,17 @@ def matmul_cases(torch, timer, rep):
                  (prompts[i:i + B] for i in range(0, len(prompts), B)))
     # (arch, K, N, M at decode, at a prefill chunk and at a wave prefill,
     # bits): INT4 as every serving run quantizes, INT2 and INT8 (the
-    # recipe phase's mixed tree) at the stablelm decode and chunk M
+    # recipe phase's mixed tree) at the stablelm decode and chunk M;
+    # paligemma-3b's own shapes (wk / wv, geglu) at decode and chunk M,
+    # and its patch projection (K = 1152) at vlm_prefix's 8 x 256 rows
     stablelm = ((2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352))
     shapes = [("stablelm-1.6b", K, N, (8, 96, m_wave), 4)
               for K, N in stablelm] + \
         [("rwkv6-3b", K, N, (8, 96, 2048), 4) for K, N in (
             (2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536))] + \
+        [("paligemma-3b", K, N, (8, 96), 4) for K, N in (
+            (2048, 256), (2048, 16384), (16384, 2048))] + \
+        [("paligemma-3b patch_proj", 1152, 2048, (2048,), 4)] + \
         [("stablelm-1.6b", K, N, (8, 96), bits) for bits in (2, 8)
          for K, N in stablelm]
     for arch, K, N, Ms, bits in shapes:
@@ -962,7 +1000,14 @@ def prefill_mode_cases(torch, timer, rep):
                 *args, verify=verify)))
 
 
-def kv_write_cases(torch, timer, rep, srep):
+#: the write cases' (arch, Hkv, D) and cache modes by default
+WRITE_ARCHS = (("stablelm-1.6b", 32, 64), ("chatglm3-6b", 2, 128),
+               ("kimi-k2-1t-a32b", 8, 112))
+WRITE_CASE_MODES = ("dynamic", "static", "fp", "fp bf16")
+
+
+def kv_write_cases(torch, timer, rep, srep, archs=WRITE_ARCHS,
+                   modes=WRITE_CASE_MODES, standalone=True):
     """The K/V cache write ``write_kv_rows`` (one launch a layer write:
     K and V quantized together, codes, scales and kv_pos stored in the
     slot rows) at its main-path shapes, bf16 K/V into a layer of 8 slots
@@ -977,7 +1022,9 @@ def kv_write_cases(torch, timer, rep, srep):
     written once, and the static constants and decode positions read.
     Then the standalone ``quantize_kv`` and ``quantize_kv_static`` (the
     same kernel with a dense destination) at 96 and 8 rows, codes and
-    scales exact."""
+    scales exact (with ``standalone``). ``archs``: (arch, Hkv, D);
+    ``modes``: the write modes, "fp bf16" and "fp f16" the fp mode into
+    bf16 and float16 rows."""
     from repro_torch.kernels.prefill_attention import (
         quantize_kv, quantize_kv_ref, quantize_kv_static,
         quantize_kv_static_ref, write_kv_rows, write_kv_rows_ref)
@@ -986,8 +1033,7 @@ def kv_write_cases(torch, timer, rep, srep):
     f = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
     depths = torch.tensor([1000, 513, 0, 17, 256, 777, 64, 1023],
                           dtype=torch.int32, device="cuda")
-    for arch, Hkv, D in (("stablelm-1.6b", 32, 64), ("chatglm3-6b", 2, 128),
-                         ("kimi-k2-1t-a32b", 8, 112)):
+    for arch, Hkv, D in archs:
         for what, R, kw, kept in (
                 ("chunk", 96, dict(slot=3, pos_start=384, length=90), 96),
                 ("decode", N, dict(positions=depths), N),
@@ -995,12 +1041,14 @@ def kv_write_cases(torch, timer, rep, srep):
                                           length=2), 2)):
             k = (f(R, Hkv, D) * 2).to(torch.bfloat16)
             v = f(R, Hkv, D).to(torch.bfloat16)
-            for mode in ("dynamic", "static", "fp", "fp bf16"):
+            for mode in modes:
                 kv_pos = torch.randint(-1, T, (N, T), generator=gen,
                                        device="cuda", dtype=torch.int32)
-                if mode == "fp bf16":
-                    dst = [f(N, T, Hkv, D).to(torch.bfloat16),
-                           f(N, T, Hkv, D).to(torch.bfloat16), kv_pos]
+                if mode in ("fp bf16", "fp f16"):
+                    dt = torch.bfloat16 if mode == "fp bf16" else \
+                        torch.float16
+                    dst = [f(N, T, Hkv, D).to(dt), f(N, T, Hkv, D).to(dt),
+                           kv_pos]
                 elif mode == "fp":
                     dst = [f(N, T, Hkv, D), f(N, T, Hkv, D), kv_pos]
                 else:
@@ -1025,7 +1073,8 @@ def kv_write_cases(torch, timer, rep, srep):
                         fail(f"kv_write {arch} {what}: only {inside:.2f} of "
                              f"the static codes fall inside the range; the "
                              f"check would test the clip")
-                row = 2 * Hkv * D * {"fp": 4, "fp bf16": 2}.get(mode, 1) + \
+                row = 2 * Hkv * D * {"fp": 4, "fp bf16": 2,
+                                     "fp f16": 2}.get(mode, 1) + \
                     4 + \
                     (2 * 2 * Hkv * C * 4 if mode == "dynamic" else 0)
                 nbytes = 2 * R * Hkv * D * 2 + kept * row + \
@@ -1045,7 +1094,7 @@ def kv_write_cases(torch, timer, rep, srep):
                     f"{c['host_us']:.1f} us a call")
         # the standalone quantizers (the same kernel, a dense destination)
         # at the chunk's and the decode write's rows, K alone
-        for R in (96, N):
+        for R in (96, N) if standalone else ():
             x = (f(R, Hkv, D) * 2).to(torch.bfloat16)
             sz = static_scales_of(torch, x, C, gen)
             n = x.numel()
@@ -1292,15 +1341,19 @@ def log_ptxas(out: str) -> None:
     for arch, Hq, Hkv, D in (("stablelm-1.6b", 32, 32, 64),
                              ("chatglm3-6b", 32, 2, 128),
                              ("moonshot-v1-16b-a3b", 16, 16, 128),
-                             ("kimi-k2-1t-a32b", 64, 8, 112)):
-        p = decode_plan(8, 1024, Hkv, Hq // Hkv, build.sm_count(0))
+                             ("kimi-k2-1t-a32b", 64, 8, 112),
+                             ("paligemma-3b", 8, 1, 256)):
+        p = decode_plan(8, 1024, Hkv, Hq // Hkv, build.sm_count(0), D)
         smem = [lib.decode_attention_smem(D, 4, 1, st, p.group, p.warps)
                 for st in (0, 1)]
         log(f"attention dynamic shared memory per block, {arch} int8 C=4: "
             f"decode {smem[0]} B dynamic, {smem[1]} B static ({p}), prefill "
             f"{lib.prefill_attention_smem(D, 4, 1, 1024)} B; bf16 cache: "
             f"decode {lib.decode_attention_smem(D, 0, 2, 0, p.group, p.warps)}"
-            f" B, prefill {lib.prefill_attention_smem(D, 0, 2, 1024)} B")
+            f" B, prefill {lib.prefill_attention_smem(D, 0, 2, 1024)} B; fp32 "
+            f"cache: decode "
+            f"{lib.decode_attention_smem(D, 0, 4, 0, p.group, p.warps)} B, "
+            f"prefill {lib.prefill_attention_smem(D, 0, 4, 1024)} B")
     log("wkv dynamic shared memory per block (K=V=64, bf16 / fp32): "
         f"{lib.wkv_chunked_smem(64, 1)} / {lib.wkv_chunked_smem(64, 0)} B")
 
@@ -2859,8 +2912,8 @@ def recipe_phase(torch, counters, card_line):
 def options_cross_check(torch):
     """stablelm-1.6b ``.reduced()`` in fp32 (INT4 SplitQuant weights) on
     the card and on the CPU with the same weights: the greedy engine over
-    a bf16 fp cache, the one-shot int8 engine and the ``fused_attn=False``
-    engine each give identical tokens."""
+    a bf16 and a float16 fp cache, the one-shot int8 engine and the
+    ``fused_attn=False`` engine each give identical tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.core.apply import tree_to
     from repro_torch.engine import Engine, EngineConfig
@@ -2871,6 +2924,7 @@ def options_cross_check(torch):
     prompts = seeded_prompts(cfg.vocab, 8, 16, 200, seed=3)
     res = {}
     for name, kw in (("bf16_cache", dict(kv_mode="fp", kv_dtype="bfloat16")),
+                     ("f16_cache", dict(kv_mode="fp", kv_dtype="float16")),
                      ("oneshot_int8", dict(kv_mode="int8", prefill_chunk=0)),
                      ("materialize", dict(kv_mode="int8",
                                           fused_attn=False))):
@@ -3565,6 +3619,567 @@ def kimi_cross_check(torch):
     return {"requests": len(prompts), "identical": same}
 
 
+# ------------------------------------- head_dim 256 and float16 caches ---
+#: the cache modes of the attention kernels' head_dim-256 and float16
+#: cases: int8 with per-entry or static scales, fp32, bf16 and float16
+CACHE_MODES = ("dynamic", "static", "fp32", "bf16", "f16")
+
+
+def _cache_in(torch, gen, mode, shape, C):
+    """A cache of seeded bf16 K/V of ``shape`` (..., Hkv, D) in ``mode``:
+    (k, v, scales, K and V as fp32 for SDPA). Static scales are (Hkv, C)
+    from the values' own range."""
+    from repro_torch.kernels.decode_attention import dequant_chunk
+    from repro_torch.kernels.prefill_attention import (quantize_kv_ref,
+                                                       quantize_kv_static_ref)
+    k, v = (torch.randn(shape, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    if mode in ("fp32", "bf16", "f16"):
+        dt = {"fp32": torch.float32, "bf16": torch.bfloat16,
+              "f16": torch.float16}[mode]
+        k, v = k.to(dt), v.to(dt)
+        return k, v, (), k.float(), v.float()
+    if mode == "dynamic":
+        (qk, ks, kz), (qv, vs, vz) = quantize_kv_ref(k, C), \
+            quantize_kv_ref(v, C)
+    else:
+        (ks, kz), (vs, vz) = static_scales_of(torch, k, C), \
+            static_scales_of(torch, v, C)
+        qk, qv = quantize_kv_static_ref(k, ks, kz), \
+            quantize_kv_static_ref(v, vs, vz)
+    return qk, qv, (ks, kz, vs, vz), dequant_chunk(qk, ks, kz), \
+        dequant_chunk(qv, vs, vz)
+
+
+def _row_bytes(mode, D, C) -> int:
+    """Bytes of one cache row of one kv-head, K and V, as the bound counts
+    them (static scales are per-layer constants, counted once)."""
+    return 2 * {"static": D, "dynamic": D + 2 * C * 4, "fp32": 4 * D,
+                "bf16": 2 * D, "f16": 2 * D}[mode]
+
+
+#: (arch, Hq, Hkv, D, cache modes) of the head_dim-256 and float16 cases
+D256_F16_CASES = (("paligemma-3b", 8, 1, 256, CACHE_MODES),
+                  ("stablelm-1.6b", 32, 32, 64, ("f16",)),
+                  ("chatglm3-6b", 32, 2, 128, ("f16",)))
+
+
+def d256_f16_attention_cases(torch, timer, drep, prep):
+    """Decode attention (8 slots of 1024 rows) and prefill attention (a
+    96-token chunk and a 4-row verify window at position 384 of a
+    1024-row slot) at paligemma-3b's MQA 8/1 and head_dim 256 in every
+    cache mode (int8 dynamic and static, fp32, bf16, float16), and at
+    stablelm-1.6b's and chatglm3-6b's layouts over a float16 cache: each
+    against its plain version, beside SDPA over the same K/V widened; the
+    chunk's codes equal the plain quantizers'. The bound counts each live
+    row of K and V once in the cache's type."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.prefill_attention import (
+        prefill_attention, prefill_attention_ref, quantize_kv_ref,
+        quantize_kv_static_ref, window_kv)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    N, T, C = 8, 1024, 4
+    for arch, Hq, Hkv, D, modes in D256_F16_CASES:
+        G = Hq // Hkv
+        for mode in modes:
+            q, _, _, kv_pos, q_pos, _ = _decode_inputs(torch, gen, N, T, Hq,
+                                                       Hkv, D, C)
+            ck, cv, sc, kd, vd = _cache_in(torch, gen, mode,
+                                           (N, T, Hkv, D), C)
+            got = decode_attention(q, ck, cv, kv_pos, q_pos, *sc)
+            want = decode_attention_ref(q, ck, cv, kv_pos, q_pos, *sc)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()) or \
+                    not bool((got[2] == 0).all()):
+                fail(f"decode {arch} {mode}: non-finite output or non-zero "
+                     f"empty slot")
+            valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+            ks_, vs_ = (x.to(torch.bfloat16).transpose(1, 2)
+                        .repeat_interleave(G, 1) for x in (kd, vd))
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], ks_, vs_, attn_mask=valid[:, None, None, :]))
+            E = int(valid.sum())
+            nbytes = E * Hkv * _row_bytes(mode, D, C) + N * T * 4 + N * 4 + \
+                2 * N * Hq * D * 2 + (4 * Hkv * C * 4 if mode == "static"
+                                      else 0)
+            drep.add(f"{arch} N={N} T={T} Hq={Hq} Hkv={Hkv} D={D} {mode} "
+                     f"cache", max_err(got, want),
+                     2 ** -7 * max(1.0, float(want.float().abs().max())),
+                     timer(lambda: decode_attention(q, ck, cv, kv_pos, q_pos,
+                                                    *sc)),
+                     timer(lambda: decode_attention_ref(q, ck, cv, kv_pos,
+                                                        q_pos, *sc)),
+                     lib, nbytes, 4 * E * Hq * D)
+            log_against_sdpa(drep, host_us(torch, lambda: decode_attention(
+                q, ck, cv, kv_pos, q_pos, *sc)))
+
+            pos_start = 384
+            for Sq, verify in ((96, False), (4, True)):
+                f = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                           device="cuda").to(torch.bfloat16)
+                q, kn, vn = f(Sq, Hq, D), f(Sq, Hkv, D), f(Sq, Hkv, D)
+                ck, cv, sc, kd, vd = _cache_in(torch, gen, mode,
+                                               (T, Hkv, D), C)
+                kv_pos = torch.full((T,), -1, dtype=torch.int32,
+                                    device="cuda")
+                kv_pos[:pos_start + 1] = torch.arange(
+                    pos_start + 1, device="cuda", dtype=torch.int32)
+                args = (q, kn, vn, ck, cv, kv_pos, pos_start, Sq, *sc)
+                got, gaux = prefill_attention(*args, verify=verify)
+                want = prefill_attention_ref(*args, verify=verify)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got).all()):
+                    fail(f"prefill {arch} {mode}: non-finite output")
+                if mode == "static":
+                    waux = (quantize_kv_static_ref(kn, *sc[:2]),
+                            quantize_kv_static_ref(vn, *sc[2:]))
+                elif mode == "dynamic":
+                    wk_, wv_ = quantize_kv_ref(kn, C), quantize_kv_ref(vn, C)
+                    waux = (wk_[0], wv_[0], wk_[1], wk_[2], wv_[1], wv_[2])
+                else:
+                    waux = ()
+                if len(gaux) != len(waux) or not all(
+                        torch.equal(a, b) for a, b in zip(gaux, waux)):
+                    fail(f"prefill {arch} {mode}: the chunk's codes differ "
+                         f"from the plain quantizer's")
+                wkd, wvd = window_kv(kn, vn, ck.dtype, sc, verify)
+                lib = _sdpa_prefill(torch, timer, q, kd, vd, wkd, wvd,
+                                    kv_pos, pos_start, Sq)
+                Ec = int(((kv_pos >= 0) & (kv_pos < pos_start)).sum())
+                pairs = Sq * (Sq + 1) // 2
+                out = {"static": 2 * Sq * Hkv * D,
+                       "dynamic": 2 * Sq * Hkv * (D + 2 * C * 4)}.get(mode,
+                                                                     0)
+                nbytes = Ec * Hkv * _row_bytes(mode, D, C) + T * 4 + \
+                    2 * Sq * Hq * D * 2 + 2 * Sq * Hkv * D * 2 + out + \
+                    (4 * Hkv * C * 4 if mode == "static" else 0)
+                prep.add(f"{arch} {'verify ' if verify else ''}{mode} cache "
+                         f"Sq={Sq} pos_start={pos_start} T={T} Hkv={Hkv} "
+                         f"D={D}", max_err(got, want),
+                         2 ** -7 * max(1.0, float(want.float().abs().max())),
+                         timer(lambda: prefill_attention(*args,
+                                                         verify=verify)),
+                         timer(lambda: prefill_attention_ref(
+                             *args, verify=verify)),
+                         lib, nbytes, 4 * Hq * D * (Ec * Sq + pairs))
+                log_against_sdpa(prep, host_us(
+                    torch, lambda: prefill_attention(*args, verify=verify)))
+
+
+# ---------------------------------------------------------------- VLM ---
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of the kernels' plain versions while inside (a CUDA
+    tensor must never reach one: each wrapper launches or raises)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import splitquant_matmul as sqm
+    names = ((sqm, "splitquant_matmul_ref"),
+             (sqm, "grouped_splitquant_matmul_ref"),
+             (da, "decode_attention_ref"), (pa, "prefill_attention_ref"),
+             (pa, "write_kv_rows_ref"), (pa, "quantize_kv_ref"),
+             (pa, "quantize_kv_static_ref"))
+    calls = dict.fromkeys((n for _, n in names), 0)
+    orig = [(m, n, getattr(m, n)) for m, n in names]
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+    for m, n, fn in orig:
+        setattr(m, n, counting(n, fn))
+    try:
+        yield calls
+    finally:
+        for m, n, fn in orig:
+            setattr(m, n, fn)
+
+
+def no_plain(phase: str, calls: dict) -> None:
+    if any(calls.values()):
+        fail(f"{phase}: a CUDA tensor reached a plain version: {calls}")
+
+
+def vlm_phase(torch, counters, card_line):
+    """paligemma-3b at full width and depth (``vlm_smoke_workload``: 18
+    layers, d_model 2048, MQA 8/1 at head_dim 256, geglu d_ff 16384, vocab
+    257216, a tied head; SplitQuant INT4 k=3 built layer by layer on the
+    card) through the engine over the int8 dynamic slot cache (chunks of
+    64 columns), 16 requests of 32 tokens. Gates: ``serve_run``'s; one
+    K/V write a layer and forward pass; the matmul and both attention
+    kernels in their bf16 variants and the dynamic mode only, every
+    attention and write launch over the int8 cache; no plain version
+    called; finite logits at full width. Printed: build seconds and peak,
+    deployed bytes, tokens/s, TTFT, decode-step and chunk p50, peak
+    memory, launches by variant and mode. Returns (result, params)."""
+    from repro_torch.launch.serve import build_params, vlm_smoke_workload
+    cfg, ecfg, quant, warmup, prompts = vlm_smoke_workload()
+    phase = "vlm"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, report = build_params(cfg, device="cuda", **quant)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = torch.cuda.memory_allocated()
+    log(f"{phase}: {cfg.name} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv-head of "
+        f"{cfg.head_dim}, {cfg.ffn_type} d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"tied head, patch_proj {tuple(params['patch_proj'].shape)}): init + "
+        f"SplitQuant INT4 k=3 of {len(report['quantized'])} matrices layer by "
+        f"layer on the card in {t_build:.2f} s, build peak "
+        f"{build_peak / 2**30:.2f} GiB; deployed "
+        f"{report['deployed_bytes'] / 1e9:.3f} GB (the JAX count), "
+        f"{weight_bytes / 2**30:.2f} GiB on the card [card: {card_line}]")
+    with plain_calls() as plain:
+        eng, fin, wall, launches = serve_run(torch, counters, phase, cfg,
+                                             params, ecfg, warmup, prompts)
+    no_plain(phase, plain)
+    peak = torch.cuda.max_memory_allocated()
+    if eng.cache.k.shape[-1] != 256:
+        fail(f"{phase}: the cache's head_dim is {eng.cache.k.shape[-1]}")
+    passes = eng.n_decode_steps + eng.n_prefill_chunks
+    variants = only_variant(counters, "splitquant_matmul", phase)
+    pvariants = only_variant(counters, "prefill_attention", phase)
+    dvariants = only_variant(counters, "decode_attention", phase)
+    modes = only_modes(counters, phase, {"dynamic"}, {"dynamic"})
+    dtypes = cache_dtypes(phase, "int8")
+    writes = one_write_per_layer(phase, cfg.n_layers, {"dynamic": passes})
+    finite_logits(torch, phase, cfg, params, eng, fin)
+    n_tok = sum(len(r.out) for r in fin)
+    res = {"arch": cfg.name, "card": card_line, "head_dim": cfg.head_dim,
+           "build_s": t_build, "build_peak_bytes": build_peak,
+           "weight_bytes": weight_bytes,
+           "deployed_bytes": report["deployed_bytes"],
+           "quantized_leaves": len(report["quantized"]),
+           "requests": len(fin), "new_tokens": n_tok,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_p50_s": percentile([r.ttft for r in fin], 50),
+           "decode_step_p50_s": percentile(eng.decode_step_s, 50),
+           "prefill_chunk_p50_s": percentile(eng.prefill_chunk_s, 50),
+           "decode_steps": eng.n_decode_steps,
+           "prefill_chunks": eng.n_prefill_chunks,
+           "peak_mem_bytes": peak, "kv_cache_bytes": eng.cache.nbytes(),
+           "launches": launches, "matmul_variants": variants,
+           "prefill_variants": pvariants, "decode_variants": dvariants,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes, "cache_dtypes": dtypes,
+           "plain_calls": plain, "outputs": [r.out for r in fin]}
+    log(f"{phase}: {len(fin)} requests, {res['prompt_tokens']} prompt + "
+        f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
+        f"tok/s; TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
+        f"{res['decode_step_p50_s'] * 1e3:.2f} ms; prefill chunk p50 "
+        f"{res['prefill_chunk_p50_s'] * 1e3:.2f} ms; {eng.n_decode_steps} "
+        f"decode steps, {eng.n_prefill_chunks} prefill chunks; peak memory "
+        f"{peak / 2**30:.2f} GiB; KV cache {res['kv_cache_bytes'] / 2**20:.1f}"
+        f" MiB; launches {launches}; matmul by variant {variants}; prefill "
+        f"attention by variant {pvariants}, by mode "
+        f"{modes['prefill_attention']}; decode attention by variant "
+        f"{dvariants}, by mode {modes['decode_attention']} (all at head_dim "
+        f"256); K/V writes by mode {writes} (one a layer and forward pass "
+        f"over {cfg.n_layers} layers); plain versions called {plain} "
+        f"[card: {card_line}]")
+    del eng
+    return res, params
+
+
+#: the vlm_prefix phase's batch: prompts of this many tokens after the
+#: 256 patch embeds
+PREFIX_TOKENS = 32
+
+
+def vlm_prefix_phase(torch, counters, params, card_line):
+    """paligemma-3b at full width: one ``transformer.prefill`` of 8
+    seeded prompts of :data:`PREFIX_TOKENS` tokens, each after 256 seeded
+    patch embeds (bf16, numpy seed 0), into a cache of 256 + 32 rows.
+    Gates: logits (8, 256 + 32, vocab) and finite; ``embed_inputs``
+    alone launches the matmul once (``patch_proj``, K = 1152, M = 8 x
+    256), the prefill 1 + 7 x 18 times, all ``bf16_wgmma``, and no other
+    kernel (the prefill attends in plain PyTorch); no plain version
+    called."""
+    import numpy as np
+    from repro_torch.launch.serve import vlm_smoke_workload
+    from repro_torch.models import transformer
+    cfg = vlm_smoke_workload()[0]
+    phase = "vlm_prefix"
+    rng = np.random.default_rng(0)
+    B, P, S = 8, cfg.n_prefix_embeds, PREFIX_TOKENS
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                       device="cuda"),
+             "patch_embeds": torch.as_tensor(rng.standard_normal(
+                 (B, P, transformer.VLM_PATCH_DIM)).astype(np.float32),
+                 device="cuda").to(torch.bfloat16)}
+    transformer.prefill(params, cfg, batch, max_len=P + S)     # warm-up
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    x, _ = transformer.embed_inputs(params, cfg, batch)
+    proj = counters["splitquant_matmul"].launches
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(params, cfg, batch,
+                                            max_len=P + S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    no_plain(phase, plain)
+    launches = launch_counts(counters)
+    variants = only_variant(counters, "splitquant_matmul", phase)
+    want = 1 + 7 * cfg.n_layers
+    others = {n: c for n, c in launches.items() if n != "splitquant_matmul"}
+    if proj != 1 or launches["splitquant_matmul"] != want or \
+            any(others.values()):
+        fail(f"{phase}: matmul launches {proj} for embed_inputs (want 1) "
+             f"and {launches['splitquant_matmul']} for the prefill (want "
+             f"{want}); other kernels {others}")
+    if tuple(logits.shape) != (B, P + S, cfg.vocab) or \
+            tuple(x.shape) != (B, P + S, cfg.d_model) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{phase}: logits {tuple(logits.shape)} (want "
+             f"{(B, P + S, cfg.vocab)}) or non-finite")
+    res = {"arch": cfg.name, "card": card_line, "batch": B,
+           "patch_embeds": P, "tokens": S, "wall_s": wall,
+           "tokens_per_s": B * (P + S) / wall,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "patch_proj_launches": proj,
+           "matmul_variants": variants, "plain_calls": plain}
+    log(f"{phase}: {cfg.name} full width, prefill of {B} prompts x ({P} patch "
+        f"embeds + {S} tokens) in {wall * 1e3:.1f} ms "
+        f"({res['tokens_per_s']:.0f} positions/s), logits "
+        f"{tuple(logits.shape)} finite; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; patch_proj through the "
+        f"matmul kernel ({proj} launch, K = {transformer.VLM_PATCH_DIM}); "
+        f"launches {launches}, matmul by variant {variants} "
+        f"[card: {card_line}]")
+    del logits, cache, x
+    return res
+
+
+def vlm_wave_phase(torch, counters, params, card_line):
+    """paligemma-3b at full width through the wave ``Server`` with its pad
+    mask (the vlm workload's 16 requests in waves of 8, a bf16 ``KVCache``
+    of 1024 rows, attention in plain PyTorch). Gates: every request its
+    32 tokens; the matmul launched, only ``bf16_wgmma``, and no other
+    kernel; no plain version called."""
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.launch.serve import vlm_smoke_workload
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+    cfg, _, _, warmup, prompts = vlm_smoke_workload()
+    phase = "vlm_wave"
+    scfg = ServeConfig(max_batch=8, max_new_tokens=32, max_len=1024)
+    Server(cfg, params, ServeConfig(max_batch=8, max_new_tokens=2,
+                                    max_len=scfg.max_len),
+           device="cuda").serve([Request(0, warmup)])
+    srv = Server(cfg, params, scfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        fin = srv.serve([Request(i, p) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    no_plain(phase, plain)
+    launches = launch_counts(counters)
+    variants = only_variant(counters, "splitquant_matmul", phase)
+    if any(len(r.out) != scfg.max_new_tokens for r in fin) or \
+            len(fin) != len(prompts) or \
+            any(not 0 <= t < cfg.vocab for r in fin for t in r.out):
+        fail(f"{phase}: expected {len(prompts)} requests x "
+             f"{scfg.max_new_tokens} tokens in vocab, got "
+             f"{[len(r.out) for r in fin]}")
+    others = {n: c for n, c in launches.items() if n != "splitquant_matmul"}
+    if any(others.values()) or pa.quantize_kv.launches or \
+            pa.quantize_kv_static.launches:
+        fail(f"{phase}: kernels off the path were launched: {others}")
+    n_tok = sum(len(r.out) for r in fin)
+    res = {"arch": cfg.name, "card": card_line, "requests": len(fin),
+           "new_tokens": n_tok, "waves": len(srv.wave_prefill_s),
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "wave_prefill_p50_s": percentile(srv.wave_prefill_s, 50),
+           "wave_prefill_s": srv.wave_prefill_s,
+           "decode_step_p50_s": percentile(srv.decode_step_s, 50),
+           "decode_steps": len(srv.decode_step_s),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "matmul_variants": variants,
+           "plain_calls": plain, "outputs": [r.out for r in fin]}
+    log(f"{phase}: {cfg.name} full width through the wave Server (pad mask), "
+        f"waves of 8, bf16 KV cache of {scfg.max_len} rows; {len(fin)} "
+        f"requests in {res['waves']} waves, {n_tok} new tokens in {wall:.3f} "
+        f"s = {res['tokens_per_s']:.1f} tok/s; wave prefill "
+        f"{[round(s * 1e3, 1) for s in srv.wave_prefill_s]} ms; decode step "
+        f"p50 {res['decode_step_p50_s'] * 1e3:.2f} ms; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; launches {launches}; "
+        f"matmul by variant {variants} [card: {card_line}]")
+    return res
+
+
+def engine_f16_phase(torch, counters, params, card_line):
+    """stablelm-1.6b at full width over an fp slot cache in float16
+    (``launch.serve.f16_cache_workload``), as ``engine_bf16``: every
+    request its 32 tokens; every decode-attention, prefill-attention and
+    K/V-write launch over the float16 cache in mode fp; one write a layer
+    and forward pass; every matmul launch ``bf16_wgmma``."""
+    from repro_torch.launch.serve import f16_cache_workload
+    cfg, ecfg, _, warmup, prompts = f16_cache_workload()
+    phase = "engine_f16"
+    eng, fin, wall, launches = serve_run(torch, counters, phase, cfg, params,
+                                         ecfg, warmup, prompts)
+    if eng.cache.k.dtype != torch.float16:
+        fail(f"{phase}: the cache is {eng.cache.k.dtype}, not float16")
+    variants = only_variant(counters, "splitquant_matmul", phase)
+    modes = only_modes(counters, phase, {"fp"}, {"fp"})
+    dtypes = cache_dtypes(phase, "float16")
+    writes = one_write_per_layer(
+        phase, cfg.n_layers, {"fp": eng.n_decode_steps + eng.n_prefill_chunks})
+    n_tok = sum(len(r.out) for r in fin)
+    res = {"arch": cfg.name, "card": card_line, "kv_cache": "float16",
+           "requests": len(fin), "new_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "ttft_p50_s": percentile([r.ttft for r in fin], 50),
+           "decode_step_p50_s": percentile(eng.decode_step_s, 50),
+           "prefill_chunk_p50_s": percentile(eng.prefill_chunk_s, 50),
+           "decode_steps": eng.n_decode_steps,
+           "prefill_chunks": eng.n_prefill_chunks,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "kv_cache_bytes": eng.cache.nbytes(), "launches": launches,
+           "matmul_variants": variants,
+           "decode_modes": modes["decode_attention"],
+           "prefill_modes": modes["prefill_attention"],
+           "write_modes": writes, "cache_dtypes": dtypes,
+           "outputs": [r.out for r in fin]}
+    log(f"{phase}: stablelm-1.6b full width over a float16 fp cache "
+        f"({res['kv_cache_bytes'] / 2**30:.2f} GiB), {len(fin)} requests, "
+        f"{n_tok} new tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} "
+        f"tok/s; TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
+        f"{res['decode_step_p50_s'] * 1e3:.2f} ms; prefill chunk p50 "
+        f"{res['prefill_chunk_p50_s'] * 1e3:.2f} ms; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; launches {launches}; by "
+        f"cache dtype {dtypes}; K/V writes by mode {writes} (one a layer and "
+        f"forward pass) [card: {card_line}]")
+    return res
+
+
+def _reduced_vlm(wide: bool):
+    """Reduced paligemma-3b in fp32 (MQA 4/1 at head_dim 32), or its
+    head_dim-256 variant (MQA 2/1, d_model 512), INT4 SplitQuant (seed
+    0), on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_params
+    cfg = get_arch("paligemma-3b").reduced()
+    if wide:
+        cfg = dataclasses.replace(cfg, n_heads=2, n_kv_heads=1, d_model=512)
+    return cfg, build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")[0]
+
+
+def vlm_cross_check(torch):
+    """Reduced paligemma-3b (head_dim 32) and its head_dim-256 variant, in
+    fp32, through the engine over an int8 dynamic cache, 8 requests x 16
+    tokens, on the card and on the CPU: identical greedy tokens."""
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.launch.serve import seeded_prompts
+    res = {}
+    for wide in (False, True):
+        cfg, params = _reduced_vlm(wide)
+        prompts = seeded_prompts(cfg.vocab, 8, 16, 200, seed=1)
+        outs = {}
+        for dev, p in (("cpu", params), ("cuda", tree_to(params, "cuda"))):
+            eng = Engine(cfg, p, EngineConfig(
+                n_slots=4, max_len=256, max_new_tokens=16, kv_mode="int8",
+                prefill_chunk=96), device=dev)
+            for pr in prompts:
+                eng.submit(pr)
+            outs[dev] = [r.out for r in eng.drain()]
+        same = outs["cpu"] == outs["cuda"]
+        log(f"vlm cross-check: {cfg.name} reduced at head_dim {cfg.head_dim}"
+            f", MQA {cfg.n_heads}/1, fp32, int8 KV, 8 requests x 16 tokens: "
+            f"card tokens {'==' if same else '!='} CPU tokens")
+        if not same:
+            fail(f"vlm cross-check (D={cfg.head_dim}): card {outs['cuda']} "
+                 f"!= cpu {outs['cpu']}")
+        res[f"D={cfg.head_dim}"] = {"requests": len(prompts),
+                                    "identical": same}
+    return res
+
+
+#: the reduced prefix cross-check's tolerance: fp32 logits on the card
+#: and the CPU, the same sums in another order, relative to their scale
+PREFIX_TOL = 1e-4
+
+
+def vlm_prefix_cross_check(torch):
+    """Reduced paligemma-3b (and its head_dim-256 variant) in fp32:
+    ``transformer.prefill`` of 4 prompts of 24 tokens after 8 seeded patch
+    embeds, on the card and on the CPU: logits within
+    :data:`PREFIX_TOL` of their scale."""
+    import numpy as np
+    from repro_torch.core.apply import tree_to
+    from repro_torch.models import transformer
+    res = {}
+    for wide in (False, True):
+        cfg, params = _reduced_vlm(wide)
+        rng = np.random.default_rng(2)
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                        (4, 24))),
+                 "patch_embeds": torch.as_tensor(rng.standard_normal(
+                     (4, cfg.n_prefix_embeds, transformer.VLM_PATCH_DIM))
+                     .astype(np.float32))}
+        want = transformer.prefill(params, cfg, batch, max_len=40)[0]
+        got = transformer.prefill(tree_to(params, "cuda"), cfg,
+                                  {k: v.cuda() for k, v in batch.items()},
+                                  max_len=40)[0].cpu()
+        scale = max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max())
+        log(f"vlm prefix cross-check: {cfg.name} reduced at head_dim "
+            f"{cfg.head_dim}, fp32, 4 prompts x (8 patch embeds + 24 tokens): "
+            f"logits {tuple(got.shape)} card vs CPU max abs err {err:.3e} "
+            f"(tol {PREFIX_TOL * scale:.3e})")
+        if got.shape != want.shape or not err <= PREFIX_TOL * scale:
+            fail(f"vlm prefix cross-check (D={cfg.head_dim}): err {err}")
+        res[f"D={cfg.head_dim}"] = {"max_abs_err": err,
+                                    "tol": PREFIX_TOL * scale}
+    return res
+
+
+def vlm_wave_cross_check(torch):
+    """Reduced paligemma-3b in fp32 (INT4) through the wave ``Server`` on
+    the card and on the CPU, two left-padded waves of 4, one request with
+    a budget of 1: identical greedy tokens."""
+    import numpy as np
+    from repro_torch.core.apply import tree_to
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+    cfg, params = _reduced_vlm(False)
+    rng = np.random.default_rng(5)
+    lens = (40, 7, 23, 2, 31, 16, 9, 55)
+    budgets = (None, None, 1, None, None, None, None, None)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lens]
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", tree_to(params, "cuda"))):
+        srv = Server(cfg, p, ServeConfig(max_batch=4, max_new_tokens=16,
+                                         max_len=128), device=dev)
+        outs[dev] = [r.out for r in srv.serve(
+            [Request(i, pr, b) for i, (pr, b) in
+             enumerate(zip(prompts, budgets))])]
+    same = outs["cpu"] == outs["cuda"]
+    log(f"vlm_wave cross-check: {cfg.name} reduced fp32, two waves of 4, 8 "
+        f"requests x 16 tokens (one 1): card tokens {'==' if same else '!='} "
+        f"CPU tokens")
+    if not same or [len(o) for o in outs["cpu"]] != \
+            [16, 16, 1, 16, 16, 16, 16, 16]:
+        fail(f"vlm_wave cross-check: card {outs['cuda']} != cpu "
+             f"{outs['cpu']}")
+    return {"requests": len(prompts), "identical": same}
+
+
 def main() -> None:
     try:
         import torch
@@ -3621,6 +4236,14 @@ def main() -> None:
     prefill_cases(torch, timer, reps["prefill_attention"])
     prefill_mode_cases(torch, timer, reps["prefill_attention"])
     kv_write_cases(torch, timer, reps["kv_write"], reps["kv_write_static"])
+    d256_f16_attention_cases(torch, timer, reps["decode_attention"],
+                             reps["prefill_attention"])
+    kv_write_cases(torch, timer, reps["kv_write"], reps["kv_write_static"],
+                   archs=(("paligemma-3b", 1, 256),),
+                   modes=WRITE_CASE_MODES + ("fp f16",))
+    kv_write_cases(torch, timer, reps["kv_write"], reps["kv_write_static"],
+                   archs=WRITE_ARCHS[:2], modes=("fp f16",),
+                   standalone=False)
     wkv_cases(torch, timer, reps["wkv_chunked"])
     counters = {"splitquant_matmul": splitquant_matmul,
                 "act_split_quantize": act_split_quantize,
@@ -3675,6 +4298,8 @@ def main() -> None:
                   card_line)
     bf16 = timed("engine_bf16", engine_bf16_phase, torch, counters, params,
                  card_line)
+    f16 = timed("engine_f16", engine_f16_phase, torch, counters, params,
+                card_line)
     one = timed("oneshot", oneshot_phase, torch, counters, params, card_line)
     samp = timed("sampling", sampling_phase, torch, counters, params,
                  card_line)
@@ -3683,6 +4308,13 @@ def main() -> None:
     rec = timed("recipe", recipe_phase, torch, counters, card_line)
     torch.cuda.empty_cache()
     pq = timed("percentile_quant", percentile_phase, torch, card_line)
+    vlm, vlm_params = timed("vlm", vlm_phase, torch, counters, card_line)
+    vpre = timed("vlm_prefix", vlm_prefix_phase, torch, counters,
+                 vlm_params, card_line)
+    vwave = timed("vlm_wave", vlm_wave_phase, torch, counters, vlm_params,
+                  card_line)
+    del vlm_params
+    torch.cuda.empty_cache()
     moe, moe_params = timed("moe", moe_phase, torch, counters, card_line)
     mspec = timed("moe_spec", moe_spec_phase, torch, counters, moe_params,
                   moe, card_line)
@@ -3699,13 +4331,17 @@ def main() -> None:
     msxc = timed("moe_spec_cross_check", moe_spec_cross_check, torch)
     mwxc = timed("moe_wave_cross_check", moe_wave_cross_check, torch)
     kxc = timed("kimi_cross_check", kimi_cross_check, torch)
+    vxc = timed("vlm_cross_check", vlm_cross_check, torch)
+    vpxc = timed("vlm_prefix_cross_check", vlm_prefix_cross_check, torch)
+    vwxc = timed("vlm_wave_cross_check", vlm_wave_cross_check, torch)
     rwkv = timed("rwkv", rwkv_phase, torch, counters)
     rxc = timed("rwkv_cross_check", rwkv_cross_check, torch)
 
     serving = {"engine": eng, "static": sta, "spec": spec,
                "engine_bf16": bf16, "oneshot": one, "sampling": samp,
                "recipe": rec, "chaos": cha, "recovery": recv,
-               "observe": obs, "moe": moe, "moe_spec": mspec, "kimi": kimi}
+               "observe": obs, "moe": moe, "moe_spec": mspec, "kimi": kimi,
+               "engine_f16": f16, "vlm": vlm}
     runs = {"engine": eng["launches"], "static": sta["launches"],
             "spec": spec["launches"], "dense_wave": dense["launches"],
             "wave": rwkv["launches"], "engine_bf16": bf16["launches"],
@@ -3713,8 +4349,11 @@ def main() -> None:
             "recipe": rec["launches"], "chaos": cha["launches"],
             "recovery": recv["launches"], "observe": obs["launches"],
             "moe": moe["launches"], "moe_spec": mspec["launches"],
-            "moe_wave": mwave["launches"], "kimi": kimi["launches"]}
+            "moe_wave": mwave["launches"], "kimi": kimi["launches"],
+            "engine_f16": f16["launches"], "vlm": vlm["launches"],
+            "vlm_prefix": vpre["launches"], "vlm_wave": vwave["launches"]}
     by_dtype = {"engine_bf16": bf16["cache_dtypes"],
+                "engine_f16": f16["cache_dtypes"], "vlm": vlm["cache_dtypes"],
                 "oneshot": one["cache_dtypes"],
                 "sampling": samp["engine"]["cache_dtypes"]}
     extra = {"splitquant_matmul": {"launches_by_variant": {
@@ -3729,7 +4368,10 @@ def main() -> None:
         "observe": obs["matmul_variants"],
         "moe": moe["matmul_variants"], "moe_spec": mspec["matmul_variants"],
         "moe_wave": mwave["matmul_variants"],
-        "kimi": kimi["matmul_variants"]},
+        "kimi": kimi["matmul_variants"],
+        "engine_f16": f16["matmul_variants"], "vlm": vlm["matmul_variants"],
+        "vlm_prefix": vpre["matmul_variants"],
+        "vlm_wave": vwave["matmul_variants"]},
         "launches_by_bits": {"recipe": rec["bits_launches"],
                              "moe_spec": mspec["bits_launches"]}},
         "prefill_attention": {"launches_by_variant": {
@@ -3739,7 +4381,8 @@ def main() -> None:
             "recovery": recv["prefill_variants"],
             "observe": obs["prefill_variants"],
             "moe": moe["prefill_variants"],
-            "kimi": kimi["prefill_variants"]},
+            "kimi": kimi["prefill_variants"],
+            "vlm": vlm["prefill_variants"]},
             "launches_by_mode": {k: r["prefill_modes"]
                                  for k, r in serving.items()},
             "launches_by_cache_dtype": {k: d["prefill_attention"]
@@ -3751,7 +4394,8 @@ def main() -> None:
             "recovery": recv["decode_variants"],
             "observe": obs["decode_variants"],
             "moe": moe["decode_variants"],
-            "kimi": kimi["decode_variants"]},
+            "kimi": kimi["decode_variants"],
+            "vlm": vlm["decode_variants"]},
             "launches_by_mode": {k: r["decode_modes"]
                                  for k, r in serving.items()},
             "launches_by_cache_dtype": {k: d["decode_attention"]
@@ -3781,7 +4425,10 @@ def main() -> None:
          "observe": obs, "moe": moe, "moe_cross_check": mxc,
          "moe_spec": mspec, "moe_spec_cross_check": msxc,
          "moe_wave": mwave, "moe_wave_cross_check": mwxc, "kimi": kimi,
-         "kimi_cross_check": kxc, "phase_s": PHASE_S,
+         "kimi_cross_check": kxc, "engine_f16": f16, "vlm": vlm,
+         "vlm_prefix": vpre, "vlm_wave": vwave, "vlm_cross_check": vxc,
+         "vlm_prefix_cross_check": vpxc, "vlm_wave_cross_check": vwxc,
+         "phase_s": PHASE_S,
          "act_quant_observed": aq_observed,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))

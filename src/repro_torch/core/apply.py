@@ -3,9 +3,11 @@ a parameter tree and replace quantizable weights with packed SplitQuant
 weights.
 
 Same rules as the JAX package's defaults: normalization scales and other
-"semantically not weights" parameters (the exclude list) and embedding
-tables are never quantized, and tiny parameters (fewer than
-``MIN_SIZE`` elements) are left alone. Quantized biases (1-D) are not
+"semantically not weights" parameters (the exclude list) are never
+quantized, embedding tables only with ``quantize_embeddings`` (a VLM's
+``patch_proj`` is a projection, not a table, and is quantized by
+default), and tiny parameters (fewer than ``MIN_SIZE`` elements) are
+left alone. Quantized biases (1-D) are not
 ported yet and raise. The JAX package stacks the layers on a leading
 axis and quantizes each layer's slice on its own; the port's layer stack
 is a Python list, so each leaf already is one layer's matrix, and
@@ -64,7 +66,7 @@ STACK_FRAGMENTS = ("layers", "moe_layers", "groups", "tail",
 #: leave tiny parameters alone
 MIN_SIZE = 64
 
-#: embedding tables are never quantized
+#: embedding tables: quantized only with ``quantize_embeddings``
 TABLE_FRAGMENTS = ("embed", "pos_table", "enc_pos", "dec_pos")
 
 #: elements a slab of a large leaf holds at most: an expert stack is
@@ -84,6 +86,8 @@ class QuantPolicy:
     method: str = "splitquant"          # "splitquant" | "baseline" |
                                         # "percentile" | "none"
     k: int = 3                          # number of split layers (paper: 3)
+    quantize_embeddings: bool = False   # the embedding table too (a tied
+                                        # head then reads it dequantized)
 
     def replace(self, **kw) -> "QuantPolicy":
         return dataclasses.replace(self, **kw)
@@ -125,13 +129,17 @@ def resolve_policy(policy: QuantPolicy, override: Optional[dict] = None
     return policy
 
 
-def _quantizable(path_s: str, leaf, stack: int) -> bool:
+def _quantizable(path_s: str, leaf, stack: int,
+                 tables: bool = False) -> bool:
+    """Whether a leaf is quantized; ``tables``: the policy's
+    ``quantize_embeddings``."""
     if not isinstance(leaf, torch.Tensor) or not leaf.is_floating_point():
         return False
     if leaf.numel() * stack < MIN_SIZE or leaf.ndim == 0:
         return False
-    return not any(frag in path_s
-                   for frag in DEFAULT_EXCLUDE + TABLE_FRAGMENTS)
+    if not tables and any(frag in path_s for frag in TABLE_FRAGMENTS):
+        return False
+    return not any(frag in path_s for frag in DEFAULT_EXCLUDE)
 
 
 def _walk(tree, path, stack, jpath=()):
@@ -194,7 +202,8 @@ class LeafQuantizer:
 
     def _leaf(self, path_s, jpath, box, key, leaf, stack) -> None:
         report = self.report
-        if not _quantizable(path_s, leaf, stack):
+        if not _quantizable(path_s, leaf, stack,
+                            self.policy.quantize_embeddings):
             report["skipped"].append(path_s)
             return
         eff = resolve_policy(self.policy, self.overrides.get(jpath))
@@ -337,7 +346,8 @@ def quantize_tree(params, policy: QuantPolicy, seed: int = 0,
     (:meth:`SplitQuantTensor.nbytes_deployed`)."""
     out = _copy_tree(params)
     found = {jp for path_s, jp, _, _, leaf, stack in _walk(out, (), 1)
-             if _quantizable(path_s, leaf, stack)}
+             if _quantizable(path_s, leaf, stack,
+                             policy.quantize_embeddings)}
     unused = set(overrides or {}) - found
     if unused:
         raise ValueError(f"overrides matched no quantizable leaf: "

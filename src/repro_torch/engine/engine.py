@@ -33,7 +33,7 @@ the JAX engine, so both fill the cache with the same rows. An int8 cache
 takes static per-layer scales from a calibration recipe with
 ``kv_scales=`` (or hot-swapped into a live dynamic cache by
 :meth:`Engine.load_kv_scales`); an fp cache is stored in ``kv_dtype``
-(fp32 or bf16). ``fused_attn=False`` decodes through the materialize read
+(fp32, bf16 or float16). ``fused_attn=False`` decodes through the materialize read
 path (each layer's cache copied to full precision and attended in plain
 PyTorch), the JAX package's oracle. Torch cannot reproduce
 ``jax.random.categorical``: temperature sampling draws other tokens than
@@ -94,8 +94,9 @@ from .scheduler import EngineRequest, Scheduler, SubmitError
 from .spec import (SpecDecoder, accept_length, load_draft_params,
                    verify_window)
 
-#: families the engine serves (the JAX engine also serves vlm)
-ENGINE_FAMILIES = ("dense", "moe")
+#: families the engine serves (as the JAX engine: a VLM's requests are
+#: text; its patch prefix enters through ``transformer.prefill``)
+ENGINE_FAMILIES = ("dense", "moe", "vlm")
 
 #: One-shot prefills so far in this process: each dispatch materializes a
 #: dense full-precision (L, S, Hkv, D) cache that ``write_prefill`` then
@@ -131,7 +132,8 @@ class EngineConfig:
     eos_id: int = -1                    # -1 ⇒ never stop early
     kv_mode: str = "fp"                 # "fp" | "int8" (SplitQuant §4.2)
     kv_qchunks: int = 4                 # ranges per head vector (int8)
-    kv_dtype: str = "float32"           # fp-mode storage: float32 | bfloat16
+    kv_dtype: str = "float32"           # fp-mode storage: float32 |
+                                        # bfloat16 | float16
     prefill_bucket: int = 16            # chunk and one-shot prompt lengths
                                         # round up to this
     fused_attn: bool = True             # decode reads the cache through the
@@ -240,10 +242,8 @@ class Engine:
                  tracer=None):
         if cfg.family not in ENGINE_FAMILIES:
             raise NotImplementedError(
-                f"the port's engine serves {' and '.join(ENGINE_FAMILIES)} "
+                f"the port's engine serves {', '.join(ENGINE_FAMILIES)} "
                 f"decoders, got {cfg.family!r}"
-                + (" (the VLM patch prefix is ROADMAP queue 1 item 4)"
-                   if cfg.family == "vlm" else "")
                 + (" — and spec_k > 0 additionally needs positional KV "
                    "rollback, which recurrent state cannot provide"
                    if ecfg.spec_k else ""))

@@ -11,8 +11,9 @@ scale 1 / zero 0 so unwritten rows dequantize to a finite 0. With static
 scales from a calibration recipe (``kv_scales=``) they are per-layer
 constants (L, 1, 1, Hkv, C) instead: writes quantize with them (no
 min/max reduce) and never write a scale. In fp mode the rows are stored
-in the cache's float type, fp32 (the JAX engine's default) or bf16 (its
-``kv_dtype="bfloat16"``): writes cast to it, reads widen it to fp32.
+in the cache's float type, fp32 (the JAX engine's default), bf16 or
+float16 (its ``kv_dtype="bfloat16"`` and ``"float16"``): writes cast to
+it, reads widen it to fp32.
 
 Where the JAX package donates the cache to a jitted step and gets a new
 one back, the port preallocates it once and updates it in place: every
@@ -58,7 +59,8 @@ CACHE_DATA_FIELDS = ("k", "v", "kv_pos", "k_scale", "k_zero",
 
 @dataclasses.dataclass
 class SlotKVCache:
-    """mode="fp": fp32 or bf16 k/v (the JAX engine's ``kv_dtype``), scales
+    """mode="fp": fp32, bf16 or float16 k/v (the JAX engine's
+    ``kv_dtype``), scales
     are zero-size placeholders (L, N, T, Hkv, 0). mode="int8": int8 codes +
     per-entry scales (L, N, T, Hkv, C), or, with ``static``, per-layer
     constants (L, 1, 1, Hkv, C)."""
@@ -104,7 +106,7 @@ def init_slot_cache(cfg, n_slots: int, max_len: int, *, mode: str = "fp",
                     device=None) -> SlotKVCache:
     """Preallocate the engine cache for a dense config on ``device`` (the
     card unless ``device="cpu"``). ``dtype``: the fp mode's storage type
-    (the kernels take fp32 and bf16). ``kv_scales`` (int8 mode only):
+    (the kernels take fp32, bf16 and float16). ``kv_scales`` (int8 mode only):
     static constants from a calibration recipe, ``k_scale / k_zero /
     v_scale / v_zero`` each (L, Hkv, C)."""
     device = resolve_device(device)

@@ -107,16 +107,16 @@ SIGNATURES = {
     # splits, k_per_split, stream
     "splitquant_matmul": [_P] * 7 + [_I] * 9 + [_P],
     # q, k, v, kv_pos, q_pos, ks, kz, vs, vz, o, part_o, part_ml, counter,
-    # N, T, Hq, Hkv, D, C, kv_bytes, stat, q_is_bf16, group, rows, splits,
-    # warps, qscale, stream
-    "decode_attention": [_P] * 13 + [_I] * 13 + [_F, _P],
+    # N, T, Hq, Hkv, D, C, kv_bytes, kv_f16, stat, q_is_bf16, group, rows,
+    # splits, warps, qscale, stream
+    "decode_attention": [_P] * 13 + [_I] * 14 + [_F, _P],
     # q, k_new, v_new, ck, cv, kv_pos, ks, kz, vs, vz, wk, wv, wks, wkz,
     # wvs, wvz, o, part_o, part_ml, counter, Sq, T, Hq, Hkv, D, C,
-    # pos_start, length, kv_bytes, stat, verify, x_is_bf16, cache_rows,
-    # cache_splits, qscale, stream
-    "prefill_attention": [_P] * 20 + [_I] * 14 + [_F, _P],
+    # pos_start, length, kv_bytes, kv_f16, stat, verify, x_is_bf16,
+    # cache_rows, cache_splits, qscale, stream
+    "prefill_attention": [_P] * 20 + [_I] * 15 + [_F, _P],
     # k, v, dk, dv, kv_pos, pos, ks, kz, vs, vz, rows, T, Hkv, D, C, slot,
-    # pos_start, length, mode, x_is_bf16, dst_is_bf16, stream
+    # pos_start, length, mode, x_is_bf16, dst16 (1 bf16, 2 float16), stream
     "kv_write": [_P] * 10 + [_I] * 11 + [_P],
     # r, k, v, w, u, s0, y, s_out, BH, T, K, V, VS, x_is_bf16, stream
     "wkv_chunked": [_P] * 8 + [_I] * 6 + [_P],

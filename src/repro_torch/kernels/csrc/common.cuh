@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels.
 #pragma once
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -8,6 +9,7 @@ namespace rt {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);

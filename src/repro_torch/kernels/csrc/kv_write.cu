@@ -1,8 +1,8 @@
 // The K/V cache write of one layer for Hopper (sm_90a): K and V of the new
 // rows quantized together (or cast, over an fp32 cache) and stored with
 // their per-entry scales and kv_pos straight into the slot rows, in one
-// launch. Over an fp cache the rows are cast to its float type, fp32 or
-// bf16.
+// launch. Over an fp cache the rows are cast to its float type, fp32,
+// bf16 or float16.
 //
 // Replaces the Pallas TPU prefill kernel's epilogue `_quantize_chunk`
 // (src/repro/kernels/prefill_attention.py:232-245: dynamic at :232, the
@@ -49,9 +49,13 @@
 //   src/repro/engine/kvcache.py:222 and :350) takes the rows rounded to
 //   nearest even (__float2bfloat16_rn, as astype and .to() round), packed
 //   two a 32-bit word: a bf16 row is copied unchanged, an fp32 one
-//   rounded. The vector width E follows the 2-byte destination too: a
-//   lane stores E values in one store of up to 16 bytes. A runtime flag
-//   (`out16`), not another instantiation.
+//   rounded. A float16 cache (kv_dtype="float16") takes each value
+//   rounded to nearest even by __float2half_rn, as astype(float16)
+//   rounds it (a bf16 value whose exponent float16 lacks overflows to
+//   inf or rounds into its subnormals, as there). The vector width E
+//   follows the 2-byte destination too: a lane stores E values in one
+//   store of up to 16 bytes. A runtime value (`out16`: 1 bf16, 2
+//   float16), not another instantiation.
 // - Codes leave as packed 32-bit words (8 codes a lane: one 8-byte
 //   store).
 // - The destination row is computed in the kernel. Decode (`pos` given):
@@ -81,7 +85,7 @@ struct KvArgs {
   long long total;           // threads with a piece: rows * per_row
   unsigned per_row;          // ntens * Hkv * C * P
   int ntens, T, Hkv, D, C, cl, lp, nv, slot, pos_start, length, mode, smem_table;
-  int out16;                 // fp mode: a bf16 destination
+  int out16;                 // fp mode: a bf16 (1) or float16 (2) destination
 };
 
 // E values of the input from one vector load, exactly as floats: a bf16
@@ -140,6 +144,20 @@ __device__ __forceinline__ void store_bf16(__nv_bfloat16* d, const float (&f)[E]
 #pragma unroll
   for (int j = 0; j < E; ++j)
     w[j / 2] |= (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[j])) << (16 * (j & 1));
+  if constexpr (E == 8) *(uint4*)d = make_uint4(w[0], w[1], w[2], w[3]);
+  else if constexpr (E == 4) *(uint2*)d = make_uint2(w[0], w[1]);
+  else if constexpr (E == 2) *(unsigned*)d = w[0];
+  else *(unsigned short*)d = (unsigned short)w[0];
+}
+
+// E values rounded to float16 (nearest even) and packed two a word, one
+// store.
+template <int E>
+__device__ __forceinline__ void store_f16(__half* d, const float (&f)[E]) {
+  unsigned w[(E + 1) / 2] = {};
+#pragma unroll
+  for (int j = 0; j < E; ++j)
+    w[j / 2] |= (unsigned)__half_as_ushort(__float2half_rn(f[j])) << (16 * (j & 1));
   if constexpr (E == 8) *(uint4*)d = make_uint4(w[0], w[1], w[2], w[3]);
   else if constexpr (E == 4) *(uint2*)d = make_uint2(w[0], w[1]);
   else if constexpr (E == 2) *(unsigned*)d = w[0];
@@ -244,7 +262,9 @@ __global__ void __launch_bounds__(THREADS) kv_write_kernel(const KvArgs a) {
   for (int i = 0; i < a.nv; ++i) {
     if (i) load_vec<BF16, E>(src + (size_t)i * step * XB, f);
     const size_t o = doff + (size_t)i * step;
-    if (a.mode == MODE_FP && a.out16) {
+    if (a.mode == MODE_FP && a.out16 == 2) {
+      store_f16<E>((__half*)(kv ? a.dv : a.dk) + o, f);
+    } else if (a.mode == MODE_FP && a.out16) {
       store_bf16<E>((__nv_bfloat16*)(kv ? a.dv : a.dk) + o, f);
     } else if (a.mode == MODE_FP) {
       store_f32<E>((float*)(kv ? a.dv : a.dk) + o, f);
@@ -275,21 +295,22 @@ extern "C" {
 
 // k, v (rows, Hkv, D) (v null: K alone) → destination dk, dv (N, T, Hkv,
 // D), int8 codes (mode 1 dynamic, 2 static) or, in mode 0, fp32 (or bf16
-// with dst_is_bf16); scales:
+// with dst16 = 1, float16 with dst16 = 2); scales:
 // dynamic (N, T, Hkv, C) written, static (Hkv, C) read, fp unused (C = 1).
 // pos (rows,) int32: the decode map (rows == N); null: the window map of
 // `slot` at pos_start with `length` valid rows. kv_pos (N, T) or null.
 int kv_write(const void* k, const void* v, void* dk, void* dv, void* kv_pos,
              const void* pos, void* ks, void* kz, void* vs, void* vz, int rows,
              int T, int Hkv, int D, int C, int slot, int pos_start, int length,
-             int mode, int x_is_bf16, int dst_is_bf16, void* stream) {
+             int mode, int x_is_bf16, int dst16, void* stream) {
   const int ntens = v ? 2 : 1;
   if (rows <= 0 || T <= 0 || Hkv <= 0 || D <= 0 || C <= 0 || D % C != 0 ||
       mode < MODE_FP || mode > MODE_STATIC || !k || !dk || (v && !dv) ||
-      (mode == MODE_FP && C != 1) || (dst_is_bf16 && mode != MODE_FP) ||
+      (mode == MODE_FP && C != 1) || dst16 < 0 || dst16 > 2 ||
+      (dst16 && mode != MODE_FP) ||
       (mode != MODE_FP && (!ks || !kz || (v && (!vs || !vz)))))
     return (int)cudaErrorInvalidValue;
-  const int xb = x_is_bf16 ? 2 : 4, ob = mode == MODE_FP ? (dst_is_bf16 ? 2 : 4) : 1;
+  const int xb = x_is_bf16 ? 2 : 4, ob = mode == MODE_FP ? (dst16 ? 2 : 4) : 1;
   const int cl = D / C;
   int E = 16 / xb;
   while (E > 1 && (cl % E || !aligned(k, E * xb) || !aligned(v, E * xb) ||
@@ -303,7 +324,7 @@ int kv_write(const void* k, const void* v, void* dk, void* dv, void* kv_pos,
   KvArgs a{k, v, dk, dv, (float*)ks, (float*)kz, (float*)vs, (float*)vz,
            (int*)kv_pos, (const int*)pos, (long long)rows * per_row, per_row,
            ntens, T, Hkv, D, C, cl, lp, m >> lp, slot, pos_start, length, mode,
-           mode == MODE_STATIC && 16LL * Hkv * C <= SMEM_TABLE_MAX, dst_is_bf16 ? 1 : 0};
+           mode == MODE_STATIC && 16LL * Hkv * C <= SMEM_TABLE_MAX, dst16};
   cudaStream_t st = (cudaStream_t)stream;
   if (x_is_bf16) {
     switch (E) {

@@ -103,6 +103,16 @@
 // there); the CUDA-core kernel widens each value to fp32 exactly
 // (load_cache).
 //
+// float16 cache (kv_dtype="float16"): one more cache type of both
+// kernels. The tensor-core kernel's raw stage holds the float16 rows (D
+// * 2 bytes, the bf16 pitch) and widens each value exactly before its
+// bf16 rounding into the K and V tiles, as it does an fp32 cache's; the
+// CUDA-core kernel widens each value exactly. A verify window attends
+// its K/V through the float16 round trip (kn.astype(float16) back to
+// fp32, :218-219): the tensor-core kernel rounds the window's bf16
+// values to float16 and back where it copies them into its tiles, the
+// CUDA-core kernel where it loads them.
+//
 // What holds it back (PERF.md, from clock64 stamps per phase on the H100
 // at stablelm-1.6b's and chatglm3-6b's Sq = 96 chunk): a block's two live
 // tiles each cost about as much to dequantize into bf16 (the 64 x D codes
@@ -120,6 +130,18 @@
 // chunk of 28 columns straddles k16 fragments, so the dequantization
 // takes each 4-column group's own chunk scale ((d * cl_mul) >> 16).
 // The fp32-q kernel takes any D already.
+//
+// head_dim 256 (paligemma-3b, MQA 8/1: 8 queries x 8 heads a block;
+// sub-channel chunks of 64): at 64 keys a tile the two raw stages of an
+// fp32 cache alone are 256 KB, and a warp's O (ND = 32 n8 tiles x 4 =
+// 128 fp32 registers a thread) beside KD = 16 k16 steps of Q fragments
+// held in registers (64 more) and 64 keys of scores would spill. So
+// TcGeo<256> takes tiles of KT = 32 keys (the splits stay whole 64-row
+// ranges of prefill_plan) and keeps the block's 64 Q rows in shared
+// memory (pitch D + 8, as K and V), read by ldmatrix one k16 step at a
+// time: O, 16 score registers and one Q fragment stay in registers. A
+// block then takes 137 KB over an int8 cache (two stages of 32 rows of
+// codes and scales), 199 KB over an fp32 one.
 //
 // Registers, spills and the bytes a block takes at the serving shapes are
 // printed by chip_smoke.py (PERF.md): two blocks an SM at both serving
@@ -219,6 +241,10 @@ struct Int8Ops {
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+// The same over a float16 cache.
+__device__ __forceinline__ float round_f16(float x) {
+  return __half2float(__float2half_rn(x));
+}
 
 template <typename KV, typename X>
 __global__ void __launch_bounds__(THREADS)
@@ -277,8 +303,9 @@ prefill_fp32_kernel(const X* __restrict__ q, const X* __restrict__ kn,
   const int q_last = min(Sq, q0 + Bq) - 1;
   // (verify over an int8 cache: the window's codes, dequantized)
   const bool v8 = std::is_same<KV, int8_t>::value && s8.verify;
-  // (verify over a bf16 cache: the window's K/V rounded to bf16)
+  // (verify over a 16-bit cache: the window's K/V rounded to its type)
   const bool v16 = std::is_same<KV, __nv_bfloat16>::value && s8.verify;
+  const bool vh = std::is_same<KV, __half>::value && s8.verify;
   // keys at or past `length` are masked and never loaded: in verify mode
   // the window's codes may be the slot's own rows, which end at T
   const int kend = min(Sq, length);
@@ -293,7 +320,7 @@ prefill_fp32_kernel(const X* __restrict__ q, const X* __restrict__ kn,
           return rt::dequant_kv(codes[row * D + d], s[(stat ? (size_t)h : row) * C + d / cl],
                                 z[(stat ? (size_t)h : row) * C + d / cl]);
         const float x = rt::to_f(base[row * D + d]);
-        return v16 ? round_bf16(x) : x;
+        return v16 ? round_bf16(x) : vh ? round_f16(x) : x;
       };
     };
     chunk_update(sm, R, D, load(kn, s8.wk, s8.wks, s8.wkz),
@@ -315,7 +342,7 @@ prefill_fp32_kernel(const X* __restrict__ q, const X* __restrict__ kn,
 
 // ------------------------------------------------ bf16 q, tensor cores ---
 constexpr int QROWS = 64;     // query rows (queries x heads of the group) per block
-constexpr int KT = 64;        // keys per tile
+constexpr int PLAN_TILE = 64; // prefill_plan cuts the cache in ranges of 64-row tiles
 constexpr int TC_THREADS = 128;
 constexpr int SMEM_MAX = 232448;
 
@@ -335,15 +362,20 @@ struct PArgs {
 
 // Shared memory of one block, in bytes: the dequantized bf16 K and V
 // tiles (row pitch D + 8 elements: ldmatrix rows on distinct banks; after
-// the walk, the merge's weights), the row-valid flags of two tiles, a
-// ring of two raw stages (K rows, V rows in the cache's type or bf16,
-// then the four scale arrays of the tile), and one live flag per tile.
+// the walk, the merge's weights), at D = 256 the block's Q rows (QS, the
+// same pitch), the row-valid flags of two tiles, a ring of two raw stages
+// (K rows, V rows in the cache's type or bf16, then the four scale arrays
+// of the tile), and one live flag per tile. KT keys a tile: 64, or 32 at
+// D = 256 (above).
 template <int D>
 struct TcGeo {
+  static constexpr int KT = D > 128 ? 32 : 64;
+  static constexpr bool QS = D > 128;
   static constexpr int BP = D + 8;
   static constexpr int KB = 0;
   static constexpr int VB = KT * BP * 2;
-  static constexpr int RV = 2 * KT * BP * 2;
+  static constexpr int QB = 2 * KT * BP * 2;
+  static constexpr int RV = QB + (QS ? QROWS * BP * 2 : 0);
   static constexpr int RING = RV + 2 * KT * 4;
   __host__ __device__ static int rb(int kv_bytes) { return D * (kv_bytes > 2 ? kv_bytes : 2); }
   __host__ __device__ static int stage(int kv_bytes, int C) {
@@ -365,8 +397,9 @@ __global__ void __launch_bounds__(TC_THREADS)
 prefill_tc_kernel(PArgs a) {
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
   constexpr bool KV16 = std::is_same<KV, __nv_bfloat16>::value;
-  constexpr int BP = TcGeo<D>::BP, KD = D / 16, ND = D / 8, NT = KT / 8;
+  constexpr bool KVH = std::is_same<KV, __half>::value;
   using G_ = TcGeo<D>;
+  constexpr int BP = G_::BP, KD = D / 16, ND = D / 8, KT = G_::KT, NT = KT / 8;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   unsigned char* smem = tc_smem;
   __shared__ int last_block;
@@ -385,6 +418,8 @@ prefill_tc_kernel(PArgs a) {
   // the chunk's keys as codes (verify over an int8 cache), else as bf16
   const bool chunk8 = chunk && INT8 && a.s8.verify;
   const bool raw16 = chunk && !chunk8;
+  // (verify over a float16 cache: the window through the float16 round trip)
+  const bool chunkh = chunk && KVH && a.s8.verify;
   __shared__ float stab[STAT ? D : 1];                 // static S, Z of K, V: [4][C]
 
   // this lane's two query rows: block row warp*16 + gid (+8)
@@ -401,16 +436,40 @@ prefill_tc_kernel(PArgs a) {
   const bool warp_live = warp_r0 < nrows && q0 + warp_r0 / G < a.Sq;
   const int warp_qmax = min(a.Sq - 1, q0 + min(nrows - 1, warp_r0 + 15) / G);
 
-  // Q fragments (bf16 as given; the 1/sqrt(D) scale is applied to S in fp32)
-  uint32_t aq[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = j & 1, d = kk * 16 + tig * 2 + (j >> 1) * 8;
-      aq[kk][j] = rok[row] ? *(const uint32_t*)(a.q + ((size_t)qi[row] * a.Hq + hq[row]) * D + d)
-                           : 0u;
+  // Q fragments (bf16 as given; the 1/sqrt(D) scale is applied to S in
+  // fp32): in registers, or at D = 256 (QS) the block's rows in shared
+  // memory, zeros past the chunk, read a k16 step at a time
+  uint32_t aq[G_::QS ? 1 : KD][4];
+  if constexpr (G_::QS) {
+    __nv_bfloat16* Qs = (__nv_bfloat16*)(smem + G_::QB);
+    for (int i = tid; i < QROWS * (D / 8); i += TC_THREADS) {
+      const int r = i / (D / 8), d = (i % (D / 8)) * 8;
+      const int qr = q0 + r / G;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nrows && qr < a.Sq)
+        v = __ldg((const uint4*)(a.q + ((size_t)qr * a.Hq + h * G + r % G) * D + d));
+      *(uint4*)(Qs + r * BP + d) = v;
     }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = j & 1, d = kk * 16 + tig * 2 + (j >> 1) * 8;
+        aq[kk][j] = rok[row] ? *(const uint32_t*)(a.q + ((size_t)qi[row] * a.Hq + hq[row]) * D + d)
+                             : 0u;
+      }
+  }
+  // the A fragment of k16 step kk
+  auto qfrag = [&](int kk, uint32_t (&f)[4]) {
+    if constexpr (G_::QS) {
+      const int r = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1), d = kk * 16 + 8 * (lane >> 4);
+      sm90::ldmatrix_x4(f, sm90::smem_addr((const __nv_bfloat16*)(smem + G_::QB) + r * BP + d));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f[j] = aq[kk][j];
+    }
+  };
   float o[ND][4], m[2] = {rt::NEG_INF, rt::NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < ND; ++i)
@@ -515,8 +574,22 @@ prefill_tc_kernel(PArgs a) {
       const unsigned char* src = raw + (kv * KT + r) * RB;
       uint2 out = make_uint2(0u, 0u);
       if (ok) {
-        if (raw16 || KV16) {  // bf16 rows, the chunk's or a bf16 cache's: as they are
+        if (chunkh) {  // the window's bf16 values through float16 and back
+          const uint2 w = *(const uint2*)(src + d * 2);
+          float f[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t h16 = ((e < 2 ? w.x : w.y) >> (16 * (e & 1))) & 0xffffu;
+            f[e] = __half2float(__float2half_rn(__uint_as_float(h16 << 16)));
+          }
+          out = make_uint2(sm90::pack_bf16x2(f[0], f[1]), sm90::pack_bf16x2(f[2], f[3]));
+        } else if (raw16 || KV16) {  // bf16 rows, the chunk's or a bf16 cache's: as they are
           out = *(const uint2*)(src + d * 2);
+        } else if (KVH) {  // float16 rows, widened exactly, then rounded to bf16
+          const uint2 w = *(const uint2*)(src + d * 2);
+          const float2 lo = __half22float2(*(const __half2*)&w.x);
+          const float2 hi = __half22float2(*(const __half2*)&w.y);
+          out = make_uint2(sm90::pack_bf16x2(lo.x, lo.y), sm90::pack_bf16x2(hi.x, hi.y));
         } else if (INT8) {
           const uint32_t w = *(const uint32_t*)(src + d) ^ 0x80808080u;
           // four columns of one chunk: a chunk is a whole number of
@@ -550,15 +623,18 @@ prefill_tc_kernel(PArgs a) {
       for (int j = 0; j < 4; ++j) sacc[nt][j] = 0.f;
     const int mat = lane / 8, mrow = lane % 8;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qf[4];
+      qfrag(kk, qf);
 #pragma unroll
       for (int nt = 0; nt < NT; nt += 2) {
         uint32_t b[4];
         const int key = (nt + mat / 2) * 8 + mrow, d = kk * 16 + (mat % 2) * 8;
         sm90::ldmatrix_x4(b, sm90::smem_addr(Kb + key * BP + d));
-        sm90::mma_m16n8k16_bf16(sacc[nt], aq[kk], b[0], b[1]);
-        sm90::mma_m16n8k16_bf16(sacc[nt + 1], aq[kk], b[2], b[3]);
+        sm90::mma_m16n8k16_bf16(sacc[nt], qf, b[0], b[1]);
+        sm90::mma_m16n8k16_bf16(sacc[nt + 1], qf, b[2], b[3]);
       }
+    }
     // mask, scale, online softmax (a row lives on the 4 lanes of its gid)
     float mx[2] = {rt::NEG_INF, rt::NEG_INF};
 #pragma unroll
@@ -771,6 +847,7 @@ cudaError_t dispatch_tc(const PArgs& a, int D, cudaStream_t st) {
     case 64: return launch_tc<64, KV, STAT>(a, st);
     case 112: return launch_tc<112, KV, STAT>(a, st);
     case 128: return launch_tc<128, KV, STAT>(a, st);
+    case 256: return launch_tc<256, KV, STAT>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -801,7 +878,7 @@ cudaError_t launch_fp32(const void* q, const void* kn, const void* vn, const voi
 extern "C" {
 
 // Bytes of dynamic shared memory a tensor-core block takes; kv_bytes: the
-// cache's element size, 1 (int8), 2 (bf16) or 4 (fp32).
+// cache's element size, 1 (int8), 2 (bf16, float16) or 4 (fp32).
 int prefill_attention_smem(int D, int C, int kv_bytes, int T) {
   const int kv = kv_bytes, c = kv_bytes == 1 ? C : 0;
   switch (D) {
@@ -809,6 +886,7 @@ int prefill_attention_smem(int D, int C, int kv_bytes, int T) {
     case 64: return TcGeo<64>::bytes(kv, c, T);
     case 112: return TcGeo<112>::bytes(kv, c, T);
     case 128: return TcGeo<128>::bytes(kv, c, T);
+    case 256: return TcGeo<256>::bytes(kv, c, T);
     default: return 0;
   }
 }
@@ -817,8 +895,9 @@ int prefill_attention_smem(int D, int C, int kv_bytes, int T) {
 // with `stat`, per-layer (Hkv, C); with `verify`, wk/wv are the window's
 // codes (Sq, Hkv, D) and wks..wvz its per-entry scales (Sq, Hkv, C; unused
 // with `stat`, where the window takes the same constants). kv_bytes: the
-// cache's element size, 1 (int8 codes), 2 (bf16) or 4 (fp32); `verify`
-// over a float cache rounds the window to the cache's type.
+// cache's element size, 1 (int8 codes), 2 (bf16, or float16 with kv_f16)
+// or 4 (fp32); `verify` over a float cache rounds the window to the
+// cache's type.
 int prefill_attention(const void* q, const void* kn, const void* vn,
                       const void* ck, const void* cv, const void* kv_pos,
                       const void* ks, const void* kz, const void* vs,
@@ -826,12 +905,12 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
                       const void* wks, const void* wkz, const void* wvs,
                       const void* wvz, void* o, void* part_o, void* part_ml,
                       void* counter, int Sq, int T, int Hq, int Hkv, int D,
-                      int C, int pos_start, int length, int kv_bytes, int stat,
-                      int verify, int x_is_bf16, int cache_rows, int cache_splits,
-                      float qscale, void* stream) {
+                      int C, int pos_start, int length, int kv_bytes, int kv_f16,
+                      int stat, int verify, int x_is_bf16, int cache_rows,
+                      int cache_splits, float qscale, void* stream) {
   const bool int8 = kv_bytes == 1;
   if (Sq <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
-      (kv_bytes != 1 && kv_bytes != 2 && kv_bytes != 4) ||
+      (kv_bytes != 1 && kv_bytes != 2 && kv_bytes != 4) || (kv_f16 && kv_bytes != 2) ||
       (int8 && (C <= 0 || D % C != 0)) || (int8 && verify && (!wk || !wv)) ||
       (int8 && verify && !stat && (!wks || !wkz || !wvs || !wvz)))
     return (int)cudaErrorInvalidValue;
@@ -846,6 +925,9 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
   if (!x_is_bf16)
     return (int)(int8 ? launch_fp32<int8_t>(q, kn, vn, ck, cv, kp, s8, o, Sq, T, Hq,
                                             Hkv, D, C, pos_start, length, qscale, st)
+                 : kv_f16
+                     ? launch_fp32<__half>(q, kn, vn, ck, cv, kp, s8, o, Sq, T, Hq, Hkv, D,
+                                           C, pos_start, length, qscale, st)
                  : kv_bytes == 2
                      ? launch_fp32<__nv_bfloat16>(q, kn, vn, ck, cv, kp, s8, o, Sq, T, Hq,
                                                   Hkv, D, C, pos_start, length, qscale, st)
@@ -859,7 +941,7 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
     if (cl < 4 || cl % 4 || 32 % C) return (int)cudaErrorInvalidValue;
     cl_mul = (65536 + cl - 1) / cl;   // (d * cl_mul) >> 16 == d / cl for d < 256
   }
-  if (G > QROWS || cache_rows <= 0 || cache_rows % KT != 0 || cache_splits <= 0 ||
+  if (G > QROWS || cache_rows <= 0 || cache_rows % PLAN_TILE != 0 || cache_splits <= 0 ||
       cache_splits + 1 > MAX_SPLITS ||
       (long long)(cache_splits - 1) * cache_rows >= T || !part_o || !part_ml ||
       !counter)
@@ -869,6 +951,7 @@ int prefill_attention(const void* q, const void* kn, const void* vn,
           (float*)part_o, (float*)part_ml, (int*)counter,
           Sq, T, Hq, Hkv, int8 ? C : 0, cl_mul, pos_start, length,
           QROWS / G, cache_rows, cache_splits, qscale};
+  if (kv_f16) return (int)dispatch_tc<__half, false>(p, D, st);
   if (kv_bytes == 2) return (int)dispatch_tc<__nv_bfloat16, false>(p, D, st);
   if (!int8) return (int)dispatch_tc<float, false>(p, D, st);
   return (int)(s_ ? dispatch_tc<int8_t, true>(p, D, st) : dispatch_tc<int8_t, false>(p, D, st));

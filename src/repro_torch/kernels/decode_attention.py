@@ -5,8 +5,8 @@ plan, and its plain PyTorch versions.
 
 Shapes (one layer, one query token per slot):
   q       (N, Hq, D)     post-RoPE queries
-  k, v    (N, T, Hkv, D) int8 codes (int8 mode), or fp32 or bf16 (fp
-          mode: the engine's ``kv_dtype``)
+  k, v    (N, T, Hkv, D) int8 codes (int8 mode), or fp32, bf16 or
+          float16 (fp mode: the engine's ``kv_dtype``)
   kv_pos  (N, T) int32   absolute position per row, -1 = empty
   q_pos   (N,)   int32   per-slot current position
   scales  fp32, int8 mode: per-entry (N, T, Hkv, C) ("dynamic"), or
@@ -27,8 +27,8 @@ call), ``decode_attention.variant_launches`` splits them by plan:
 (one block per (slot, head group) walks all of T), and
 ``decode_attention.mode_launches`` by mode: ``"fp"``, ``"dynamic"`` and
 ``"static"``, and ``decode_attention.dtype_launches`` by the cache's dtype
-(:data:`CACHE_DTYPES`). A float16 cache and head_dims outside
-:data:`HEAD_DIMS` are refused (ROADMAP queue 2 A).
+(:data:`CACHE_DTYPES`). The kernels take the head_dims of
+:data:`HEAD_DIMS` (32-256).
 """
 from __future__ import annotations
 
@@ -64,9 +64,14 @@ MODES = ("fp", "dynamic", "static")
 #: the cache dtypes the kernels take, by the names ``dtype_launches``
 #: counts (shared with the prefill attention and the K/V write)
 CACHE_DTYPES = {torch.int8: "int8", torch.float32: "float32",
-                torch.bfloat16: "bfloat16"}
-#: the head_dims the attention kernels take (112: kimi-k2-1t-a32b)
-HEAD_DIMS = (32, 64, 112, 128)
+                torch.bfloat16: "bfloat16", torch.float16: "float16"}
+#: the head_dims the attention kernels take (112: kimi-k2-1t-a32b; 256:
+#: paligemma-3b)
+HEAD_DIMS = (32, 64, 112, 128, 256)
+#: the largest head_dim at which a decode block takes 16 query heads: at
+#: D = 256 a lane's P.V holds 8 columns a head, and 16 heads of them
+#: would spill
+GROUP16_MAX_D = 128
 
 
 def is_static(scale, N: int, T: int) -> bool:
@@ -92,11 +97,14 @@ def _rows(scale, sl, static: bool):
     return scale if static else scale[:, sl]
 
 
-def head_group(G: int) -> int:
+def head_group(G: int, D: int = 0) -> int:
     """Query heads a block takes: the largest of 16, 4, 1 that divides G
     (the kernel is instantiated for these three; groups of 4 for
-    chatglm3-6b's 16 were slower, PERF.md)."""
-    return 16 if G % 16 == 0 else 4 if G % 4 == 0 else 1
+    chatglm3-6b's 16 were slower, PERF.md), 4 at most above
+    :data:`GROUP16_MAX_D`."""
+    if G % 16 == 0 and D <= GROUP16_MAX_D:
+        return 16
+    return 4 if G % 4 == 0 else 1
 
 
 class DecodePlan(NamedTuple):
@@ -111,13 +119,15 @@ class DecodePlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def decode_plan(N: int, T: int, Hkv: int, G: int, sms: int) -> DecodePlan:
+def decode_plan(N: int, T: int, Hkv: int, G: int, sms: int,
+                D: int = 0) -> DecodePlan:
     """Split T so that the grid (N x Hkv x G/group x splits blocks) comes
     near :data:`BLOCKS_PER_SM` blocks per SM of a card with ``sms`` SMs,
     in whole 32-row tiles, at least :data:`MIN_SPLIT_TILES` of them a
     split (or all of T) and at most :data:`MAX_SPLIT_TILES` where that
-    allows, and at most :data:`MAX_SPLITS` splits."""
-    group = head_group(G)
+    allows, and at most :data:`MAX_SPLITS` splits. ``D``: the head_dim
+    (:func:`head_group`)."""
+    group = head_group(G, D)
     base = N * Hkv * (G // group)
     tiles = -(-T // TILE_ROWS)
     want = min(max(-(-BLOCKS_PER_SM * sms // base),
@@ -273,9 +283,9 @@ def _check_cuda(q, k, v, kv_pos, q_pos, scales):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype not in CACHE_DTYPES or v.dtype != k.dtype:
-        raise TypeError(f"the cache must be int8, float32 or bfloat16, got "
-                        f"{k.dtype}, {v.dtype} (a float16 cache is ROADMAP "
-                        f"queue 2 A)")
+        raise TypeError(f"the cache must be one of "
+                        f"{', '.join(CACHE_DTYPES.values())}, got "
+                        f"{k.dtype}, {v.dtype}")
     if k.dtype == torch.int8:
         if any(s is None for s in scales):
             raise ValueError("int8 mode requires all four scale arrays")
@@ -291,12 +301,10 @@ def _check_cuda(q, k, v, kv_pos, q_pos, scales):
 
 
 def check_head_dim(D: int) -> None:
-    """The head_dims the attention kernels take (D = 256 is ROADMAP
-    queue 2 A)."""
+    """The head_dims the attention kernels take."""
     if D not in HEAD_DIMS:
         raise ValueError(f"the attention kernels take head_dim "
-                         f"{', '.join(map(str, HEAD_DIMS))}, got {D} "
-                         f"(ROADMAP queue 2 A)")
+                         f"{', '.join(map(str, HEAD_DIMS))}, got {D}")
 
 
 def check_chunks(D: int, C: int) -> None:
@@ -331,7 +339,7 @@ def decode_attention(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,
     kv_pos, q_pos = kv_pos.contiguous(), q_pos.contiguous()
     sc = [s.contiguous() for s in scales] if int8 else [None] * 4
     G = Hq // Hkv
-    p = decode_plan(N, T, Hkv, G, build.sm_count(q.device.index or 0))
+    p = decode_plan(N, T, Hkv, G, build.sm_count(q.device.index or 0), D)
     o = torch.empty_like(ts[0])
     part_o = part_ml = counter = None
     if p.splits > 1:
@@ -348,7 +356,8 @@ def decode_attention(q, k, v, kv_pos, q_pos, k_scale=None, k_zero=None,
         *(t.data_ptr() for t in ts), kv_pos.data_ptr(), q_pos.data_ptr(),
         *(None if s is None else s.data_ptr() for s in sc), o.data_ptr(),
         part_o, part_ml, counter, N, T, Hq, Hkv, D, C, k.element_size(),
-        int(mode == "static"), int(q.dtype == torch.bfloat16), p.group,
+        int(k.dtype == torch.float16), int(mode == "static"),
+        int(q.dtype == torch.bfloat16), p.group,
         p.rows, p.splits, p.warps, D ** -0.5, build.stream_of(q))
     build.check(lib, err, "decode_attention")
     decode_attention.launches += 1

@@ -7,7 +7,8 @@ PyTorch versions.
 Shapes:
   q             (Sq, Hq, D)   post-RoPE chunk queries (Sq = padded chunk)
   k_new, v_new  (Sq, Hkv, D)  post-RoPE chunk K/V, full precision
-  cache_k/v     (T, Hkv, D)   the slot's rows: int8 codes, or fp32 or bf16
+  cache_k/v     (T, Hkv, D)   the slot's rows: int8 codes, or fp32, bf16 or
+                              float16
   kv_pos        (T,) int32    absolute position per row, -1 = empty
   pos_start     int           absolute position of chunk token 0
   length        int           valid tokens in the chunk
@@ -52,8 +53,8 @@ variant, ``prefill_attention.mode_launches`` by mode (:data:`MODES`) and
 ``write_kv_rows.mode_launches`` the write's (:data:`WRITE_MODES`), and
 ``prefill_attention.dtype_launches`` and ``write_kv_rows.dtype_launches``
 each by the cache's dtype (:data:`CACHE_DTYPES`: int8, float32,
-bfloat16; a float16 cache is refused, ROADMAP queue 2 A). The tensor-core
-kernel takes head_dim 32, 64, 112 and 128.
+bfloat16, float16). The tensor-core kernel takes head_dim 32, 64, 112,
+128 and 256.
 """
 from __future__ import annotations
 
@@ -88,6 +89,9 @@ MODES = ("fp", "dynamic", "static", "verify_fp", "verify_dynamic",
 #: the cache modes of the K/V write, as ``write_kv_rows.mode_launches``
 #: counts them, and their ids in ``csrc/kv_write.cu``
 WRITE_MODES = ("fp", "dynamic", "static")
+#: the 16-bit destinations of an fp write, by their ids in
+#: ``csrc/kv_write.cu`` (0: fp32 rows or int8 codes)
+DST16 = {torch.bfloat16: 1, torch.float16: 2}
 
 
 def prefill_mode(cache_k, k_scale, verify: bool) -> str:
@@ -239,8 +243,8 @@ quantize_kv_static.launches = 0
 # ------------------------------------------------------ the cache write ---
 def write_mode(dst_k, k_scale) -> str:
     """The mode of a write into ``dst_k`` (one of :data:`WRITE_MODES`):
-    a float (fp32 or bf16) destination is cast to, static scales are (Hkv, C), per-entry
-    ones (N, T, Hkv, C)."""
+    a float (fp32, bf16 or float16) destination is cast to, static scales
+    are (Hkv, C), per-entry ones (N, T, Hkv, C)."""
     if dst_k.dtype != torch.int8:
         return "fp"
     return "static" if k_scale.dim() == 2 else "dynamic"
@@ -291,8 +295,8 @@ def write_kv_rows(k, v, dst_k, dst_v, kv_pos, k_scale=None, k_zero=None,
     """One layer's K/V cache write, in place, in one launch.
 
     k, v (R, Hkv, D) fp32 or bf16 post-RoPE; ``dst_k``/``dst_v`` the
-    layer's (N, T, Hkv, D) rows, int8 codes, or fp32 or bf16 (a cast,
-    rounded to nearest even); ``kv_pos`` (N, T) int32. Scales: per-entry
+    layer's (N, T, Hkv, D) rows, int8 codes, or fp32, bf16 or float16 (a
+    cast, rounded to nearest even); ``kv_pos`` (N, T) int32. Scales: per-entry
     (N, T, Hkv, C), written (dynamic); per-layer (Hkv, C), read (static);
     none over a float cache.
     ``positions`` (N,) int32: a decode write, row n to slot n at row
@@ -318,10 +322,9 @@ def write_kv_rows(k, v, dst_k, dst_v, kv_pos, k_scale=None, k_zero=None,
     if dst_k.dim() != 4 or dst_k.shape[2:] != (Hkv, D) or \
             dst_v.shape != dst_k.shape or dst_v.dtype != dst_k.dtype or \
             dst_k.dtype not in CACHE_DTYPES:
-        raise ValueError(f"the destination must be int8, fp32 or bf16 (N, "
-                         f"T, {Hkv}, {D}), got {tuple(dst_k.shape)} "
-                         f"{dst_k.dtype} (a float16 cache is ROADMAP queue "
-                         f"2 A)")
+        raise ValueError(f"the destination must be one of "
+                         f"{', '.join(CACHE_DTYPES.values())} (N, T, {Hkv}, "
+                         f"{D}), got {tuple(dst_k.shape)} {dst_k.dtype}")
     N, T = dst_k.shape[:2]
     if kv_pos.shape != (N, T) or kv_pos.dtype != torch.int32:
         raise ValueError(f"kv_pos must be int32 ({N}, {T})")
@@ -370,7 +373,7 @@ def _kv_write(k, v, dst_k, dst_v, kv_pos, positions, scales, mode: str,
                        ptr(positions), *map(ptr, scales), rows, T, Hkv, D, C,
                        slot, pos_start, length, WRITE_MODES.index(mode),
                        int(k.dtype == torch.bfloat16),
-                       int(dst_k.dtype == torch.bfloat16), build.stream_of(k))
+                       DST16.get(dst_k.dtype, 0), build.stream_of(k))
     build.check(lib, err, "kv_write")
 
 
@@ -566,9 +569,9 @@ def _check_cuda(q, k_new, v_new, cache_k, cache_v, kv_pos, scales):
             k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise TypeError("q/k_new/v_new must share one of float32, bfloat16")
     if cache_k.dtype not in CACHE_DTYPES or cache_v.dtype != cache_k.dtype:
-        raise TypeError(f"the cache must be int8, float32 or bfloat16, got "
-                        f"{cache_k.dtype}, {cache_v.dtype} (a float16 cache "
-                        f"is ROADMAP queue 2 A)")
+        raise TypeError(f"the cache must be one of "
+                        f"{', '.join(CACHE_DTYPES.values())}, got "
+                        f"{cache_k.dtype}, {cache_v.dtype}")
     if cache_k.dtype == torch.int8:
         if any(s is None for s in scales):
             raise ValueError("int8 mode requires all four scale arrays")
@@ -593,7 +596,7 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
                       window_cached: bool = False):
     """Chunked-prefill attention plus, in int8 mode, the chunk's codes.
 
-    fp mode (fp32 or bf16 cache): returns (o, ()).
+    fp mode (fp32, bf16 or float16 cache): returns (o, ()).
     int8 per-entry scales (T, Hkv, C): returns (o, (qk, qv, ks, kz, vs,
     vz)) — the chunk's codes and fresh per-entry scales, for the caller
     to write into the slot.
@@ -676,7 +679,8 @@ def prefill_attention(q, k_new, v_new, cache_k, cache_v, kv_pos,
         *(t.data_ptr() for t in ts), kv_pos.data_ptr(),
         *(None if s is None else s.data_ptr() for s in sc), *win,
         o.data_ptr(), part_o, part_ml, counter, Sq, T, Hq, Hkv, D, C,
-        int(pos_start), int(length), cache_k.element_size(), int(static),
+        int(pos_start), int(length), cache_k.element_size(),
+        int(cache_k.dtype == torch.float16), int(static),
         int(verify), int(variant == TENSOR_CORE), rows, splits,
         D ** -0.5, build.stream_of(q))
     build.check(lib, err, "prefill_attention")

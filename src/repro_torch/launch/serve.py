@@ -93,6 +93,14 @@ kept; the 61 would not fit one card).
         --arch moonshot-v1-16b-a3b --reduced --device cpu \
         --metrics-snapshot /tmp/m.jsonl --metrics-interval 0
 
+The VLM family (paligemma-3b: head_dim 256, MQA, a tied head) serves
+text requests through the engine and the wave loop, as the JAX
+launcher does; its patch prefix is ``transformer.prefill``'s
+(``batch["patch_embeds"]``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+        --reduced --device cpu
+
 Without ``--device`` it runs on the CUDA card, and fails if there is
 none.
 """
@@ -291,6 +299,38 @@ def bf16_cache_workload():
     Returns (cfg, ecfg, quant, warmup_prompt, prompts)."""
     cfg, ecfg, quant, warmup, prompts = smoke_workload()
     ecfg = dataclasses.replace(ecfg, kv_mode="fp", kv_dtype="bfloat16")
+    return cfg, ecfg, quant, warmup, prompts
+
+
+def f16_cache_workload():
+    """:func:`smoke_workload` over an fp slot cache in float16 (the JAX
+    engine's ``kv_dtype="float16"``): the same stablelm-1.6b weights,
+    8 slots x 1024 rows, 96-token chunks and 16 requests, greedy.
+
+    Returns (cfg, ecfg, quant, warmup_prompt, prompts)."""
+    cfg, ecfg, quant, warmup, prompts = smoke_workload()
+    ecfg = dataclasses.replace(ecfg, kv_mode="fp", kv_dtype="float16")
+    return cfg, ecfg, quant, warmup, prompts
+
+
+def vlm_smoke_workload():
+    """The full-width VLM serving workload that ``chip_smoke.py`` drives:
+    paligemma-3b as the JAX package's config gives it, uncut (18 layers,
+    d_model 2048, MQA 8 heads / 1 kv-head of head_dim 256, d_ff 16384
+    geglu, vocab 257216, the head tied to the embedding table, a
+    1152 -> 2048 patch projection; bf16), SplitQuant INT4 k=3 weights
+    (seed 0), and :func:`smoke_workload`'s engine settings and request
+    shapes: an int8 slot cache of 8 slots x 1024 rows (sub-channel
+    chunks of 64 columns at qchunks 4), 96-token prefill chunks, one
+    100-token warm-up prompt, 16 seeded requests of 16-512 prompt tokens
+    and 32 new tokens each. The requests are text, as the JAX engine
+    serves a VLM; the patch prefix enters through ``transformer.prefill``.
+
+    Returns (cfg, ecfg, quant, warmup_prompt, prompts)."""
+    _, ecfg, quant, _, _ = smoke_workload()
+    cfg = get_arch("paligemma-3b")
+    warmup = seeded_prompts(cfg.vocab, 1, 100, 100, seed=99)[0]
+    prompts = seeded_prompts(cfg.vocab, 16, 16, 512, seed=0)
     return cfg, ecfg, quant, warmup, prompts
 
 

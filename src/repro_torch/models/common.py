@@ -28,6 +28,11 @@ def dense(x, w, b=None):
 
 
 def embed_lookup(table, ids):
+    """Rows ``ids`` of the embedding table; a packed table
+    (``quantize_embeddings``) is dequantized first, as the JAX package
+    does."""
+    if isinstance(table, PackedWeight):
+        table = table.dequantize()
     return table[ids]
 
 

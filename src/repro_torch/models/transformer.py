@@ -1,7 +1,7 @@
-"""Decoder-only LM (port of ``repro.models.transformer`` for the dense
-and MoE families): the forward over no cache, a plain ``KVCache`` (the
-wave loop's prefill and decode step) or the engine's slot cache (its
-decode step, chunked prefill and speculative verify).
+"""Decoder-only LM (port of ``repro.models.transformer`` for the dense,
+MoE and VLM families): the forward over no cache, a plain ``KVCache``
+(the wave loop's prefill and decode step) or the engine's slot cache
+(its decode step, chunked prefill and speculative verify).
 
 Parameters are plain nested dicts with the JAX package's names; each
 layer stack is a Python list of per-layer dicts (the JAX ``(L, …)`` stack
@@ -15,6 +15,15 @@ port's own, seeded by a ``torch.Generator``, at the same shapes; with
 layer-by-layer quantized build of ``launch.serve.build_params``). The
 JAX forward's third output, the MoE auxiliary loss, is left out: it
 feeds training, which is not ported.
+
+The VLM family (paligemma-3b) is the dense decoder with a stub vision
+frontend: ``patch_proj`` (``VLM_PATCH_DIM`` x d_model) projects a
+batch's ``patch_embeds`` (B, P, VLM_PATCH_DIM), which
+:func:`embed_inputs` prepends to the token embeddings, positions
+0 … P + S - 1. Its head is tied (``tie_embeddings``): no ``lm_head`` is
+drawn and every entry point's logits are ``x @ embed.T`` (the table
+dequantized first when ``quantize_embeddings`` packed it), a plain
+product that the JAX package leaves to XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -25,9 +34,15 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from .attention import KVCache, attention_block
+from ..kernels.ops import PackedWeight
 from .common import (apply_norm, dense, dtype_of, embed_init, embed_lookup,
                      he_init, init_norm)
 from .ffn import apply_ffn, apply_moe, init_ffn, init_moe
+
+#: SigLIP-so400m's embedding width (the VLM's stub frontend)
+VLM_PATCH_DIM = 1152
+#: the families this module builds
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _init_layer(gen, cfg, dtype, device, moe: bool = False, put=None):
@@ -73,9 +88,9 @@ def init(cfg, seed: int = 0, device=None, on_part=None):
     ``(key, index, *names)``: the attention, the norms, the FFN, or each
     entry of the MoE — each expert stack on its own; stack the stack's
     depth); its return value takes the part's place."""
-    if cfg.family not in ("dense", "moe") or cfg.tie_embeddings:
-        raise NotImplementedError(f"the port serves dense and MoE decoders "
-                                  f"with an untied head, got {cfg.name!r}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"transformer builds the {', '.join(FAMILIES)} "
+                         f"families, got {cfg.name!r}")
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -91,8 +106,12 @@ def init(cfg, seed: int = 0, device=None, on_part=None):
                 gen, cfg, dtype, device, moe,
                 put=lambda names, part, key=key, i=i, n=n: keep(
                     (key, i, *names), part, n)) for i in range(n)]
-    params["lm_head"] = keep(("lm_head",), he_init(
-        gen, (cfg.d_model, cfg.vocab), dtype, device), 1)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = keep(("lm_head",), he_init(
+            gen, (cfg.d_model, cfg.vocab), dtype, device), 1)
+    if cfg.family == "vlm":
+        params["patch_proj"] = keep(("patch_proj",), he_init(
+            gen, (VLM_PATCH_DIM, cfg.d_model), dtype, device), 1)
     return params
 
 
@@ -119,19 +138,28 @@ def _layers(params, cfg, x, positions, cache=None, moe_blocks: int = 1,
 
 
 def _head(params, cfg, x):
-    """Final norm and the LM head; fp32 logits."""
+    """Final norm and the LM head (tied: the embedding table's
+    transpose); fp32 logits."""
     x = apply_norm(x, params["final_norm"], cfg.norm_type)
-    return dense(x, params["lm_head"]).float()
+    head = params.get("lm_head")
+    if head is None:
+        table = params["embed"]
+        if isinstance(table, PackedWeight):
+            table = table.dequantize()
+        return (x @ table.to(x.dtype).T).float()
+    return dense(x, head).float()
 
 
 def embed_inputs(params, cfg, batch):
-    """tokens → (B, S, d), positions (S,). Text only: the VLM's patch
-    prefix is not ported."""
-    if "patch_embeds" in batch:
-        raise NotImplementedError("the VLM patch prefix is not ported")
+    """tokens (+ a VLM's ``patch_embeds``, projected and prepended) →
+    (B, P + S, d), positions (P + S,)."""
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
-    return x, torch.arange(tokens.shape[1], dtype=torch.int32,
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        patches = dense(batch["patch_embeds"].to(x.dtype),
+                        params["patch_proj"])
+        x = torch.cat([patches, x], dim=1)
+    return x, torch.arange(x.shape[1], dtype=torch.int32,
                            device=tokens.device)
 
 
@@ -139,7 +167,8 @@ def forward(params, cfg, batch, cache: Optional[KVCache] = None,
             positions=None, *, want_cache=False,
             cache_len: Optional[int] = None, pad_mask=None,
             moe_blocks: int = 1):
-    """Returns (logits (B, S, V) fp32, new_cache). ``cache`` ⇒ a decode
+    """Returns (logits (B, S, V) fp32 — (B, P + S, V) with a VLM's P
+    patch embeds — and new_cache). ``cache`` ⇒ a decode
     step at ``positions`` (1,), the cache updated in place and returned;
     ``want_cache`` ⇒ prefill, assembling a fresh cache of ``cache_len``
     rows from the computed K/V. ``pad_mask`` (B, S) marks True = padding

@@ -10,7 +10,7 @@ generation completes. Sampling runs on the device (greedy argmax, or with
 ``torch.Generator``), with one (B,) copy of the tokens to the host per
 step for the eos/limit bookkeeping.
 
-Dense and MoE models prefill into a ``KVCache`` of ``max_len`` rows with
+Dense, MoE and VLM models prefill into a ``KVCache`` of ``max_len`` rows with
 a pad mask, so the pads' K/V are never attended to (their entries hold
 position -1), and decode at the wave's shared position, as the JAX
 ``Server`` does. A MoE wave prefill routes the wave's B·S tokens, pads
@@ -37,9 +37,9 @@ from ..engine.engine import sample_tokens
 from ..models import get_model
 
 #: families whose prefill takes ``max_len`` and a pad mask (per-request KV
-#: validity) and whose decode step takes the wave's position (the JAX
-#: package's list also holds vlm, whose patch prefix is not ported)
-PAD_MASK_FAMILIES = ("dense", "moe")
+#: validity) and whose decode step takes the wave's position (a VLM's
+#: requests are text, as in the JAX ``Server``)
+PAD_MASK_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass

@@ -5,9 +5,11 @@ at import) when no card is present. Run them on a machine with an H100:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The attention kernels are run at the serving head layouts of
-stablelm-1.6b and chatglm3-6b, and kimi-k2-1t-a32b's GQA 64/8 at head_dim
-112 with sub-channel chunks of 28, at depths and chunk positions that
-probe their split plans, for both kernel variants of the prefill.
+stablelm-1.6b and chatglm3-6b, kimi-k2-1t-a32b's GQA 64/8 at head_dim
+112 with sub-channel chunks of 28 and paligemma-3b's MQA 8/1 at head_dim
+256, over int8, fp32, bf16 and float16 caches, at depths and chunk
+positions that probe their split plans, for both kernel variants of the
+prefill.
 
 Tolerances: fp32 outputs atol 1e-4 relative to the output's scale
 (summation order differs); bf16 outputs 2 ulp-ish (2e-2 relative); the
@@ -200,18 +202,32 @@ def test_matmul_kernel_rejects_untested_bits(dev):
         splitquant_matmul(x, qp, cp, recip, shift, bits=3, k=3)
 
 
-def test_attention_kernels_reject_fp16_cache(dev):
+def test_attention_kernels_take_fp16_cache(dev):
+    """A float16 cache through the three cache kernels (once refused):
+    each launches, counted under float16, and agrees with its plain
+    version."""
     gen = torch.Generator(device=dev).manual_seed(4)
     q, k, v, kv_pos, q_pos, sc = _decode_inputs(gen, dev, 4, 64, 4, 4, 32,
                                                 False, torch.bfloat16)
-    with pytest.raises(TypeError):
-        decode_attention(q, k.half(), v.half(), kv_pos, q_pos, *sc)
-    with pytest.raises(TypeError):
-        prefill_attention(q, q, q, k[0].half(), v[0].half(), kv_pos[0], 10,
-                          4)
-    with pytest.raises(ValueError):
-        pa.write_kv_rows(q[:, :4], q[:, :4], k.half(), v.half(), kv_pos,
-                         positions=q_pos)
+    kh, vh = k.half(), v.half()
+    before = (decode_attention.dtype_launches["float16"],
+              prefill_attention.dtype_launches["float16"],
+              pa.write_kv_rows.dtype_launches["float16"])
+    _close(decode_attention(q, kh, vh, kv_pos, q_pos, *sc),
+           decode_attention_ref(q, kh, vh, kv_pos, q_pos, *sc), 2e-2)
+    _close(prefill_attention(q, q, q, kh[0], vh[0], kv_pos[0], 10, 4)[0],
+           prefill_attention_ref(q, q, q, kh[0], vh[0], kv_pos[0], 10, 4),
+           2e-2)
+    want = [kh.clone(), vh.clone(), kv_pos.clone()]
+    pa.write_kv_rows_ref(q[:, :4], q[:, :4], *want, positions=q_pos)
+    pa.write_kv_rows(q[:, :4], q[:, :4], kh, vh, kv_pos, positions=q_pos)
+    torch.cuda.synchronize()
+    for got, ref in zip((kh, vh, kv_pos), want):
+        assert torch.equal(got, ref)
+    assert (decode_attention.dtype_launches["float16"],
+            prefill_attention.dtype_launches["float16"],
+            pa.write_kv_rows.dtype_launches["float16"]) == tuple(
+                b + 1 for b in before)
 
 
 def _decode_inputs(gen, dev, N, T, Hq, Hkv, D, int8, dtype):
@@ -234,7 +250,8 @@ def _decode_inputs(gen, dev, N, T, Hq, Hkv, D, int8, dtype):
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("Hq,Hkv,D", [(8, 8, 64), (32, 2, 128), (4, 4, 32),
-                                      (64, 8, 112), (4, 4, 112)])
+                                      (64, 8, 112), (4, 4, 112), (8, 1, 256),
+                                      (2, 1, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_vs_plain(dev, int8, Hq, Hkv, D, dtype):
     gen = torch.Generator(device=dev).manual_seed(Hq + Hkv + D)
@@ -248,7 +265,8 @@ def test_decode_kernel_vs_plain(dev, int8, Hq, Hkv, D, dtype):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("Hq,Hkv,D", [(8, 8, 64), (32, 2, 128), (64, 8, 112)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(8, 8, 64), (32, 2, 128), (64, 8, 112),
+                                      (8, 1, 256)])
 @pytest.mark.parametrize("pos_start,length,Sq", [(37, 96, 96), (0, 20, 32),
                                                  (250, 7, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -323,14 +341,14 @@ def _split_depths(T, rows):
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32),
-                                      (64, 8, 112), (4, 4, 112)])
+                                      (64, 8, 112), (4, 4, 112), (8, 1, 256)])
 @pytest.mark.parametrize("T", [100, 1024, 4096])
 def test_decode_split_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype, int8):
     """The split-T kernel at the depths that probe its plan, plus a slot
     whose only valid rows lie in its last 5 rows (every earlier split of
     it empty), against the plain version."""
     N = 7
-    p = da.decode_plan(N, T, Hkv, Hq // Hkv, _sms(dev))
+    p = da.decode_plan(N, T, Hkv, Hq // Hkv, _sms(dev), D)
     depths = _split_depths(T, p.rows)
     gen = torch.Generator(device=dev).manual_seed(T + Hkv + D)
     q = torch.randn((N, Hq, D), generator=gen, device=dev).to(dtype)
@@ -410,7 +428,7 @@ def _chunk_inputs(gen, dev, Sq, T, Hq, Hkv, D, int8, dtype, pos_start):
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128),
-                                      (64, 8, 112)])
+                                      (64, 8, 112), (8, 1, 256)])
 @pytest.mark.parametrize("pos_start", [0, 37, 900])
 @pytest.mark.parametrize("Sq", [1, 16, 32, 96])
 def test_prefill_tensor_core_kernel_vs_plain(dev, Sq, pos_start, Hq, Hkv, D,
@@ -812,7 +830,7 @@ def _static_cache(k, v):
 @pytest.mark.parametrize("layout", ["(Hkv, C)", "(1, 1, Hkv, C)"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32),
-                                      (64, 8, 112)])
+                                      (64, 8, 112), (8, 1, 256)])
 @pytest.mark.parametrize("T", [100, 1024, 4096])
 def test_decode_static_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype, layout):
     """Static per-layer scales through both the row path (one head a
@@ -837,7 +855,7 @@ def test_decode_static_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype, layout):
                                   "verify_static", "verify_fp"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128),
-                                      (64, 8, 112)])
+                                      (64, 8, 112), (8, 1, 256)])
 @pytest.mark.parametrize("pos_start,Sq,length", [(37, 96, 90), (0, 4, 4),
                                                  (384, 4, 3), (900, 16, 16)])
 def test_prefill_static_and_verify_kernel_vs_plain(dev, mode, dtype, Hq, Hkv,
@@ -1032,7 +1050,7 @@ def _write_map(where, N, T, dev):
 
 
 @pytest.mark.parametrize("where", ["decode", "chunk", "past_T"])
-@pytest.mark.parametrize("D", [32, 64, 112, 128])
+@pytest.mark.parametrize("D", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", pa.WRITE_MODES)
 def test_kv_write_kernel_bit_identical(dev, mode, dtype, D, where):
@@ -1222,24 +1240,31 @@ def test_kv_write_rejects_bad_operands_and_never_takes_plain(dev,
 
 
 # ------------------------------------------------------ bf16 slot cache ---
-def _bf16(gen, dev, *shape):
-    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+def _bf16(gen, dev, *shape, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
+#: the 16-bit fp caches: bf16 and float16, by the names dtype_launches
+#: counts
+CACHE16 = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+@pytest.mark.parametrize("cache", list(CACHE16))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32),
-                                      (64, 8, 112)])
+                                      (64, 8, 112), (8, 1, 256)])
 @pytest.mark.parametrize("T", [100, 1000, 4096])
-def test_decode_bf16_cache_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype):
-    """The split-T kernel over a bf16 cache (T = 1000: off the 32-row
-    tiles), at the depths that probe its plan, against the plain version;
-    one launch, counted by mode fp and dtype bfloat16."""
+def test_decode_bf16_cache_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype, cache):
+    """The split-T kernel over a bf16 or float16 cache (T = 1000: off the
+    32-row tiles), at the depths that probe its plan, against the plain
+    version; one launch, counted by mode fp and the cache's dtype."""
     N = 7
-    p = da.decode_plan(N, T, Hkv, Hq // Hkv, _sms(dev))
+    p = da.decode_plan(N, T, Hkv, Hq // Hkv, _sms(dev), D)
     depths = _split_depths(T, p.rows)
     gen = torch.Generator(device=dev).manual_seed(T + Hkv + D + 1)
     q = torch.randn((N, Hq, D), generator=gen, device=dev).to(dtype)
-    k, v = _bf16(gen, dev, N, T, Hkv, D), _bf16(gen, dev, N, T, Hkv, D)
+    k, v = (_bf16(gen, dev, N, T, Hkv, D, dtype=CACHE16[cache])
+            for _ in range(2))
     kv_pos = torch.full((N, T), -1, dtype=torch.int32, device=dev)
     for n, depth in enumerate(depths):
         kv_pos[n, :depth] = torch.arange(depth, device=dev)
@@ -1252,54 +1277,58 @@ def test_decode_bf16_cache_kernel_vs_plain(dev, T, Hq, Hkv, D, dtype):
     torch.cuda.synchronize()
     assert decode_attention.mode_launches["fp"] == before[0]["fp"] + 1
     assert decode_attention.dtype_launches == dict(
-        before[1], bfloat16=before[1]["bfloat16"] + 1)
+        before[1], **{cache: before[1][cache] + 1})
     want = decode_attention_ref(q, k, v, kv_pos, q_pos)
     assert got.dtype == dtype and got.shape == (N, Hq, D)
     _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
     assert torch.all(got[depths.index(0)] == 0)          # empty slot
 
 
+@pytest.mark.parametrize("cache", list(CACHE16))
 @pytest.mark.parametrize("verify", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,D", [(32, 32, 64), (32, 2, 128), (4, 4, 32),
-                                      (64, 8, 112)])
+                                      (64, 8, 112), (8, 1, 256)])
 @pytest.mark.parametrize("pos_start,Sq", [(0, 16), (37, 96), (384, 96),
                                           (900, 4)])
 def test_prefill_bf16_cache_kernel_vs_plain(dev, pos_start, Sq, Hq, Hkv, D,
-                                            dtype, verify):
+                                            dtype, verify, cache):
     """Both prefill kernels (bf16 q: tensor cores; fp32 q: CUDA cores)
-    over a bf16 cache, plain and as the verify pass (fp32 windows round
-    to bf16 there), against the plain version."""
+    over a bf16 or float16 cache, plain and as the verify pass (the
+    window rounds to the cache's type and back there), against the plain
+    version."""
     T = 1024
     length = Sq if verify else max(1, Sq - Sq // 4)
     gen = torch.Generator(device=dev).manual_seed(Sq + pos_start + D + 2)
     q, kn, vn, ck, cv, kv_pos, _ = _chunk_inputs(
         gen, dev, Sq, T, Hq, Hkv, D, False, dtype, pos_start)
-    ck, cv = ck.to(torch.bfloat16), cv.to(torch.bfloat16)
+    ck, cv = ck.to(CACHE16[cache]), cv.to(CACHE16[cache])
     before = (dict(prefill_attention.mode_launches),
-              prefill_attention.dtype_launches["bfloat16"])
+              prefill_attention.dtype_launches[cache])
     got, aux = prefill_attention(q, kn, vn, ck, cv, kv_pos, pos_start,
                                  length, verify=verify)
     torch.cuda.synchronize()
     mode = "verify_fp" if verify else "fp"
     assert prefill_attention.mode_launches[mode] == before[0][mode] + 1
-    assert prefill_attention.dtype_launches["bfloat16"] == before[1] + 1
+    assert prefill_attention.dtype_launches[cache] == before[1] + 1
     want = prefill_attention_ref(q, kn, vn, ck, cv, kv_pos, pos_start,
                                  length, verify=verify)
     assert aux == () and got.dtype == dtype and got.shape == (Sq, Hq, D)
     _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
 
 
+@pytest.mark.parametrize("cache", list(CACHE16))
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("where", ["decode", "chunk", "past_T"])
-@pytest.mark.parametrize("D", [32, 64, 112, 128])
+@pytest.mark.parametrize("D", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kv_write_bf16_destination_bit_identical(dev, dtype, D, where,
-                                                 offset):
-    """The write into a bf16 cache (rounded to nearest even) against its
-    plain version: every byte of the destination and kv_pos equal, the
-    guard slot untouched; ``offset``: K/V and the destination are views
-    that many elements into their storage (smaller vectors)."""
+                                                 offset, cache):
+    """The write into a bf16 or float16 cache (rounded to nearest even)
+    against its plain version: every byte of the destination and kv_pos
+    equal, the guard slot untouched; ``offset``: K/V and the destination
+    are views that many elements into their storage (smaller
+    vectors)."""
     N, T, Hkv = 4, 40, 3
     gen = torch.Generator(device=dev).manual_seed(D + len(where) + offset)
     kw, R = _write_map(where, N, T, dev)
@@ -1311,7 +1340,8 @@ def test_kv_write_bf16_destination_bit_identical(dev, dtype, D, where,
         return out
     k, v = (view(torch.randn((R, Hkv, D), generator=gen, device=dev)
                  .to(dtype) * 3) for _ in range(2))
-    bufs = [view(_bf16(gen, dev, N + 1, T, Hkv, D)) for _ in range(2)]
+    bufs = [view(_bf16(gen, dev, N + 1, T, Hkv, D, dtype=CACHE16[cache]))
+            for _ in range(2)]
     bufs.append(torch.randint(-1, 3 * T, (N + 1, T), generator=gen,
                               device=dev, dtype=torch.int32))
     want = [b.clone() for b in bufs]
@@ -1323,15 +1353,15 @@ def test_kv_write_bf16_destination_bit_identical(dev, dtype, D, where,
     assert pa.write_kv_rows.mode_launches == dict(
         before[0], fp=before[0]["fp"] + 1)
     assert pa.write_kv_rows.dtype_launches == dict(
-        before[1], bfloat16=before[1]["bfloat16"] + 1)
+        before[1], **{cache: before[1][cache] + 1})
     for got, ref in zip(bufs, want):
         assert torch.equal(got, ref)
 
 
 def test_bf16_cache_smem_says_two_bytes(dev):
     lib = pa.build.library()
-    for D in (32, 64, 128):
-        w = 4
+    for D in (32, 64, 128, 256):
+        w = 1 if D == 256 else 4     # an fp32 block at D = 256 fits one warp
         b16 = lib.decode_attention_smem(D, 0, 2, 0, 1, w)
         b32 = lib.decode_attention_smem(D, 0, 4, 0, 1, w)
         assert 0 < b16 < b32
@@ -1939,14 +1969,81 @@ def test_kimi_engine_card_matches_cpu(dev, kv):
     assert outs["cuda"] == outs["cpu"]
 
 
-def test_attention_kernels_refuse_head_dim_256(dev):
-    """D = 256 (paligemma-3b, recurrentgemma-9b) is still refused, naming
-    ROADMAP queue 2 A."""
+def test_attention_kernels_take_head_dim_256(dev):
+    """D = 256 (paligemma-3b, recurrentgemma-9b; once refused): decode and
+    prefill attention at MHA 4/4 over an int8 cache (one head a block),
+    each against its plain version."""
     gen = torch.Generator(device=dev).manual_seed(6)
     q, k, v, kv_pos, q_pos, sc = _decode_inputs(gen, dev, 4, 64, 4, 4, 256,
                                                 True, torch.bfloat16)
-    with pytest.raises(ValueError, match="queue 2 A"):
-        decode_attention(q, k, v, kv_pos, q_pos, *sc)
-    with pytest.raises(ValueError, match="queue 2 A"):
-        prefill_attention(q, q[:, :4], q[:, :4], k[0], v[0], kv_pos[0], 10,
-                          4, *(s[0] for s in sc))
+    _close(decode_attention(q, k, v, kv_pos, q_pos, *sc),
+           decode_attention_ref(q, k, v, kv_pos, q_pos, *sc), 2e-2)
+    args = (q, q[:, :4], q[:, :4], k[0], v[0], kv_pos[0], 10, 4,
+            *(s[0] for s in sc))
+    _close(prefill_attention(*args)[0], prefill_attention_ref(*args), 2e-2)
+
+
+def _vlm_small(wide: bool, dtype: str = "float32"):
+    """Reduced paligemma-3b (MQA 4/1 at head_dim 32), or its head_dim-256
+    variant (MQA 2/1, d_model 512), INT4 SplitQuant on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_params
+    cfg = dataclasses.replace(get_arch("paligemma-3b").reduced(),
+                              param_dtype=dtype)
+    if wide:
+        cfg = dataclasses.replace(cfg, n_heads=2, n_kv_heads=1, d_model=512)
+    params, _ = build_params(cfg, bits=4, method="splitquant", device="cpu")
+    return cfg, params
+
+
+@pytest.mark.parametrize("kv", ["int8", "static", "f16"])
+@pytest.mark.parametrize("wide", [False, True])
+def test_vlm_engine_card_matches_cpu(dev, wide, kv):
+    """The engine over reduced paligemma (fp32; at head_dim 256 too) with
+    an int8 dynamic, an int8 static or a float16 fp cache, prompts
+    spanning 96-token chunks: card tokens == CPU tokens."""
+    from repro_torch.calib import collect_kv_stats, kv_static_scales
+    from repro_torch.core.apply import tree_to
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.launch.serve import seeded_prompts
+    cfg, params = _vlm_small(wide)
+    prompts = seeded_prompts(cfg.vocab, 5, 16, 200, seed=4)
+    kw = dict(kv_mode="fp", kv_dtype="float16") if kv == "f16" else \
+        dict(kv_mode="int8")
+    scales = None
+    if kv == "static":
+        rng = np.random.default_rng(0)
+        scales = kv_static_scales(collect_kv_stats(
+            cfg, params, [rng.integers(0, cfg.vocab, (2, 40))]))
+    outs = {}
+    for d, p in (("cpu", params), ("cuda", tree_to(params, dev))):
+        eng = Engine(cfg, p, EngineConfig(n_slots=3, max_len=256,
+                                          max_new_tokens=6, prefill_chunk=96,
+                                          **kw), device=d, kv_scales=scales)
+        for pr in prompts:
+            eng.submit(pr)
+        outs[d] = [r.out for r in eng.drain()]
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_vlm_prefix_prefill_card_matches_cpu(dev, wide):
+    """``transformer.prefill`` of 2 prompts with their 8 patch embeds
+    (``patch_proj`` through the matmul kernel, counted) in fp32: logits
+    (2, 8 + 24, V) card == CPU within the fp32 tolerance."""
+    from repro_torch.core.apply import tree_to
+    from repro_torch.models import transformer
+    cfg, params = _vlm_small(wide)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24))),
+             "patch_embeds": torch.from_numpy(rng.standard_normal(
+                 (2, 8, transformer.VLM_PATCH_DIM)).astype(np.float32))}
+    want, _ = transformer.prefill(params, cfg, batch, max_len=64)
+    before = splitquant_matmul.launches
+    got, cache = transformer.prefill(
+        tree_to(params, dev), cfg, {k: v.to(dev) for k, v in batch.items()},
+        max_len=64)
+    torch.cuda.synchronize()
+    assert splitquant_matmul.launches > before
+    assert got.shape == (2, 32, cfg.vocab) and cache.k.shape[2] == 64
+    _close(got.cpu(), want, 1e-4)

@@ -1,13 +1,16 @@
 """The launch plan of the port's SplitQuant matmul (pure Python, no card):
-for every quantized matrix that stablelm-1.6b's engine and rwkv6-3b's
-wave loop multiply by, at the row counts of a decode step (8), a prompt
-chunk (96) and a wave prefill (2048), the tiles and K splits cover the
-product exactly, the dtype picks the variant, and a grid that would
-underfill the card's 132 SMs is split along K."""
+for every quantized matrix that stablelm-1.6b's and paligemma-3b's
+engines and rwkv6-3b's wave loop multiply by (paligemma-3b's patch
+projection at K = 1152, its geglu at N = 16384; its tied head is a plain
+product), at the row counts of a decode step (8), a prompt chunk (96)
+and a wave prefill or 8 x 256 patch rows (2048), the tiles and K splits
+cover the product exactly, the dtype picks the variant, and a grid that
+would underfill the card's 132 SMs is split along K."""
 import pytest
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.models.transformer import VLM_PATCH_DIM
 from repro_torch.kernels.splitquant_matmul import (CUDA_CORE, TENSOR_CORE,
                                                    blocks_per_sm, plan)
 
@@ -21,11 +24,17 @@ def _shapes(arch):
     if cfg.family == "ssm":                 # time mix r k v g o, channel mix
         return sorted({(d, d), (d, ff), (ff, d), (d, v)})
     hd = d // cfg.n_heads
-    return sorted({(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
-                   (cfg.n_heads * hd, d), (d, ff), (ff, d), (d, v)})
+    out = {(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+           (cfg.n_heads * hd, d), (d, ff), (ff, d)}
+    if not cfg.tie_embeddings:
+        out.add((d, v))
+    if cfg.family == "vlm":                 # the patch projection
+        out.add((VLM_PATCH_DIM, d))
+    return sorted(out)
 
 
-CASES = [(arch, K, N, M) for arch in ("stablelm-1.6b", "rwkv6-3b")
+ARCHS = ("stablelm-1.6b", "rwkv6-3b", "paligemma-3b")
+CASES = [(arch, K, N, M) for arch in ARCHS
          for K, N in _shapes(arch) for M in (8, 96, 2048)]
 
 
@@ -34,6 +43,22 @@ def test_main_path_shapes():
                                         (2048, 100352), (5632, 2048)]
     assert _shapes("rwkv6-3b") == [(2560, 2560), (2560, 8960),
                                    (2560, 65536), (8960, 2560)]
+    assert _shapes("paligemma-3b") == [(1152, 2048), (2048, 256),
+                                       (2048, 2048), (2048, 16384),
+                                       (16384, 2048)]
+
+
+@pytest.mark.parametrize("M", [8, 2048])
+def test_patch_projection_plan_at_k_1152(M):
+    """K = 1152 (18 tiles of 64, not a power of two): the K slices are
+    whole tiles that end on packed bytes at INT2, INT4 and INT8 and tile
+    K exactly, none empty (8 rows: 18 slices of one tile; 8 x 256 patch
+    rows: 2 of 9)."""
+    p = plan(M, 1152, 2048, torch.bfloat16, SMS)
+    assert p.k_per_split % p.bk == 0 and 1152 % p.k_per_split == 0
+    assert all((p.k_per_split * bits) % 8 == 0 for bits in (2, 4, 8))
+    assert p.splits * p.k_per_split == 1152
+    assert (p.splits, p.k_per_split) == ((18, 64) if M == 8 else (2, 576))
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])

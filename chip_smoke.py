@@ -70,7 +70,14 @@ Phases (any failure exits non-zero):
    (a 96-row chunk, an 8-slot decode write, a 4-row window) at
    paligemma-3b's MQA 8/1 and head_dim 256 (chunks of 64) in every cache
    mode (int8 dynamic and static, fp32, bf16, float16), and over a
-   float16 cache at stablelm-1.6b's and chatglm3-6b's layouts;
+   float16 cache at stablelm-1.6b's and chatglm3-6b's layouts; the
+   matmul's fp32 variant (the CUDA-core kernel) at bert-tiny's Table 1
+   shapes (6400 rows at 128 -> 128, 128 -> 512 and 512 -> 128; 100 rows
+   at the pooler's 128 -> 128 and the classifiers' 128 -> 6 and
+   128 -> 2), bits 2, 4 and 8, k = 3 and 1, within 1e-4 of the output's
+   scale of its plain version, beside ``torch.matmul`` on the
+   dequantized fp32 weight with TF32 off, its bound the table's rule with
+   the fp32-core time (67 TFLOP/s) printed beside it;
 3. engine: stablelm-1.6b at its published widths (seeded random bf16
    weights, SplitQuant INT4 k=3, quantized on the card) served by the
    continuous-batching engine over an int8 slot cache: 8 slots,
@@ -254,6 +261,26 @@ Phases (any failure exits non-zero):
    tokens; their prefill with 8 patch embeds: logits within 1e-4 of
    their scale; reduced paligemma through the wave ``Server``: identical
    tokens;
+4b. training and the paper's Table 1 (after kimi): table1 runs
+   ``launch.table1`` at the JAX package's defaults on the card (bert-tiny
+   fine-tuned by AdamW, 8 epochs of 3200 examples a task, then FP32 and
+   INT2/4/8 x {baseline, SplitQuant}, weights and biases, without and
+   with 8-bit activations), the counts set to 0 just before and read just
+   after: every matmul launch ``fp32_cuda_core``, launches at each of
+   bits 2, 4 and 8, no plain version, no other kernel, FP32 accuracy
+   within 5%p of each task's regime (0.90, 0.98); it prints the grid, the
+   INT2 differences and training steps/s; train runs ``launch.train`` on
+   stablelm-1.6b at full width (bf16, batch 8 x 128, 8 steps, remat, fp32
+   AdamW states): every loss finite, the final line printed, no kernel
+   launched; it prints step p50, tokens/s and peak memory;
+   table1_cross_check evaluates the emotion task's INT2 trees (both
+   methods) on the card and, copied, on the CPU: accuracy within 2 of
+   800 examples, logits within 1e-4 of their scale; train_cross_check
+   trains reduced stablelm in fp32 for 3 steps on both devices from the
+   same weights and batches (losses within 1e-4 relative) and bert-tiny
+   through ``train_loop.run`` with a checkpoint every 3 steps and a
+   failure injected at step 7 under deterministic algorithms: the
+   restored run's final params equal the uninterrupted run's exactly;
 5. rwkv6: rwkv6-3b at its published widths (seeded random bf16 weights,
    SplitQuant INT4 k=3 of 257 matrices, quantized on the card) served by
    the wave loop: waves of 8, 16 seeded requests of 64-256 prompt tokens
@@ -270,12 +297,13 @@ The line before the last is ``{"kernels": [...]}``: one entry per TPU
 kernel, with ``launches`` summed over the serving runs of phases 3 and 5
 (``launches_by_path`` splits them: engine, static, spec, dense_wave,
 wave, engine_bf16, oneshot, sampling, recipe, chaos, recovery,
-observe, moe, moe_spec, moe_wave, kimi, engine_f16, vlm, vlm_prefix
-and vlm_wave,
+observe, moe, moe_spec, moe_wave, kimi, engine_f16, vlm, vlm_prefix,
+vlm_wave, table1 and train,
 ``launches_by_variant``
 splits those of the matmul (``grouped``: its MoE form) and of the two
 attention kernels by variant,
-``launches_by_bits`` the matmul's of the recipe run by bit-width,
+``launches_by_bits`` the matmul's of the recipe, moe_spec and table1
+runs by bit-width,
 ``launches_by_mode`` those of the attention kernels and of the K/V write
 by mode and ``launches_by_cache_dtype`` theirs by the cache's dtype in
 the runs of this slice; the write, the counterpart of both branches of the TPU prefill
@@ -291,6 +319,8 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -298,6 +328,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS's deterministic workspace, read when the card starts: the
+# training cross-check runs under deterministic algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = 989e12                  # dense bf16 tensor-core rate
@@ -338,8 +371,11 @@ SOURCES = {
 #: (moonshot-v1-16b-a3b through the engine; the matmul's launches there
 #: are its dense and its grouped form), "moe_spec" (moonshot through the
 #: speculative engine, its INT2 draft packed), "moe_wave" (moonshot
-#: through the wave loop: the matmul alone) and "kimi"
-#: (kimi-k2-1t-a32b, 5 layers at full width, through the engine).
+#: through the wave loop: the matmul alone), "kimi"
+#: (kimi-k2-1t-a32b, 5 layers at full width, through the engine),
+#: "table1" (the paper's Table 1: bert-tiny's quantized evaluations, the
+#: matmul's fp32 variant) and "train" (stablelm-1.6b trained at full
+#: width: float weights, no quantized kernel, 0 launches).
 #: ``kv_write`` is
 #: ``write_kv_rows`` in its dynamic and fp modes, ``kv_write_static`` in
 #: its static mode.
@@ -348,7 +384,7 @@ PATHS = {
                           "engine_bf16", "oneshot", "sampling", "recipe",
                           "chaos", "recovery", "observe", "moe", "moe_spec",
                           "moe_wave", "kimi", "engine_f16", "vlm",
-                          "vlm_prefix", "vlm_wave"),
+                          "vlm_prefix", "vlm_wave", "table1", "train"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
     "prefill_attention": ("engine", "static", "spec", "engine_bf16",
@@ -2150,7 +2186,7 @@ def spec_phase(torch, counters, params, scales, static_res):
 
 def cross_check(torch):
     from repro_torch.configs import get_arch
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.engine import Engine, EngineConfig
     from repro_torch.launch.serve import build_params, seeded_prompts
     cfg = get_arch("stablelm-1.6b").reduced()
@@ -2187,7 +2223,7 @@ def spec_cross_check(torch):
     from repro_torch.calib import QuantRecipe
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_arch
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.engine import Engine, EngineConfig
     from repro_torch.launch.serve import build_params, seeded_prompts
     cfg = get_arch("stablelm-1.6b").reduced()
@@ -2327,7 +2363,7 @@ def rwkv_phase(torch, counters):
 def rwkv_cross_check(torch):
     import numpy as np
     from repro_torch.configs import get_arch
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.launch.serve import build_params
     from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
     cfg = get_arch("rwkv6-3b").reduced()
@@ -2437,7 +2473,7 @@ def dense_wave_cross_check(torch):
     with a budget of 1: identical greedy tokens."""
     import numpy as np
     from repro_torch.configs import get_arch
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.launch.serve import build_params
     from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
     cfg = get_arch("stablelm-1.6b").reduced()
@@ -2915,7 +2951,7 @@ def options_cross_check(torch):
     a bf16 and a float16 fp cache, the one-shot int8 engine and the
     ``fused_attn=False`` engine each give identical tokens."""
     from repro_torch.configs import get_arch
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.engine import Engine, EngineConfig
     from repro_torch.launch.serve import build_params, seeded_prompts
     cfg = get_arch("stablelm-1.6b").reduced()
@@ -3098,7 +3134,7 @@ def moe_cross_check(torch):
     tokens. The two engines step in turns; if they part, the step and
     each device's routing margin in it are printed."""
     from repro_torch.configs import get_arch
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.engine import Engine, EngineConfig
     from repro_torch.kernels import splitquant_matmul as sqm
     from repro_torch.launch.serve import build_params, seeded_prompts
@@ -3514,7 +3550,7 @@ def moe_spec_cross_check(torch):
     the CPU), spec_k 3 over an int8 dynamic cache, 8 requests x 16
     tokens: the card's speculative tokens equal the CPU's speculative
     tokens and the card's greedy tokens."""
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.engine import Engine, EngineConfig
     from repro_torch.launch.serve import build_params, seeded_prompts
     cfg, params = _reduced_moon()
@@ -3556,7 +3592,7 @@ def moe_wave_cross_check(torch):
     and some pairs dropped (whether the dropped pairs are the CPU's is
     printed: a near-tie in the fp32 router can move one)."""
     import numpy as np
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.models import ffn
     from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
     cfg, params = _reduced_moon()
@@ -3594,7 +3630,7 @@ def kimi_cross_check(torch):
     tokens."""
     import dataclasses
     from repro_torch.configs import get_arch
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.engine import Engine, EngineConfig
     from repro_torch.launch.serve import build_params, seeded_prompts
     cfg = dataclasses.replace(get_arch("kimi-k2-1t-a32b").reduced(),
@@ -4084,7 +4120,7 @@ def vlm_cross_check(torch):
     """Reduced paligemma-3b (head_dim 32) and its head_dim-256 variant, in
     fp32, through the engine over an int8 dynamic cache, 8 requests x 16
     tokens, on the card and on the CPU: identical greedy tokens."""
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.engine import Engine, EngineConfig
     from repro_torch.launch.serve import seeded_prompts
     res = {}
@@ -4122,7 +4158,7 @@ def vlm_prefix_cross_check(torch):
     embeds, on the card and on the CPU: logits within
     :data:`PREFIX_TOL` of their scale."""
     import numpy as np
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.models import transformer
     res = {}
     for wide in (False, True):
@@ -4155,7 +4191,7 @@ def vlm_wave_cross_check(torch):
     the card and on the CPU, two left-padded waves of 4, one request with
     a budget of 1: identical greedy tokens."""
     import numpy as np
-    from repro_torch.core.apply import tree_to
+    from repro_torch.tree import tree_to
     from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
     cfg, params = _reduced_vlm(False)
     rng = np.random.default_rng(5)
@@ -4178,6 +4214,339 @@ def vlm_wave_cross_check(torch):
         fail(f"vlm_wave cross-check: card {outs['cuda']} != cpu "
              f"{outs['cpu']}")
     return {"requests": len(prompts), "identical": same}
+
+
+# ------------------------------------------------- bert-tiny, training ---
+#: (name, K, N, M) of bert-tiny's quantized products in Table 1's
+#: evaluation: an evaluation batch is 100 sequences of 64 tokens, so the
+#: layers' projections see 6400 rows and the pooler and classifier 100
+#: ([CLS] rows); N = 6 and 2 are the classifiers of the two tasks
+BERT_SHAPES = (("wq/wk/wv/wo", 128, 128, 6400), ("w_up", 128, 512, 6400),
+               ("w_down", 512, 128, 6400), ("pooler", 128, 128, 100),
+               ("classifier emotion", 128, 6, 100),
+               ("classifier spam", 128, 2, 100))
+
+
+def bert_matmul_cases(torch, timer, rep):
+    """The matmul's fp32 variant (``sq_matmul_fp32_kernel`` on the CUDA
+    cores) at bert-tiny's shapes, bits 2, 4 and 8, k = 3 (SplitQuant) and
+    1 (baseline), against its plain version (relative 1e-4 of the
+    output's scale) and ``torch.matmul`` on the dequantized fp32 weight
+    with TF32 off. The bound is the table's rule; the time of the same
+    operations at the fp32 rate outside the tensor cores (67 TFLOP/s) is
+    printed beside it (``fp32_core_ms``)."""
+    from repro_torch.kernels.ref import (dequant_weight_ref,
+                                         splitquant_matmul_ref)
+    from repro_torch.kernels.splitquant_matmul import (CUDA_CORE,
+                                                       splitquant_matmul)
+    from repro_torch.kernels import splitquant_matmul as sqm
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    before = sqm.splitquant_matmul.variant_launches[CUDA_CORE]
+    n = 0
+    for name, K, N, M in BERT_SHAPES:
+        for bits in (2, 4, 8):
+            for k in (3, 1):
+                qp = torch.randint(0, 256, (K * bits // 8, N), generator=gen,
+                                   dtype=torch.uint8, device="cuda")
+                cp = random_packed_cids(torch, gen, (K // 4, N), k)
+                recip = (torch.rand((k, N), generator=gen, device="cuda")
+                         + 0.5) / 2 ** bits
+                shift = torch.randn((k, N), generator=gen,
+                                    device="cuda") * 0.05
+                w = dequant_weight_ref(qp, cp, recip, shift, bits,
+                                       torch.float32)
+                x = torch.randn((M, K), generator=gen, device="cuda")
+                got = splitquant_matmul(x, qp, cp, recip, shift, bits=bits,
+                                        k=k)
+                want = splitquant_matmul_ref(x, qp, cp, recip, shift, bits)
+                torch.cuda.synchronize()
+                n += 1
+                if not bool(torch.isfinite(got).all()):
+                    fail(f"bert matmul {name} int{bits} k={k}: non-finite")
+                tol = 1e-4 * max(1.0, float(want.abs().max()))
+                nbytes = M * K * 4 + K * N * bits / 8 + K * N / 4 + \
+                    2 * k * N * 4 + M * N * 4
+                ms = timer(lambda: splitquant_matmul(x, qp, cp, recip, shift,
+                                                     bits=bits, k=k))
+                rep.add(f"bert-tiny {name} M={M} K={K} N={N} fp32 "
+                        f"int{bits} k={k}", max_err(got, want), tol, ms,
+                        timer(lambda: splitquant_matmul_ref(
+                            x, qp, cp, recip, shift, bits)),
+                        timer(lambda: torch.matmul(x, w)), nbytes,
+                        2 * M * K * N)
+                c = rep.cases[-1]
+                c["bound_share"] = c["bound_ms"] / ms
+                log(f"  {'':18s} {'':44s} {100 * c['bound_share']:.1f}% of "
+                    f"its bound ({c['bound_by']}); fp32-core ops time "
+                    f"{c['fp32_core_ms']:.5f} ms; "
+                    f"{c['library_ms'] / ms:.2f}x the speed of torch.matmul "
+                    f"(fp32, TF32 off)")
+    launched = sqm.splitquant_matmul.variant_launches[CUDA_CORE] - before
+    if launched < 3 * n:                 # each case: check + warm-up + reps
+        fail(f"bert matmul cases: {launched} fp32 launches for {n} cases")
+
+
+#: Table 1's FP32 accuracy regime of each task (the data module's
+#: targets: paper 90.2% and 98.4%), and how far the card's may be
+TABLE1_FP32 = {"emotion": 0.90, "spam": 0.98}
+TABLE1_FP32_SLACK = 0.05
+
+
+def table1_phase(torch, counters, card_line):
+    """The paper's Table 1 on the card at the JAX package's defaults
+    (``launch.table1``: epochs 8, 4000 samples a task, seed 0, both
+    tasks): bert-tiny fine-tuned by AdamW on each task's 3200 training
+    examples, then evaluated on its 800 test examples in FP32 and
+    quantized (weights and biases) at INT2/4/8 by the baseline and by
+    SplitQuant, without and with the §4.2 activation quantization at 8
+    bits (W{b}A8). Every count is set to 0 just before the run and read
+    just after. Gates: the quantized evaluations launched the matmul, all
+    of it ``fp32_cuda_core``, at each of bits 2, 4 and 8; no plain version
+    called; FP32 accuracy within 5%p of each task's regime. Printed: the
+    grid, the INT2 differences in %p, training steps/s, seconds. Returns
+    (result, {task: (cfg, params, test split)})."""
+    from repro_torch.kernels import splitquant_matmul as sqm
+    from repro_torch.launch import table1 as t1
+    phase = "table1"
+    reset_counts(counters)
+    with plain_calls() as plain:
+        run = t1.run_table1(epochs=8, n_samples=4000, seed=0, verbose=False,
+                            quantize_acts=(False, True))
+    no_plain(phase, plain)
+    results = {"weights": run.grids[False], "acts": run.grids[True]}
+    train_s, steps = run.train_s, run.train_steps
+    launches = launch_counts(counters)
+    variants = dict(sqm.splitquant_matmul.variant_launches)
+    by_bits = dict(sqm.splitquant_matmul.bits_launches)
+    if not launches["splitquant_matmul"] or \
+            variants[sqm.CUDA_CORE] != launches["splitquant_matmul"] or \
+            any(by_bits[b] <= 0 for b in (2, 4, 8)):
+        fail(f"{phase}: matmul launches {launches['splitquant_matmul']}, by "
+             f"variant {variants}, by bits {by_bits}; expected fp32_cuda_core "
+             f"only, at each of bits 2, 4 and 8")
+    others = {n: v for n, v in launches.items()
+              if n != "splitquant_matmul" and v}
+    if others:
+        fail(f"{phase}: other kernels launched {others}")
+    for key, grid in (("weights", results["weights"]),
+                      ("acts", results["acts"])):
+        log(f"{phase} ({'W{b}A8' if key == 'acts' else 'weights only'}):")
+        for name, row in grid.items():
+            cells = "  ".join(
+                f"INT{b} base {row[f'int{b}_baseline']:.4f} SQ "
+                f"{row[f'int{b}_splitquant']:.4f} "
+                f"({100 * (row[f'int{b}_splitquant'] - row[f'int{b}_baseline']):+.1f}%p)"
+                for b in (2, 4, 8))
+            log(f"  {name:8s} FP32 {row['fp32']:.4f}  {cells}")
+    for name, row in results["weights"].items():
+        if abs(row["fp32"] - TABLE1_FP32[name]) > TABLE1_FP32_SLACK:
+            fail(f"{phase}: {name} FP32 accuracy {row['fp32']:.4f} is more "
+                 f"than {TABLE1_FP32_SLACK} from {TABLE1_FP32[name]}")
+    int2 = {name: 100 * (r["int2_splitquant"] - r["int2_baseline"])
+            for name, r in results["weights"].items()}
+    res = {"card": card_line, "grid": results["weights"],
+           "grid_w_a8": results["acts"], "int2_diff_pp": int2,
+           "splitquant_beats_baseline_at_int2": {
+               n: d > 0 for n, d in int2.items()},
+           "train_steps": steps, "train_s": train_s,
+           "train_steps_per_s": steps / train_s, "launches": launches,
+           "matmul_variants": variants, "bits_launches": by_bits,
+           "plain_calls": plain,
+           "markdown": t1.markdown(results["weights"]),
+           "markdown_w_a8": t1.markdown(results["acts"])}
+    log(f"{phase}: INT2 SplitQuant - baseline {int2} %p (weights only; "
+        f"recorded, not gated); training {steps} steps in {train_s:.2f} s = "
+        f"{res['train_steps_per_s']:.1f} steps/s; matmul launches "
+        f"{launches['splitquant_matmul']} by variant {variants}, by bits "
+        f"{by_bits}; plain versions called {plain} [card: {card_line}]")
+    log(res["markdown"])
+    log(res["markdown_w_a8"])
+    return res, run.models
+
+
+#: the card-against-CPU check of Table 1's quantized evaluation: accuracy
+#: equal within this many of the 800 test examples, logits within this
+#: share of their scale
+TABLE1_ACC_SLACK = 2
+TABLE1_LOGIT_TOL = 1e-4
+
+
+def table1_cross_check(torch, kept):
+    """The emotion task's trained bert-tiny quantized at INT2 by both
+    methods on the card, evaluated on the card (the fp32 matmul kernel)
+    and, the same trees copied, on the CPU (its plain version): accuracy
+    equal within 2 of the 800 test examples, logits within 1e-4 x their
+    scale."""
+    from repro_torch.tree import tree_to
+    from repro_torch.data.classification import batches
+    from repro_torch.launch import table1 as t1
+    from repro_torch.models import bert_tiny
+    cfg, params, te = kept["emotion"]
+    out = {}
+    for method in ("baseline", "splitquant"):
+        q = t1.quantize(params, 2, method, seed=0)
+        qc = tree_to(q, "cpu")
+        accs, errs = [], []
+        for tree, dev in ((q, "cuda"), (qc, "cpu")):
+            accs.append(t1.evaluate(cfg, tree, te))
+        with torch.no_grad():
+            for bg, bc in zip(batches(te, 100, train=False, device="cuda"),
+                              batches(te, 100, train=False, device="cpu")):
+                lg = bert_tiny.forward(q, cfg, bg).cpu()
+                lc = bert_tiny.forward(qc, cfg, bc)
+                errs.append(max_err(lg, lc) /
+                            max(1.0, float(lc.abs().max())))
+        n = len(te.labels)
+        diff = round(abs(accs[0] - accs[1]) * n)
+        out[method] = {"acc_card": accs[0], "acc_cpu": accs[1],
+                       "examples_apart": diff, "logit_rel_err": max(errs)}
+        log(f"table1_cross_check: emotion INT2 {method}: card {accs[0]:.4f} "
+            f"vs CPU {accs[1]:.4f} ({diff} of {n} examples apart); logits "
+            f"within {max(errs):.2e} of their scale")
+        if diff > TABLE1_ACC_SLACK or max(errs) > TABLE1_LOGIT_TOL:
+            fail(f"table1_cross_check {method}: {out[method]}")
+    return out
+
+
+def train_phase(torch, counters, card_line):
+    """``launch.train.main`` on stablelm-1.6b at full width on the card:
+    bf16 parameters, batch 8 x seq 128, 8 steps, every layer recomputed in
+    the backward pass, fp32 AdamW states. Gates: every loss finite and the
+    driver's final line printed; no quantized kernel launched (the weights
+    are float). Printed: step-time p50, tokens/s, peak memory."""
+    from repro_torch.launch import train as tl
+    from repro_torch.tree import tree_leaves
+    phase = "train"
+    torch.cuda.empty_cache()
+    reset_counts(counters)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = tl.main(["--arch", "stablelm-1.6b", "--steps", "8", "--batch",
+                       "8", "--seq", "128", "--opt-dtype", "float32"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    text = buf.getvalue().rstrip()
+    log("\n".join(f"{phase}: {line}" for line in text.splitlines()))
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != 8 or not all(map(math.isfinite, losses)) or \
+            not text.splitlines()[-1].startswith("final loss"):
+        fail(f"{phase}: losses {losses}; last line {text.splitlines()[-1:]}")
+    launches = launch_counts(counters)
+    if any(launches.values()):
+        fail(f"{phase}: kernels launched {launches}; the float weights take "
+             f"none")
+    steps = out["step_s"]
+    p50 = percentile(steps, 50)
+    n_params = sum(p.numel() for p in tree_leaves(out["params"]))
+    res = {"card": card_line, "arch": "stablelm-1.6b", "batch": 8,
+           "seq": 128, "steps": len(steps), "losses": losses,
+           "step_s": steps, "step_p50_s": p50,
+           "tokens_per_s": 8 * 128 / p50, "peak_mem_bytes": peak,
+           "params": n_params, "launches": launches}
+    log(f"{phase}: {n_params / 1e9:.3f} B params bf16, fp32 AdamW states; "
+        f"step p50 {p50 * 1e3:.1f} ms (first {steps[0] * 1e3:.1f} ms), "
+        f"{res['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; losses {[round(v, 4) for v in losses]} "
+        f"[card: {card_line}]")
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+#: the training cross-check's tolerance: losses of the card's run within
+#: this share of the CPU's
+TRAIN_LOSS_TOL = 1e-4
+
+
+def train_cross_check(torch):
+    """(1) Reduced stablelm-1.6b in fp32, 3 AdamW steps from the same
+    seeded weights (drawn on the CPU, copied) and batches on the card and
+    on the CPU: losses within 1e-4 relative. (2) bert-tiny through
+    ``train_loop.run`` with a checkpoint every 3 steps and one injected
+    failure at step 7, against an uninterrupted run: it restores step 6,
+    replays and finishes, and its final params equal the uninterrupted
+    run's exactly. Both runs take deterministic algorithms
+    (``torch.use_deterministic_algorithms``, cuBLAS's workspace
+    ``CUBLAS_WORKSPACE_CONFIG`` set before the card starts): the
+    embedding's backward sums with atomics otherwise."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.data.classification import emotion_like
+    from repro_torch.models import bert_tiny
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+    from repro_torch.tree import tree_leaves, tree_to
+    cfg = get_arch("stablelm-1.6b").reduced()
+    oc = adamw.OptConfig(lr=1e-4, warmup_steps=0, total_steps=3)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    base = tt.init(cfg, seed=0, device="cpu")
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_to(base, dev)
+        opt = adamw.init(oc, params)
+        step = train_loop.make_train_step(
+            lambda p, b: tt.loss_fn(p, cfg, b, remat=True), oc)
+        losses[dev] = []
+        for s in range(3):
+            params, opt, m = step(params, opt,
+                                  synthetic_lm_batch(dc, s, device=dev))
+            losses[dev].append(float(m["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    log(f"train_cross_check: reduced stablelm fp32, 3 steps: card "
+        f"{losses['cuda']} vs CPU {losses['cpu']} (max rel {rel:.2e})")
+    if rel > TRAIN_LOSS_TOL:
+        fail(f"train_cross_check: losses apart by {rel:.2e} relative")
+
+    bcfg = get_arch("bert-tiny")
+    ds = emotion_like(n_samples=320, seq_len=64, seed=0)
+    ocb = adamw.OptConfig(lr=3e-4, total_steps=10, warmup_steps=2,
+                          weight_decay=0.01)
+    step = train_loop.make_train_step(
+        lambda p, b: bert_tiny.loss_fn(p, bcfg, b), ocb)
+    from repro_torch.data.classification import batches
+    data = list(batches(ds, 32, seed=0, device="cuda"))
+    init = tree_to(bert_tiny.init(bcfg, ds.n_classes, max_len=64,
+                                  device="cpu"), "cuda")
+    fired, logs = [], []
+
+    def inject(s):
+        if s == 7 and not fired:
+            fired.append(s)
+            raise RuntimeError("injected failure")
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref, _, _ = train_loop.run(
+            train_loop.TrainLoopConfig(total_steps=10, log_every=100),
+            step, init, adamw.init(ocb, init), lambda s: data[s],
+            log=lambda *a: None)
+        with tempfile.TemporaryDirectory() as d:
+            got, opt, hist = train_loop.run(
+                train_loop.TrainLoopConfig(total_steps=10, ckpt_dir=d,
+                                           ckpt_every=3, ckpt_async=False,
+                                           log_every=100),
+                step, init, adamw.init(ocb, init), lambda s: data[s],
+                inject_failure=inject, log=logs.append)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    leaves = tree_leaves
+    equal = all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(ref)))
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(leaves(got), leaves(ref)))
+    log(f"train_cross_check: bert-tiny, failure injected at step 7: "
+        f"{[m for m in logs if m.startswith('[')]}; {len(hist)} steps run, "
+        f"final params equal to the uninterrupted run's: {equal} (max "
+        f"diff {worst:.3e})")
+    if fired != [7] or int(opt.step) != 10 or len(hist) != 11 or not equal \
+            or sum(m.startswith("[failure]") for m in logs) != 1:
+        fail(f"train_cross_check: recovery {logs}, {len(hist)} steps, "
+             f"equal {equal}")
+    return {"stablelm_losses": losses, "stablelm_max_rel": rel,
+            "bert_recovery_log": logs, "bert_steps_run": len(hist),
+            "bert_params_equal": equal, "bert_max_diff": worst}
 
 
 def main() -> None:
@@ -4231,6 +4600,7 @@ def main() -> None:
     t_kernels = time.perf_counter()
     matmul_cases(torch, timer, reps["splitquant_matmul"])
     grouped_cases(torch, timer, reps["splitquant_matmul"])
+    bert_matmul_cases(torch, timer, reps["splitquant_matmul"])
     decode_cases(torch, timer, reps["decode_attention"])
     decode_bf16_cases(torch, timer, reps["decode_attention"])
     prefill_cases(torch, timer, reps["prefill_attention"])
@@ -4323,6 +4693,12 @@ def main() -> None:
     del moe_params             # moonshot's trees before kimi's build
     torch.cuda.empty_cache()
     kimi = timed("kimi", kimi_phase, torch, counters, card_line)
+    torch.cuda.empty_cache()
+    t1, t1_kept = timed("table1", table1_phase, torch, counters, card_line)
+    train = timed("train", train_phase, torch, counters, card_line)
+    t1xc = timed("table1_cross_check", table1_cross_check, torch, t1_kept)
+    del t1_kept
+    trxc = timed("train_cross_check", train_cross_check, torch)
     xc = timed("cross_check", cross_check, torch)
     sxc = timed("spec_cross_check", spec_cross_check, torch)
     dxc = timed("dense_wave_cross_check", dense_wave_cross_check, torch)
@@ -4351,7 +4727,8 @@ def main() -> None:
             "moe": moe["launches"], "moe_spec": mspec["launches"],
             "moe_wave": mwave["launches"], "kimi": kimi["launches"],
             "engine_f16": f16["launches"], "vlm": vlm["launches"],
-            "vlm_prefix": vpre["launches"], "vlm_wave": vwave["launches"]}
+            "vlm_prefix": vpre["launches"], "vlm_wave": vwave["launches"],
+            "table1": t1["launches"], "train": train["launches"]}
     by_dtype = {"engine_bf16": bf16["cache_dtypes"],
                 "engine_f16": f16["cache_dtypes"], "vlm": vlm["cache_dtypes"],
                 "oneshot": one["cache_dtypes"],
@@ -4371,9 +4748,11 @@ def main() -> None:
         "kimi": kimi["matmul_variants"],
         "engine_f16": f16["matmul_variants"], "vlm": vlm["matmul_variants"],
         "vlm_prefix": vpre["matmul_variants"],
-        "vlm_wave": vwave["matmul_variants"]},
+        "vlm_wave": vwave["matmul_variants"],
+        "table1": t1["matmul_variants"]},
         "launches_by_bits": {"recipe": rec["bits_launches"],
-                             "moe_spec": mspec["bits_launches"]}},
+                             "moe_spec": mspec["bits_launches"],
+                             "table1": t1["bits_launches"]}},
         "prefill_attention": {"launches_by_variant": {
             "engine": eng["prefill_variants"],
             "static": sta["prefill_variants"],
@@ -4428,7 +4807,8 @@ def main() -> None:
          "kimi_cross_check": kxc, "engine_f16": f16, "vlm": vlm,
          "vlm_prefix": vpre, "vlm_wave": vwave, "vlm_cross_check": vxc,
          "vlm_prefix_cross_check": vpxc, "vlm_wave_cross_check": vwxc,
-         "phase_s": PHASE_S,
+         "table1": t1, "table1_cross_check": t1xc, "train": train,
+         "train_cross_check": trxc, "phase_s": PHASE_S,
          "act_quant_observed": aq_observed,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))

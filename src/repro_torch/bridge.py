@@ -5,8 +5,9 @@ Input: the JAX parameter tree as nested dicts of numpy arrays, with each
 orig_shape}`` (scales per tensor (k,) or per output column (k, out)) and
 the layer stacks as ``(L, …)`` leaves under ``"layers"`` and, for the MoE
 family, ``"moe_layers"``. Output: the port's tree — the same names, each
-stack as a list of per-layer dicts, and every quantized matrix packed for
-the kernel. A MoE layer's expert leaf (L, E, d, f), with scales
+stack as a list of per-layer dicts, every quantized matrix packed for
+the kernel and every quantized bias (``orig_shape`` of one axis) kept as
+a :class:`SplitQuantTensor`, which ``dense`` dequantizes. A MoE layer's expert leaf (L, E, d, f), with scales
 (L, E, k[, f]), becomes one stacked packed weight (E, d, f) a layer. The
 caller flattens JAX arrays to numpy; this module imports neither ``jax``
 nor the JAX package.
@@ -16,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.apply import tree_to
+from .tree import tree_to
 from .device import resolve_device
 from .core.splitquant import SplitQuantTensor
 from .kernels.ops import pack_for_kernel
@@ -42,7 +43,7 @@ def _leaf(node, dtype):
             zero=torch.from_numpy(np.array(node["zero"], np.float32)),
             bits=int(node["bits"]), k=int(node["k"]), orig_dtype=dtype,
             stack_dims=sd)
-        return pack_for_kernel(sqt)
+        return sqt if len(node["orig_shape"]) == 1 else pack_for_kernel(sqt)
     return torch.from_numpy(np.array(node))
 
 

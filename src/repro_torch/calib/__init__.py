@@ -1,9 +1,8 @@
 """Offline calibration of the port (``repro.calib``): measure → decide →
 serialize → serve.
 
-    stats.collect_kv_stats        K/V range statistics (activation stats
-        │                         are merged and scaled here; collecting
-        │                         them needs the encoder family)
+    stats.collect_act_stats       activation range statistics (bert-tiny)
+    stats.collect_kv_stats        K/V range statistics
     sensitivity.layer_sensitivity per-group logit damage × deployed bytes
         │
     allocate.greedy_allocate      mixed-precision (bits, k, method) per path
@@ -18,12 +17,12 @@ from .allocate import best_uniform_within, greedy_allocate, uniform_bytes
 from .recipe import QuantRecipe
 from .sensitivity import (layer_sensitivity, quantizable_groups,
                           sensitivity_summary)
-from .stats import (ActStats, act_static_scales, collect_kv_stats,
-                    kv_static_scales, static_qparams)
+from .stats import (ActStats, act_static_scales, collect_act_stats,
+                    collect_kv_stats, kv_static_scales, static_qparams)
 
 __all__ = [
     "ActStats", "QuantRecipe", "act_static_scales", "best_uniform_within",
-    "collect_kv_stats", "greedy_allocate", "kv_static_scales",
-    "layer_sensitivity", "quantizable_groups", "sensitivity_summary",
-    "static_qparams", "uniform_bytes",
+    "collect_act_stats", "collect_kv_stats", "greedy_allocate",
+    "kv_static_scales", "layer_sensitivity", "quantizable_groups",
+    "sensitivity_summary", "static_qparams", "uniform_bytes",
 ]

@@ -1,8 +1,10 @@
 """Range statistics and the static scales derived from them (port of
-``repro.calib.stats``, without ``collect_act_stats``: its instrumented
-forward is the encoder family's, which is not ported).
+``repro.calib.stats``).
 
-:func:`collect_kv_stats` measures per-(layer, kv-head, sub-channel chunk)
+:func:`collect_act_stats` runs calibration batches through an encoder's
+instrumented forward (``bert_tiny.forward(collect_stats=)``: one forward
+a batch emits every layer's statistics at the §4.2 tap sites) and merges
+them. :func:`collect_kv_stats` measures per-(layer, kv-head, sub-channel chunk)
 min/max of the K/V that the engine's slot cache stores, over seeded
 calibration prompts; :func:`kv_static_scales` turns them into the
 (S, Z) constants that ``Engine(kv_scales=)`` quantizes with instead of a
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from ..engine.kvcache import init_slot_cache
-from ..models import transformer
+from ..models import get_model, transformer
 
 
 @dataclasses.dataclass
@@ -61,6 +63,31 @@ def _merge(acc: Optional[dict], new: dict, n_seen: int) -> dict:
             "p_hi": a["p_hi"] + (d["p_hi"] - a["p_hi"]) / (n_seen + 1),
         }
     return out
+
+
+@torch.no_grad()
+def collect_act_stats(cfg, params, batches: Iterable[dict], *,
+                      n_chunks: int = 3, percentile: float = 0.99
+                      ) -> ActStats:
+    """Per-layer activation ranges at the §4.2 tap sites of an encoder
+    (bert-tiny) over an iterable of calibration batches ({tokens, mask},
+    arrays or tensors), run on the device ``params`` live on."""
+    model = get_model(cfg)
+    opts = {"n_chunks": n_chunks, "percentile": percentile}
+    device = params["embed"].device
+    acc, n = None, 0
+    for b in batches:
+        tb = {k: (v if isinstance(v, torch.Tensor)
+                  else torch.from_numpy(np.asarray(v))).to(device)
+              for k, v in b.items() if k in ("tokens", "mask")}
+        _, stats = model.forward(params, cfg, tb, collect_stats=opts)
+        acc = _merge(acc, {site: {s: v.cpu().numpy() for s, v in d.items()}
+                           for site, d in stats.items()}, n)
+        n += 1
+    if acc is None:
+        raise ValueError("no calibration batches")
+    return ActStats(sites=acc, n_chunks=n_chunks, percentile=percentile,
+                    n_batches=n)
 
 
 def collect_kv_stats(cfg, params, batches: Iterable[np.ndarray], *,

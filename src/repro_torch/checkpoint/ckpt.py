@@ -17,17 +17,23 @@ shape, ``.scale``/``.zero`` of shape (k,) or (k, N), with ``quant_meta``
 {bits, k, orig_shape, orig_dtype}. A MoE layer's stacked experts keep E
 in front: ``['moe_layers']['moe']['w_gate'].q`` is (L, E, d, f), its
 scales (L, E, k[, f]), and ``orig_shape`` is one matrix's (d, f), as
-the JAX package writes them. bf16 arrays are widened to fp32 in the
-npz and ``dtypes`` records ``"bfloat16"``. Writes go to ``<step>.tmp``,
+the JAX package writes them. A quantized bias (a 1-D
+:class:`~repro_torch.core.splitquant.SplitQuantTensor`) is saved the same
+way, with ``orig_shape`` its own (``['layers']['attn']['bq'].q`` is
+(L, d), ``orig_shape`` (d,)), and comes back unpacked. bf16 arrays are
+widened to fp32 in the npz and ``dtypes`` records ``"bfloat16"``. Writes go to ``<step>.tmp``,
 are fsynced and renamed; ``retain`` old steps are kept.
 
 :func:`restore` runs the integrity gate (checksums, code ranges, finite
 scales: :mod:`repro_torch.engine.recovery`) before any array reaches the
 caller, then rebuilds the ``like`` tree: a key in ``quant_meta`` comes
 back as a ``PackedWeight`` packed for the kernel on the ``like`` leaf's
-device, whether that leaf is dense or packed. No k-means runs. A tuple
-``like`` such as ``(params, None)`` reads the params half of a training
-checkpoint of ``(params, opt_state)``.
+device, whether that leaf is dense or packed. No k-means runs. A training
+checkpoint is the tuple ``(params, opt_state)`` with the optimizer state a
+named tuple (:class:`~repro_torch.optim.adamw.OptState`), keyed as JAX
+keys it: ``[0]['layers']['w']``, ``[1].step``, ``[1].m['layers']['w']``,
+``[1].v[...]`` (``[1].err[...]`` only with gradient compression). A tuple
+``like`` such as ``(params, None)`` reads the params half.
 """
 from __future__ import annotations
 
@@ -40,12 +46,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..core.apply import STACK_FRAGMENTS
 from ..core.splitquant import SplitQuantTensor
 from ..engine.recovery import (check_code_range, check_finite,
                                checksum_arrays, verify_checksums)
 from ..kernels.ops import PackedWeight, pack_for_kernel
 from ..models.common import DTYPES
+from ..tree import STACK_FRAGMENTS
 
 SQT_FIELDS = ("q", "cid", "scale", "zero")
 
@@ -69,6 +75,9 @@ def _map(node, fn, key: str = "", layer: Optional[int] = None,
     if isinstance(node, list) and layer is None and \
             parent in STACK_FRAGMENTS:
         return [_map(v, fn, key, i, None, sort) for i, v in enumerate(node)]
+    if hasattr(node, "_fields"):             # a named tuple: ``.field``
+        return type(node)(*(_map(getattr(node, f), fn, f"{key}.{f}", layer,
+                                 None, sort) for f in node._fields))
     if isinstance(node, (list, tuple)):
         out = [_map(v, fn, f"{key}[{i}]", layer, None, sort)
                for i, v in enumerate(node)]
@@ -99,6 +108,14 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _orig_shape(leaf) -> tuple:
+    """One matrix's (K, N) of a packed weight (or stack); a quantized
+    bias's own shape."""
+    if isinstance(leaf, SplitQuantTensor):
+        return tuple(leaf.shape[leaf.stack_dims:])
+    return tuple(leaf.shape[-2:])
+
+
 def _stack(parts: list, stacked: bool) -> torch.Tensor:
     return torch.stack(parts) if stacked else parts[0]
 
@@ -114,16 +131,20 @@ def _treedef_str(tree) -> str:
                                    for k in sorted(node)) + "}"
         if isinstance(node, list) and node and parent in STACK_FRAGMENTS:
             return render(node[0])            # a layer stack: one leaf each
+        if hasattr(node, "_fields"):
+            return (f"CustomNode(namedtuple[{type(node).__name__}], ["
+                    + ", ".join(render(getattr(node, f)) for f in
+                                node._fields) + "])")
         if isinstance(node, (list, tuple)):
             inner = ", ".join(render(v) for v in node)
             if isinstance(node, tuple):
                 return f"({inner},)" if len(node) == 1 else f"({inner})"
             return f"[{inner}]"
-        if isinstance(node, PackedWeight):
+        if isinstance(node, (PackedWeight, SplitQuantTensor)):
             dt = _dtype_name(node.orig_dtype)
             dt = f"dtype('{dt}')" if dt != "bfloat16" else "dtype(bfloat16)"
             return (f"CustomNode(SplitQuantTensor[({node.bits}, {node.k}, "
-                    f"{tuple(node.shape[-2:])}, {dt})], [*, *, *, *])")
+                    f"{_orig_shape(node)}, {dt})], [*, *, *, *])")
         return "*"
     return f"PyTreeDef({render(tree)})"
 
@@ -137,20 +158,21 @@ def save(ckpt_dir: str, step: int, tree: Any, *, retain: int = 3,
     host_arrays, dtypes, quant_meta = {}, {}, {}
     for key, parts in leaves.items():
         sd = stacked[key]
-        if isinstance(parts[0], PackedWeight):
+        if isinstance(parts[0], (PackedWeight, SplitQuantTensor)):
             p0 = parts[0]
             if any((p.bits, p.k, p.shape, p.orig_dtype) !=
                    (p0.bits, p0.k, p0.shape, p0.orig_dtype) for p in parts):
                 raise ValueError(f"{key}: the layers differ in bits, k, "
                                  f"shape or dtype; a checkpoint leaf holds "
                                  f"one of each")
-            sqts = [p.unpack() for p in parts]
+            sqts = [p.unpack() if isinstance(p, PackedWeight) else p
+                    for p in parts]
             for f in SQT_FIELDS:
                 a = _stack([getattr(s, f) for s in sqts], sd)
                 host_arrays[f"{key}.{f}"] = _host(a)
                 dtypes[f"{key}.{f}"] = _dtype_name(a.dtype)
             quant_meta[key] = {"bits": int(p0.bits), "k": int(p0.k),
-                               "orig_shape": list(p0.shape[-2:]),
+                               "orig_shape": list(_orig_shape(p0)),
                                "orig_dtype": _dtype_name(p0.orig_dtype)}
         else:
             a = _stack(parts, sd)
@@ -206,21 +228,25 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def _device_of(leaf) -> torch.device:
-    return leaf.qp.device if isinstance(leaf, PackedWeight) else leaf.device
+    if isinstance(leaf, PackedWeight):
+        return leaf.qp.device
+    return leaf.q.device if isinstance(leaf, SplitQuantTensor) else \
+        leaf.device
 
 
 def _packed(data: dict, key: str, meta: Optional[dict], like,
-            layer: Optional[int], device) -> PackedWeight:
+            layer: Optional[int], device):
     """One layer's quantized leaf from the saved arrays and the manifest's
-    meta (borrowed from a packed ``like`` leaf for a checkpoint without
-    quant_meta), packed for the kernel on ``device``."""
+    meta (borrowed from a quantized ``like`` leaf for a checkpoint without
+    quant_meta), packed for the kernel on ``device``; a bias (one axis)
+    comes back as a ``SplitQuantTensor``."""
     if meta is not None:
         bits, k = int(meta["bits"]), int(meta["k"])
         orig_shape = tuple(meta["orig_shape"])
         orig_dtype = DTYPES[meta["orig_dtype"]]
-    elif isinstance(like, PackedWeight):
+    elif isinstance(like, (PackedWeight, SplitQuantTensor)):
         bits, k = like.bits, like.k
-        orig_shape, orig_dtype = tuple(like.shape[-2:]), like.orig_dtype
+        orig_shape, orig_dtype = _orig_shape(like), like.orig_dtype
     else:
         raise ValueError(
             f"checkpoint has quantized arrays for {key!r} but no "
@@ -237,9 +263,9 @@ def _packed(data: dict, key: str, meta: Optional[dict], like,
     if sd not in (0, 1) or tuple(arrs["q"].shape[sd:]) != orig_shape:
         raise ValueError(f"{key}: codes {tuple(arrs['q'].shape)} do not "
                          f"match orig_shape {orig_shape}")
-    return pack_for_kernel(SplitQuantTensor(bits=bits, k=k,
-                                            orig_dtype=orig_dtype,
-                                            stack_dims=sd, **arrs))
+    sqt = SplitQuantTensor(bits=bits, k=k, orig_dtype=orig_dtype,
+                           stack_dims=sd, **arrs)
+    return sqt if len(orig_shape) == 1 else pack_for_kernel(sqt)
 
 
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None
@@ -273,7 +299,8 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None
 
     def leaf(key, like_leaf, layer):
         device = _device_of(like_leaf)
-        if key in quant_meta or isinstance(like_leaf, PackedWeight):
+        if key in quant_meta or isinstance(like_leaf, (PackedWeight,
+                                                       SplitQuantTensor)):
             return _packed(data, key, quant_meta.get(key), like_leaf, layer,
                            device)
         a = data[key] if layer is None else data[key][layer]

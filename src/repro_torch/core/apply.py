@@ -7,8 +7,10 @@ Same rules as the JAX package's defaults: normalization scales and other
 quantized, embedding tables only with ``quantize_embeddings`` (a VLM's
 ``patch_proj`` is a projection, not a table, and is quantized by
 default), and tiny parameters (fewer than ``MIN_SIZE`` elements) are
-left alone. Quantized biases (1-D) are not
-ported yet and raise. The JAX package stacks the layers on a leading
+left alone. Biases (1-D leaves) are quantized like weights, as the paper
+and the JAX package do, and stay :class:`SplitQuantTensor`s: the kernel
+takes matrices, and ``dense`` adds a bias's eq. (4) dequantization. The
+JAX package stacks the layers on a leading
 axis and quantizes each layer's slice on its own; the port's layer stack
 is a Python list, so each leaf already is one layer's matrix, and
 ``MIN_SIZE`` is applied to the size of the whole stack as in JAX. A MoE
@@ -20,7 +22,7 @@ slab of the E matrices runs as one batched pass. The router stays fp32.
 A large leaf is quantized in slabs (:data:`SLAB_ELEMS`): an expert
 stack by whole matrices, each on a k-means generator of its own, a
 matrix by rows with its ranges combined; the bytes are those of the
-unslabbed quantization. Each quantized leaf is packed ONCE, here, into
+unslabbed quantization. Each quantized matrix is packed ONCE, here, into
 the kernel layout
 (:class:`~repro_torch.kernels.ops.PackedWeight`). Methods: ``splitquant``
 (the paper), ``baseline`` (one min/max range), ``percentile`` (one
@@ -45,12 +47,14 @@ import torch
 
 from ..kernels.ops import PackedWeight, dequant_constants, pack_for_kernel
 from ..kernels.packing import pack_cids, pack_codes
+from ..tree import STACK_FRAGMENTS
+from ..tree import tree_to  # noqa: F401  (its callers import it here)
 from .kmeans import row_generators
 from .quantize import QuantConfig, qparams, quantize
-from .splitquant import (assign_clusters, baseline_quant_tensor,
-                         deployed_bytes, empty_to_zero, fit_centroids,
-                         masked_min_max, select_per_element,
-                         splitquant_tensor)
+from .splitquant import (SplitQuantTensor, assign_clusters,
+                         baseline_quant_tensor, deployed_bytes,
+                         empty_to_zero, fit_centroids, masked_min_max,
+                         select_per_element, splitquant_tensor)
 
 #: parameter-path fragments that are never quantized
 DEFAULT_EXCLUDE = (
@@ -58,10 +62,6 @@ DEFAULT_EXCLUDE = (
     "decay", "gate_a", "rg_lru", "time_", "alibi", "rope",
     "router",
 )
-
-#: path fragments marking stacked per-layer parameter groups
-STACK_FRAGMENTS = ("layers", "moe_layers", "groups", "tail",
-                   "enc_layers", "dec_layers")
 
 #: leave tiny parameters alone
 MIN_SIZE = 64
@@ -210,26 +210,29 @@ class LeafQuantizer:
         if eff.method == "none":
             report["skipped"].append(path_s)
             return
-        if leaf.ndim not in (2, 3):
-            raise NotImplementedError(f"{path_s}: only 2-D weights and "
-                                      f"stacks of them (a MoE layer's "
-                                      f"experts) are packed for the kernel "
-                                      f"(quantized biases are not ported)")
+        if leaf.ndim > 3:
+            raise NotImplementedError(f"{path_s}: a {leaf.ndim}-D leaf; the "
+                                      f"port quantizes vectors, matrices "
+                                      f"and stacks of them (a MoE layer's "
+                                      f"experts)")
         if eff.method not in ("splitquant", "baseline", "percentile"):
             raise ValueError(f"unknown method {eff.method!r}")
         gen = torch.Generator(device=leaf.device).manual_seed(
             self.seed + self.i) if eff.method == "splitquant" else None
-        if leaf.ndim == 3:
-            packed, nbytes = quantize_stack(gen, leaf, eff, SLAB_ELEMS)
+        if leaf.ndim == 1:       # a bias: kept unpacked, dequantized by dense
+            qleaf = _quantize(gen, leaf, eff, 0)
+            nbytes = qleaf.nbytes_deployed()
+        elif leaf.ndim == 3:
+            qleaf, nbytes = quantize_stack(gen, leaf, eff, SLAB_ELEMS)
         elif leaf.numel() > SLAB_ELEMS and _row_slabs_take(eff):
-            packed, nbytes = quantize_rows(gen, leaf, eff, SLAB_ELEMS)
+            qleaf, nbytes = quantize_rows(gen, leaf, eff, SLAB_ELEMS)
         else:
             sq = _quantize(gen, leaf, eff, 0)
-            packed, nbytes = pack_for_kernel(sq), sq.nbytes_deployed()
-        box[key] = packed
+            qleaf, nbytes = pack_for_kernel(sq), sq.nbytes_deployed()
+        box[key] = qleaf
         report["quantized"].append(path_s)
         entry = report["per_path"].setdefault(
-            jpath, {"bits": eff.cfg.bits, "k": packed.k,
+            jpath, {"bits": eff.cfg.bits, "k": qleaf.k,
                     "method": eff.method, "bytes": 0})
         # the JAX package's count (codes, 2-bit cids when k > 1, scales),
         # not the kernel layout's (PackedWeight.nbytes_packed)
@@ -333,7 +336,8 @@ def quantize_rows(gen, w, eff: QuantPolicy, slab_elems: int):
 def quantize_tree(params, policy: QuantPolicy, seed: int = 0,
                   overrides: Optional[dict] = None):
     """Return a copy of ``params`` with quantizable leaves replaced by
-    packed SplitQuant weights, plus a report dict. The k-means seeding of
+    packed SplitQuant weights (biases: unpacked ``SplitQuantTensor``s),
+    plus a report dict. The k-means seeding of
     each leaf draws from a ``torch.Generator`` seeded with ``seed`` plus
     the leaf's index, on the leaf's device.
 
@@ -358,10 +362,10 @@ def quantize_tree(params, policy: QuantPolicy, seed: int = 0,
 
 
 def dequantize_tree(params):
-    """Replace every packed weight with its dequantized dense tensor."""
+    """Replace every quantized leaf with its dequantized dense tensor."""
     out = _copy_tree(params)
     for _, _, box, key, leaf, _ in _walk(out, (), 1):
-        if isinstance(leaf, PackedWeight):
+        if isinstance(leaf, (PackedWeight, SplitQuantTensor)):
             box[key] = leaf.dequantize()
     return out
 
@@ -372,12 +376,3 @@ def _copy_tree(tree):
     if isinstance(tree, list):
         return [_copy_tree(v) for v in tree]
     return tree
-
-
-def tree_to(params, device):
-    """Move every tensor and packed weight of a tree to ``device``."""
-    if isinstance(params, dict):
-        return {k: tree_to(v, device) for k, v in params.items()}
-    if isinstance(params, list):
-        return [tree_to(v, device) for v in params]
-    return params.to(device)

@@ -57,6 +57,11 @@ class SplitQuantTensor:
     def shape(self):
         return tuple(self.q.shape)
 
+    def to(self, device) -> "SplitQuantTensor":
+        mv = {f: getattr(self, f).to(device)
+              for f in ("q", "cid", "scale", "zero")}
+        return dataclasses.replace(self, **mv)
+
     @property
     def per_channel(self) -> bool:
         return self.scale.dim() - self.stack_dims == 2

@@ -116,7 +116,9 @@ def pack_for_kernel(sqt: SplitQuantTensor) -> PackedWeight:
 
 
 def linear(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight], b=None):
-    """Dense layer with transparent SplitQuant dispatch. x: (..., K)."""
+    """Dense layer with transparent SplitQuant dispatch. x: (..., K); ``b``
+    a tensor or a quantized bias (a 1-D :class:`SplitQuantTensor`, added
+    dequantized, as the JAX package's ``ops.linear``)."""
     if isinstance(w, PackedWeight):
         lead = x.shape[:-1]
         y = splitquant_matmul(x.reshape(-1, x.shape[-1]), w.qp, w.cp,
@@ -125,6 +127,8 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight], b=None):
     else:
         y = x @ w.to(x.dtype)
     if b is not None:
+        if isinstance(b, SplitQuantTensor):     # a quantized bias: eq. (4)
+            b = b.dequantize()
         y = y + b.to(y.dtype)
     return y
 

@@ -1,7 +1,7 @@
 """Where the serving time goes: device traces of the engine at full width.
 
     python -m repro_torch.launch.profile_engine [--out chiprun_out] \
-        [--wave | --spec]
+        [--wave | --spec | --train]
 
 Builds the engine of ``chip_smoke.py`` from
 :func:`~repro_torch.launch.serve.smoke_workload` (stablelm-1.6b, seeded
@@ -36,9 +36,16 @@ each draft pass and each verify pass marked (``torch.profiler``
 ``record_function``): their count, wall time, the device busy time inside
 them, their launches, copies and fills and their kernels by name.
 
+``--train`` traces training: 3 steps of ``launch.train``'s stablelm-1.6b
+at full width (bf16, batch 8 x 128, remat, fp32 AdamW states) after 2
+warm-up steps, and 20 steps of ``launch.table1``'s bert-tiny fine-tuning
+(batch 32 x 64) after 5, with each step and each AdamW update marked:
+the update's share of the step, the device busy share and the kernels
+of each.
+
 Runs on the CUDA card only. Writes ``profile_engine.json`` (or
-``profile_wave.json``, ``profile_spec.json``) under ``--out`` (the
-traces themselves are parsed and dropped).
+``profile_wave.json``, ``profile_spec.json``, ``profile_train.json``)
+under ``--out`` (the traces themselves are parsed and dropped).
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ import torch
 from ..device import resolve_device
 from ..engine import Engine
 from ..runtime.serve_loop import Request, Server, ServeConfig
+from ..runtime.train_loop import UPDATE_RANGE
 from .serve import build_params, rwkv_smoke_workload, smoke_workload
 
 DECODE_STEPS = 12
@@ -288,6 +296,64 @@ def profile_wave(device, scratch: Path) -> dict:
             "decode": profile_window(decode_window, scratch)}
 
 
+#: the ranges a training step is cut into by --train
+TRAIN_RANGES = ("train step", UPDATE_RANGE)
+
+
+def _train_window(step, params, opt, batches, warm: int, scratch: Path):
+    """Run ``warm`` steps of ``step`` on the first batches, then trace
+    the rest, each step marked (the step marks its own AdamW update)."""
+    for b in batches[:warm]:
+        params, opt, _ = step(params, opt, b)
+
+    def window():
+        nonlocal params, opt
+        for b in batches[warm:]:
+            with torch.profiler.record_function(TRAIN_RANGES[0]):
+                params, opt, m = step(params, opt, b)
+                m["loss"].item()
+        return len(batches) - warm
+
+    return profile_window(window, scratch, TRAIN_RANGES)
+
+
+def profile_train(device, scratch: Path) -> dict:
+    from ..configs import get_arch
+    from ..data import DataConfig, synthetic_lm_batch
+    from ..data.classification import batches as cls_batches
+    from ..data.classification import emotion_like, split
+    from ..models import bert_tiny, transformer
+    from ..optim import adamw
+    from ..runtime.train_loop import make_train_step
+    out = {"card": torch.cuda.get_device_name(0)}
+    cfg = get_arch("stablelm-1.6b")
+    oc = adamw.OptConfig(total_steps=5, warmup_steps=1)
+    params = transformer.init(cfg, seed=0, device=device)
+    step = make_train_step(
+        lambda p, b: transformer.loss_fn(p, cfg, b, remat=True), oc)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8)
+    lm = [synthetic_lm_batch(dc, s, device=device) for s in range(5)]
+    torch.cuda.reset_peak_memory_stats(device)
+    out["stablelm-1.6b"] = _train_window(step, params, adamw.init(oc, params),
+                                         lm, 2, scratch)
+    out["stablelm-1.6b"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
+        device)
+    del params, step, lm
+    torch.cuda.empty_cache()
+    bcfg = get_arch("bert-tiny")
+    tr, _ = split(emotion_like(), 3200)
+    bparams = bert_tiny.init(bcfg, tr.n_classes, max_len=tr.seq_len,
+                             device=device)
+    boc = adamw.OptConfig(lr=3e-4, total_steps=800, warmup_steps=50,
+                          weight_decay=0.01)
+    bstep = make_train_step(lambda p, b: bert_tiny.loss_fn(p, bcfg, b), boc)
+    data = list(cls_batches(tr, 32, device=device))[:25]
+    out["bert-tiny"] = _train_window(bstep, bparams,
+                                     adamw.init(boc, bparams), data, 5,
+                                     scratch)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out")
@@ -296,11 +362,25 @@ def main(argv=None):
                       help="trace the rwkv6-3b wave loop, not the engine")
     mode.add_argument("--spec", action="store_true",
                       help="trace the speculative engine's steps")
+    mode.add_argument("--train", action="store_true",
+                      help="trace training steps (stablelm-1.6b at full "
+                           "width, bert-tiny)")
     args = ap.parse_args(argv)
     device = resolve_device(None)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     scratch = out / "profile_trace.tmp.json"
+    if args.train:
+        res = profile_train(device, scratch)
+        (out / "profile_train.json").write_text(json.dumps(res, indent=1))
+        print(f"training on {res['card']}")
+        _print("stablelm-1.6b, 3 steps of 8 x 128 (bf16, remat, fp32 "
+               "AdamW states)", res["stablelm-1.6b"], TRAIN_RANGES)
+        print(f"  peak memory "
+              f"{res['stablelm-1.6b']['peak_mem_bytes'] / 2**30:.2f} GiB")
+        _print("bert-tiny, 20 steps of 32 x 64 (fp32)", res["bert-tiny"],
+               TRAIN_RANGES)
+        return
     if args.spec:
         res = profile_spec(device, scratch)
         (out / "profile_spec.json").write_text(json.dumps(res, indent=1))

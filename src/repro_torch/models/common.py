@@ -17,14 +17,10 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def dense(x, w, b=None):
-    """Linear layer; dispatches to the quantized path for packed
-    SplitQuant weights. Computation dtype follows x."""
-    if isinstance(w, PackedWeight):
-        return ops.linear(x, w, b)
-    y = x @ w.to(x.dtype)
-    if b is not None:
-        y = y + b.to(x.dtype)
-    return y
+    """Linear layer (:func:`~repro_torch.kernels.ops.linear`): the
+    quantized path for packed SplitQuant weights, a quantized bias added
+    dequantized. Computation dtype follows x."""
+    return ops.linear(x, w, b)
 
 
 def embed_lookup(table, ids):

@@ -13,8 +13,12 @@ layer index runs across both (0 … n_layers - 1). The initializer is the
 port's own, seeded by a ``torch.Generator``, at the same shapes; with
 ``on_part`` it hands each part of the tree to a hook as it is built (the
 layer-by-layer quantized build of ``launch.serve.build_params``). The
-JAX forward's third output, the MoE auxiliary loss, is left out: it
-feeds training, which is not ported.
+MoE auxiliary loss (JAX's third output of ``forward``) is summed over
+the layers for :func:`loss_fn`; the serving entry points drop it.
+:func:`loss_fn` is the training loss: next-token cross-entropy (a VLM's
+on its text tokens only) plus ``aux_weight`` times the aux loss, each
+layer recomputed in the backward pass under ``remat``
+(``torch.utils.checkpoint``, as JAX's ``jax.checkpoint``).
 
 The VLM family (paligemma-3b) is the dense decoder with a stub vision
 frontend: ``patch_proj`` (``VLM_PATCH_DIM`` x d_model) projects a
@@ -31,6 +35,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import KVCache, attention_block
@@ -115,26 +120,42 @@ def init(cfg, seed: int = 0, device=None, on_part=None):
     return params
 
 
+def _layer(lp, moe: bool, cfg, x, positions, cache, layer: int,
+           moe_blocks: int, attn_kw: dict):
+    """One layer: norm, attention, residual, norm, FFN or MoE, residual.
+    Returns (x, (k, v) with ``want_kv`` else None, the MoE aux loss or
+    None)."""
+    h = apply_norm(x, lp["ln1"], cfg.norm_type)
+    a, kv = attention_block(lp["attn"], h, cfg, positions, cache, layer,
+                            window=cfg.window, **attn_kw)
+    x = x + a
+    h = apply_norm(x, lp["ln2"], cfg.norm_type)
+    if moe:
+        out, aux = apply_moe(lp["moe"], h, cfg, n_blocks=moe_blocks)
+        return x + out, kv, aux
+    return x + apply_ffn(lp["ffn"], h, cfg.ffn_type), kv, None
+
+
 def _layers(params, cfg, x, positions, cache=None, moe_blocks: int = 1,
-            **attn_kw):
-    """The layer stacks (dense, then MoE): norm, attention, residual,
-    norm, FFN or MoE, residual; cache layer ``layer`` runs across both.
-    Returns (x, the layers' (k, v) with ``want_kv``, else Nones)."""
+            remat: bool = False, **attn_kw):
+    """The layer stacks (dense, then MoE); cache layer ``layer`` runs
+    across both. ``remat``: each layer's activations are recomputed in
+    the backward pass (no cache). Returns (x, the layers' (k, v) with
+    ``want_kv``, else Nones, the sum of the MoE layers' aux losses (fp32,
+    0 without MoE))."""
     kvs = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     stack = [(lp, False) for lp in params.get("layers", ())] + \
         [(lp, True) for lp in params.get("moe_layers", ())]
     for layer, (lp, moe) in enumerate(stack):
-        h = apply_norm(x, lp["ln1"], cfg.norm_type)
-        a, kv = attention_block(lp["attn"], h, cfg, positions, cache, layer,
-                                window=cfg.window, **attn_kw)
-        x = x + a
-        h = apply_norm(x, lp["ln2"], cfg.norm_type)
-        if moe:
-            x = x + apply_moe(lp["moe"], h, cfg, n_blocks=moe_blocks)[0]
-        else:
-            x = x + apply_ffn(lp["ffn"], h, cfg.ffn_type)
+        args = (lp, moe, cfg, x, positions, cache, layer, moe_blocks,
+                attn_kw)
+        x, kv, a = (checkpoint(_layer, *args, use_reentrant=False)
+                    if remat else _layer(*args))
+        if a is not None:
+            aux = aux + a
         kvs.append(kv)
-    return x, kvs
+    return x, kvs, aux
 
 
 def _head(params, cfg, x):
@@ -183,15 +204,36 @@ def forward(params, cfg, batch, cache: Optional[KVCache] = None,
     if pad_mask is not None and cache is None:
         kv_pos_override = torch.where(pad_mask, -1,
                                       positions[None, :].to(torch.int32))
-    x, kvs = _layers(params, cfg, x, positions, cache,
-                     moe_blocks=moe_blocks,
-                     want_kv=want_cache and cache is None,
-                     kv_pos_override=kv_pos_override)
+    x, kvs, _ = _layers(params, cfg, x, positions, cache,
+                        moe_blocks=moe_blocks,
+                        want_kv=want_cache and cache is None,
+                        kv_pos_override=kv_pos_override)
     logits = _head(params, cfg, x)
     if cache is None and want_cache:
         cache = assemble_cache(cfg, kvs, positions, max_len=cache_len,
                                pad_mask=pad_mask)
     return logits, cache
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True,
+            aux_weight: float = 0.01, moe_blocks: int = 1):
+    """The training loss of a batch {tokens (B, S), labels (B, S)} (and a
+    VLM's ``patch_embeds``): the mean next-token cross-entropy over the
+    labels >= 0 (a VLM's over its text tokens, after the patch prefix)
+    plus ``aux_weight`` times the MoE layers' summed aux loss. Returns
+    (loss, {"loss": the cross-entropy, "aux"})."""
+    x, positions = embed_inputs(params, cfg, batch)
+    x, _, aux = _layers(params, cfg, x, positions, moe_blocks=moe_blocks,
+                        remat=remat)
+    logits = _head(params, cfg, x)
+    labels = batch["labels"].long()
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        logits = logits[:, -labels.shape[1]:]          # the text tokens
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
 def assemble_cache(cfg, kvs, positions, max_len: Optional[int] = None,
@@ -259,8 +301,9 @@ def prefill(params, cfg, batch, max_len: Optional[int] = None, *,
 def _forward_slots(params, cfg, cache, tokens, positions, slot_chunk=None,
                    verify: bool = False, fused: bool = True):
     x = embed_lookup(params["embed"], tokens)
-    x, _ = _layers(params, cfg, x, positions, cache, slot_chunk=slot_chunk,
-                   spec_verify=verify, fused_attn=fused)
+    x, _, _ = _layers(params, cfg, x, positions, cache,
+                      slot_chunk=slot_chunk, spec_verify=verify,
+                      fused_attn=fused)
     if slot_chunk is not None and not verify:
         # only the chunk's last valid token feeds the head (the engine
         # samples the first generated token from it): (1, 1, V), not

@@ -1,2 +1,3 @@
 """Runtime loops of the port: the wave-batching server
-(:mod:`.serve_loop`)."""
+(:mod:`.serve_loop`) and the fault-tolerant training loop
+(:mod:`.train_loop`)."""

@@ -2047,3 +2047,185 @@ def test_vlm_prefix_prefill_card_matches_cpu(dev, wide):
     assert splitquant_matmul.launches > before
     assert got.shape == (2, 32, cfg.vocab) and cache.k.shape[2] == 64
     _close(got.cpu(), want, 1e-4)
+
+
+# ------------------------------------------- bert-tiny, Table 1, training ---
+#: (M, K, N) of bert-tiny's quantized products in Table 1's evaluation
+#: (100 sequences of 64 tokens; the pooler's and classifiers' [CLS] rows):
+#: the scalar column path at N = 6 and 2, 800 M tiles at M = 6400
+BERT_MATMUL_SHAPES = [(6400, 128, 128), (6400, 128, 512), (6400, 512, 128),
+                      (100, 128, 128), (100, 128, 6), (100, 128, 2)]
+
+
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M,K,N", BERT_MATMUL_SHAPES)
+def test_fp32_matmul_at_bert_tiny_shapes(dev, M, K, N, bits, k):
+    """The CUDA-core kernel (fp32 x) at bert-tiny's shapes against its
+    plain version, within 1e-4 of the output's scale."""
+    gen = torch.Generator(device=dev).manual_seed(M + N + bits)
+    qp, cp, recip, shift = _packed(gen, K, N, bits, k, dev)
+    x = torch.randn((M, K), generator=gen, device=dev)
+    before = sqm.splitquant_matmul.variant_launches[sqm.CUDA_CORE]
+    got = splitquant_matmul(x, qp, cp, recip, shift, bits=bits, k=k)
+    torch.cuda.synchronize()
+    assert sqm.splitquant_matmul.variant_launches[sqm.CUDA_CORE] == \
+        before + 1
+    _close(got, splitquant_matmul_ref(x, qp, cp, recip, shift, bits), 1e-4)
+
+
+def _bert_small(n_classes=6, seq=32):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import bert_tiny
+    cfg = get_arch("bert-tiny")
+    return cfg, bert_tiny.init(cfg, n_classes, max_len=seq, seed=3,
+                               device="cpu")
+
+
+def _nudge_biases(params, seed=0):
+    """Non-zero biases (a trained model's), so their quantization is not
+    degenerate."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def go(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: go(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [go(v, name) for v in tree]
+        if tree.dim() == 1 and name.startswith("b"):
+            return tree + 0.1 * torch.randn(tree.shape, generator=gen)
+        return tree
+    return go(params)
+
+
+def _bert_batch(cfg, B=8, seq=32, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(100, cfg.vocab, (B, seq))
+    toks[:, 0] = 101
+    mask = np.ones((B, seq), np.int64)
+    for b in range(1, B):
+        mask[b, seq - 3 * b:] = 0
+    toks = np.where(mask > 0, toks, 0)
+    return {"tokens": torch.from_numpy(toks), "mask": torch.from_numpy(mask),
+            "labels": torch.from_numpy(rng.integers(0, 6, B))}
+
+
+@pytest.mark.parametrize("method", ["splitquant", "baseline"])
+def test_quantized_bert_with_biases_card_matches_cpu(dev, method):
+    """bert-tiny quantized at INT2 with its biases (``dense`` adds their
+    dequantization; its matrices through the fp32 kernel): logits card ==
+    CPU within 1e-4 of their scale; ``dense`` with a quantized bias
+    alone too."""
+    from repro_torch.core.apply import QuantPolicy, quantize_tree, tree_to
+    from repro_torch.core.quantize import QuantConfig
+    from repro_torch.core.splitquant import SplitQuantTensor
+    from repro_torch.models import bert_tiny
+    from repro_torch.models.common import dense
+    cfg, params = _bert_small()
+    q, rep = quantize_tree(_nudge_biases(params), QuantPolicy(
+        cfg=QuantConfig(bits=2), method=method))
+    assert isinstance(q["layers"][0]["attn"]["bq"], SplitQuantTensor)
+    qd = tree_to(q, dev)
+    b = _bert_batch(cfg)
+    before = sqm.splitquant_matmul.variant_launches[sqm.CUDA_CORE]
+    with torch.no_grad():
+        got = bert_tiny.forward(qd, cfg, {k: v.to(dev) for k, v in
+                                          b.items()})
+        want = bert_tiny.forward(q, cfg, b)
+    torch.cuda.synchronize()
+    assert sqm.splitquant_matmul.variant_launches[sqm.CUDA_CORE] == \
+        before + 14                    # 2 layers x 6, the pooler, the head
+    _close(got.cpu(), want, 1e-4)
+    x = torch.randn((64, 128), generator=torch.Generator().manual_seed(1))
+    lp, lpd = q["layers"][1]["ffn"], qd["layers"][1]["ffn"]
+    _close(dense(x.to(dev), lpd["w_up"], lpd["b_up"]).cpu(),
+           dense(x, lp["w_up"], lp["b_up"]), 1e-4)
+
+
+@pytest.mark.parametrize("case", [{}, {"state_dtype": "bfloat16"},
+                                  {"grad_compress": "int8",
+                                   "clip_norm": None}])
+def test_adamw_on_the_card_matches_the_cpu(dev, case):
+    """AdamW's update on the card from the CPU's params, state and
+    gradients (three bert-tiny steps, the gradients the CPU's): params
+    within 1e-6 of each leaf's scale (bf16 states: 3 x lr x 2^-8, a bf16
+    rounding of a moment), step counters equal."""
+    from repro_torch.core.apply import tree_to
+    from repro_torch.models import bert_tiny
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg, params = _bert_small()
+    oc = adamw.OptConfig(lr=1e-3, warmup_steps=1, total_steps=3, **case)
+    pc, oc_state = params, adamw.init(oc, params)
+    pd, od_state = tree_to(params, dev), adamw.init(oc, tree_to(params, dev))
+    for s in range(3):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), pc)
+        loss, _ = bert_tiny.loss_fn(p, cfg, _bert_batch(cfg, seed=s))
+        leaves = tree_leaves(p)
+        by = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+        g = tree_map(lambda t: by[id(t)], p)
+        pc, oc_state, _ = adamw.update(oc, oc_state, pc, g)
+        pd, od_state, m = adamw.update(oc, od_state, pd, tree_to(g, dev))
+    assert int(od_state.step) == 3 and od_state.step.is_cuda
+    atol = 3 * oc.lr * 2 ** -8 if case.get("state_dtype") else 0.0
+    for a, b in zip(tree_leaves(pd), tree_leaves(pc)):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= max(1e-6 * max(1.0, float(b.abs().max())), atol)
+
+
+def test_static_act_quant_kernel_with_bert_tiny_scales(dev):
+    """Scales calibrated by the port's ``collect_act_stats`` on bert-tiny
+    (on the card; chunks of 128 / 3, uneven) feed the static act-quant
+    kernel: codes equal its plain version's, and values inside each
+    chunk's calibrated range come back within a step (the counterpart of
+    the JAX package's tests/test_calib.py static-kernel test)."""
+    from repro_torch.calib import act_static_scales, collect_act_stats
+    from repro_torch.core.apply import tree_to
+    cfg, params = _bert_small()
+    b = _bert_batch(cfg)
+    stats = collect_act_stats(cfg, tree_to(params, dev),
+                              [{k: b[k] for k in ("tokens", "mask")}],
+                              n_chunks=3)
+    for site in ("attn_in", "ffn_in", "ffn_hidden"):
+        scales = act_static_scales(stats)[site]
+        s = torch.from_numpy(scales["scale"][0]).to(dev)
+        z = torch.from_numpy(scales["zero"][0]).to(dev)
+        width = 512 if site == "ffn_hidden" else 128
+        x = torch.randn((256, width), generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        q = aq.act_split_quantize_static(x, s, z, bits=8)
+        torch.cuda.synchronize()
+        assert torch.equal(q.cpu(), aq.act_split_quantize_static(
+            x.cpu(), s.cpu(), z.cpu(), bits=8))
+        xd = aq.dequantize_act(q, s, z)
+        bounds = activation_chunk_bounds(width, 3)
+        cmin = stats.sites[site]["chunk_min"][0]
+        cmax = stats.sites[site]["chunk_max"][0]
+        for c, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+            xc = x[:, lo:hi]
+            inside = (xc >= float(cmin[c])) & (xc <= float(cmax[c]))
+            assert bool(inside.any())
+            err = (xd[:, lo:hi] - xc).abs()[inside]
+            assert float(err.max()) <= 1.0 / float(s[c]) + 1e-5
+
+
+def test_tiny_table1_card_matches_cpu(dev):
+    """Table 1 at a tiny size: bert-tiny trained on the CPU, each
+    (bits, method) quantized on the CPU and evaluated on the card and on
+    the CPU: accuracies equal within one example of the 100 (the 8-bit
+    activations' rounding ties)."""
+    from repro_torch.core.apply import tree_to
+    from repro_torch.launch import table1
+    (name, tr, te), = table1.datasets(500, 0)[:1]
+    cfg, params = table1.train_bert(tr, epochs=1, device="cpu")
+    for bits in (2, 4, 8):
+        for method in ("baseline", "splitquant"):
+            q = table1.quantize(params, bits, method)
+            for acts in (False, True):
+                act_cfg, chunks = table1.act_quant(bits, method, acts)
+                cpu = table1.evaluate(cfg, q, te, act_cfg=act_cfg,
+                                      act_chunks=chunks)
+                card = table1.evaluate(cfg, tree_to(q, dev), te,
+                                       act_cfg=act_cfg, act_chunks=chunks)
+                assert round(abs(card - cpu) * len(te.labels)) <= 1, \
+                    (name, bits, method, acts, card, cpu)

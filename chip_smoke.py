@@ -291,14 +291,38 @@ Phases (any failure exits non-zero):
 6. rwkv6 cross-check: rwkv6-3b ``.reduced()`` in fp32 through the wave
    server on the card and on the CPU with the same weights, over one wave
    whose padded length is a multiple of 16 and one whose length is not:
-   identical greedy tokens.
+   identical greedy tokens;
+7. griffin, griffin_ring and whisper (after rwkv6): recurrentgemma-9b
+   uncut (38 layers: 12 groups of (rec, rec, attn) and 2 trailing
+   recurrent layers, MQA 16/1 at head_dim 256, window 2048; SplitQuant
+   INT4 k=3 built part by part on the card) through the wave ``Server``
+   in rwkv6's wave shapes (waves of 8, 16 requests of 64-256 tokens, 32
+   new); then one wave of 4 prompts of 2100-2400 tokens, past the
+   window: the ring holds the last 2048 positions written, in ring
+   order, after the run; then whisper-tiny uncut (4 + 4 layers, d_model
+   384, enc_seq 1500; INT4 weights and biases) over two batches of 8
+   with seeded stub frames, 16- and 48-token prompts, 32 greedy tokens
+   by ``prefill`` and ``decode_step``. Each resets the counts just
+   before and reads them just after: every budget, the matmul alone in
+   its bf16 variant, no plain version, finite logits and state; they
+   print build seconds and peak, deployed bytes, tokens/s, prefill and
+   decode-step p50 (whisper also the encoder's ms). The kernel phase
+   adds the matmul at recurrentgemma-9b's shapes (K 4096 -> 4096, 12288,
+   256, 256000 and 12288 -> 4096 at 8 rows and at the griffin phase's
+   largest wave prefill) and whisper-tiny's (384 -> 384, 1536 and 1536
+   -> 384 at 8 rows and at the encoder's 12,000), and the 384 -> 384
+   projection with its quantized bias through ``ops.linear``; the
+   cross-checks add reduced griffin (8 layers, 2 in the tail, window 16)
+   through the wave ``Server`` with waves padded past the window, and
+   reduced whisper's prefill and decode steps: card tokens == CPU
+   tokens.
 
 The line before the last is ``{"kernels": [...]}``: one entry per TPU
-kernel, with ``launches`` summed over the serving runs of phases 3 and 5
-(``launches_by_path`` splits them: engine, static, spec, dense_wave,
-wave, engine_bf16, oneshot, sampling, recipe, chaos, recovery,
-observe, moe, moe_spec, moe_wave, kimi, engine_f16, vlm, vlm_prefix,
-vlm_wave, table1 and train,
+kernel, with ``launches`` summed over the serving runs of phases 3, 5
+and 7 (``launches_by_path`` splits them: engine, static, spec,
+dense_wave, wave, engine_bf16, oneshot, sampling, recipe, chaos,
+recovery, observe, moe, moe_spec, moe_wave, kimi, engine_f16, vlm,
+vlm_prefix, vlm_wave, table1, train, griffin, griffin_ring and whisper,
 ``launches_by_variant``
 splits those of the matmul (``grouped``: its MoE form) and of the two
 attention kernels by variant,
@@ -374,8 +398,11 @@ SOURCES = {
 #: through the wave loop: the matmul alone), "kimi"
 #: (kimi-k2-1t-a32b, 5 layers at full width, through the engine),
 #: "table1" (the paper's Table 1: bert-tiny's quantized evaluations, the
-#: matmul's fp32 variant) and "train" (stablelm-1.6b trained at full
-#: width: float weights, no quantized kernel, 0 launches).
+#: matmul's fp32 variant), "train" (stablelm-1.6b trained at full
+#: width: float weights, no quantized kernel, 0 launches), "griffin"
+#: (recurrentgemma-9b through the wave loop), "griffin_ring" (its wave
+#: past the 2048-row window) and "whisper" (whisper-tiny's prefill and
+#: decode steps): the matmul alone.
 #: ``kv_write`` is
 #: ``write_kv_rows`` in its dynamic and fp modes, ``kv_write_static`` in
 #: its static mode.
@@ -384,7 +411,8 @@ PATHS = {
                           "engine_bf16", "oneshot", "sampling", "recipe",
                           "chaos", "recovery", "observe", "moe", "moe_spec",
                           "moe_wave", "kimi", "engine_f16", "vlm",
-                          "vlm_prefix", "vlm_wave", "table1", "train"),
+                          "vlm_prefix", "vlm_wave", "table1", "train",
+                          "griffin", "griffin_ring", "whisper"),
     "act_split_quantize": (),
     "act_split_quantize_static": (),
     "prefill_attention": ("engine", "static", "spec", "engine_bf16",
@@ -553,13 +581,31 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def rows_err(torch, got, want, rows: int = 1024) -> tuple[float, float, bool]:
+    """(max |got - want|, max |want|, got all finite) of two (M, N)
+    outputs, a block of ``rows`` rows at a time: an output of several GB
+    is compared without fp32 copies of the whole (a NaN carried)."""
+    errs, scales, finite = [], [], True
+    for g, w in zip(got.split(rows), want.split(rows)):
+        g, w = g.float(), w.float()
+        errs.append((g - w).abs().max())
+        scales.append(w.abs().max())
+        finite = finite and bool(torch.isfinite(g).all())
+    return (float(torch.stack(errs).max()), float(torch.stack(scales).max()),
+            finite)
+
+
 # ------------------------------------------------------------ kernels ---
 def matmul_cases(torch, timer, rep):
     from repro_torch.kernels.packing import pack_cids
     from repro_torch.kernels.ref import (dequant_weight_ref,
                                          splitquant_matmul_ref)
-    from repro_torch.kernels.splitquant_matmul import splitquant_matmul
-    from repro_torch.launch.serve import dense_wave_workload
+    from repro_torch.kernels.splitquant_matmul import (row_slabs,
+                                                       splitquant_matmul)
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import (dense_wave_workload,
+                                          griffin_ring_workload,
+                                          griffin_smoke_workload)
     gen = torch.Generator(device="cuda").manual_seed(0)
     k = 3
     # M at the dense_wave phase's largest wave prefill: a wave's rows times
@@ -574,8 +620,25 @@ def matmul_cases(torch, timer, rep):
     # paligemma-3b's own shapes (wk / wv, geglu) at decode and chunk M,
     # and its patch projection (K = 1152) at vlm_prefix's 8 x 256 rows
     stablelm = ((2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352))
+    # recurrentgemma-9b at a decode step, at its griffin phase's largest
+    # wave prefill and at griffin_ring's one wave prefill (4 prompts padded
+    # to the longest: its vocab head is the product launched in two row
+    # slabs); whisper-tiny at a decode step and at the encoder's 8 x 1500
+    # rows
+    _, gscfg, _, _, gprompts = griffin_smoke_workload()
+    gB = gscfg.max_batch
+    m_gwave = max(len(w) * max(map(len, w)) for w in
+                  (gprompts[i:i + gB] for i in range(0, len(gprompts), gB)))
+    _, _, rprompts = griffin_ring_workload()
+    m_ring = len(rprompts) * max(map(len, rprompts))
+    m_enc = 8 * get_arch("whisper-tiny").enc_seq
     shapes = [("stablelm-1.6b", K, N, (8, 96, m_wave), 4)
               for K, N in stablelm] + \
+        [("recurrentgemma-9b", K, N, (8, m_gwave, m_ring), 4) for K, N in (
+            (4096, 4096), (4096, 12288), (4096, 256), (4096, 256000),
+            (12288, 4096))] + \
+        [("whisper-tiny", K, N, (8, m_enc), 4) for K, N in (
+            (384, 384), (384, 1536), (1536, 384))] + \
         [("rwkv6-3b", K, N, (8, 96, 2048), 4) for K, N in (
             (2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536))] + \
         [("paligemma-3b", K, N, (8, 96), 4) for K, N in (
@@ -595,20 +658,30 @@ def matmul_cases(torch, timer, rep):
         for M in Ms:
             x = torch.randn((M, K), generator=gen,
                             device="cuda").to(torch.bfloat16)
+            n0 = splitquant_matmul.launches
             got = splitquant_matmul(x, qp, cp, recip, shift, bits=bits, k=k)
+            slabs = splitquant_matmul.launches - n0
             want = splitquant_matmul_ref(x, qp, cp, recip, shift, bits)
             torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                fail(f"matmul M={M} K={K} N={N}: non-finite output")
+            if slabs != len(row_slabs(M, N)):
+                fail(f"matmul M={M} K={K} N={N}: {slabs} launches, expected "
+                     f"{len(row_slabs(M, N))} row slabs")
+            if slabs > 1:
+                log(f"  {'':18s} M={M} K={K} N={N}: {slabs} row slabs "
+                    f"{row_slabs(M, N)}")
             # bf16 output: one bf16 rounding of an fp32 sum whose order
             # differs from torch's ⇒ ≲ 2^-8 relative to the output scale
-            tol = 2 ** -7 * max(1.0, float(want.float().abs().max()))
+            err, scale, finite = rows_err(torch, got, want)
+            if not finite:
+                fail(f"matmul M={M} K={K} N={N}: non-finite output")
+            del got, want
+            tol = 2 ** -7 * max(1.0, scale)
             nbytes = M * K * 2 + K * N * bits / 8 + K * N / 4 + \
                 2 * k * N * 4 + M * N * 2
             ms = timer(lambda: splitquant_matmul(x, qp, cp, recip, shift,
                                                  bits=bits, k=k))
             rep.add(f"{arch} M={M} K={K} N={N} bf16 int{bits} k=3",
-                    max_err(got, want), tol, ms,
+                    err, tol, ms,
                     timer(lambda: splitquant_matmul_ref(x, qp, cp, recip,
                                                         shift, bits)),
                     timer(lambda: torch.matmul(x, w)),
@@ -621,6 +694,41 @@ def matmul_cases(torch, timer, rep):
                 f"({c['bound_by']}); {c['library_ms'] / ms:.2f}x the "
                 f"speed of torch.matmul")
         del qp, cp, w
+
+
+def bias_cases(torch, timer, rep):
+    """whisper-tiny's 384 -> 384 projection with its quantized bias, as
+    ``ops.linear`` runs it (the kernel, then the bias's eq. (4)
+    dequantization added) at a decode step's 8 rows and the encoder's
+    8 x 1500, weight and bias quantized by the port (SplitQuant INT4
+    k=3) on the card, against the plain version plus the same bias;
+    ``torch.matmul`` on the dequantized weight plus the bias beside it."""
+    from repro_torch.core.quantize import QuantConfig
+    from repro_torch.core.splitquant import splitquant_tensor
+    from repro_torch.kernels.ops import linear, pack_for_kernel
+    from repro_torch.kernels.ref import splitquant_matmul_ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    K = N = 384
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
+    b = torch.randn((N,), generator=gen, device="cuda") * 0.1
+    pw = pack_for_kernel(splitquant_tensor(gen, w, QuantConfig(bits=4)))
+    qb = splitquant_tensor(gen, b, QuantConfig(bits=4))
+    bd = qb.dequantize().to(torch.bfloat16)
+    wd = pw.dequantize().to(torch.bfloat16)
+    ref = lambda x: splitquant_matmul_ref(x, pw.qp, pw.cp, pw.recip,
+                                          pw.shift, 4) + bd
+    for M in (8, 8 * 1500):
+        x = torch.randn((M, K), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        got, want = linear(x, pw, qb), ref(x)
+        torch.cuda.synchronize()
+        tol = 2 ** -7 * max(1.0, float(want.float().abs().max()))
+        nbytes = M * K * 2 + K * N / 2 + K * N / 4 + 2 * 3 * N * 4 + \
+            N * 4 + M * N * 2
+        rep.add(f"whisper-tiny M={M} K={K} N={N} + quantized bias",
+                max_err(got, want), tol, timer(lambda: linear(x, pw, qb)),
+                timer(lambda: ref(x)), timer(lambda: torch.matmul(x, wd) + bd),
+                nbytes, 2 * M * K * N)
 
 
 def random_packed_cids(torch, gen, shape, k=3):
@@ -2289,103 +2397,421 @@ def spec_cross_check(torch):
     return res
 
 
-def rwkv_phase(torch, counters):
-    """``counters`` as for :func:`engine_phase`."""
-    from repro_torch.launch.serve import build_params, rwkv_smoke_workload
-    from repro_torch.models import rwkv6
-    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+# ------------------------------------------- wave loop: rwkv6, griffin ---
+def _wave_kernels(counters, phase: str, launches: dict) -> None:
+    """Every kernel of the wave path (``PATHS``) launched in the run."""
+    for name in (n for n, p in PATHS.items() if "wave" in p):
+        if launches[name] <= 0:
+            fail(f"{phase}: kernel {name} was not launched on the wave path")
 
-    cfg, scfg, quant, warmup, prompts = rwkv_smoke_workload()
-    device = "cuda"
-    t0 = time.perf_counter()
-    params, report = build_params(cfg, device=device, **quant)
+
+def _only_matmul(counters, phase: str, launches: dict) -> None:
+    """A griffin or whisper run launches the matmul and no other kernel
+    (no attention kernel, K/V write, quantizer or WKV)."""
+    from repro_torch.kernels import prefill_attention as pa
+    if launches["splitquant_matmul"] <= 0:
+        fail(f"{phase}: splitquant_matmul was not launched on its path")
+    others = {n: c for n, c in launches.items() if n != "splitquant_matmul"}
+    if any(others.values()) or pa.quantize_kv.launches or \
+            pa.quantize_kv_static.launches:
+        fail(f"{phase}: kernels off the path were launched: {others}")
+
+
+def _all_finite(torch, tensors) -> bool:
+    return all(bool(torch.isfinite(t.float()).all()) for t in tensors)
+
+
+def _rwkv_shape(cfg) -> str:
+    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.d_model // cfg.rwkv_head_dim} heads of "
+            f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}")
+
+
+def _griffin_shape(cfg) -> str:
+    from repro_torch.models import griffin
+    groups, tail = griffin.layout(cfg)
+    return (f"{cfg.n_layers} layers = {groups} x (rec, rec, attn) + {tail} "
+            f"rec, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+            f"{cfg.n_kv_heads} kv-head of {cfg.head_dim}, window "
+            f"{cfg.window}, lru {cfg.lru_width}, {cfg.ffn_type} d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}")
+
+
+def wave_phase(torch, counters, phase: str, workload, model, shape, gate,
+               card_line):
+    """A wave-loop family at full width through the wave ``Server``:
+    ``workload()`` gives (cfg, scfg, quant, warm-up prompts, prompts)
+    (``rwkv_smoke_workload``: rwkv6-3b; ``griffin_smoke_workload``:
+    recurrentgemma-9b uncut, 38 layers, 12 groups of (rec, rec, attn) and
+    2 trailing recurrent layers); SplitQuant INT4 k=3 built on the card
+    (griffin part by part); waves of 8, 16 seeded requests, 32 new tokens
+    each, after one warm-up wave. ``model`` is the family's module,
+    ``shape(cfg)`` describes it for the log. The counts are set to 0
+    just before the run and read just after. Gates: every request its
+    budget in vocab; ``gate(counters, phase, launches)`` (every wave
+    kernel launched for rwkv6, the matmul alone for griffin); no plain
+    version called; an untimed prefill's logits and state finite at full
+    width. Printed: build seconds, the build's peak and the weights'
+    bytes on the card (both above what was resident before), deployed
+    bytes, tokens/s, wave-prefill and decode-step p50, peak memory,
+    launches by variant. Returns (result, params)."""
+    from repro_torch.launch.serve import build_params
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+    cfg, scfg, quant, warmup, prompts = workload()
     torch.cuda.synchronize()
-    t_quant = time.perf_counter() - t0
-    log(f"rwkv6: rwkv6-3b full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
-        f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), init + "
-        f"SplitQuant INT4 k=3 of {len(report['quantized'])} matrices on the "
-        f"card in {t_quant:.2f} s ({report['deployed_bytes'] / 2**20:.1f} "
-        f"MiB deployed)")
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, report = build_params(cfg, device="cuda", **quant)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    # above what was resident before the build
+    build_peak = torch.cuda.max_memory_allocated() - resident
+    weight_bytes = torch.cuda.memory_allocated() - resident
+    log(f"{phase}: {cfg.name} full width ({shape(cfg)}): init + SplitQuant "
+        f"INT4 k=3 of {len(report['quantized'])} leaves on the card in "
+        f"{t_build:.2f} s, build peak {build_peak / 2**30:.2f} GiB; deployed "
+        f"{report['deployed_bytes'] / 1e9:.3f} GB (the JAX count), "
+        f"{weight_bytes / 2**30:.2f} GiB on the card [card: {card_line}]")
     Server(cfg, params, ServeConfig(max_batch=8, max_new_tokens=2),
-           device=device).serve([Request(i, p)
+           device="cuda").serve([Request(i, p)
                                  for i, p in enumerate(warmup)])
-    srv = Server(cfg, params, scfg, device=device)
+    srv = Server(cfg, params, scfg, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
-    t0 = time.perf_counter()
-    fin = srv.serve([Request(i, p) for i, p in enumerate(prompts)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        fin = srv.serve([Request(i, p) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    no_plain(phase, plain)
     launches = launch_counts(counters)
-    variants = only_variant(counters, "splitquant_matmul", "rwkv6")
+    variants = only_variant(counters, "splitquant_matmul", phase)
+    gate(counters, phase, launches)
     peak = torch.cuda.max_memory_allocated()
-    n_tok = sum(len(r.out) for r in fin)
-    if len(fin) != 16 or any(len(r.out) != 32 for r in fin):
-        fail(f"rwkv6: expected 16 requests x 32 tokens, got "
+    if len(fin) != len(prompts) or \
+            any(len(r.out) != scfg.max_new_tokens for r in fin) or \
+            any(not 0 <= t < cfg.vocab for r in fin for t in r.out):
+        fail(f"{phase}: expected {len(prompts)} requests x "
+             f"{scfg.max_new_tokens} tokens in vocab, got "
              f"{[len(r.out) for r in fin]}")
-    if any(not 0 <= t < cfg.vocab for r in fin for t in r.out):
-        fail("rwkv6: token id out of vocab")
-    for name in (n for n, p in PATHS.items() if "wave" in p):
-        if launches[name] <= 0:
-            fail(f"rwkv6: kernel {name} was not launched on the wave path")
-    # the logits and state the server samples from are finite at full width
-    logits, state = rwkv6.prefill(
+    logits, state = model.prefill(
         params, cfg, {"tokens": torch.as_tensor(prompts[0][None],
-                                                device=device)})
+                                                device="cuda")})
     if logits.shape != (1, len(prompts[0]), cfg.vocab) or \
-            not bool(torch.isfinite(logits).all()) or \
-            not all(bool(torch.isfinite(t).all()) for t in state):
-        fail("rwkv6: non-finite or misshapen logits or state at full width")
-    res = {"arch": cfg.name, "requests": len(fin), "new_tokens": n_tok,
-           "prompt_tokens": int(sum(len(p) for p in prompts)),
-           "waves": len(srv.wave_prefill_s),
-           "setup_quantize_s": t_quant,
+            not _all_finite(torch, (logits, *state)):
+        fail(f"{phase}: non-finite or misshapen logits or state at full "
+             f"width")
+    del logits, state
+    n_tok = sum(len(r.out) for r in fin)
+    res = {"arch": cfg.name, "card": card_line, "build_s": t_build,
+           "build_peak_bytes": build_peak, "weight_bytes": weight_bytes,
            "deployed_bytes": report["deployed_bytes"],
-           "quantized_matrices": len(report["quantized"]), "wall_s": wall,
+           "quantized_leaves": len(report["quantized"]),
+           "requests": len(fin), "new_tokens": n_tok,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "waves": len(srv.wave_prefill_s), "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
            "wave_prefill_p50_s": percentile(srv.wave_prefill_s, 50),
            "wave_prefill_s": srv.wave_prefill_s,
            "decode_step_p50_s": percentile(srv.decode_step_s, 50),
-           "decode_steps": len(srv.decode_step_s),
-           "tokens_per_s": n_tok / wall, "peak_mem_bytes": peak,
-           "launches": launches, "matmul_variants": variants}
-    log(f"rwkv6: {len(fin)} requests in {res['waves']} waves, "
+           "decode_steps": len(srv.decode_step_s), "peak_mem_bytes": peak,
+           "launches": launches, "matmul_variants": variants,
+           "plain_calls": plain, "outputs": [r.out for r in fin]}
+    log(f"{phase}: {len(fin)} requests in {res['waves']} waves, "
         f"{res['prompt_tokens']} prompt + {n_tok} new tokens in {wall:.3f} s "
         f"= {res['tokens_per_s']:.1f} tok/s; wave prefill p50 "
         f"{res['wave_prefill_p50_s'] * 1e3:.1f} ms; decode step p50 "
         f"{res['decode_step_p50_s'] * 1e3:.2f} ms; {res['decode_steps']} "
         f"decode steps; peak memory {peak / 2**30:.2f} GiB; launches "
-        f"{launches}; matmul launches by variant {variants}")
-    return res
+        f"{launches}; matmul by variant {variants} [card: {card_line}]")
+    return res, params
 
 
-def rwkv_cross_check(torch):
+def wave_cross_check(torch, name: str, cfg, lens, seed: int):
+    """``cfg`` (a reduced config) in fp32 with INT4 SplitQuant weights
+    through the wave ``Server`` on the card and on the CPU with the same
+    weights: seeded prompts of ``lens`` tokens in waves of 4, 16 new
+    tokens each: identical greedy tokens."""
     import numpy as np
-    from repro_torch.configs import get_arch
-    from repro_torch.tree import tree_to
     from repro_torch.launch.serve import build_params
     from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
-    cfg = get_arch("rwkv6-3b").reduced()
+    from repro_torch.tree import tree_to
     params, _ = build_params(cfg, bits=4, method="splitquant", seed=0,
                              device="cpu")
-    rng = np.random.default_rng(1)
-    # waves of 4: padded length 32 (the WKV kernel), then 37 (the steps)
-    prompts = [rng.integers(0, cfg.vocab, size=n)
-               for n in (32, 20, 7, 16, 37, 5, 12, 30)]
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lens]
+    B, new = 4, 16
     outs = {}
     for dev, p in (("cpu", params), ("cuda", tree_to(params, "cuda"))):
-        srv = Server(cfg, p, ServeConfig(max_batch=4, max_new_tokens=16),
+        srv = Server(cfg, p, ServeConfig(max_batch=B, max_new_tokens=new),
                      device=dev)
         outs[dev] = [r.out for r in srv.serve(
             [Request(i, pr) for i, pr in enumerate(prompts)])]
     same = outs["cpu"] == outs["cuda"]
-    log(f"rwkv6 cross-check: rwkv6-3b reduced fp32, waves of padded length "
-        f"32 and 37, 8 requests x 16 tokens: card tokens "
+    pads = [max(lens[i:i + B]) for i in range(0, len(lens), B)]
+    log(f"{name} cross-check: {cfg.name} reduced ({cfg.n_layers} layers), "
+        f"fp32, waves of {B} padded to {pads}, {len(prompts)} requests x "
+        f"{new} tokens: card tokens {'==' if same else '!='} CPU tokens")
+    if not same:
+        fail(f"{name} cross-check: card {outs['cuda']} != cpu {outs['cpu']}")
+    return {"requests": len(prompts), "identical": same}
+
+
+def rwkv_cross_check(torch):
+    """rwkv6-3b reduced: waves padded to 32 (the WKV kernel's chunk) and
+    37 (the steps)."""
+    from repro_torch.configs import get_arch
+    return wave_cross_check(torch, "rwkv6", get_arch("rwkv6-3b").reduced(),
+                            (32, 20, 7, 16, 37, 5, 12, 30), seed=1)
+
+
+def griffin_cross_check(torch):
+    """recurrentgemma-9b reduced at 8 layers (2 groups and 2 trailing
+    recurrent layers), window 16: waves padded to 30 and 21, past the
+    window, and 16 new tokens, so the ring wraps."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch("recurrentgemma-9b").reduced(),
+                              n_layers=8)
+    return wave_cross_check(torch, "griffin", cfg,
+                            (30, 7, 18, 3, 21, 12, 17, 5), seed=3)
+
+
+# ------------------------------------------------ griffin and whisper ---
+def griffin_ring_phase(torch, counters, params, card_line):
+    """griffin's weights past the window (``griffin_ring_workload``): one
+    wave of 4 seeded prompts of 2100-2400 tokens through the wave
+    ``Server``, 32 new tokens each. The prefill assembles the 2048-row
+    ring from the last 2048 positions and the decode steps write into
+    it. Gates: every request its 32 tokens; after the run each attention
+    layer's ring holds exactly the last 2048 positions written, position
+    p in row p % 2048; the recurrent states finite; the matmul alone, its
+    bf16 variant; no plain version called. Printed: the prefill's wall
+    and the decode-step p50."""
+    from repro_torch.launch.serve import griffin_ring_workload
+    from repro_torch.models import griffin
+    from repro_torch.runtime.serve_loop import Request, Server
+    cfg, scfg, prompts = griffin_ring_workload()
+    phase = "griffin_ring"
+    srv = Server(cfg, params, scfg, device="cuda")
+    seen = {}
+    for name in ("prefill_wave", "decode_wave"):
+        def keep(*a, _fn=getattr(srv, name), **kw):
+            out = _fn(*a, **kw)
+            seen["cache"] = out[0]
+            return out
+        setattr(srv, name, keep)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        fin = srv.serve([Request(i, p) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    no_plain(phase, plain)
+    launches = launch_counts(counters)
+    variants = only_variant(counters, "splitquant_matmul", phase)
+    _only_matmul(counters, phase, launches)
+    if any(len(r.out) != scfg.max_new_tokens for r in fin) or \
+            any(not 0 <= t < cfg.vocab for r in fin for t in r.out):
+        fail(f"{phase}: expected {len(prompts)} requests x "
+             f"{scfg.max_new_tokens} tokens, got {[len(r.out) for r in fin]}")
+    cache, W = seen["cache"], cfg.window
+    S = max(len(p) for p in prompts)
+    last = S + len(srv.decode_step_s)          # one past the last written
+    pos = cache.attn_pos.cpu()
+    want = torch.arange(last - W, last, dtype=torch.int32)
+    want = want[torch.argsort(want % W)]
+    if pos.shape != (griffin.layout(cfg)[0], W) or \
+            not bool((pos == want[None]).all()) or \
+            not _all_finite(torch, (cache.rec_h, cache.rec_conv)):
+        fail(f"{phase}: the ring holds positions {pos[0, :4].tolist()}..., "
+             f"expected the last {W} before {last} in ring order, or the "
+             f"recurrent state is not finite")
+    n_tok = sum(len(r.out) for r in fin)
+    res = {"arch": cfg.name, "card": card_line, "requests": len(fin),
+           "prompt_tokens": [len(p) for p in prompts], "padded_to": S,
+           "window": W, "new_tokens": n_tok, "wall_s": wall,
+           "prefill_s": srv.wave_prefill_s[0],
+           "decode_step_p50_s": percentile(srv.decode_step_s, 50),
+           "decode_steps": len(srv.decode_step_s),
+           "ring_positions": [int(want.min()), int(want.max())],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "matmul_variants": variants,
+           "plain_calls": plain, "outputs": [r.out for r in fin]}
+    log(f"{phase}: {cfg.name} full width, one wave of {len(prompts)} "
+        f"prompts of {res['prompt_tokens']} tokens (padded to {S}, past the "
+        f"{W}-row window): prefill {res['prefill_s'] * 1e3:.1f} ms, decode "
+        f"step p50 {res['decode_step_p50_s'] * 1e3:.2f} ms over "
+        f"{res['decode_steps']} steps; the ring holds positions "
+        f"{res['ring_positions'][0]}..{res['ring_positions'][1]} in ring "
+        f"order; {n_tok} tokens in {wall:.3f} s; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; launches {launches} "
+        f"[card: {card_line}]")
+    return res
+
+
+def whisper_phase(torch, counters, card_line):
+    """whisper-tiny at full width (``whisper_smoke_workload``: 4 + 4
+    layers, d_model 384, 6 heads of 64, enc_seq 1500, vocab 51865, the
+    head tied; SplitQuant INT4 k=3 of its matrices and biases on the
+    card): two batches of 8, seeded stub frames (8, 1500, 384) and prompts
+    of 16, then 48 tokens, decoded greedily for 32 tokens by
+    ``whisper.prefill`` and ``whisper.decode_step``. The counts are set
+    to 0 just before and read just after. Gates: 8 x 32 tokens in vocab a
+    batch; logits and the cache finite; the matmul launched, only
+    ``bf16_wgmma``, no other kernel; no plain version called. Printed:
+    the encoder's ms (timed alone, after the counted run), prefill and
+    decode-step p50, tokens/s."""
+    from repro_torch.launch.serve import build_params, whisper_smoke_workload
+    from repro_torch.models import whisper
+    cfg, quant, batches, new = whisper_smoke_workload()
+    phase = "whisper"
+    t0 = time.perf_counter()
+    params, report = build_params(cfg, device="cuda", **quant)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_bias = sum(p.endswith(("/bq", "/bk", "/bv", "/bo", "/b_up",
+                             "/b_down")) for p in report["per_path"])
+    log(f"{phase}: {cfg.name} full width ({cfg.n_enc_layers} + "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"of {cfg.head_dim}, enc_seq {cfg.enc_seq}, vocab {cfg.vocab}, tied "
+        f"head): SplitQuant INT4 k=3 of {len(report['quantized'])} leaves "
+        f"({n_bias} bias groups) on the card in {t_build:.2f} s; deployed "
+        f"{report['deployed_bytes'] / 2**20:.1f} MiB [card: {card_line}]")
+
+    def frames_on_card(frames):
+        return torch.as_tensor(frames, device="cuda").to(torch.bfloat16)
+
+    def run(frames, toks):
+        """(tokens (8, new), prefill s, decode step seconds, finite)."""
+        f = frames_on_card(frames)
+        t = torch.as_tensor(toks, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = whisper.prefill(params, cfg, {"tokens": t,
+                                                      "frames": f},
+                                        max_len=t.shape[1] + new)
+        tok = logits[:, -1].argmax(-1)
+        out = [tok.tolist()]
+        t_pre = time.perf_counter() - t0
+        steps, finite = [], bool(torch.isfinite(logits).all())
+        for i in range(new - 1):
+            t0 = time.perf_counter()
+            logits, cache = whisper.decode_step(params, cfg, cache,
+                                                tok[:, None],
+                                                t.shape[1] + i)
+            tok = logits[:, -1].argmax(-1)
+            out.append(tok.tolist())
+            steps.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(logits).all()) and \
+            _all_finite(torch, cache)
+        return [list(r) for r in zip(*out)], t_pre, steps, finite
+
+    run(*batches[0])                                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    outs, pres, steps = [], [], []
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        for frames, toks in batches:
+            o, tp, st, finite = run(frames, toks)
+            if not finite:
+                fail(f"{phase}: non-finite logits or cache")
+            outs.append(o)
+            pres.append(tp)
+            steps += st
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    no_plain(phase, plain)
+    launches = launch_counts(counters)
+    variants = only_variant(counters, "splitquant_matmul", phase)
+    _only_matmul(counters, phase, launches)
+    # the encoder alone, after the run whose wall and counts are kept (its
+    # pass inside each prefill is the one the run needs)
+    encs = []
+    for frames, _ in batches:
+        f = frames_on_card(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whisper.encode(params, cfg, f)
+        torch.cuda.synchronize()
+        encs.append(time.perf_counter() - t0)
+    if any(len(o) != 8 or any(len(r) != new or
+                              any(not 0 <= x < cfg.vocab for x in r)
+                              for r in o) for o in outs):
+        fail(f"{phase}: expected 2 batches of 8 x {new} tokens in vocab")
+    n_tok = 2 * 8 * new
+    res = {"arch": cfg.name, "card": card_line, "build_s": t_build,
+           "deployed_bytes": report["deployed_bytes"],
+           "quantized_leaves": len(report["quantized"]),
+           "prompt_lens": [int(t.shape[1]) for _, t in batches],
+           "new_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "encoder_s": encs,
+           "prefill_s": pres, "prefill_p50_s": percentile(pres, 50),
+           "decode_step_p50_s": percentile(steps, 50),
+           "decode_steps": len(steps),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "matmul_variants": variants,
+           "plain_calls": plain, "outputs": outs}
+    log(f"{phase}: 2 batches of 8 (stub frames 8 x {cfg.enc_seq} x "
+        f"{cfg.d_model}, prompts of {res['prompt_lens']} tokens), {n_tok} "
+        f"greedy tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} tok/s "
+        f"(each prefill runs the encoder); encoder, timed alone after the "
+        f"run, "
+        f"{[round(s * 1e3, 2) for s in encs]} ms; prefill "
+        f"{[round(s * 1e3, 2) for s in pres]} ms (p50 "
+        f"{res['prefill_p50_s'] * 1e3:.2f}); decode step p50 "
+        f"{res['decode_step_p50_s'] * 1e3:.2f} ms; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; launches {launches}; "
+        f"matmul by variant {variants} [card: {card_line}]")
+    return res
+
+
+def whisper_cross_check(torch):
+    """whisper-tiny ``.reduced()`` in fp32 with INT4 SplitQuant weights and
+    biases: ``prefill`` of 4 prompts of 9 tokens over seeded frames, then
+    12 greedy ``decode_step``s, on the card and on the CPU with the same
+    weights: identical tokens."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import whisper
+    from repro_torch.tree import tree_to
+    cfg = get_arch("whisper-tiny").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")
+    rng = np.random.default_rng(4)
+    frames = rng.standard_normal((4, cfg.enc_seq, cfg.d_model)).astype(
+        np.float32)
+    toks = rng.integers(0, cfg.vocab, (4, 9))
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", tree_to(params, "cuda"))):
+        t = torch.as_tensor(toks, device=dev)
+        logits, cache = whisper.prefill(
+            p, cfg, {"tokens": t, "frames": torch.as_tensor(frames,
+                                                            device=dev)},
+            max_len=9 + 13)
+        tok = logits[:, -1].argmax(-1)
+        out = [tok.tolist()]
+        for i in range(12):
+            logits, cache = whisper.decode_step(p, cfg, cache, tok[:, None],
+                                                9 + i)
+            tok = logits[:, -1].argmax(-1)
+            out.append(tok.tolist())
+        outs[dev] = out
+    same = outs["cpu"] == outs["cuda"]
+    log(f"whisper cross-check: whisper-tiny reduced fp32, INT4 with biases, "
+        f"4 prompts of 9 tokens + 13 greedy tokens: card tokens "
         f"{'==' if same else '!='} CPU tokens")
     if not same:
-        fail(f"rwkv6 cross-check: card {outs['cuda']} != cpu {outs['cpu']}")
-    return {"requests": len(prompts), "identical": same}
+        fail(f"whisper cross-check: card {outs['cuda']} != cpu {outs['cpu']}")
+    return {"requests": 4, "identical": same}
+
 
 def dense_wave_phase(torch, counters, params, card_line):
     """stablelm-1.6b at full width through the wave ``Server``
@@ -4599,6 +5025,7 @@ def main() -> None:
     log("kernels vs plain versions (bf16, main-path shapes):")
     t_kernels = time.perf_counter()
     matmul_cases(torch, timer, reps["splitquant_matmul"])
+    bias_cases(torch, timer, reps["splitquant_matmul"])
     grouped_cases(torch, timer, reps["splitquant_matmul"])
     bert_matmul_cases(torch, timer, reps["splitquant_matmul"])
     decode_cases(torch, timer, reps["decode_attention"])
@@ -4710,8 +5137,24 @@ def main() -> None:
     vxc = timed("vlm_cross_check", vlm_cross_check, torch)
     vpxc = timed("vlm_prefix_cross_check", vlm_prefix_cross_check, torch)
     vwxc = timed("vlm_wave_cross_check", vlm_wave_cross_check, torch)
-    rwkv = timed("rwkv", rwkv_phase, torch, counters)
+    from repro_torch.launch.serve import (griffin_smoke_workload,
+                                          rwkv_smoke_workload)
+    from repro_torch.models import griffin, rwkv6
+    rwkv = timed("rwkv", wave_phase, torch, counters, "rwkv6",
+                 rwkv_smoke_workload, rwkv6, _rwkv_shape, _wave_kernels,
+                 card_line)[0]             # rwkv6's weights not kept
     rxc = timed("rwkv_cross_check", rwkv_cross_check, torch)
+    torch.cuda.empty_cache()
+    grif, grif_params = timed("griffin", wave_phase, torch, counters,
+                              "griffin", griffin_smoke_workload, griffin,
+                              _griffin_shape, _only_matmul, card_line)
+    gring = timed("griffin_ring", griffin_ring_phase, torch, counters,
+                  grif_params, card_line)
+    del grif_params
+    torch.cuda.empty_cache()
+    whis = timed("whisper", whisper_phase, torch, counters, card_line)
+    gxc = timed("griffin_cross_check", griffin_cross_check, torch)
+    wxc = timed("whisper_cross_check", whisper_cross_check, torch)
 
     serving = {"engine": eng, "static": sta, "spec": spec,
                "engine_bf16": bf16, "oneshot": one, "sampling": samp,
@@ -4728,7 +5171,9 @@ def main() -> None:
             "moe_wave": mwave["launches"], "kimi": kimi["launches"],
             "engine_f16": f16["launches"], "vlm": vlm["launches"],
             "vlm_prefix": vpre["launches"], "vlm_wave": vwave["launches"],
-            "table1": t1["launches"], "train": train["launches"]}
+            "table1": t1["launches"], "train": train["launches"],
+            "griffin": grif["launches"], "griffin_ring": gring["launches"],
+            "whisper": whis["launches"]}
     by_dtype = {"engine_bf16": bf16["cache_dtypes"],
                 "engine_f16": f16["cache_dtypes"], "vlm": vlm["cache_dtypes"],
                 "oneshot": one["cache_dtypes"],
@@ -4749,7 +5194,10 @@ def main() -> None:
         "engine_f16": f16["matmul_variants"], "vlm": vlm["matmul_variants"],
         "vlm_prefix": vpre["matmul_variants"],
         "vlm_wave": vwave["matmul_variants"],
-        "table1": t1["matmul_variants"]},
+        "table1": t1["matmul_variants"],
+        "griffin": grif["matmul_variants"],
+        "griffin_ring": gring["matmul_variants"],
+        "whisper": whis["matmul_variants"]},
         "launches_by_bits": {"recipe": rec["bits_launches"],
                              "moe_spec": mspec["bits_launches"],
                              "table1": t1["bits_launches"]}},
@@ -4808,7 +5256,10 @@ def main() -> None:
          "vlm_prefix": vpre, "vlm_wave": vwave, "vlm_cross_check": vxc,
          "vlm_prefix_cross_check": vpxc, "vlm_wave_cross_check": vwxc,
          "table1": t1, "table1_cross_check": t1xc, "train": train,
-         "train_cross_check": trxc, "phase_s": PHASE_S,
+         "train_cross_check": trxc, "griffin": grif,
+         "griffin_ring": gring, "whisper": whis,
+         "griffin_cross_check": gxc, "whisper_cross_check": wxc,
+         "phase_s": PHASE_S,
          "act_quant_observed": aq_observed,
          "kernels": kernels,
          "total_s": time.perf_counter() - t_start}, indent=1))

@@ -3,11 +3,16 @@
 Input: the JAX parameter tree as nested dicts of numpy arrays, with each
 ``SplitQuantTensor`` given as a dict ``{q, cid, scale, zero, bits, k,
 orig_shape}`` (scales per tensor (k,) or per output column (k, out)) and
-the layer stacks as ``(L, …)`` leaves under ``"layers"`` and, for the MoE
-family, ``"moe_layers"``. Output: the port's tree — the same names, each
+the layer stacks as ``(L, …)`` leaves under one of
+:data:`~repro_torch.tree.STACK_FRAGMENTS` (``layers``, a MoE model's
+``moe_layers``, griffin's ``groups`` and ``tail``, whisper's
+``enc_layers`` and ``dec_layers``). Output: the port's tree — the same names, each
 stack as a list of per-layer dicts, every quantized matrix packed for
 the kernel and every quantized bias (``orig_shape`` of one axis) kept as
-a :class:`SplitQuantTensor`, which ``dense`` dequantizes. A MoE layer's expert leaf (L, E, d, f), with scales
+a :class:`SplitQuantTensor`, which ``dense`` dequantizes. A quantized
+2-D leaf that is no matrix product (griffin's depthwise ``conv_w``) is
+packed too; the model reads it through ``materialize``, whose
+``PackedWeight.dequantize`` gives JAX's ``dequantize`` exactly. A MoE layer's expert leaf (L, E, d, f), with scales
 (L, E, k[, f]), becomes one stacked packed weight (E, d, f) a layer. The
 caller flattens JAX arrays to numpy; this module imports neither ``jax``
 nor the JAX package.
@@ -17,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .tree import tree_to
+from .tree import STACK_FRAGMENTS, tree_to
 from .device import resolve_device
 from .core.splitquant import SplitQuantTensor
 from .kernels.ops import pack_for_kernel
@@ -78,7 +83,7 @@ def from_jax_tree(tree: dict, dtype=torch.float32, device=None) -> dict:
     dequantization returns."""
     out = {}
     for key, node in tree.items():
-        if key in ("layers", "moe_layers"):
+        if key in STACK_FRAGMENTS:
             out[key] = [_convert(_unstack(node, i), dtype)
                         for i in range(_n_layers(node))]
         else:

@@ -82,7 +82,8 @@ def splitquant_matmul(x: torch.Tensor, q_packed: torch.Tensor,
                       ) -> torch.Tensor:
     """y = x · Ŵ. x: (M, K) bf16/fp32; q_packed (K·bits/8, N) uint8;
     cid_packed (K/4, N) uint8; recip/shift (k, N) fp32. Returns (M, N) in
-    x.dtype."""
+    x.dtype. On the card one launch, or one a slab of rows past
+    :data:`MAX_OUTPUTS` outputs (:func:`row_slabs`)."""
     if x.device.type == "cpu":
         return splitquant_matmul_ref(x, q_packed, cid_packed, recip, shift,
                                      bits)
@@ -105,6 +106,26 @@ def splitquant_matmul(x: torch.Tensor, q_packed: torch.Tensor,
     x = x.contiguous()
     tensors = [t.contiguous() for t in (q_packed, cid_packed, recip, shift)]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    for r0, r1 in row_slabs(M, N):
+        _launch(x[r0:r1], tensors, y[r0:r1], bits, k)
+    return y
+
+
+#: the most outputs one launch writes (the kernel indexes them in int32)
+MAX_OUTPUTS = 0x7fffffff
+
+
+def row_slabs(M: int, N: int) -> list[tuple[int, int]]:
+    """The [r0, r1) row ranges an (M, N) product is launched in: one, or,
+    past :data:`MAX_OUTPUTS` outputs (a long prefill's vocab head, e.g.
+    4 x 2400 rows x 256000), as many slabs of whole rows as it takes."""
+    step = max(1, MAX_OUTPUTS // N)
+    return [(r0, min(M, r0 + step)) for r0 in range(0, M, step)]
+
+
+def _launch(x, tensors, y, bits: int, k: int) -> None:
+    """One launch of the kernel the plan picks: y (M, N) = x (M, K) · Ŵ."""
+    (M, K), N = x.shape, y.shape[1]
     p = plan(M, K, N, x.dtype, build.sm_count(x.device.index or 0))
     ws = (torch.empty((p.splits, M, N), dtype=torch.float32, device=x.device)
           if p.splits > 1 else y)
@@ -117,7 +138,6 @@ def splitquant_matmul(x: torch.Tensor, q_packed: torch.Tensor,
     splitquant_matmul.launches += 1
     splitquant_matmul.variant_launches[p.variant] += 1
     splitquant_matmul.bits_launches[bits] += 1
-    return y
 
 
 def grouped_splitquant_matmul_ref(x, offsets, q_packed, cid_packed, recip,

@@ -101,6 +101,17 @@ launcher does; its patch prefix is ``transformer.prefill``'s
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
         --reduced --device cpu
 
+griffin (recurrentgemma-9b, the hybrid family: RG-LRU blocks and local
+MQA attention over a ring of ``window`` rows) serves through the wave
+loop, as the JAX launcher does; at full width it is built part by part.
+whisper-tiny (audio) does not serve: its forward needs the stub
+frontend's frames, and the JAX package's wave ``Server`` passes only
+tokens. ``--spec-k`` on a family without a slot cache raises with the
+family's reason, as the JAX launcher does.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --reduced --device cpu
+
 Without ``--device`` it runs on the CUDA card, and fails if there is
 none.
 """
@@ -126,7 +137,7 @@ from ..engine import (Engine, EngineConfig, FaultSpec, InjectedCrash,
                       occupied_slots)
 from ..engine.engine import ENGINE_FAMILIES   # the others: the wave loop
 from ..engine.scheduler import OVERLOAD_POLICIES
-from ..models import get_model, transformer
+from ..models import get_model, griffin, transformer
 from ..runtime.serve_loop import Request, Server, ServeConfig
 
 
@@ -144,7 +155,7 @@ def build_params(cfg, *, bits: int, method: str, seed: int = 0,
     the weights in floating point), packed once, on ``device``. Returns
     (params, the quantization report or None).
 
-    A decoder is built layer by layer: each part of the tree is quantized
+    A decoder or griffin is built layer by layer: each part of the tree is quantized
     as soon as ``transformer.init`` has drawn it and its floating-point
     copy dropped, so the card never holds the whole bf16 tree; the packed
     bytes are those of ``quantize_tree(init(...))`` (the same draws, the
@@ -153,7 +164,7 @@ def build_params(cfg, *, bits: int, method: str, seed: int = 0,
     if method == "none":
         return model.init(cfg, seed=seed, device=device), None
     policy = QuantPolicy(cfg=QuantConfig(bits=bits), method=method)
-    if model is transformer:
+    if model in (transformer, griffin):
         q = LeafQuantizer(policy, seed)
         return model.init(cfg, seed=seed, device=device,
                           on_part=q.part), q.report
@@ -365,6 +376,56 @@ def rwkv_smoke_workload():
     prompts = [rng.integers(0, cfg.vocab, size=16 * int(rng.integers(4, 17)))
                for _ in range(16)]
     return cfg, scfg, quant, warmup, prompts
+
+
+def griffin_smoke_workload():
+    """The full-width griffin workload that ``chip_smoke.py`` drives:
+    recurrentgemma-9b as the JAX package's config gives it, uncut (38
+    layers: 12 groups of (rec, rec, attn) and 2 trailing recurrent
+    layers; d_model 4096, MQA 16/1 at head_dim 256 over a window of 2048,
+    RG-LRU width 4096, geglu d_ff 12288, vocab 256000, bf16), SplitQuant
+    INT4 k=3 weights (seed 0), and :func:`rwkv_smoke_workload`'s wave
+    shapes: waves of up to 8, one warm-up wave of 8 prompts of 16 tokens,
+    16 seeded requests of 64-256 prompt tokens and 32 new tokens each.
+
+    Returns (cfg, scfg, quant, warmup_prompts, prompts), where ``quant``
+    holds the keyword arguments of :func:`build_params`."""
+    _, scfg, quant, warmup, prompts = rwkv_smoke_workload()
+    return get_arch("recurrentgemma-9b"), scfg, quant, warmup, prompts
+
+
+def griffin_ring_workload():
+    """:func:`griffin_smoke_workload`'s weights past the window: one wave
+    of 4 seeded prompts of 2100-2400 tokens (longer than the 2048-row
+    ring), 32 new tokens each. Returns (cfg, scfg, prompts)."""
+    cfg, _, _, _, _ = griffin_smoke_workload()
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(2100,
+                                                                 2401)))
+               for _ in range(4)]
+    return cfg, ServeConfig(max_batch=4, max_new_tokens=32), prompts
+
+
+def whisper_smoke_workload():
+    """The full-width whisper workload that ``chip_smoke.py`` drives:
+    whisper-tiny as the JAX package's config gives it, uncut (4 encoder
+    and 4 decoder layers, d_model 384, 6 heads of 64, enc_seq 1500, vocab
+    51865, the head tied; bf16), SplitQuant INT4 k=3 weights and biases
+    (seed 0), and two batches of 8, each seeded stub frames
+    (8, 1500, 384) and 8 prompts of one length (16 tokens, then 48),
+    decoded greedily for 32 tokens by ``whisper.prefill`` and
+    ``whisper.decode_step``, as the JAX package's model tests drive it.
+
+    Returns (cfg, quant, batches, new_tokens): each batch (frames (8,
+    1500, 384) float32, tokens (8, S) int64) as numpy."""
+    cfg = get_arch("whisper-tiny")
+    quant = dict(bits=4, method="splitquant", seed=0)
+    rng = np.random.default_rng(0)
+    batches = [(rng.standard_normal((8, cfg.enc_seq, cfg.d_model),
+                                    dtype=np.float32),
+                rng.integers(0, cfg.vocab, size=(8, S)))
+               for S in (16, 48)]
+    return cfg, quant, batches, 32
 
 
 def serve_engine(args, cfg, params, device, kv_scales, kv_qchunks, prompts,
@@ -718,6 +779,19 @@ def main(argv=None):
             "--draft-recipe only takes effect with --spec-k > 0 — the "
             "recipe would be silently ignored and serving would proceed "
             "plain-greedy")
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name} does not serve: its forward needs the stub "
+            f"frontend's frames, and the wave Server, like the JAX "
+            f"package's, passes only tokens — drive whisper through "
+            f"repro_torch.models.whisper.prefill and decode_step")
+    if args.spec_k and args.wave:
+        raise NotImplementedError(
+            "--wave has no speculative path (spec_k > 0 is an engine "
+            "feature) — drop --wave or --spec-k")
+    if args.spec_k and cfg.family not in ENGINE_FAMILIES:
+        # the family's own reason, as the JAX launcher gives it
+        get_model(cfg).verify_step_slots()
     engine_only = dict(
         faults=args.faults, degrade=args.degrade, max_queue=max_queue,
         journal=args.journal, snapshot=args.snapshot,

@@ -1,7 +1,9 @@
 """GQA attention (port of ``repro.models.attention``): the dense pass and
 the chunked online-softmax form of ``attend`` with causal, window and
-validity masks, the plain ``KVCache`` of the wave loop, and the
-attention sub-layer over it or over the engine's slot cache.
+validity masks, the plain ``KVCache`` of the wave loop (a ring of
+``window`` rows for griffin's local attention), and the attention
+sub-layer over it or over the engine's slot cache, bidirectional
+(whisper's encoder) or over an encoder's K/V (its cross-attention).
 
 The JAX package writes this attention in jnp, not Pallas, so plain
 PyTorch is its port; the slot-cache branches go through the port's
@@ -115,13 +117,18 @@ def _cache_update(cache: KVCache, layer: int, k, v, positions):
 
 
 def attention_block(p, x, cfg, positions, cache=None, layer: int = 0, *,
-                    window=None, want_kv=False, kv_pos_override=None,
+                    causal: bool = True, window=None, kv_chunk=None,
+                    cross_kv=None, want_kv=False, kv_pos_override=None,
                     slot_chunk=None, spec_verify: bool = False,
                     fused_attn: bool = True):
-    """Projections + RoPE + (cache) + causal attention (within ``window``
-    positions, if given) + output projection.
+    """Projections + RoPE + (cache) + attention (causal unless
+    ``causal=False``, within ``window`` positions, if given; ``kv_chunk``
+    selects ``attend``'s online-softmax form) + output projection.
 
-    p: {"wq","wk","wv","wo"(,biases)}; x: (B, S, d). ``cache``:
+    p: {"wq","wk","wv","wo"(,biases)}; x: (B, S, d). ``cross_kv``: the
+    (k, v, kv_pos) of encoder-decoder cross-attention, ``wk``/``wv`` (and
+    their biases) already applied by the caller; only q (with ``bq``)
+    and the output are projected here, and no cache is read. ``cache``:
 
     - None: prefill or a cache-free pass; queries attend this call's
       K/V at ``kv_pos_override`` ((B, S), -1 = pad) or ``positions``.
@@ -149,20 +156,27 @@ def attention_block(p, x, cfg, positions, cache=None, layer: int = 0, *,
     B, S, _ = x.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = dense(x, p["wq"], p.get("bq")).reshape(B, S, Hq, D)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_variant)
+    kw = dict(causal=causal, window=window, kv_chunk=kv_chunk)
+    if cross_kv is not None:
+        k, v, kv_pos = cross_kv
+        o = attend(q, k, v, positions, kv_pos, **kw)
+        return dense(o.reshape(B, S, Hq * D), p["wo"], p.get("bo")), None
     k = dense(x, p["wk"], p.get("bk")).reshape(B, S, Hkv, D)
     v = dense(x, p["wv"], p.get("bv")).reshape(B, S, Hkv, D)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_variant)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_variant)
     kv = None
     if cache is None:
         kv_pos = positions if kv_pos_override is None else kv_pos_override
         if want_kv:
             kv = (k, v)
-        o = attend(q, k, v, positions, kv_pos, window=window)
+        o = attend(q, k, v, positions, kv_pos, **kw)
     elif isinstance(cache, KVCache):
         ck, cv, kv_pos = _cache_update(cache, layer, k, v, positions)
-        o = attend(q, ck, cv, positions, kv_pos, window=window)
+        o = attend(q, ck, cv, positions, kv_pos, **kw)
     else:
+        if not causal:
+            raise NotImplementedError("slot-cache attention is causal")
         o = _slot_attention(cache, layer, q, k, v, positions, slot_chunk,
                             spec_verify, window, fused_attn)
     return dense(o.reshape(B, S, Hq * D), p["wo"], p.get("bo")), kv

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
+from ..core.splitquant import SplitQuantTensor
 from ..kernels.ops import PackedWeight
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -21,6 +22,16 @@ def dense(x, w, b=None):
     quantized path for packed SplitQuant weights, a quantized bias added
     dequantized. Computation dtype follows x."""
     return ops.linear(x, w, b)
+
+
+def materialize(w, dtype=None):
+    """Dense view of a (possibly quantized) parameter, for ops that need
+    the raw tensor (griffin's depthwise conv taps and bias): a packed
+    weight or a quantized bias dequantized (eq. 4), as the JAX package's
+    ``materialize``."""
+    if isinstance(w, (PackedWeight, SplitQuantTensor)):
+        w = w.dequantize()
+    return w if dtype is None else w.to(dtype)
 
 
 def embed_lookup(table, ids):

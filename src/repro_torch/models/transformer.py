@@ -241,15 +241,23 @@ def assemble_cache(cfg, kvs, positions, max_len: Optional[int] = None,
     """Build a decode cache from prefill K/V (``kvs``: one (k, v) of
     (B, S, Hkv, D) a layer): every position, padded with empty rows to
     ``max_len``. With ``pad_mask`` (B, S), slot_pos becomes per-request
-    (L, B, T) and padded entries are marked -1 (never attended). The
-    windowed ring layout (griffin's local attention) is not ported."""
+    (L, B, T) and padded entries are marked -1 (never attended).
+    Windowed attention (griffin) with S > window keeps a ring of the
+    last ``window`` positions, position p in row p % window (``max_len``
+    does not apply)."""
     k = torch.stack([kv[0] for kv in kvs])              # (L, B, S, Hkv, D)
     v = torch.stack([kv[1] for kv in kvs])
     L, B, S = k.shape[:3]
     if cfg.window is not None and S > cfg.window:
-        raise NotImplementedError(
-            "the windowed ring cache (griffin, recurrentgemma-9b) is not "
-            "ported")
+        W = cfg.window
+        pos = positions[-W:].to(torch.int32)
+        inv = torch.argsort(pos % W)             # ring rows: slot = pos % W
+        k, v, pos = k[:, :, -W:][:, :, inv], v[:, :, -W:][:, :, inv], pos[inv]
+        if pad_mask is not None:
+            padb = pad_mask[:, -W:][:, inv]              # (B, W) ring order
+            sp = torch.where(padb, -1, pos[None, :])
+            return KVCache(k, v, sp.expand(L, B, W).contiguous())
+        return KVCache(k, v, pos.expand(L, W).contiguous())
     T = max_len or S
     if T < S:
         raise ValueError(f"max_len {T} is shorter than the prompt, {S}")

@@ -18,9 +18,10 @@ included, as one block: above 512 tokens each expert's capacity is
 ``Tb·K·cf // E`` and the pairs past it drop, the same pairs as in JAX
 (``models.ffn.apply_moe``); a decode step (B tokens) drops none. The
 engine (:class:`repro_torch.engine.Engine`) is their default path, this
-loop the baseline. RWKV6 folds the pads into its
-recurrent state (``rwkv6.prefill`` takes no pad mask), as in the JAX
-package. Torch's generator cannot reproduce ``jax.random.categorical``:
+loop the baseline. RWKV6 and griffin fold the pads into their
+recurrent states (their ``prefill`` takes no pad mask), as in the JAX
+package; griffin's pads also enter its local attention's ring, and its
+decode step takes the wave's position. Torch's generator cannot reproduce ``jax.random.categorical``:
 at a temperature the tokens are other draws from the same distribution.
 """
 from __future__ import annotations
@@ -40,6 +41,9 @@ from ..models import get_model
 #: validity) and whose decode step takes the wave's position (a VLM's
 #: requests are text, as in the JAX ``Server``)
 PAD_MASK_FAMILIES = ("dense", "moe", "vlm")
+#: families whose decode step takes the wave's position: the above and
+#: griffin (its ring row is ``pos % window``), which takes no pad mask
+POS_FAMILIES = PAD_MASK_FAMILIES + ("hybrid",)
 
 
 @dataclasses.dataclass
@@ -111,9 +115,9 @@ class Server:
 
     def decode_wave(self, cache, tok_d, pos=None):
         """One step of the whole wave from its last tokens
-        ``tok_d`` (B,) at position ``pos`` (dense only) → (state, tokens
-        on the device, host ints)."""
-        args = (pos,) if self.cfg.family in PAD_MASK_FAMILIES else ()
+        ``tok_d`` (B,) at position ``pos`` (a decoder's or griffin's;
+        rwkv6 takes none) → (state, tokens on the device, host ints)."""
+        args = (pos,) if self.cfg.family in POS_FAMILIES else ()
         logits, cache = self.model.decode_step(self.params, self.cfg, cache,
                                                tok_d[:, None], *args)
         return (cache, *self._sample(logits))

@@ -2229,3 +2229,178 @@ def test_tiny_table1_card_matches_cpu(dev):
                                        act_cfg=act_cfg, act_chunks=chunks)
                 assert round(abs(card - cpu) * len(te.labels)) <= 1, \
                     (name, bits, method, acts, card, cpu)
+
+
+# ------------------------------------------------------ griffin, whisper ---
+def _griffin_small():
+    """Reduced recurrentgemma-9b at 8 layers (2 groups of (rec, rec, attn)
+    and 2 trailing recurrent layers, window 16), fp32, SplitQuant INT4
+    k=3 built on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_params
+    cfg = dataclasses.replace(get_arch("recurrentgemma-9b").reduced(),
+                              n_layers=8)
+    return cfg, build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")[0]
+
+
+@pytest.mark.parametrize("S", [12, 24])
+def test_griffin_prefill_and_decode_card_match_cpu(dev, S):
+    """griffin's prefill (within and past the 16-row window) and 3 decode
+    steps writing the ring: logits and every part of the cache card ==
+    CPU within 1e-4 of their scale (the conv taps dequantized on the
+    card; the gates' fp32 products without TF32); ring positions exact."""
+    from repro_torch.core.apply import tree_to
+    from repro_torch.models import griffin
+    cfg, params = _griffin_small()
+    pd = tree_to(params, dev)
+    toks = torch.from_numpy(np.random.default_rng(S).integers(
+        0, cfg.vocab, (2, S + 3)))
+    before = splitquant_matmul.launches
+    with torch.no_grad():
+        outs = []
+        for p, d in ((params, "cpu"), (pd, dev)):
+            lg, c = griffin.prefill(p, cfg, {"tokens": toks[:, :S].to(d)})
+            steps = [lg]
+            for i in range(3):
+                lg, c = griffin.decode_step(p, cfg, c,
+                                            toks[:, S + i:S + i + 1].to(d),
+                                            S + i)
+                steps.append(lg)
+            outs.append((steps, c))
+    torch.cuda.synchronize()
+    assert splitquant_matmul.launches > before
+    (want, wc), (got, gc) = outs
+    for g, w in zip(got, want):
+        _close(g.cpu(), w, 1e-4)
+    for name, g, w in zip(griffin.GriffinCache._fields, gc, wc):
+        if name == "attn_pos":
+            assert torch.equal(g.cpu(), w)
+        else:
+            _close(g.cpu(), w, 1e-4)
+
+
+def test_griffin_server_card_matches_cpu(dev):
+    """The wave ``Server`` over reduced griffin: two left-padded waves of
+    4, padded to 30 and 21 (past the window), 10 new tokens each: card
+    tokens == CPU tokens."""
+    from repro_torch.core.apply import tree_to
+    from repro_torch.runtime.serve_loop import Request, Server, ServeConfig
+    cfg, params = _griffin_small()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=n)
+               for n in (30, 7, 18, 3, 21, 12, 17, 5)]
+    outs = []
+    for d, p in (("cpu", params), (dev, tree_to(params, dev))):
+        srv = Server(cfg, p, ServeConfig(max_batch=4, max_new_tokens=10),
+                     device=d)
+        outs.append([r.out for r in srv.serve(
+            [Request(i, pr) for i, pr in enumerate(prompts)])])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_griffin_rg_lru_and_conv_card_match_cpu(dev, dtype):
+    """The RG-LRU's associative scan over T = 2100 (past the full window,
+    odd at several levels) and the depthwise conv with a carry: card ==
+    CPU (fp32: 1e-5 of the scale; bf16 inputs: 2e-2)."""
+    from repro_torch.models import griffin
+    g = torch.Generator().manual_seed(0)
+    r = 64
+    p = {"rg_lru_wa": torch.randn((r, r), generator=g) * 0.05,
+         "rg_lru_ba": torch.zeros(r), "rg_lru_bx": torch.zeros(r),
+         "rg_lru_wx": torch.randn((r, r), generator=g) * 0.05,
+         "rg_lru_lambda": torch.full((r,), 2.0)}
+    x = torch.randn((2, 2100, r), generator=g).to(dtype)
+    h0 = torch.randn((2, r), generator=g)
+    w, b = torch.randn((4, r), generator=g), torch.randn(r, generator=g)
+    st = torch.randn((2, 3, r), generator=g).to(dtype)
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    want = (*griffin._rg_lru(p, x, h0), *griffin._causal_conv(x, w, b, st))
+    got = (*griffin._rg_lru({k: v.to(dev) for k, v in p.items()}, x.to(dev),
+                            h0.to(dev)),
+           *griffin._causal_conv(x.to(dev), w.to(dev), b.to(dev),
+                                 st.to(dev)))
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype
+        _close(gt.cpu(), wt, rel)
+
+
+def test_whisper_card_matches_cpu(dev):
+    """Reduced whisper-tiny in fp32, INT4 weights and biases: ``encode``,
+    the prefill's logits and 6 greedy decode steps: states and logits
+    card == CPU within 1e-4 of their scale, tokens identical."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.core.splitquant import SplitQuantTensor
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import whisper
+    cfg = get_arch("whisper-tiny").reduced()
+    params, _ = build_params(cfg, bits=4, method="splitquant", seed=0,
+                             device="cpu")
+    assert isinstance(params["dec_layers"][0]["cross"]["bq"],
+                      SplitQuantTensor)
+    rng = np.random.default_rng(4)
+    frames = torch.from_numpy(rng.standard_normal(
+        (3, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 7)))
+    outs = []
+    with torch.no_grad():
+        for d, p in (("cpu", params), (dev, tree_to(params, dev))):
+            enc = whisper.encode(p, cfg, frames.to(d))
+            lg, c = whisper.prefill(p, cfg, {"tokens": toks.to(d),
+                                             "frames": frames.to(d)},
+                                    max_len=14)
+            logits, tok, out = [lg], lg[:, -1].argmax(-1), []
+            for i in range(6):
+                out.append(tok.tolist())
+                lg, c = whisper.decode_step(p, cfg, c, tok[:, None], 7 + i)
+                logits.append(lg)
+                tok = lg[:, -1].argmax(-1)
+            outs.append((enc, logits, out))
+    (we, wl, wo), (ge, gl, go) = outs
+    _close(ge.cpu(), we, 1e-4)
+    for g, w in zip(gl, wl):
+        _close(g.cpu(), w, 1e-4)
+    assert go == wo
+
+
+@pytest.mark.parametrize("M", [8, 1500])
+def test_linear_with_a_quantized_bias_at_whisper_shapes(dev, M):
+    """whisper-tiny's 384 -> 384 and 384 -> 1536 projections in bf16
+    through ``dense`` with their quantized biases: card == the plain
+    version plus the dequantized bias (2e-2 of the scale)."""
+    from repro_torch.core.quantize import QuantConfig
+    from repro_torch.core.splitquant import splitquant_tensor
+    from repro_torch.kernels.ops import pack_for_kernel
+    from repro_torch.models.common import dense
+    g = torch.Generator().manual_seed(M)
+    for K, N in ((384, 384), (384, 1536)):
+        w = torch.randn((K, N), generator=g) * 0.05
+        b = torch.randn(N, generator=g) * 0.1
+        pw = pack_for_kernel(splitquant_tensor(g, w, QuantConfig(bits=4)))
+        qb = splitquant_tensor(g, b, QuantConfig(bits=4))
+        x = torch.randn((M, K), generator=g).to(torch.bfloat16)
+        want = splitquant_matmul_ref(x, pw.qp, pw.cp, pw.recip, pw.shift,
+                                     4) + qb.dequantize().to(torch.bfloat16)
+        got = dense(x.to(dev), pw.to(dev), qb.to(dev))
+        _close(got.cpu(), want, 2e-2)
+
+
+def test_matmul_past_int32_outputs_runs_in_row_slabs(dev):
+    """8400 x 256000 outputs (more than 2^31 - 1, as griffin_ring's
+    prefill times the vocab head): two launches of whole-row slabs, the
+    product equal to the plain version's (bf16: 2^-7 of the scale)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    M, K, N = 8400, 64, 256000
+    qp, cp, recip, shift = _packed(g, K, N, 4, 3, dev)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    before = splitquant_matmul.launches
+    got = splitquant_matmul(x, qp, cp, recip, shift, bits=4, k=3)
+    torch.cuda.synchronize()
+    assert splitquant_matmul.launches == before + 2
+    for r0 in (0, 4200, 8000):          # row blocks of the plain version
+        want = splitquant_matmul_ref(x[r0:r0 + 400], qp, cp, recip, shift,
+                                     4)
+        _close(got[r0:r0 + 400], want, 2 ** -7)
+    assert bool(torch.isfinite(got).all())

@@ -15,6 +15,10 @@ decode step); the JAX ``Server`` runs once an arch and weight type, two
 waves padded to one length with its prefill jitted, so it compiles one
 prefill and one decode step.
 
+``assemble_cache``'s windowed ring (griffin's local attention) is held
+to JAX's: the last ``window`` positions in ring order, with and without
+a pad mask.
+
 Tolerances: logits and caches atol 1e-4 × max(1, the reference's
 largest magnitude) (fp32, summation order differs); ``slot_pos`` and
 masks exactly; greedy tokens identical.
@@ -308,11 +312,36 @@ def test_attend_keeps_bf16_products_in_fp32():
 
 
 def test_assemble_cache_refuses_a_window_ring():
-    cfg = dataclasses.replace(t_arch("stablelm-1.6b").reduced(), window=4)
-    kv = (torch.zeros(1, 8, 4, 32), torch.zeros(1, 8, 4, 32))
-    with pytest.raises(NotImplementedError, match="griffin"):
-        tt.assemble_cache(cfg, [kv, kv], torch.arange(8, dtype=torch.int32))
+    """Once a refusal, now the ring of griffin's local attention, held to
+    JAX's ``assemble_cache``: S=24 at window 16 keeps the last 16
+    positions in ring order (slot_pos [16..23, 8..15]), per request with
+    a pad mask; within the window the global layout applies."""
+    cfg = dataclasses.replace(t_arch("stablelm-1.6b").reduced(), window=16)
+    jcfg = dataclasses.replace(j_arch("stablelm-1.6b").reduced(), window=16)
+    rng = np.random.default_rng(0)
+    kvs = [tuple(rng.standard_normal((2, 24, 4, 32)).astype(np.float32)
+                 for _ in range(2)) for _ in range(3)]
+    pos = np.arange(24, dtype=np.int32)
+    pad = np.zeros((2, 24), bool)
+    pad[1, :10] = True
+    for pm in (None, pad):
+        want = jt.assemble_cache(
+            jcfg, [tuple(jnp.asarray(a)[None] for a in kv) for kv in kvs],
+            jnp.asarray(pos), max_len=64,
+            pad_mask=None if pm is None else jnp.asarray(pm))
+        got = tt.assemble_cache(
+            cfg, [tuple(map(torch.from_numpy, kv)) for kv in kvs],
+            torch.from_numpy(pos), max_len=64,
+            pad_mask=None if pm is None else torch.from_numpy(pm))
+        np.testing.assert_array_equal(got.k.numpy(), np.asarray(want.k))
+        np.testing.assert_array_equal(got.v.numpy(), np.asarray(want.v))
+        np.testing.assert_array_equal(got.slot_pos.numpy(),
+                                      np.asarray(want.slot_pos))
+    assert got.slot_pos[0, 0].tolist() == list(range(16, 24)) + \
+        list(range(8, 16))
+    assert got.slot_pos[0, 1].tolist()[8:10] == [-1, -1]
     # within the window the global layout still applies, as in JAX
+    kv = (torch.zeros(1, 8, 4, 32), torch.zeros(1, 8, 4, 32))
     kv = (kv[0][:, :4], kv[1][:, :4])
     c = tt.assemble_cache(cfg, [kv], torch.arange(4, dtype=torch.int32),
                           max_len=6)

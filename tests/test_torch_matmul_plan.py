@@ -1,18 +1,22 @@
 """The launch plan of the port's SplitQuant matmul (pure Python, no card):
 for every quantized matrix that stablelm-1.6b's and paligemma-3b's
-engines and rwkv6-3b's wave loop multiply by (paligemma-3b's patch
+engines, rwkv6-3b's and recurrentgemma-9b's wave loops and whisper-tiny
+(also at its encoder's 12000 rows) multiply by (paligemma-3b's patch
 projection at K = 1152, its geglu at N = 16384; its tied head is a plain
 product), at the row counts of a decode step (8), a prompt chunk (96)
 and a wave prefill or 8 x 256 patch rows (2048), the tiles and K splits
 cover the product exactly, the dtype picks the variant, and a grid that
-would underfill the card's 132 SMs is split along K."""
+would underfill the card's 132 SMs is split along K; a product of more
+than 2^31 - 1 outputs is launched in slabs of rows."""
 import pytest
 import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.models.transformer import VLM_PATCH_DIM
-from repro_torch.kernels.splitquant_matmul import (CUDA_CORE, TENSOR_CORE,
-                                                   blocks_per_sm, plan)
+from repro_torch.kernels.splitquant_matmul import (CUDA_CORE, MAX_OUTPUTS,
+                                                   TENSOR_CORE,
+                                                   blocks_per_sm, plan,
+                                                   row_slabs)
 
 SMS = 132                                   # H100 SXM
 
@@ -30,12 +34,16 @@ def _shapes(arch):
         out.add((d, v))
     if cfg.family == "vlm":                 # the patch projection
         out.add((VLM_PATCH_DIM, d))
+    if cfg.family == "hybrid":              # griffin's recurrent branch
+        out |= {(d, cfg.lru_width), (cfg.lru_width, d)}
     return sorted(out)
 
 
-ARCHS = ("stablelm-1.6b", "rwkv6-3b", "paligemma-3b")
+ARCHS = ("stablelm-1.6b", "rwkv6-3b", "paligemma-3b", "recurrentgemma-9b",
+         "whisper-tiny")
 CASES = [(arch, K, N, M) for arch in ARCHS
-         for K, N in _shapes(arch) for M in (8, 96, 2048)]
+         for K, N in _shapes(arch) for M in (8, 96, 2048)] + \
+    [("whisper-tiny", K, N, 12000) for K, N in _shapes("whisper-tiny")]
 
 
 def test_main_path_shapes():
@@ -46,6 +54,34 @@ def test_main_path_shapes():
     assert _shapes("paligemma-3b") == [(1152, 2048), (2048, 256),
                                        (2048, 2048), (2048, 16384),
                                        (16384, 2048)]
+
+
+def test_griffin_and_whisper_shapes():
+    """recurrentgemma-9b's products (its MQA wk / wv at N = 256, the
+    RG-LRU branch, geglu, the 256000-wide head; the conv taps are read
+    dequantized, not multiplied) and whisper-tiny's (its head is tied)."""
+    assert _shapes("recurrentgemma-9b") == [(4096, 256), (4096, 4096),
+                                            (4096, 12288), (4096, 256000),
+                                            (12288, 4096)]
+    assert _shapes("whisper-tiny") == [(384, 384), (384, 1536),
+                                       (1536, 384)]
+
+
+@pytest.mark.parametrize("M,N", [(8, 256000), (8388, 256000),
+                                 (8389, 256000), (9600, 256000),
+                                 (12000, 384), (3, 2 ** 31), (1, 1)])
+def test_row_slabs_keep_each_launch_under_the_int32_outputs(M, N):
+    """The kernel indexes at most 2^31 - 1 outputs a launch: a larger
+    product (griffin_ring's 4 x 2400-row prefill times the 256000-wide
+    head) runs in slabs of whole rows that tile [0, M) in order; a
+    smaller one in one launch."""
+    slabs = row_slabs(M, N)
+    assert slabs[0][0] == 0 and slabs[-1][1] == M
+    assert all(a[1] == b[0] for a, b in zip(slabs, slabs[1:]))
+    assert all(r1 > r0 and ((r1 - r0) * N <= MAX_OUTPUTS or r1 - r0 == 1)
+               for r0, r1 in slabs)
+    assert (len(slabs) == 1) == (M * N <= MAX_OUTPUTS)
+    assert len(slabs) == -(-M // max(1, MAX_OUTPUTS // N))
 
 
 @pytest.mark.parametrize("M", [8, 2048])

@@ -281,6 +281,26 @@ Phases (any failure exits non-zero):
    through ``train_loop.run`` with a checkpoint every 3 steps and a
    failure injected at step 7 under deterministic algorithms: the
    restored run's final params equal the uninterrupted run's exactly;
+4c. rwkv6 training (after train): rwkv_train runs ``launch.train`` on
+   rwkv6-3b at full width (32 layers, d_model 2560, 40 heads of 64, d_ff
+   8960, vocab 65536, ~3.1 B params in bf16; batch 8 x 128, 8 steps,
+   remat, fp32 AdamW states), the counts set to 0 just before and read
+   just after: 8 finite losses, the final line printed, the forward WKV
+   kernel 2 x 32 x 8 = 512 times (remat recomputes each layer once), its
+   backward kernel ``wkv_chunked_bwd`` 32 x 8 = 256 times, no other
+   kernel and no plain version; it prints step p50, tokens/s and peak
+   memory; rwkv_train_cross_check trains reduced rwkv6 in fp32 for 3
+   steps (seq 32: the chunked branch) on both devices from the same
+   weights and batches (losses within 1e-4 relative) and runs it through
+   ``train_loop.run`` on the card with a checkpoint every 3 steps and a
+   failure injected at step 7 under deterministic algorithms: the
+   restored run's final params equal the uninterrupted run's exactly.
+   The kernel phase adds the WKV backward (``wkv_chunked_bwd``, no TPU
+   kernel: JAX differentiates ``wkv_chunked_jnp``) at rwkv6-3b's training
+   shapes (8 x 40 heads at T = 128, and T = 256), bf16, with and without
+   s0, against its plain version (dr, dk, dv 2e-2 of their scale in bf16;
+   dw ⊙ w, du, ds0 1e-4), two launches bit-identical, its bound the
+   table's rule with the fp32-core time (67 TFLOP/s) printed beside it;
 5. rwkv6: rwkv6-3b at its published widths (seeded random bf16 weights,
    SplitQuant INT4 k=3 of 257 matrices, quantized on the card) served by
    the wave loop: waves of 8, 16 seeded requests of 64-256 prompt tokens
@@ -322,7 +342,8 @@ kernel, with ``launches`` summed over the serving runs of phases 3, 5
 and 7 (``launches_by_path`` splits them: engine, static, spec,
 dense_wave, wave, engine_bf16, oneshot, sampling, recipe, chaos,
 recovery, observe, moe, moe_spec, moe_wave, kimi, engine_f16, vlm,
-vlm_prefix, vlm_wave, table1, train, griffin, griffin_ring and whisper,
+vlm_prefix, vlm_wave, table1, train, rwkv_train, griffin, griffin_ring and
+whisper,
 ``launches_by_variant``
 splits those of the matmul (``grouped``: its MoE form) and of the two
 attention kernels by variant,
@@ -332,8 +353,9 @@ runs by bit-width,
 by mode and ``launches_by_cache_dtype`` theirs by the cache's dtype in
 the runs of this slice; the write, the counterpart of both branches of the TPU prefill
 kernel's epilogue, is two entries: ``kv_write`` (its dynamic and fp
-modes) and ``kv_write_static``; the act-quant kernels, on no serving
-path, report their kernel-phase launches); the last is ``{"ok": true,
+modes) and ``kv_write_static``; ``wkv_chunked_bwd``, the WKV gradient,
+replaces no TPU kernel and is on the rwkv_train path; the act-quant
+kernels, on no serving path, report their kernel-phase launches); the last is ``{"ok": true,
 "device": {...}}``. Each phase's seconds are printed as it ends
 (``phase_s`` in the details). Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -369,6 +391,8 @@ TPU_KERNELS = {
     "wkv_chunked": "src/repro/kernels/wkv_chunked.py:75",
     "decode_attention": "src/repro/kernels/decode_attention.py:164",
     "kv_write_static": "src/repro/kernels/prefill_attention.py:241",
+    "wkv_chunked_bwd": "none: jax.vjp of wkv_chunked_jnp "
+                       "(src/repro/kernels/wkv_chunked.py:112)",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -380,6 +404,7 @@ SOURCES = {
     "wkv_chunked": CSRC + "wkv_chunked.cu",
     "decode_attention": CSRC + "decode_attention.cu",
     "kv_write_static": CSRC + "kv_write.cu",
+    "wkv_chunked_bwd": CSRC + "wkv_chunked_bwd.cu",
 }
 #: the serving runs each kernel is on: "engine" (dynamic int8 scales),
 #: "static" (static scales), "spec" (speculative, static target, dynamic
@@ -402,7 +427,8 @@ SOURCES = {
 #: width: float weights, no quantized kernel, 0 launches), "griffin"
 #: (recurrentgemma-9b through the wave loop), "griffin_ring" (its wave
 #: past the 2048-row window) and "whisper" (whisper-tiny's prefill and
-#: decode steps): the matmul alone.
+#: decode steps): the matmul alone; "rwkv_train" (rwkv6-3b trained at full
+#: width: float weights, the WKV kernel and its backward).
 #: ``kv_write`` is
 #: ``write_kv_rows`` in its dynamic and fp modes, ``kv_write_static`` in
 #: its static mode.
@@ -422,12 +448,13 @@ PATHS = {
     "kv_write": ("engine", "spec", "engine_bf16", "oneshot", "sampling",
                  "chaos", "observe", "moe", "moe_spec", "kimi", "engine_f16",
                  "vlm"),
-    "wkv_chunked": ("wave",),
+    "wkv_chunked": ("wave", "rwkv_train"),
     "decode_attention": ("engine", "static", "spec", "engine_bf16",
                          "oneshot", "sampling", "recipe", "chaos",
                          "recovery", "observe", "moe", "moe_spec", "kimi",
                          "engine_f16", "vlm"),
     "kv_write_static": ("static", "spec", "recipe", "recovery"),
+    "wkv_chunked_bwd": ("rwkv_train",),
 }
 #: the 1 - 1e-6 quantile of chi-square with 64 degrees of freedom (the
 #: sampling phase's 64 hot tokens and the rest)
@@ -1328,6 +1355,81 @@ def wkv_cases(torch, timer, rep):
             f"{slabs[32]:.4f} / {slabs[16]:.4f} ms")
 
 
+def wkv_bwd_cases(torch, timer, rep):
+    """The WKV backward at rwkv6-3b's training shapes: 8 sequences x 40
+    heads at T = 128 (launch.train's batch) and T = 256, head size 64,
+    bf16 r/k/v/ȳ, fp32 w/u/s0/S̄, with and without s0, against its plain
+    version: dr, dk, dv (bf16 on both sides) within 2e-2 of their scale,
+    dw ⊙ w, du and ds0 within 1e-4; two launches bit-identical. The bound
+    counts each input read and each output written once, and the 14 fp32
+    operations a state element and step (the state forwards and its
+    gradient backwards, 3 each; the dr, dk, dw and dv sums, 2 each), by
+    the table's rule; the time of those operations at the fp32 rate
+    outside the tensor cores (67 TFLOP/s) is printed beside it
+    (``fp32_core_ms``)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.wkv_chunked import (wkv_bwd_slab,
+                                                 wkv_chunked_bwd,
+                                                 wkv_chunked_bwd_ref)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    K = V = 64
+    lib = build.library()
+    for (BH, T), with_s0 in (((320, 128), True), ((320, 128), False),
+                             ((320, 256), True), ((320, 256), False)):
+        f = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        r, k, v, yb = (f(BH, T, n).to(torch.bfloat16) for n in (K, K, V, V))
+        w = torch.exp(-torch.exp(f(BH, T, K) * 2 - 1))
+        u, Sb = f(BH, K) * 0.5, f(BH, K, V)
+        s0 = f(BH, K, V) if with_s0 else None
+        args = (r, k, v, w, u, s0, yb, Sb)
+        got = wkv_chunked_bwd(*args)
+        again = wkv_chunked_bwd(*args)
+        want = wkv_chunked_bwd_ref(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None):
+            fail(f"wkv_chunked_bwd BH={BH} T={T}: two launches on the same "
+                 f"inputs differ")
+        if not all(bool(torch.isfinite(g).all()) for g in got
+                   if g is not None):
+            fail("wkv_chunked_bwd: non-finite gradient")
+        errs = {}
+        pairs = list(zip(("dr", "dk", "dv", "dw*w", "du", "ds0"),
+                         (*got[:3], got[3] * w, *got[4:]),
+                         (*want[:3], want[3] * w, *want[4:])))
+        for name, g, x in pairs:
+            if x is None:
+                continue
+            scale = float(x.float().abs().max())
+            rel = 2e-2 if name in ("dr", "dk", "dv") else 1e-4
+            errs[name] = (max_err(g, x), rel * scale)
+        bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
+        if bad:
+            fail(f"wkv_chunked_bwd BH={BH} T={T} s0={with_s0}: (err, tol) "
+                 f"{bad}")
+        worst = max(errs, key=lambda n: errs[n][0] / errs[n][1])
+        ops = 14 * BH * T * K * V
+        nbytes = BH * T * (2 * K * 2 + 2 * V * 2 + K * 4) + BH * K * 4 + \
+            BH * K * V * 4 * (1 + with_s0) + \
+            BH * T * (2 * K * 2 + V * 2 + K * 4) + BH * K * 4 + \
+            BH * K * V * 4 * with_s0
+        vs = wkv_bwd_slab(K, V)
+        rep.add(f"rwkv6-3b train BH={BH} T={T} K={K} V={V} bf16"
+                f"{', s0' if with_s0 else ''} (worst {worst})",
+                errs[worst][0], errs[worst][1],
+                timer(lambda: wkv_chunked_bwd(*args)),
+                timer(lambda: wkv_chunked_bwd_ref(*args)), None, nbytes, ops)
+        c = rep.cases[-1]
+        c["errs"] = errs
+        log(f"  {'':18s} {'':44s} {100 * c['bound_ms'] / c['ms']:.1f}% of "
+            f"its bound ({c['bound_by']}); fp32-core ops time "
+            f"{c['fp32_core_ms']:.5f} ms; every output (err, tol): "
+            + ", ".join(f"{n} {e[0]:.2e}/{e[1]:.1e}" for n, e in errs.items())
+            + f"; two launches bit-identical; slab {vs} of {V} columns, "
+            f"{BH * -(-V // vs)} blocks of 512 threads, "
+            f"{lib.wkv_chunked_bwd_smem(K, vs)} B shared memory a block")
+
+
 def static_qparams(torch, x, n_chunks, bits, gen):
     """Per-chunk (S, Z) over ``array_split`` chunks that make S·x + Z
     cover the code range: S = (2^b − 1) / (chunk max − min) · U(0.5, 2),
@@ -1464,8 +1566,8 @@ def log_ptxas(out: str) -> None:
     output, and their dynamic shared memory at the shapes of the kernel
     phase."""
     kernels = ("sq_matmul_wgmma_kernel", "decode_split_kernel",
-               "prefill_tc_kernel", "wkv_kernel", "act_quant_static_kernel",
-               "act_quant_dynamic_kernel")
+               "prefill_tc_kernel", "wkv_kernel", "wkv_bwd_kernel",
+               "act_quant_static_kernel", "act_quant_dynamic_kernel")
     if not any(k in out for k in kernels):
         log("ptxas: the library was already built; no compiler output")
         return
@@ -1499,7 +1601,9 @@ def log_ptxas(out: str) -> None:
             f"{lib.decode_attention_smem(D, 0, 4, 0, p.group, p.warps)} B, "
             f"prefill {lib.prefill_attention_smem(D, 0, 4, 1024)} B")
     log("wkv dynamic shared memory per block (K=V=64, bf16 / fp32): "
-        f"{lib.wkv_chunked_smem(64, 1)} / {lib.wkv_chunked_smem(64, 0)} B")
+        f"{lib.wkv_chunked_smem(64, 1)} / {lib.wkv_chunked_smem(64, 0)} B; "
+        f"its backward (K=64, 16 columns): "
+        f"{lib.wkv_chunked_bwd_smem(64, 16)} B")
 
 
 #: the ``write_kv_rows`` modes behind each of its two kernel names
@@ -4238,11 +4342,13 @@ def plain_calls():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import prefill_attention as pa
     from repro_torch.kernels import splitquant_matmul as sqm
+    from repro_torch.kernels import wkv_chunked as wk
     names = ((sqm, "splitquant_matmul_ref"),
              (sqm, "grouped_splitquant_matmul_ref"),
              (da, "decode_attention_ref"), (pa, "prefill_attention_ref"),
              (pa, "write_kv_rows_ref"), (pa, "quantize_kv_ref"),
-             (pa, "quantize_kv_static_ref"))
+             (pa, "quantize_kv_static_ref"), (wk, "wkv_chunked_ref"),
+             (wk, "wkv_chunked_bwd_ref"))
     calls = dict.fromkeys((n for _, n in names), 0)
     orig = [(m, n, getattr(m, n)) for m, n in names]
 
@@ -4975,6 +5081,156 @@ def train_cross_check(torch):
             "bert_params_equal": equal, "bert_max_diff": worst}
 
 
+RWKV_TRAIN_STEPS = 8
+
+
+def rwkv_train_phase(torch, counters, card_line):
+    """``launch.train.main`` on rwkv6-3b at full width on the card: bf16
+    parameters, batch 8 x seq 128, 8 steps, every layer recomputed in the
+    backward pass, fp32 AdamW states. The counts are set to 0 just before
+    and read just after. Gates: every loss finite and the driver's final
+    line printed; the forward WKV kernel launched twice a layer and step
+    (the pass and remat's recompute), its backward once, no other kernel
+    (the weights are float) and no plain version. Printed: step-time p50,
+    tokens/s, peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as tl
+    from repro_torch.tree import tree_leaves
+    phase = "rwkv_train"
+    cfg = get_arch("rwkv6-3b")
+    torch.cuda.empty_cache()
+    reset_counts(counters)
+    buf = io.StringIO()
+    with plain_calls() as plain, contextlib.redirect_stdout(buf):
+        out = tl.main(["--arch", "rwkv6-3b", "--steps",
+                       str(RWKV_TRAIN_STEPS), "--batch", "8", "--seq", "128",
+                       "--opt-dtype", "float32"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    no_plain(phase, plain)
+    text = buf.getvalue().rstrip()
+    log("\n".join(f"{phase}: {line}" for line in text.splitlines()))
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != RWKV_TRAIN_STEPS or \
+            not all(map(math.isfinite, losses)) or \
+            not text.splitlines()[-1].startswith("final loss"):
+        fail(f"{phase}: losses {losses}; last line {text.splitlines()[-1:]}")
+    launches = launch_counts(counters)
+    want = {n: 0 for n in launches}
+    want["wkv_chunked"] = 2 * cfg.n_layers * RWKV_TRAIN_STEPS
+    want["wkv_chunked_bwd"] = cfg.n_layers * RWKV_TRAIN_STEPS
+    if launches != want:
+        fail(f"{phase}: launches {launches}, expected {want} (remat "
+             f"recomputes each layer's forward once)")
+    steps = out["step_s"]
+    p50 = percentile(steps, 50)
+    n_params = sum(p.numel() for p in tree_leaves(out["params"]))
+    res = {"card": card_line, "arch": cfg.name, "shape": _rwkv_shape(cfg),
+           "batch": 8, "seq": 128, "steps": len(steps), "losses": losses,
+           "step_s": steps, "step_p50_s": p50,
+           "tokens_per_s": 8 * 128 / p50, "peak_mem_bytes": peak,
+           "params": n_params, "launches": launches, "plain_calls": plain}
+    log(f"{phase}: {cfg.name} full width ({_rwkv_shape(cfg)}), "
+        f"{n_params / 1e9:.3f} B params bf16, fp32 AdamW states; step p50 "
+        f"{p50 * 1e3:.1f} ms (first {steps[0] * 1e3:.1f} ms), "
+        f"{res['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; WKV launches {launches['wkv_chunked']} "
+        f"forward, {launches['wkv_chunked_bwd']} backward; losses "
+        f"{[round(v, 4) for v in losses]} [card: {card_line}]")
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def rwkv_train_cross_check(torch):
+    """(1) Reduced rwkv6 in fp32, 3 AdamW steps at seq 32 (the chunked
+    branch: the WKV kernel and its backward on the card) from the same
+    seeded weights (drawn on the CPU, copied) and batches on the card and
+    on the CPU: losses within ``TRAIN_LOSS_TOL`` relative. (2) The same
+    model through ``train_loop.run`` on the card for 10 steps with a
+    checkpoint every 3 steps and one injected failure at step 7, against
+    an uninterrupted run: it restores step 6, replays and finishes, and
+    its final params equal the uninterrupted run's exactly, under
+    deterministic algorithms (the WKV kernels are deterministic by
+    construction; the embedding's backward is not otherwise)."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.kernels import wkv_chunked as wk
+    from repro_torch.models import rwkv6
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+    from repro_torch.tree import tree_leaves, tree_to
+    cfg = get_arch("rwkv6-3b").reduced()
+    oc = adamw.OptConfig(lr=1e-4, warmup_steps=0, total_steps=3)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    base = rwkv6.init(cfg, seed=0, device="cpu")
+    loss_fn = lambda p, b: rwkv6.loss_fn(p, cfg, b, remat=True)  # noqa: E731
+    losses = {}
+    before = wk.wkv_chunked_bwd.launches
+    for dev in ("cuda", "cpu"):
+        params = tree_to(base, dev)
+        opt = adamw.init(oc, params)
+        step = train_loop.make_train_step(loss_fn, oc)
+        losses[dev] = []
+        for s in range(3):
+            params, opt, m = step(params, opt,
+                                  synthetic_lm_batch(dc, s, device=dev))
+            losses[dev].append(float(m["loss"]))
+    bwd = wk.wkv_chunked_bwd.launches - before
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    log(f"rwkv_train_cross_check: reduced rwkv6 fp32, 3 steps at seq 32: "
+        f"card {losses['cuda']} vs CPU {losses['cpu']} (max rel {rel:.2e}); "
+        f"backward kernel launches {bwd}")
+    if rel > TRAIN_LOSS_TOL or bwd != 3 * cfg.n_layers:
+        fail(f"rwkv_train_cross_check: losses apart by {rel:.2e} relative, "
+             f"{bwd} backward launches (expected {3 * cfg.n_layers})")
+
+    ocr = adamw.OptConfig(lr=3e-4, total_steps=10, warmup_steps=2,
+                          weight_decay=0.01)
+    step = train_loop.make_train_step(loss_fn, ocr)
+    data = [synthetic_lm_batch(dc, s, device="cuda") for s in range(10)]
+    init = tree_to(base, "cuda")
+    fired, logs = [], []
+
+    def inject(s):
+        if s == 7 and not fired:
+            fired.append(s)
+            raise RuntimeError("injected failure")
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref, _, _ = train_loop.run(
+            train_loop.TrainLoopConfig(total_steps=10, log_every=100),
+            step, init, adamw.init(ocr, init), lambda s: data[s],
+            log=lambda *a: None)
+        with tempfile.TemporaryDirectory() as d:
+            got, opt, hist = train_loop.run(
+                train_loop.TrainLoopConfig(total_steps=10, ckpt_dir=d,
+                                           ckpt_every=3, ckpt_async=False,
+                                           log_every=100),
+                step, init, adamw.init(ocr, init), lambda s: data[s],
+                inject_failure=inject, log=logs.append)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal = all(torch.equal(a, b)
+                for a, b in zip(tree_leaves(got), tree_leaves(ref)))
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(tree_leaves(got), tree_leaves(ref)))
+    log(f"rwkv_train_cross_check: reduced rwkv6 on the card, failure "
+        f"injected at step 7: {[m for m in logs if m.startswith('[')]}; "
+        f"{len(hist)} steps run, final params equal to the uninterrupted "
+        f"run's: {equal} (max diff {worst:.3e})")
+    if fired != [7] or int(opt.step) != 10 or len(hist) != 11 or not equal \
+            or sum(m.startswith("[failure]") for m in logs) != 1:
+        fail(f"rwkv_train_cross_check: recovery {logs}, {len(hist)} steps, "
+             f"equal {equal}")
+    return {"losses": losses, "max_rel": rel, "recovery_log": logs,
+            "steps_run": len(hist), "params_equal": equal,
+            "max_diff": worst}
+
+
 def main() -> None:
     try:
         import torch
@@ -4993,7 +5249,7 @@ def main() -> None:
     from repro_torch.kernels.prefill_attention import (prefill_attention,
                                                        write_kv_rows)
     from repro_torch.kernels.splitquant_matmul import splitquant_matmul
-    from repro_torch.kernels.wkv_chunked import wkv_chunked
+    from repro_torch.kernels.wkv_chunked import wkv_chunked, wkv_chunked_bwd
 
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5042,13 +5298,15 @@ def main() -> None:
                    archs=WRITE_ARCHS[:2], modes=("fp f16",),
                    standalone=False)
     wkv_cases(torch, timer, reps["wkv_chunked"])
+    wkv_bwd_cases(torch, timer, reps["wkv_chunked_bwd"])
     counters = {"splitquant_matmul": splitquant_matmul,
                 "act_split_quantize": act_split_quantize,
                 "act_split_quantize_static": act_split_quantize_static,
                 "prefill_attention": prefill_attention,
                 "kv_write": write_kv_rows, "wkv_chunked": wkv_chunked,
                 "decode_attention": decode_attention,
-                "kv_write_static": write_kv_rows}
+                "kv_write_static": write_kv_rows,
+                "wkv_chunked_bwd": wkv_chunked_bwd}
     reset_counts(counters)
     aq_observed = act_quant_cases(torch, timer, reps["act_split_quantize"],
                                   reps["act_split_quantize_static"])
@@ -5123,9 +5381,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     t1, t1_kept = timed("table1", table1_phase, torch, counters, card_line)
     train = timed("train", train_phase, torch, counters, card_line)
+    rtrain = timed("rwkv_train", rwkv_train_phase, torch, counters,
+                   card_line)
     t1xc = timed("table1_cross_check", table1_cross_check, torch, t1_kept)
     del t1_kept
     trxc = timed("train_cross_check", train_cross_check, torch)
+    rtrxc = timed("rwkv_train_cross_check", rwkv_train_cross_check, torch)
     xc = timed("cross_check", cross_check, torch)
     sxc = timed("spec_cross_check", spec_cross_check, torch)
     dxc = timed("dense_wave_cross_check", dense_wave_cross_check, torch)
@@ -5172,7 +5433,7 @@ def main() -> None:
             "engine_f16": f16["launches"], "vlm": vlm["launches"],
             "vlm_prefix": vpre["launches"], "vlm_wave": vwave["launches"],
             "table1": t1["launches"], "train": train["launches"],
-            "griffin": grif["launches"], "griffin_ring": gring["launches"],
+            "rwkv_train": rtrain["launches"], "griffin": grif["launches"], "griffin_ring": gring["launches"],
             "whisper": whis["launches"]}
     by_dtype = {"engine_bf16": bf16["cache_dtypes"],
                 "engine_f16": f16["cache_dtypes"], "vlm": vlm["cache_dtypes"],
@@ -5256,7 +5517,8 @@ def main() -> None:
          "vlm_prefix": vpre, "vlm_wave": vwave, "vlm_cross_check": vxc,
          "vlm_prefix_cross_check": vpxc, "vlm_wave_cross_check": vwxc,
          "table1": t1, "table1_cross_check": t1xc, "train": train,
-         "train_cross_check": trxc, "griffin": grif,
+         "train_cross_check": trxc, "rwkv_train": rtrain,
+         "rwkv_train_cross_check": rtrxc, "griffin": grif,
          "griffin_ring": gring, "whisper": whis,
          "griffin_cross_check": gxc, "whisper_cross_check": wxc,
          "phase_s": PHASE_S,

@@ -98,14 +98,15 @@ def _leaves(tree) -> dict:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as numpy; bf16 (and other dtypes npz does not store)
-    widened to fp32."""
+    """A copy of a tensor as numpy, which later in-place updates of the
+    tensor (AdamW's moments) do not reach; bf16 (and other dtypes npz
+    does not store) widened to fp32."""
     t = t.detach()
     if t.dtype not in (torch.float64, torch.float32, torch.float16,
                        torch.int64, torch.int32, torch.int16, torch.int8,
                        torch.uint8, torch.bool):
         t = t.float()
-    return t.cpu().numpy()
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
 
 def _orig_shape(leaf) -> tuple:

@@ -120,6 +120,9 @@ SIGNATURES = {
     "kv_write": [_P] * 10 + [_I] * 11 + [_P],
     # r, k, v, w, u, s0, y, s_out, BH, T, K, V, VS, x_is_bf16, stream
     "wkv_chunked": [_P] * 8 + [_I] * 6 + [_P],
+    # r, k, v, w, u, s0, y_bar, s_bar, dr, dk, dv, dw, du, ds0, s_chunk,
+    # part, part_u, BH, T, K, V, VS, x_is_bf16, stream
+    "wkv_chunked_bwd": [_P] * 17 + [_I] * 6 + [_P],
     # x, qp, cp, recip, shift, offsets, y, R, K, N, E, m_tiles, bits, k,
     # x_is_bf16, stream
     "grouped_splitquant_matmul": [_P] * 7 + [_I] * 8 + [_P],
@@ -136,6 +139,8 @@ SIGNATURES = {
     "prefill_attention_smem": [_I] * 4,
     # K, x_is_bf16 -> bytes (not an error code)
     "wkv_chunked_smem": [_I] * 2,
+    # K, VS -> bytes (not an error code)
+    "wkv_chunked_bwd_smem": [_I] * 2,
 }
 
 

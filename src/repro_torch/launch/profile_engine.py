@@ -37,8 +37,9 @@ each draft pass and each verify pass marked (``torch.profiler``
 them, their launches, copies and fills and their kernels by name.
 
 ``--train`` traces training: 3 steps of ``launch.train``'s stablelm-1.6b
-at full width (bf16, batch 8 x 128, remat, fp32 AdamW states) after 2
-warm-up steps, and 20 steps of ``launch.table1``'s bert-tiny fine-tuning
+and of its rwkv6-3b (the WKV kernel and its backward kernel in every
+layer) at full width (bf16, batch 8 x 128, remat, fp32 AdamW states)
+after 2 warm-up steps each, and 20 steps of ``launch.table1``'s bert-tiny fine-tuning
 (batch 32 x 64) after 5, with each step and each AdamW update marked:
 the update's share of the step, the device busy share and the kernels
 of each.
@@ -322,24 +323,25 @@ def profile_train(device, scratch: Path) -> dict:
     from ..data import DataConfig, synthetic_lm_batch
     from ..data.classification import batches as cls_batches
     from ..data.classification import emotion_like, split
-    from ..models import bert_tiny, transformer
+    from ..models import bert_tiny, get_model
     from ..optim import adamw
     from ..runtime.train_loop import make_train_step
     out = {"card": torch.cuda.get_device_name(0)}
-    cfg = get_arch("stablelm-1.6b")
-    oc = adamw.OptConfig(total_steps=5, warmup_steps=1)
-    params = transformer.init(cfg, seed=0, device=device)
-    step = make_train_step(
-        lambda p, b: transformer.loss_fn(p, cfg, b, remat=True), oc)
-    dc = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8)
-    lm = [synthetic_lm_batch(dc, s, device=device) for s in range(5)]
-    torch.cuda.reset_peak_memory_stats(device)
-    out["stablelm-1.6b"] = _train_window(step, params, adamw.init(oc, params),
-                                         lm, 2, scratch)
-    out["stablelm-1.6b"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
-        device)
-    del params, step, lm
-    torch.cuda.empty_cache()
+    for arch in ("stablelm-1.6b", "rwkv6-3b"):
+        cfg = get_arch(arch)
+        model = get_model(cfg)
+        oc = adamw.OptConfig(total_steps=5, warmup_steps=1)
+        params = model.init(cfg, seed=0, device=device)
+        step = make_train_step(
+            lambda p, b, m=model, c=cfg: m.loss_fn(p, c, b, remat=True), oc)
+        dc = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8)
+        lm = [synthetic_lm_batch(dc, s, device=device) for s in range(5)]
+        torch.cuda.reset_peak_memory_stats(device)
+        out[arch] = _train_window(step, params, adamw.init(oc, params), lm,
+                                  2, scratch)
+        out[arch]["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+        del params, step, lm
+        torch.cuda.empty_cache()
     bcfg = get_arch("bert-tiny")
     tr, _ = split(emotion_like(), 3200)
     bparams = bert_tiny.init(bcfg, tr.n_classes, max_len=tr.seq_len,
@@ -363,8 +365,8 @@ def main(argv=None):
     mode.add_argument("--spec", action="store_true",
                       help="trace the speculative engine's steps")
     mode.add_argument("--train", action="store_true",
-                      help="trace training steps (stablelm-1.6b at full "
-                           "width, bert-tiny)")
+                      help="trace training steps (stablelm-1.6b and "
+                           "rwkv6-3b at full width, bert-tiny)")
     args = ap.parse_args(argv)
     device = resolve_device(None)
     out = Path(args.out)
@@ -374,10 +376,11 @@ def main(argv=None):
         res = profile_train(device, scratch)
         (out / "profile_train.json").write_text(json.dumps(res, indent=1))
         print(f"training on {res['card']}")
-        _print("stablelm-1.6b, 3 steps of 8 x 128 (bf16, remat, fp32 "
-               "AdamW states)", res["stablelm-1.6b"], TRAIN_RANGES)
-        print(f"  peak memory "
-              f"{res['stablelm-1.6b']['peak_mem_bytes'] / 2**30:.2f} GiB")
+        for arch in ("stablelm-1.6b", "rwkv6-3b"):
+            _print(f"{arch}, 3 steps of 8 x 128 (bf16, remat, fp32 AdamW "
+                   f"states)", res[arch], TRAIN_RANGES)
+            print(f"  peak memory "
+                  f"{res[arch]['peak_mem_bytes'] / 2**30:.2f} GiB")
         _print("bert-tiny, 20 steps of 32 x 64 (fp32)", res["bert-tiny"],
                TRAIN_RANGES)
         return

@@ -11,17 +11,18 @@ The order is the JAX driver's: init, AdamW init, ``synthetic_lm_batch``
 through ``Prefetcher``, ``train_loop.run``, and the final line ``final
 loss … (start …)``; every layer is recomputed in the backward pass
 (``remat``). The dense, MoE and VLM families train (a VLM on text
-batches), and so does griffin (the hybrid family), as in the JAX launcher,
-which trains every family whose ``loss_fn`` takes ``synthetic_lm_batch``.
+batches), and so do griffin (the hybrid family) and rwkv6 (the ssm family:
+its time-mix through the WKV kernel and its backward kernel on the card),
+as in the JAX launcher, which trains every family whose ``loss_fn`` takes
+``synthetic_lm_batch``.
 Without ``--device`` the run takes the card and raises when there is
 none. It prints the loop's step time (the wall between step
 starts, each step waited for on the card), tokens/s and, on the card,
 the peak memory.
 
 Not ported: ``--production-mesh`` (a device mesh; sharding is ROADMAP
-queue 1 item 6) and the ssm family (rwkv6's loss runs the WKV kernel,
-which has no backward). whisper-tiny (audio) does not train: the LM
-batch carries no ``frames``, which its forward needs. bert-tiny trains
+queue 1 item 6). whisper-tiny (audio) does not train: the LM batch
+carries no ``frames``, which its forward needs. bert-tiny trains
 on classification batches in :mod:`repro_torch.launch.table1`.
 """
 from __future__ import annotations
@@ -41,12 +42,10 @@ from ..optim import adamw
 from ..runtime import train_loop
 
 #: the families trained here on synthetic LM batches
-TRAINED = FAMILIES + ("hybrid",)
+TRAINED = FAMILIES + ("hybrid", "ssm")
 
 #: why a family does not train here
 NOT_TRAINED = {
-    "ssm": "rwkv6's loss runs the WKV kernel, which has no backward pass "
-           "yet (ROADMAP queue 1)",
     "audio": "whisper-tiny's forward needs the stub frontend's frames, "
              "which the synthetic LM batch does not carry",
     "encoder": "bert-tiny trains on classification batches: "

@@ -43,6 +43,17 @@ def embed_lookup(table, ids):
     return table[ids]
 
 
+def lm_loss(logits, labels):
+    """Mean next-token cross-entropy of fp32 ``logits`` (B, S, V) over the
+    ``labels`` >= 0 (B, S) (the LM losses of every decoder family)."""
+    labels = labels.long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return loss
+
+
 def rms_norm(x, scale, eps=1e-6):
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)

@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from .attention import KVCache, attention_block
 from .common import (apply_norm, dense, dtype_of, embed_init, embed_lookup,
-                     he_init, init_norm, materialize)
+                     he_init, init_norm, lm_loss, materialize)
 from .ffn import apply_ffn, init_ffn
 
 LRU_C = 8.0   # Griffin's fixed gate sharpness
@@ -317,11 +317,7 @@ def loss_fn(params, cfg, batch, *, kv_chunk=None, remat: bool = True, **_):
     """Mean next-token cross-entropy over the labels >= 0 of a batch
     {tokens, labels}. Returns (loss, {"loss"})."""
     logits, _ = forward(params, cfg, batch, kv_chunk=kv_chunk, remat=remat)
-    labels = batch["labels"].long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    loss = lm_loss(logits, batch["labels"])
     return loss, {"loss": loss}
 
 

@@ -17,20 +17,23 @@ JAX package.
 
 Like the JAX model, a time-mix over T > 1 tokens with T % 16 == 0 runs
 the chunked WKV (:func:`~repro_torch.kernels.wkv_chunked.wkv_chunked`, the
-CUDA kernel on the card); any other length, decode included, runs the
-recurrence step by step in plain PyTorch, as JAX runs it in ``lax.scan``
-outside any kernel.
+CUDA kernel on the card, differentiated by its backward kernel); any
+other length, decode included, runs the recurrence step by step in plain
+PyTorch (autograd differentiates it), as JAX runs it in ``lax.scan``
+outside any kernel. :func:`loss_fn` is the training loss, every layer
+recomputed in the backward pass under ``remat``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels.wkv_chunked import wkv_chunked, wkv_step_ref
 from .common import (apply_norm, dense, dtype_of, embed_init, embed_lookup,
-                     he_init, init_norm)
+                     he_init, init_norm, lm_loss)
 
 LORA_MU, LORA_DECAY = 32, 64
 
@@ -177,17 +180,21 @@ def _layer(cfg, p, x, state_layer):
     return x + ffn, (ax, fx, S)
 
 
-def forward(params, cfg, batch, state: RWKVState | None = None):
+def forward(params, cfg, batch, state: RWKVState | None = None, *,
+            remat: bool = False):
     """batch {"tokens": (B, T) int} → (logits (B, T, V) fp32, new
-    state)."""
+    state). ``remat``: each layer's activations are recomputed in the
+    backward pass (``torch.utils.checkpoint``, as JAX's
+    ``jax.checkpoint``)."""
     x = embed_lookup(params["embed"], batch["tokens"])
     if state is None:
         state = init_state(cfg, x.shape[0], x.dtype, x.device)
     axs, fxs, Ss = [], [], []
     for i, lp in enumerate(params["layers"]):
-        x, (ax, fx, S) = _layer(cfg, lp, x, (state.att_xprev[i].to(x.dtype),
-                                             state.ffn_xprev[i].to(x.dtype),
-                                             state.wkv[i]))
+        args = (cfg, lp, x, (state.att_xprev[i].to(x.dtype),
+                             state.ffn_xprev[i].to(x.dtype), state.wkv[i]))
+        x, (ax, fx, S) = (checkpoint(_layer, *args, use_reentrant=False)
+                          if remat else _layer(*args))
         axs.append(ax)
         fxs.append(fx)
         Ss.append(S)
@@ -195,6 +202,14 @@ def forward(params, cfg, batch, state: RWKVState | None = None):
     logits = dense(x, params["lm_head"]).float()
     return logits, RWKVState(torch.stack(axs), torch.stack(fxs),
                              torch.stack(Ss))
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True, **_):
+    """Mean next-token cross-entropy over the labels >= 0 of a batch
+    {tokens, labels}. Returns (loss, {"loss"})."""
+    logits, _ = forward(params, cfg, batch, remat=remat)
+    loss = lm_loss(logits, batch["labels"])
+    return loss, {"loss": loss}
 
 
 def decode_step(params, cfg, state: RWKVState, tokens):

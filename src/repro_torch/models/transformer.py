@@ -41,7 +41,7 @@ from ..device import resolve_device
 from .attention import KVCache, attention_block
 from ..kernels.ops import PackedWeight
 from .common import (apply_norm, dense, dtype_of, embed_init, embed_lookup,
-                     he_init, init_norm)
+                     he_init, init_norm, lm_loss)
 from .ffn import apply_ffn, apply_moe, init_ffn, init_moe
 
 #: SigLIP-so400m's embedding width (the VLM's stub frontend)
@@ -226,13 +226,10 @@ def loss_fn(params, cfg, batch, *, remat: bool = True,
     x, _, aux = _layers(params, cfg, x, positions, moe_blocks=moe_blocks,
                         remat=remat)
     logits = _head(params, cfg, x)
-    labels = batch["labels"].long()
+    labels = batch["labels"]
     if cfg.family == "vlm" and "patch_embeds" in batch:
         logits = logits[:, -labels.shape[1]:]          # the text tokens
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    loss = lm_loss(logits, labels)
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 

@@ -140,7 +140,16 @@ def _part(out, i: int, like):
 @torch.no_grad()
 def update(cfg: OptConfig, state: OptState, params, grads):
     """One AdamW step: returns (new_params, new_state, {"grad_norm",
-    "lr"}). ``grads`` mirrors ``params``."""
+    "lr"}). ``grads`` mirrors ``params``.
+
+    The moments are updated in place (``new_state.m`` and ``.v`` are
+    ``state``'s tensors; the params are new tensors): the caller holds
+    the old state through the step, and old and new fp32 moments together
+    take 8 bytes a parameter more, which at rwkv6-3b's 3.1 B parameters
+    does not fit one 80 GB card beside the parameters and gradients. A
+    failure inside the update leaves them partly updated:
+    ``train_loop.run`` then restores the last checkpoint, or raises where
+    there is none."""
     dev = state.step.device
     step = state.step + 1
     gnorm = global_norm(grads)
@@ -172,10 +181,10 @@ def update(cfg: OptConfig, state: OptState, params, grads):
         vhat = vf / bc2
         delta = mhat / (torch.sqrt(vhat) + eps) + wd * p.float()
         new_p = p.float() - lr * delta
-        return new_p.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+        m.copy_(mf)
+        v.copy_(vf)
+        return new_p.to(p.dtype)
 
-    out = tree_map(upd, params, grads, state.m, state.v)
-    return (_part(out, 0, params),
-            OptState(step, _part(out, 1, params), _part(out, 2, params),
-                     new_err),
+    new_params = tree_map(upd, params, grads, state.m, state.v)
+    return (new_params, OptState(step, state.m, state.v, new_err),
             {"grad_norm": gnorm, "lr": lr})

@@ -8,7 +8,11 @@
 * straggler mitigation: a per-step wall-time EWMA; a step slower than
   ``straggler_factor`` x the EWMA is logged and counted;
 * retry budget: failures retry up to ``max_failures`` times, then the
-  last one is raised.
+  last one is raised. With no checkpoint to restore, a step is retried
+  from the params and optimizer state it started from, and only if the
+  failure changed none of them in place (AdamW updates its moments in
+  place): otherwise the failure is raised, since a retry would apply
+  part of the step twice.
 
 The failures caught are JAX's: ``RuntimeError`` (which a CUDA error
 raises, or its subclass ``torch.AcceleratorError``) and ``ValueError``. A step ends when the card has run it: the loop waits on
@@ -88,6 +92,12 @@ def make_train_step(loss_fn: Callable, opt_cfg: adamw.OptConfig):
     return train_step
 
 
+def _versions(tree) -> list:
+    """The in-place version counters of a tree's tensors."""
+    return [t._version for t in tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
+
+
 def _wait(t: torch.Tensor) -> None:
     """Block until the card has run everything queued on ``t``'s stream."""
     if t.is_cuda:
@@ -116,6 +126,7 @@ def run(loop_cfg: TrainLoopConfig, train_step, params, opt_state,
     history = []
     while step < loop_cfg.total_steps:
         t0 = time.perf_counter()
+        start = (params, opt_state, _versions((params, opt_state)))
         try:
             if inject_failure is not None:
                 inject_failure(step)
@@ -132,7 +143,14 @@ def run(loop_cfg: TrainLoopConfig, train_step, params, opt_state,
                 (params, opt_state), step = ckpt_lib.restore(
                     loop_cfg.ckpt_dir, (params, opt_state))
                 log(f"[recover] restored step {step}, retrying")
+                continue
+            params, opt_state, versions = start
+            if _versions((params, opt_state)) != versions:
+                log(f"[failure] step {step} changed the state in place and "
+                    f"no checkpoint exists: not retried")
+                raise
             continue
+        start = None
 
         dt = time.perf_counter() - t0
         if monitor.observe(dt):

@@ -567,6 +567,181 @@ def test_wkv_plan_shared_memory_is_the_kernels(dev, K, dtype):
         K, int(dtype == torch.bfloat16))
 
 
+# --------------------------------------------------------- WKV backward ---
+WKV_SHAPES = [(8, 32, 32, 32), (3, 48, 16, 24), (320, 256, 64, 64),
+              (40, 256, 64, 64), (320, 240, 64, 64), (8, 16, 32, 32),
+              (4, 64, 128, 128), (3, 32, 20, 20), (320, 128, 64, 64)]
+
+
+def _rel_close(got, want, rel):
+    """Within ``rel`` x the largest magnitude of ``want``."""
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * float(want.float().abs().max()), (err, rel)
+
+
+def _wkv_bwd_args(gen, dev, BH, T, K, V, dtype, with_s0):
+    r, k, v, w, u, s0 = _wkv_inputs(gen, dev, BH, T, K, V, dtype, with_s0)
+    y_bar = torch.randn((BH, T, V), generator=gen, device=dev).to(dtype)
+    S_bar = torch.randn((BH, K, V), generator=gen, device=dev)
+    return r, k, v, w, u, s0, y_bar, S_bar
+
+
+def _check_wkv_grads(got, want, w, dtype):
+    """dr, dk, dv in the input type (rounded there on both sides: 2e-2 of
+    their scale in bf16, 1e-4 in fp32); dw ⊙ w, du and ds0 fp32, 1e-4."""
+    xrel = 1e-4 if dtype == torch.float32 else 2e-2
+    for i, name in enumerate(("dr", "dk", "dv")):
+        assert got[i].dtype == dtype and got[i].shape == want[i].shape, name
+        _rel_close(got[i], want[i], xrel)
+    assert got[3].dtype == got[4].dtype == torch.float32
+    _rel_close(got[3] * w, want[3] * w, 1e-4)
+    _rel_close(got[4], want[4], 1e-4)
+    assert (got[5] is None) == (want[5] is None)
+    if want[5] is not None:
+        _rel_close(got[5], want[5], 1e-4)
+    assert all(bool(torch.isfinite(g).all()) for g in got if g is not None)
+
+
+@pytest.mark.parametrize("BH,T,K,V", WKV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv_bwd_kernel_vs_plain(dev, BH, T, K, V, dtype, with_s0):
+    gen = torch.Generator(device=dev).manual_seed(BH + T + K + V + 1)
+    args = _wkv_bwd_args(gen, dev, BH, T, K, V, dtype, with_s0)
+    before = wk.wkv_chunked_bwd.launches
+    got = wk.wkv_chunked_bwd(*args)
+    torch.cuda.synchronize()
+    assert wk.wkv_chunked_bwd.launches == before + 1
+    _check_wkv_grads(got, wk.wkv_chunked_bwd_ref(*args), args[3], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_bwd_kernel_is_deterministic(dev, dtype):
+    """Two launches on the same inputs give the same bytes (no atomics:
+    the slabs' partials are added in slab order)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    args = _wkv_bwd_args(gen, dev, 320, 128, 64, 64, dtype, True)
+    a = wk.wkv_chunked_bwd(*args)
+    b = wk.wkv_chunked_bwd(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("K", [32, 64])
+@pytest.mark.parametrize("w_kind", ["zero", "denormal", "mixed"])
+def test_wkv_bwd_kernel_extreme_decay_stays_finite(dev, K, w_kind):
+    """Decays that underflowed: finite gradients, dw = 0 where the
+    forward's log clamps (w <= 1e-30), and the plain version's numbers."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    r, k, v, w, u, s0, y_bar, S_bar = _wkv_bwd_args(
+        gen, dev, 4, 32, K, K, torch.float32, True)
+    if w_kind == "zero":
+        w = torch.zeros_like(w)
+    elif w_kind == "denormal":
+        w = torch.full_like(w, 1e-45)
+    else:
+        w = torch.where(torch.rand(w.shape, generator=gen, device=dev) < 0.4,
+                        0.0, w)
+    args = (r, k, v, w, u, s0, y_bar, S_bar)
+    got = wk.wkv_chunked_bwd(*args)
+    torch.cuda.synchronize()
+    assert bool((got[3][w <= 1e-30] == 0).all())
+    _check_wkv_grads(got, wk.wkv_chunked_bwd_ref(*args), w, torch.float32)
+
+
+def test_wkv_function_on_the_card_launches_both_kernels(dev, monkeypatch):
+    """A CUDA tensor with requires_grad through ``wkv_chunked``
+    (``WkvChunked``): one forward and one backward launch, the plain
+    versions never called, the gradients the plain backward's."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    r, k, v, w, u, s0, y_bar, S_bar = _wkv_bwd_args(
+        gen, dev, 80, 64, 64, 64, torch.bfloat16, True)
+    want = wk.wkv_chunked_bwd_ref(r, k, v, w, u, s0, y_bar, S_bar)
+
+    def boom(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    for name in ("wkv_chunked_ref", "wkv_chunked_bwd_ref", "wkv_step_ref"):
+        monkeypatch.setattr(wk, name, boom)
+    xs = [t.clone().requires_grad_(True) for t in (r, k, v, w, u, s0)]
+    before = (wk.wkv_chunked.launches, wk.wkv_chunked_bwd.launches)
+    y, S = wk.wkv_chunked(*xs[:5], s0=xs[5])
+    ((y.float() * y_bar.float()).sum() + (S * S_bar).sum()).backward()
+    torch.cuda.synchronize()
+    assert (wk.wkv_chunked.launches, wk.wkv_chunked_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _check_wkv_grads([x.grad for x in xs], want, w, torch.bfloat16)
+    with torch.no_grad():
+        y, _ = wk.wkv_chunked(*xs[:5], s0=xs[5])
+    assert y.grad_fn is None and wk.wkv_chunked_bwd.launches == before[1] + 1
+
+
+def test_wkv_bwd_wrapper_rejects_bad_operands(dev):
+    gen = torch.Generator(device=dev).manual_seed(24)
+    r, k, v, w, u, s0, y_bar, S_bar = _wkv_bwd_args(
+        gen, dev, 4, 32, 32, 32, torch.float32, True)
+    wk.wkv_chunked_bwd(r, k, v, w, u, None, y_bar, None)
+    torch.cuda.synchronize()
+    bad = [
+        (TypeError, lambda: wk.wkv_chunked_bwd(r, k, v, w.bfloat16(), u, s0,
+                                               y_bar, S_bar)),
+        (TypeError, lambda: wk.wkv_chunked_bwd(r, k.bfloat16(), v, w, u, s0,
+                                               y_bar, S_bar)),
+        (ValueError, lambda: wk.wkv_chunked_bwd(r, k, v, w, u, s0,
+                                                y_bar.bfloat16(), S_bar)),
+        (ValueError, lambda: wk.wkv_chunked_bwd(r, k, v, w, u, s0,
+                                                y_bar[:, :16], S_bar)),
+        (ValueError, lambda: wk.wkv_chunked_bwd(r, k, v, w, u, s0, y_bar,
+                                                S_bar[:, :16])),
+        (ValueError, lambda: wk.wkv_chunked_bwd(r, k, v, w, u, s0, y_bar,
+                                                S_bar.double())),
+        (ValueError, lambda: wk.wkv_chunked_bwd(
+            r[:, :24], k[:, :24], v[:, :24], w[:, :24], u, s0,
+            y_bar[:, :24], S_bar)),
+        (ValueError, lambda: wk.wkv_chunked_bwd(r, k, v, w, u, s0[:, :16],
+                                                y_bar, S_bar)),
+        (ValueError, lambda: wk.wkv_chunked_bwd(r, k, v, w, u, s0,
+                                                y_bar.cpu(), S_bar)),
+    ]
+    for exc, call in bad:
+        with pytest.raises(exc):
+            call()
+
+
+def test_rwkv6_loss_grads_on_the_card_match_the_cpu(dev):
+    """Reduced rwkv6 in fp32 from the same seeded weights: ``loss_fn`` at
+    S = 32 (the chunked branch) with remat, the loss within 1e-5 relative
+    of the CPU's and every gradient within 1e-4 x the largest; each layer
+    launches the forward kernel twice (remat recomputes it) and the
+    backward once."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.models import rwkv6
+    from repro_torch.tree import tree_leaves, tree_map, tree_to
+    cfg = get_arch("rwkv6-3b").reduced()
+    base = rwkv6.init(cfg, seed=0, device="cpu")
+    batch = synthetic_lm_batch(DataConfig(cfg.vocab, 32, 4), 0, device="cpu")
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.detach().requires_grad_(True),
+                     tree_to(base, d))
+        before = (wk.wkv_chunked.launches, wk.wkv_chunked_bwd.launches)
+        loss, _ = rwkv6.loss_fn(p, cfg, {k: t.to(d) for k, t in
+                                         batch.items()}, remat=True)
+        loss.backward()
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert (wk.wkv_chunked.launches - before[0],
+                    wk.wkv_chunked_bwd.launches - before[1]) == \
+                (2 * cfg.n_layers, cfg.n_layers)
+        out[d] = (float(loss.detach()),
+                  [t.grad.cpu() for t in tree_leaves(p)])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    top = max(float(g.abs().max()) for g in out["cpu"][1])
+    for g, c in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((g - c).abs().max()) <= 1e-4 * top
+
+
 def _no_plain(monkeypatch):
     """Make every plain version raise, so a wrapper that took one on a
     CUDA tensor fails the test."""

@@ -15,6 +15,7 @@ gradients within 1e-4 x the largest gradient entry; remat on and off
 identical. JAX references are shared through ``functools.cache``; torch
 runs on one intra-op thread.
 """
+import dataclasses
 import functools
 import json
 import os
@@ -342,6 +343,63 @@ def test_train_loop_recovery_equals_an_uninterrupted_run(tmp_path):
     assert torch.equal(p["w"], p_ref["w"])
 
 
+@pytest.mark.parametrize("where,with_ckpt", [("before", False),
+                                             ("inside", False),
+                                             ("inside", True)])
+def test_train_loop_retry_never_applies_a_step_twice(where, with_ckpt,
+                                                     tmp_path, monkeypatch):
+    """AdamW updates its moments in place. A failure at step 7 before the
+    update is retried from the step's own start, and one inside it (after
+    the first leaf's moments moved) is restored from step 6's checkpoint:
+    both end bit-equal to an uninterrupted run. Inside the update with no
+    checkpoint, the loop raises instead of retrying."""
+    oc = adamw.OptConfig(lr=0.05, warmup_steps=2)
+    step = train_loop.make_train_step(
+        lambda p, b: (torch.sum((p["w"] - b["t"]) ** 2) +
+                      torch.sum((p["x"] - b["t"][:3]) ** 2), {}), oc)
+    make = lambda s: {"t": torch.full((4,), float(s % 3))}  # noqa: E731
+    params = {"w": torch.zeros(4), "x": torch.zeros(3)}
+    lc = train_loop.TrainLoopConfig(
+        total_steps=10, ckpt_dir=str(tmp_path) if with_ckpt else None,
+        ckpt_every=3, ckpt_async=False, log_every=100)
+    p_ref, _, _ = train_loop.run(
+        dataclasses.replace(lc, ckpt_dir=None), step, params,
+        adamw.init(oc, params), make, log=lambda *a: None)
+    armed, fired = [False], []
+    real_map = adamw.tree_map
+
+    def tree_map(fn, tree, *rest):
+        if not (armed[0] and len(rest) == 3):
+            return real_map(fn, tree, *rest)
+        armed[0] = False
+
+        def first_leaf_then_fail(*leaves):
+            if fired:
+                raise RuntimeError("injected inside the update")
+            fired.append(fn(*leaves))
+            return fired[-1]
+        return real_map(first_leaf_then_fail, tree, *rest)
+    monkeypatch.setattr(adamw, "tree_map", tree_map)
+
+    def inject(s):
+        if s == 7 and not fired and not armed[0]:
+            if where == "before":
+                fired.append(s)
+                raise RuntimeError("injected before the update")
+            armed[0] = True
+    run = lambda: train_loop.run(lc, step, params,  # noqa: E731
+                                 adamw.init(oc, params), make,
+                                 inject_failure=inject, log=lambda *a: None)
+    if where == "inside" and not with_ckpt:
+        with pytest.raises(RuntimeError, match="inside the update"):
+            run()
+        return
+    p, o, _ = run()
+    assert fired and int(o.step) == 10
+    for k in params:
+        assert torch.equal(p[k], p_ref[k])
+
+
 def test_train_loop_gives_up_after_max_failures():
     oc = adamw.OptConfig()
     params = {"w": torch.zeros(2)}
@@ -550,11 +608,32 @@ def test_train_cli_runs_checkpoints_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("args,match", [
     (["--arch", "stablelm-1.6b", "--production-mesh"], "queue 1 item 6"),
-    (["--arch", "rwkv6-3b"], "WKV"),
+    (["--arch", "whisper-tiny"], "frames"),
     (["--arch", "bert-tiny"], "table1")])
 def test_train_cli_refuses_what_it_does_not_train(args, match):
     with pytest.raises(NotImplementedError, match=match):
         ttrain.main(args + ["--reduced", "--device", "cpu"])
+
+
+def test_train_cli_trains_rwkv6_checkpoints_and_resumes(tmp_path, capsys):
+    """rwkv6 (the ssm family) trains: its chunked time-mix (seq 32)
+    through ``WkvChunked`` and the plain backward on the CPU, every layer
+    recomputed; then a resume from the step-4 checkpoint."""
+    d = str(tmp_path / "ck")
+    args = ["--arch", "rwkv6-3b", "--reduced", "--batch", "2", "--seq", "32",
+            "--ckpt-dir", d, "--ckpt-every", "2", "--device", "cpu"]
+    out = ttrain.main(args + ["--steps", "4"])
+    assert "final loss" in capsys.readouterr().out.splitlines()[-1]
+    assert len(out["history"]) == 4
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    assert out["params"]["layers"][0]["att"]["time_faaaa"].abs().max() > 0
+    assert ckpt.latest_step(d) == 4
+    again = ttrain.main(args + ["--steps", "6"])
+    assert "[restore] resumed from step 4" in capsys.readouterr().out
+    assert len(again["history"]) == 2 and int(again["opt_state"].step) == 6
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ttrain.main(["--arch", "rwkv6-3b", "--reduced", "--steps", "1"])
 
 
 def test_train_cli_moe_with_compressed_bf16_states(capsys):
